@@ -8,22 +8,31 @@ the CUDA toolkit:
 
 What it does, one JSON line per phase:
 
-1. device: the card, the CUDA version, and the build of every kernel of the
-   port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path: one cold allocate cycle of the flagship configuration
-   (BASELINE config 3: priority, gang, drf, binpack; 10,000 nodes x 100,000
-   pods in gangs of 100) through ``Scheduler.run_once`` on the card, on a
-   freshly built cluster, with every kernel's launch count set to 0 just
-   before and read just after.  It prints the phase seconds and the
-   kernel's time from CUDA events, and checks that nothing was
-   overcommitted and that every gang is bound whole or not at all.
+1. device: the card, the CUDA version, and the one build of every kernel of
+   the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
+2. main_path, twice, each on a freshly built cluster that no other session
+   has touched (a cold cycle, as a scheduler's first cycle after start-up),
+   through ``Scheduler.run_once`` on the card, with every kernel's launch
+   count set to 0 just before and read just after:
+   a. BASELINE config 2, the kubemark density scenario (priority, gang, drf,
+      predicates, nodeorder; 1,000 nodes x 5,000 bare pods, half of them
+      selecting a zone): ``static_predicate_mask`` builds the selector mask
+      rows and ``mega_allocate`` runs in its static-row mode.  Checks: no
+      node overcommitted or past 110 pods, every zone selector honoured.
+   b. the flagship, BASELINE config 3 (priority, gang, drf, binpack; 10,000
+      nodes x 100,000 pods in gangs of 100): ``mega_allocate`` in cursor
+      mode.  Checks: no node overcommitted, every gang bound whole or not at
+      all.
+   Each prints the phase seconds and the kernel's time from CUDA events.
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
-   on the same CUDA tensors, bitwise (codes and stats): BASELINE config 1, a
-   1,000-node x 10,000-pod flagship session, a kernel-level case with
+   on the same CUDA tensors, bitwise.  ``mega_allocate`` (codes and stats):
+   BASELINE config 1, a 1,000 x 10,000 flagship session, a case with
    non-binpack weights and the pod-count gate, a 6,000-job case whose job
-   ledger lives in global scratch, and the main path's operands at full
-   size from a second cluster built the same way (where the kernel and the
-   plain version are timed).
+   ledger lives in global scratch, three small static-row sessions, and the
+   operands of both main paths at full size from second clusters built the
+   same way (timed).  ``static_predicate_mask``: config 2's real operands
+   (timed), a wide random case (4,096 signatures x 10,000 nodes, timed) and
+   empty label / taint vocabularies.
 4. e2e_small: the fused route on the card against the host loop on small
    clusters, bind for bind.
 
@@ -36,16 +45,22 @@ this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
+import importlib
 import json
 import os
 import subprocess
 import sys
 import time
 
-# The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate
-# and float32 rate outside the tensor cores.  They set each kernel's bound.
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, float32 rate outside the tensor cores, and the int8 tensor-core rate
+# (dense).  They set each kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
+
+GIB = 2.0**30
 
 FLAGSHIP_CONF = """
 actions: "allocate"
@@ -64,6 +79,35 @@ tiers:
   - name: priority
   - name: gang
 """
+
+# BASELINE config 2 (scripts/scenario_ladder.py scenario 2).
+CONFIG2_CONF = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: drf
+  - name: predicates
+  - name: nodeorder
+"""
+
+# The static-row sessions of the JAX package's tests.
+PREDICATES_CONF = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: predicates
+  - name: nodeorder
+"""
+
+# Config 2's plugins with the memory-pressure gate on.
+PRESSURE_CONF = CONFIG2_CONF.replace(
+    "  - name: predicates\n",
+    "  - name: predicates\n    arguments:\n      predicate.MemoryPressureEnable: \"true\"\n",
+)
 
 
 def emit(obj) -> None:
@@ -124,6 +168,192 @@ def many_jobs_cluster():
     return make_synthetic_cluster(64, 6000, tasks_per_job=1).cache
 
 
+def static_spec():
+    """tests/test_megakernel.py ``_static_cluster``: 6 zoned nodes, four
+    2-of-4 gangs of distinct requests, one gang selecting a zone."""
+    nodes = [(f"n{i}", {"cpu": 8000.0, "memory": 16 * GIB, "pods": 20},
+              {"labels": {"zone": "za" if i % 2 else "zb"}}) for i in range(6)]
+    groups, pods = [], []
+    for g in range(4):
+        groups.append((f"g{g}", 2))
+        for i in range(4):
+            extra = {"node_selector": {"zone": "za"}} if g == 1 else {}
+            pods.append((f"g{g}-{i}", f"g{g}",
+                         {"cpu": float(200 + 40 * g + 10 * i), "memory": GIB}, g % 2, extra))
+    return {"nodes": nodes, "groups": groups, "pods": pods}
+
+
+def selector_bound_spec():
+    """tests/test_megakernel.py:215-244: identical-request gangs, each
+    selecting one of four zones, under nodeorder scoring: runs batch and the
+    top-2 score bound cuts them."""
+    nodes = [(f"n{i}", {"cpu": 64000.0, "memory": 128 * GIB, "pods": 110},
+              {"labels": {"zone": f"z{i % 4}"}}) for i in range(8)]
+    groups, pods = [], []
+    for g in range(8):
+        groups.append((f"g{g}", 4))
+        pods += [(f"g{g}-{i}", f"g{g}", {"cpu": 2000.0, "memory": 4 * GIB}, 0,
+                  {"node_selector": {"zone": f"z{g % 4}"}}) for i in range(8)]
+    return {"nodes": nodes, "groups": groups, "pods": pods}
+
+
+def _node_extra(i: int) -> dict:
+    """Zone and disk labels, and on the first nodes every static predicate:
+    NoSchedule / NoExecute / PreferNoSchedule taints, an unschedulable node,
+    a not-ready node and a memory-pressured node."""
+    extra = {"labels": {"zone": f"z{i % 4}", "disk": "ssd" if i % 3 == 0 else "hdd"}}
+    if i in (0, 6):
+        extra["taints"] = [("dedicated", "gpu", "NoSchedule")]
+    if i in (1, 6):
+        extra.setdefault("taints", []).append(("maint", "", "NoExecute"))
+    if i == 2:
+        extra["taints"] = [("soft", "x", "PreferNoSchedule")]
+    if i == 3:
+        extra["unschedulable"] = True
+    if i == 4:
+        extra["conditions"] = {"Ready": "False"}
+    if i == 5:
+        extra["conditions"] = {"MemoryPressure": "True"}
+    return extra
+
+
+# Pod-side constraints of the predicates clusters: zone selectors, matching,
+# blanket and non-matching tolerations, a selector pair no node has, and
+# required and preferred node affinity.
+POD_EXTRAS = [
+    {"node_selector": {"zone": "z0"}},
+    {"tolerations": [("dedicated", "Equal", "gpu", "NoSchedule")]},
+    {"tolerations": [("", "Exists", "", "")]},
+    {"node_selector": {"zone": "nowhere"}},
+    {"affinity": {"node_required": [[("disk", "In", ["ssd"])]]}},
+    {"affinity": {"node_preferred": [(5, [("zone", "In", ["z1"])]),
+                                     (2, [("disk", "In", ["ssd"])])]}},
+    {"node_selector": {"zone": "z1"},
+     "tolerations": [("maint", "Exists", "", "NoExecute")]},
+    {"tolerations": [("dedicated", "Equal", "cpu", "NoSchedule")]},
+    {},
+    {"affinity": {"node_required": [[("zone", "In", ["z2", "z3"])],
+                                    [("disk", "In", ["ssd"])]],
+                  "node_preferred": [(3, [("zone", "In", ["z3"])])]}},
+]
+
+
+def predicates_spec():
+    """Every static predicate and scorer at once on 16 small nodes
+    (``_node_extra``, ``POD_EXTRAS``), ten 2-of-4 gangs (one of 8)."""
+    nodes = [(f"n{i:02d}", {"cpu": 4000.0, "memory": 8 * GIB, "pods": 6}, _node_extra(i))
+             for i in range(16)]
+    groups, pods = [], []
+    for g, extra in enumerate(POD_EXTRAS):
+        size = 8 if g == 8 else 4
+        groups.append((f"g{g}", 2))
+        pods += [(f"g{g}-{i}", f"g{g}", {"cpu": float(500 + 250 * (i % 3)), "memory": GIB},
+                  g % 3, extra) for i in range(size)]
+    return {"nodes": nodes, "groups": groups, "pods": pods}
+
+
+def config2_predicates_spec(n_nodes: int = 64, n_pods: int = 600, seed: int = 0):
+    """Config 2's shape (hollow nodes of 16 cpu / 64 GiB / 110 pods, bare
+    sleep pods of cpu {100, 200, 500}m and memory {1, 2} GiB, every even pod
+    selecting its zone) with the predicates cluster's node constraints on
+    the first nodes and its pod constraints on every fifth pod."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nodes = [(f"hollow-{i:05d}", {"cpu": 16000.0, "memory": 64 * GIB, "pods": 110},
+              _node_extra(i)) for i in range(n_nodes)]
+    pods = []
+    for t in range(n_pods):
+        req = {"cpu": float(rng.choice([100, 200, 500])),
+               "memory": float(rng.choice([1, 2])) * GIB}
+        extra = dict(POD_EXTRAS[(t // 5) % len(POD_EXTRAS)]) if t % 5 == 0 else {}
+        if t % 2 == 0 and "node_selector" not in extra:
+            extra["node_selector"] = {"zone": f"z{t % 4}"}
+        pods.append((f"sleep-{t:05d}", None, req, 0, extra))
+    return {"nodes": nodes, "groups": [], "pods": pods}
+
+
+def _objects_of(objects, kind: str, value):
+    """A spec's plain description of taints, tolerations or affinity as the
+    package's own objects."""
+    if kind == "taints":
+        return [objects.Taint(key=k, value=v, effect=e) for k, v, e in value]
+    if kind == "tolerations":
+        return [objects.Toleration(key=k, operator=op, value=v, effect=e)
+                for k, op, v, e in value]
+
+    def reqs(terms):
+        return [objects.NodeSelectorRequirement(key=k, operator=op, values=list(vals))
+                for k, op, vals in terms]
+
+    def pod_terms(terms):
+        return [objects.PodAffinityTerm(label_selector=dict(sel), topology_key=topo)
+                for sel, topo in terms]
+
+    return objects.Affinity(
+        node_required=[reqs(group) for group in value.get("node_required", ())],
+        node_preferred=[(w, reqs(terms)) for w, terms in value.get("node_preferred", ())],
+        pod_affinity=pod_terms(value.get("pod_affinity", ())),
+        pod_anti_affinity=pod_terms(value.get("pod_anti_affinity", ())),
+    )
+
+
+def spec_cluster(spec: dict, pkg: str = "scheduler_tpu_torch"):
+    """The cluster ``spec`` as a cache of package ``pkg`` (the port; the CPU
+    tests build the same spec in the JAX package too, so objects and
+    timestamps are identical in both).  A node is ``(name,
+    allocatable[, extra])`` with extra keys ``labels``, ``taints`` ([(key,
+    value, effect)]), ``unschedulable`` and ``conditions``; a group is
+    ``(name, min_member)``; a pod is ``(name, group, request, priority[,
+    extra])``, group None for a bare pod (a shadow PodGroup, stamped with the
+    pod's creation time), with extra keys ``node_selector``, ``tolerations``
+    ([(key, operator, value, effect)]), ``affinity`` (see ``_objects_of``),
+    ``host_ports`` and ``labels``."""
+    from scheduler_tpu_torch.harness.synthetic import pin_shadow_timestamps
+
+    objects = importlib.import_module(f"{pkg}.apis.objects")
+    vocab = importlib.import_module(f"{pkg}.api.vocab")
+    cache_mod = importlib.import_module(f"{pkg}.cache.cache")
+    ts0 = 1_700_000_000.0
+    cache = cache_mod.SchedulerCache(vocab=vocab.ResourceVocabulary(), async_io=False)
+    cache.run()
+    queue = objects.Queue(name="default", weight=1)
+    queue.creation_timestamp = ts0
+    cache.add_queue(queue)
+    for name, alloc, *rest in spec["nodes"]:
+        extra = rest[0] if rest else {}
+        cache.add_node(objects.NodeSpec(
+            name=name, allocatable=dict(alloc), labels=dict(extra.get("labels", {})),
+            taints=_objects_of(objects, "taints", extra.get("taints", ())),
+            unschedulable=extra.get("unschedulable", False),
+            conditions=dict(extra.get("conditions", {})),
+        ))
+    for k, (name, min_member) in enumerate(spec["groups"]):
+        pg = objects.PodGroup(name=name, namespace="default", queue="default",
+                              min_member=min_member)
+        pg.status.phase = "Inqueue"
+        pg.creation_timestamp = ts0 + (k + 1) * 1e-6
+        cache.add_pod_group(pg)
+    for k, (name, group, req, prio, *rest) in enumerate(spec["pods"]):
+        extra = rest[0] if rest else {}
+        pod = objects.PodSpec(
+            name=name, namespace="default", containers=[dict(req)], phase="Pending",
+            priority=prio,
+            annotations={objects.GROUP_NAME_ANNOTATION: group} if group else {},
+            scheduler_name="" if group else "volcano",
+            node_selector=dict(extra.get("node_selector", {})),
+            tolerations=_objects_of(objects, "tolerations", extra.get("tolerations", ())),
+            host_ports=list(extra.get("host_ports", ())),
+            labels=dict(extra.get("labels", {})),
+        )
+        if "affinity" in extra:
+            pod.affinity = _objects_of(objects, "affinity", extra["affinity"])
+        pod.creation_timestamp = ts0 + 1.0 + k * 1e-6
+        cache.add_pod(pod)
+    pin_shadow_timestamps(cache)
+    return cache
+
+
 def engine_for(cache, conf_text, device):
     """Open a session on ``cache`` and build the fused engine over its
     allocate candidates (the session is left open: nothing is committed)."""
@@ -139,24 +369,28 @@ def engine_for(cache, conf_text, device):
     return ssn, engine
 
 
-# -- kernel against its plain version ---------------------------------------------
+# -- mega_allocate against its plain version ----------------------------------------
 
-def cursor_mode_inputs(args):
-    """The operands cursor mode reads (the others are dummies)."""
+def read_inputs(args, kw):
+    """The operands the kernel reads in its mode (the others are dummies)."""
     from scheduler_tpu_torch.ops.megakernel import OPERAND_NAMES
 
-    unread = {"rel0", "msig", "smask", "sscore", "jqueue", "jq_des",
-              "jq_alloc0", "qf_share", "qf_over"}
+    unread = {"rel0", "jqueue", "jq_des", "jq_alloc0", "qf_share", "qf_over"}
+    if not kw["use_static"]:
+        unread |= {"msig", "smask", "sscore"}
     return [a for name, a in zip(OPERAND_NAMES, args) if name not in unread]
 
 
 def node_step_ops(kw) -> int:
     """Float32 operations per node per placement step of the kernel's node
     loop, counted from its source: the epsilon fit (6 a dimension), the
-    pod-count gate, the score terms and the masked argmax."""
+    pod-count gate, the static mask and score, the score terms and the
+    masked argmax."""
     ops = 6 * kw["r_dim"] + 1 + 3
     if kw["enforce_pod_count"]:
         ops += 1
+    if kw["use_static"]:
+        ops += 2
     lr_w, bal_w, bp_w = kw["weights"]
     if lr_w or bal_w or bp_w:
         ops += 6  # safe divisors and the post-placement request per dimension
@@ -164,29 +398,36 @@ def node_step_ops(kw) -> int:
     return ops
 
 
-def bound_ms(args, kw, codes, stats, n_real: int):
+def mega_bound_ms(args, kw, codes, stats, n_real: int):
     """The least time the card could take for this run: each input read
     once and each output written once at the memory rate, against the node
     loop's float32 operations (steps x real nodes x ops) at the peak rate."""
     from scheduler_tpu_torch.ops.layout import STATS
 
-    nbytes = sum(a.numel() * a.element_size() for a in cursor_mode_inputs(args))
+    nbytes = sum(a.numel() * a.element_size() for a in read_inputs(args, kw))
     nbytes += codes.numel() * codes.element_size() + stats.numel() * stats.element_size()
     ops = int(stats[STATS.STEPS]) * n_real * node_step_ops(kw)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def events():
+    import torch
+
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
 def compare(case, args, kw, n_real, timed=False, repeats=3):
-    """Kernel and plain version on the same CUDA operands: codes and stats
-    must be bitwise equal.  With ``timed`` both are timed with CUDA events."""
+    """mega_allocate and its plain version on the same CUDA operands: codes
+    and stats must be bitwise equal.  With ``timed`` both are timed with
+    CUDA events."""
     import torch
 
     from scheduler_tpu_torch.ops import megakernel as mk
 
     codes_k, stats_k = mk.mega_allocate(*args, **kw)
     torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start, stop = events()
     start.record()
     codes_r, stats_r = mk.mega_allocate_reference(*args, **kw)
     stop.record()
@@ -195,11 +436,13 @@ def compare(case, args, kw, n_real, timed=False, repeats=3):
     equal = bool(torch.equal(codes_k, codes_r) and torch.equal(stats_k, stats_r))
     max_abs_err = int((codes_k.long() - codes_r.long()).abs().max()) if codes_k.numel() else 0
     rec = {
-        "phase": "kernel_vs_plain", "case": case, "equal": equal,
+        "phase": "kernel_vs_plain", "kernel": "mega_allocate", "case": case,
+        "mode": "static" if kw["use_static"] else "cursor", "equal": equal,
         "max_abs_err": max_abs_err,
         "placed": int((codes_k >= 0).sum()),
         "stats": stats_k.tolist(), "plain_stats": stats_r.tolist(),
         "nb": int(args[0].shape[1]), "t_pad": int(codes_k.numel()),
+        "static_rows": int(args[18].shape[0]) if kw["use_static"] else 0,
         "cohort": kw["cohort"], "score_bound": kw["score_bound"],
         "enforce_pod_count": kw["enforce_pod_count"],
     }
@@ -211,19 +454,130 @@ def compare(case, args, kw, n_real, timed=False, repeats=3):
         torch.cuda.synchronize()
         rec["ms"] = start.elapsed_time(stop) / repeats
         rec["plain_ms"] = plain_ms
-        rec["bound_ms"], rec["bound_by"] = bound_ms(args, kw, codes_k, stats_k, n_real)
+        rec["bound_ms"], rec["bound_by"] = mega_bound_ms(args, kw, codes_k, stats_k, n_real)
     emit(rec)
     if not equal:
         raise SystemExit(f"kernel and plain version disagree: {case}")
     return rec
 
 
-# -- checks of what the main path bound --------------------------------------------
+# -- static_predicate_mask against its plain version ------------------------------------
+
+def predicate_operands(st, device):
+    """The kernel's operands as the predicates plugin builds them for the
+    session tensors ``st``: task rows at signature width, every node."""
+    import numpy as np
+    import torch
+
+    from scheduler_tpu_torch.plugins.predicates import signature_rows
+
+    _, sel, unk, tol = signature_rows(st)
+    nodes = st.nodes
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=bool)).to(device)
+
+    return (dev(sel), dev(unk), dev(nodes.labels), dev(nodes.unschedulable),
+            dev(nodes.taints), dev(tol))
+
+
+def random_predicate_operands(s, n, l, k, device, seed=7):
+    """Random 0/1 operands with a mix of passing and failing pairs: about
+    two required label pairs a task, each present on 90 % of the nodes, and
+    taints on 5 % of the (node, taint) pairs, half of them tolerated."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    arrays = (rng.random((s, l)) < 2.0 / max(l, 1), rng.random(s) < 0.01,
+              rng.random((n, l)) < 0.9, rng.random(n) < 0.01,
+              rng.random((n, k)) < 0.05, rng.random((s, k)) < 0.5)
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+def predicate_bound_ms(ops):
+    """Each input read once and the [S, N] bool output written once at the
+    memory rate, against 2*S*N*(L+K) operations at the int8 tensor-core rate
+    (0/1 operands are exact there)."""
+    sel, _, _, _, taints, _ = ops
+    s, l = sel.shape
+    n, k = taints.shape
+    nbytes = sum(t.numel() * t.element_size() for t in ops) + s * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * s * n * (l + k) / INT8_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def predicate_library_ms(ops, repeats):
+    """One torch.matmul of [sel | untolerated] by [missing ; taints] in
+    float32 with TF32 off: the contraction alone, without the gates."""
+    import torch
+
+    sel, _, labels, _, taints, tol = ops
+    a = torch.cat([sel, ~tol], dim=1).to(torch.float32)
+    b = torch.cat([~labels, taints], dim=1).to(torch.float32).T.contiguous()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.matmul(a, b)
+    start, stop = events()
+    start.record()
+    for _ in range(repeats):
+        torch.matmul(a, b)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / repeats
+
+
+def compare_predicate(case, ops, timed=False, repeats=20):
+    """static_predicate_mask and its plain version on the same CUDA
+    operands: equal masks (tolerance: none)."""
+    import torch
+
+    from scheduler_tpu_torch.ops import predicate_kernel as pk
+
+    mask_k = pk.static_predicate_mask(*ops)
+    torch.cuda.synchronize()
+    start, stop = events()
+    start.record()
+    mask_r = pk.static_predicate_mask_reference(*ops)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    equal = bool(torch.equal(mask_k, mask_r))
+    s, l = ops[0].shape
+    n, k = ops[4].shape
+    rec = {"phase": "kernel_vs_plain", "kernel": "static_predicate_mask", "case": case,
+           "S": s, "N": n, "L": l, "K": k, "equal": equal,
+           "max_abs_err": int((mask_k.to(torch.int8) - mask_r.to(torch.int8)).abs().max())
+           if mask_k.numel() else 0,
+           "true_share": float(mask_k.float().mean()) if mask_k.numel() else None}
+    if timed:
+        start.record()
+        for _ in range(repeats):
+            pk.static_predicate_mask(*ops)
+        stop.record()
+        torch.cuda.synchronize()
+        rec["ms"] = start.elapsed_time(stop) / repeats
+        start.record()
+        for _ in range(repeats):
+            pk.static_predicate_mask_reference(*ops)
+        stop.record()
+        torch.cuda.synchronize()
+        rec["plain_ms"] = start.elapsed_time(stop) / repeats
+        rec["plain_first_ms"] = plain_ms
+        rec["bound_ms"], rec["bound_by"] = predicate_bound_ms(ops)
+        rec["library_ms"] = predicate_library_ms(ops, repeats)
+        rec["library"] = "torch.matmul [S, L+K] x [L+K, N] f32, TF32 off (contraction only)"
+    emit(rec)
+    if not equal:
+        raise SystemExit(f"kernel and plain version disagree: {case}")
+    return rec
+
+
+# -- checks of what a main path bound ---------------------------------------------
 
 def check_binds(cache, n_nodes, n_pods, tasks_per_job):
-    """No node overcommitted (by the pods' own requests and by the cache's
-    idle ledger) and every gang bound whole or not at all."""
-    from scheduler_tpu_torch.harness.synthetic import GIB, mixed_request
+    """Flagship: no node overcommitted (by the pods' own requests and by
+    the cache's idle ledger) and every gang bound whole or not at all."""
+    from scheduler_tpu_torch.harness.synthetic import GIB as H_GIB, mixed_request
 
     binds = dict(cache.binder.binds)
     used = {}
@@ -236,7 +590,7 @@ def check_binds(cache, n_nodes, n_pods, tasks_per_job):
         cpu, mem = used.get(host, (0.0, 0.0))
         used[host] = (cpu + req["cpu"], mem + req["memory"])
         per_gang[j] = per_gang.get(j, 0) + 1
-    over = [h for h, (c, m) in used.items() if c > 64_000.0 or m > 256.0 * GIB]
+    over = [h for h, (c, m) in used.items() if c > 64_000.0 or m > 256.0 * H_GIB]
     if over:
         raise SystemExit(f"overcommitted nodes: {over[:5]}")
     # Every pod of a fixture gang counts toward minMember: gang == size.
@@ -244,11 +598,41 @@ def check_binds(cache, n_nodes, n_pods, tasks_per_job):
         size = min(tasks_per_job, n_pods - j * tasks_per_job)
         if bound < size:
             raise SystemExit(f"gang job-{j:05d} bound {bound} of minMember {size}")
+    check_idle_ledger(cache)
+    return len(binds), len(per_gang)
+
+
+def check_idle_ledger(cache):
     mins = cache.vocab.min_thresholds()
     idle_min = min(float((n.idle.array[:2] + mins[:2]).min()) for n in cache.nodes.values())
     if idle_min < 0.0:
         raise SystemExit("a node's idle ledger is below -epsilon after commit")
-    return len(binds), len(per_gang)
+
+
+def check_config2_binds(cache):
+    """Config 2: no node overcommitted by its pods' requests or past its
+    pod limit, and every bound pod with a zone selector on a node of that
+    zone.  Returns (binds, most pods on one node)."""
+    binds = dict(cache.binder.binds)
+    pods = {f"{t.namespace}/{t.name}": t.pod
+            for job in cache.jobs.values() for t in job.tasks.values()}
+    used, count = {}, {}
+    for key, host in binds.items():
+        pod = pods[key]
+        req = pod.containers[0]
+        cpu, mem = used.get(host, (0.0, 0.0))
+        used[host] = (cpu + req["cpu"], mem + req["memory"])
+        count[host] = count.get(host, 0) + 1
+        labels = cache.nodes[host].node.labels
+        for k, v in pod.node_selector.items():
+            if labels.get(k) != v:
+                raise SystemExit(f"{key} selects {k}={v} but sits on {host} ({labels})")
+    for host, (cpu, mem) in used.items():
+        alloc = cache.nodes[host].node.allocatable
+        if cpu > alloc["cpu"] or mem > alloc["memory"] or count[host] > alloc["pods"]:
+            raise SystemExit(f"node {host} overcommitted: {cpu} cpu, {mem} B, {count[host]} pods")
+    check_idle_ledger(cache)
+    return len(binds), max(count.values(), default=0)
 
 
 # -- phases -------------------------------------------------------------------------
@@ -256,18 +640,90 @@ def check_binds(cache, n_nodes, n_pods, tasks_per_job):
 def phase_device():
     import torch
 
-    from scheduler_tpu_torch.ops import megakernel as mk
+    from scheduler_tpu_torch.ops import cuda_build
 
-    info = mk.build(verbose=True)
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
+    cuda_build.load(verbose=True)
+    info = cuda_build.build_info
+    regs = [ln.strip() for ln in info["log"].splitlines()
+            if "registers" in ln or ln.endswith(".cu:")]
     emit({"phase": "device", "gpu": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": info["seconds"],
-          "ptxas": regs})
+          "cuda": torch.version.cuda, "sources": info["sources"],
+          "build_s": info["seconds"], "ptxas": regs})
+
+
+def reset_counts():
+    from scheduler_tpu_torch.actions import allocate
+    from scheduler_tpu_torch.ops import megakernel as mk
+    from scheduler_tpu_torch.ops import predicate_kernel as pk
+
+    allocate.routes["fused"] = allocate.routes["host"] = 0
+    mk.launches = 0
+    pk.launches = 0
+
+
+def read_counts():
+    from scheduler_tpu_torch.actions import allocate
+    from scheduler_tpu_torch.ops import megakernel as mk
+    from scheduler_tpu_torch.ops import predicate_kernel as pk
+
+    return ({"mega_allocate": mk.launches, "static_predicate_mask": pk.launches},
+            dict(allocate.routes))
+
+
+def run_cycle(cache, conf_path):
+    """One ``Scheduler.run_once`` on the card with the launch counts set to
+    0 just before and read just after.  Returns (record, launches)."""
+    import torch
+
+    from scheduler_tpu_torch.scheduler import Scheduler
+    from scheduler_tpu_torch.utils import phases
+
+    sched = Scheduler(cache, scheduler_conf=conf_path)  # device None: the card
+    reset_counts()
+    phases.begin()
+    t0 = time.perf_counter()
+    sched.run_once()
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t0
+    notes = phases.take_notes()
+    spent = phases.end()
+    launches, routes = read_counts()
+    evidence = notes.get("cohort") or {}
+    rec = {"cycle_s": cycle_s, "phases_s": spent, "kernel_ms": evidence.get("kernel_ms"),
+           "steps": evidence.get("steps"), "cohort": evidence, "launches": launches,
+           "routes": routes}
+    if launches["mega_allocate"] != 1 or evidence.get("kernel_ms") is None:
+        raise SystemExit(f"the main path did not launch mega_allocate once: {launches}")
+    if routes["host"] != 0 or routes["fused"] < 1:
+        raise SystemExit(f"the main path took the host route: {routes}")
+    return rec, launches
+
+
+def phase_main_path_config2(cache, conf_path, n_nodes, n_pods):
+    rec, launches = run_cycle(cache, conf_path)
+    binds, most = check_config2_binds(cache)
+    emit({"phase": "main_path", "config": "config2", "nodes": n_nodes, "pods": n_pods,
+          "binds": binds, "most_pods_on_a_node": most, **rec})
+    if launches["static_predicate_mask"] < 1:
+        raise SystemExit("the config-2 main path did not launch static_predicate_mask")
+    if binds < 1:
+        raise SystemExit("the config-2 main path bound nothing")
+    return launches
+
+
+def phase_main_path_flagship(cache, conf_path, n_nodes, n_pods, tasks_per_job):
+    rec, launches = run_cycle(cache, conf_path)
+    binds, gangs = check_binds(cache, n_nodes, n_pods, tasks_per_job)
+    emit({"phase": "main_path", "config": "config3", "nodes": n_nodes, "pods": n_pods,
+          "binds": binds, "gangs_bound": gangs, **rec})
+    if binds < 1:
+        raise SystemExit("the main path bound nothing")
+    return launches
 
 
 def phase_kernel_cases(device):
-    from scheduler_tpu_torch.harness import make_synthetic_cluster
+    from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
     from scheduler_tpu_torch.ops import megakernel as mk
 
     _, eng = engine_for(config1_cluster(), CONFIG1_CONF, device)
@@ -295,60 +751,53 @@ def phase_kernel_cases(device):
         raise SystemExit("the many-jobs case must put the job ledger in global scratch")
     compare("global_job_ledger", eng._mega_args, eng._mega_kw, eng.st.nodes.count)
 
+    # Static-row mode on small sessions, at one and four cohort chunks.
+    for case, cache_fn, conf in (
+        ("static", lambda: spec_cluster(static_spec()), PREDICATES_CONF),
+        ("static_score_bound", lambda: spec_cluster(selector_bound_spec()), PREDICATES_CONF),
+        ("static_predicates", lambda: spec_cluster(predicates_spec()), PRESSURE_CONF),
+        ("config2_64_x_600", lambda: make_kubemark_density_cluster(64, 600).cache,
+         CONFIG2_CONF),
+    ):
+        _, eng = engine_for(cache_fn(), conf, device)
+        if not eng._mega_kw["use_static"]:
+            raise SystemExit(f"{case}: the engine did not stage static rows")
+        for cohort in (1, 4):
+            compare(f"{case}_cohort_{cohort}", eng._mega_args,
+                    dict(eng._mega_kw, cohort=cohort), eng.st.nodes.count)
 
-def phase_full_size(cache, device):
-    """The main path's operands (a session opened on a cluster built as the
+
+def phase_full_size(cache, conf_text, device, case):
+    """A main path's operands (a session opened on a cluster built as the
     main path's was): kernel against plain, timed."""
     t0 = time.perf_counter()
-    _, eng = engine_for(cache, FLAGSHIP_CONF, device)
+    _, eng = engine_for(cache, conf_text, device)
     init_s = time.perf_counter() - t0
-    rec = compare("main_path_operands", eng._mega_args, eng._mega_kw,
-                  eng.st.nodes.count, timed=True)
+    rec = compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count, timed=True)
     steps = rec["stats"][0]
     nb = rec["nb"]
     r_dim = eng._mega_kw["r_dim"]
     # The floor of a design that re-reads the idle and task-count rows of the
     # node ledger from device memory on every step.
     ledger_floor_ms = 1e3 * steps * (r_dim + 1) * nb * 4 / HBM_BYTES_PER_S
-    emit({"phase": "full_size", "engine_init_s": init_s,
+    emit({"phase": "full_size", "case": case, "engine_init_s": init_s,
           "ledger_reread_floor_ms": ledger_floor_ms})
-    return rec
+    return rec, eng
 
 
-def phase_main_path(cache, conf_path, n_nodes, n_pods, tasks_per_job):
-    import torch
-
-    from scheduler_tpu_torch.actions import allocate
-    from scheduler_tpu_torch.ops import megakernel as mk
-    from scheduler_tpu_torch.scheduler import Scheduler
-    from scheduler_tpu_torch.utils import phases
-
-    sched = Scheduler(cache, scheduler_conf=conf_path)  # device None: the card
-    allocate.routes["fused"] = allocate.routes["host"] = 0
-    mk.launches = 0
-    phases.begin()
-    t0 = time.perf_counter()
-    sched.run_once()
-    torch.cuda.synchronize()
-    cycle_s = time.perf_counter() - t0
-    notes = phases.take_notes()
-    spent = phases.end()
-    launches = {"mega_allocate": mk.launches}
-    routes = dict(allocate.routes)
-    binds, gangs = check_binds(cache, n_nodes, n_pods, tasks_per_job)
-    evidence = notes.get("cohort") or {}
-    emit({"phase": "main_path", "nodes": n_nodes, "pods": n_pods,
-          "binds": binds, "gangs_bound": gangs, "cycle_s": cycle_s,
-          "phases_s": spent, "kernel_ms": evidence.get("kernel_ms"),
-          "steps": evidence.get("steps"), "cohort": evidence,
-          "launches": launches, "routes": routes})
-    if launches["mega_allocate"] < 1 or evidence.get("kernel_ms") is None:
-        raise SystemExit("the main path did not launch mega_allocate")
-    if routes["host"] != 0 or routes["fused"] < 1:
-        raise SystemExit(f"the main path took the host route: {routes}")
-    if binds < 1:
-        raise SystemExit("the main path bound nothing")
-    return launches
+def phase_predicate_cases(st, device):
+    """static_predicate_mask on config 2's real operands (timed), on a wide
+    random case (timed) and on empty label / taint vocabularies."""
+    main = compare_predicate("config2_operands", predicate_operands(st, device), timed=True)
+    wide = compare_predicate("wide_4096_x_10000",
+                             random_predicate_operands(4096, 10_000, 512, 16, device),
+                             timed=True)
+    worst = max(main["max_abs_err"], wide["max_abs_err"])
+    for case, shape in (("no_labels", (40, 70, 0, 5)), ("no_taints", (40, 70, 9, 0)),
+                        ("no_vocabulary", (3, 5, 0, 0))):
+        rec = compare_predicate(case, random_predicate_operands(*shape, device))
+        worst = max(worst, rec["max_abs_err"])
+    return main, wide, worst
 
 
 def phase_e2e_small(conf_path):
@@ -357,7 +806,7 @@ def phase_e2e_small(conf_path):
     from scheduler_tpu_torch.actions.allocate import AllocateAction, collect_candidates
     from scheduler_tpu_torch.conf import parse_scheduler_conf
     from scheduler_tpu_torch.framework import close_session, open_session
-    from scheduler_tpu_torch.harness import make_synthetic_cluster
+    from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
     from scheduler_tpu_torch.scheduler import Scheduler
 
     cases = (
@@ -366,6 +815,10 @@ def phase_e2e_small(conf_path):
          FLAGSHIP_CONF),
         ("flagship_8_x_600", lambda: make_synthetic_cluster(8, 600, tasks_per_job=10).cache,
          FLAGSHIP_CONF),
+        ("config2_64_x_600", lambda: make_kubemark_density_cluster(64, 600).cache,
+         CONFIG2_CONF),
+        ("config2_predicates_64_x_600", lambda: spec_cluster(config2_predicates_spec()),
+         PRESSURE_CONF),
     )
     for name, build, conf_text in cases:
         with open(conf_path, "w") as f:
@@ -383,11 +836,22 @@ def phase_e2e_small(conf_path):
             raise SystemExit(f"fused route and host loop disagree: {name}")
 
 
+def mega_entry(mode, launches, rec):
+    return {"name": "mega_allocate", "mode": mode, "route": "cuda",
+            "source": "scheduler_tpu_torch/csrc/mega_allocate.cu",
+            "replaces": "scheduler_tpu/ops/megakernel.py:181",
+            "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--nodes", type=int, default=10_000)
     parser.add_argument("--pods", type=int, default=100_000)
     parser.add_argument("--tasks-per-job", type=int, default=100)
+    parser.add_argument("--config2-nodes", type=int, default=1000)
+    parser.add_argument("--config2-pods", type=int, default=5000)
     opts = parser.parse_args()
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -404,7 +868,7 @@ def main() -> int:
         return 2
     import scheduler_tpu_torch.actions  # noqa: F401
     import scheduler_tpu_torch.plugins  # noqa: F401
-    from scheduler_tpu_torch.harness import make_synthetic_cluster
+    from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -416,37 +880,63 @@ def main() -> int:
     phase_device()
     smi = nvidia_smi_line()
 
-    def flagship_cluster():
+    def timed_build(config, build, nodes, pods):
         t0 = time.perf_counter()
-        cl = make_synthetic_cluster(opts.nodes, opts.pods, tasks_per_job=opts.tasks_per_job)
-        emit({"phase": "cluster", "nodes": opts.nodes, "pods": opts.pods,
+        cache = build()
+        emit({"phase": "cluster", "config": config, "nodes": nodes, "pods": pods,
               "build_s": time.perf_counter() - t0})
-        return cl.cache
+        return cache
 
-    # The main path first, on a cluster no other session has touched: one
-    # cold cycle, as a scheduler's first cycle after start-up.
+    def config2_cluster():
+        return timed_build(
+            "config2",
+            lambda: make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache,
+            opts.config2_nodes, opts.config2_pods)
+
+    def flagship_cluster():
+        return timed_build(
+            "config3",
+            lambda: make_synthetic_cluster(opts.nodes, opts.pods,
+                                           tasks_per_job=opts.tasks_per_job).cache,
+            opts.nodes, opts.pods)
+
+    # The main paths first, each on a cluster no other session has touched:
+    # one cold cycle each, as a scheduler's first cycle after start-up.
+    with open(conf_path, "w") as f:
+        f.write(CONFIG2_CONF)
+    config2_launches = phase_main_path_config2(config2_cluster(), conf_path,
+                                               opts.config2_nodes, opts.config2_pods)
+    gc.collect()
     with open(conf_path, "w") as f:
         f.write(FLAGSHIP_CONF)
-    launches = phase_main_path(flagship_cluster(), conf_path, opts.nodes, opts.pods,
-                               opts.tasks_per_job)
+    flagship_launches = phase_main_path_flagship(flagship_cluster(), conf_path, opts.nodes,
+                                                 opts.pods, opts.tasks_per_job)
+    gc.collect()
+
+    # The same operands again, from second clusters built the same way.
+    static_full, eng2 = phase_full_size(config2_cluster(), CONFIG2_CONF, device,
+                                        "config2_main_path_operands")
+    pred_main, pred_wide, pred_err = phase_predicate_cases(eng2.st, device)
+    del eng2
     phase_kernel_cases(device)
-    # The same operands again, from a second cluster built the same way.
-    full = phase_full_size(flagship_cluster(), device)
+    cursor_full, _ = phase_full_size(flagship_cluster(), FLAGSHIP_CONF, device,
+                                     "main_path_operands")
+    gc.collect()
     phase_e2e_small(conf_path)
 
-    emit({"kernels": [{
-        "name": "mega_allocate",
-        "route": "cuda",
-        "source": "scheduler_tpu_torch/csrc/mega_allocate.cu",
-        "replaces": "scheduler_tpu/ops/megakernel.py:181",
-        "launches": launches["mega_allocate"],
-        "max_abs_err": full["max_abs_err"],
-        "ms": full["ms"],
-        "plain_ms": full["plain_ms"],
-        "bound_ms": full["bound_ms"],
-        "bound_by": full["bound_by"],
-        "library_ms": None,
-    }]})
+    emit({"kernels": [
+        mega_entry("cursor", flagship_launches["mega_allocate"], cursor_full),
+        mega_entry("static", config2_launches["mega_allocate"], static_full),
+        {"name": "static_predicate_mask", "route": "cuda",
+         "source": "scheduler_tpu_torch/csrc/static_predicate_mask.cu",
+         "replaces": "scheduler_tpu/ops/pallas_kernels.py:292",
+         "launches": config2_launches["static_predicate_mask"],
+         "max_abs_err": pred_err, "ms": pred_main["ms"], "plain_ms": pred_main["plain_ms"],
+         "bound_ms": pred_main["bound_ms"], "bound_by": pred_main["bound_by"],
+         "library_ms": pred_main["library_ms"],
+         "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K", "ms", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms")}},
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

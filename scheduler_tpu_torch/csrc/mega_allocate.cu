@@ -2,7 +2,9 @@
 //
 // Replaces scheduler_tpu/ops/megakernel.py::mega_allocate (a Pallas TPU
 // kernel) in CURSOR MODE: one queue, jobs in init-key order, no releasing
-// capacity, no static [T, N] rows.  The plain PyTorch version of the same
+// capacity; with use_static, a task's static-signature mask row is ANDed
+// into the fit and its score row added after the dynamic score terms (the
+// rows are read through msig once per step).  The plain PyTorch version of the same
 // function is scheduler_tpu_torch/ops/megakernel.py::mega_allocate_reference;
 // the two must agree bit for bit on codes and stats.
 //
@@ -24,8 +26,8 @@
 // every expression evaluated in the reference's operation order, and
 // lowest-index tie breaking in every argmax / argmin.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        --fmad=false -shared -Xcompiler -fPIC -o libmega.so mega_allocate.cu
+// Build: with the port's other kernels, by scheduler_tpu_torch/ops/cuda_build.py
+// (nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,6 +75,9 @@ struct MegaArgs {
   const float* drf_safe;  // [8] drf totals (1 where absent)
   const float* drf_mask;  // [8] 1 where the total is > 0
   const int* misc;        // [8] misc[0] = real job count
+  const int* msig;        // [t_rows * 128] static signature per task (use_static)
+  const float* smask;     // [static_rows, nb] static mask rows, 1.0 / 0.0 (use_static)
+  const float* sscore;    // [static_rows, nb] static score rows (use_static)
   int* out;               // [(t_rows + 1) * 128] result codes
   int* stats;             // [8] evidence counters
   float* ns;              // [16, nb] live node ledger (scratch)
@@ -80,7 +85,7 @@ struct MegaArgs {
   float* js_global;       // [js_rows, j_pad] job ledger when it does not fit shared memory
   int nb, s_pad, t_rows, t_cap, j_pad, js_rows, r_dim, cpu_idx, mem_idx;
   int enforce_pod_count, cross_batch, batch_runs, score_bound, cohort, n_comp;
-  int smem_bytes;
+  int smem_bytes, use_static, static_rows;
   int comp[4];
   float w_lr, w_bal, w_bp;
   float mins[8];
@@ -254,6 +259,9 @@ __device__ int chain_select(const MegaArgs& a, const float* js, int cursor, Redu
   return block_min_i(lane, red);
 }
 
+// USE_STATIC selects static-row mode at compile time: cursor mode keeps the
+// register budget it has without the static rows.
+template <bool USE_STATIC>
 __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const MegaArgs a) {
   extern __shared__ float smem_js[];
   __shared__ Reduce red;
@@ -305,6 +313,16 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const MegaArg
     int t_c = min(max(a.job_off[jb] + (int)cons_c, 0), t_pad - 1);
     const int sig = a.task_sig[t_c];
     int rl_c = a.run_len[t_c];
+    // Static-row mode: the task's signature rows, read once per step (the
+    // cohort chunks below reuse them: a run shares its rows by construction
+    // of the run merge).  They stay in L2 across steps.
+    const float* mrow = nullptr;
+    const float* srow = nullptr;
+    if (USE_STATIC) {
+      const int ms = min(max(a.msig[t_c], 0), a.static_rows - 1);
+      mrow = a.smask + (size_t)ms * nb;
+      srow = a.sscore + (size_t)ms * nb;
+    }
     float reqs[8], initqs[8];
     for (int r = 0; r < 8; ++r) {
       reqs[r] = r < r_dim ? a.sig_req[(SIG_REQ_REQ + r) * a.s_pad + sig] : 0.0f;
@@ -324,6 +342,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const MegaArg
           const float id = idle[r * nb + n];
           feas = feas && ((initqs[r] < id) || (fabsf(id - initqs[r]) < a.mins[r]));
         }
+        if (USE_STATIC) feas = feas && (mrow[n] > 0.0f);
         if (a.enforce_pod_count) feas = feas && (tcount[n] < a.plim[n]);
         float score = 0.0f;
         if (any_w) {
@@ -333,6 +352,8 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const MegaArg
           const float req_m = (am - idle[a.mem_idx * nb + n]) + reqs[a.mem_idx];
           score = score_terms(a, ac, am, sc, sm, req_c, req_m);
         }
+        // The static score comes after every dynamic term, as in the reference.
+        if (USE_STATIC) score = score + srow[n];
         const float masked = feas ? score : neg_inf;
         a.msk[n] = masked;
         argmax_merge(bv, bi, masked, n);
@@ -376,7 +397,8 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const MegaArg
               const float sc = ac > 0.0f ? ac : 1.0f, sm = am > 0.0f ? am : 1.0f;
               const float reqd_c = (ac - avail_c) + reqs[a.cpu_idx];
               const float reqd_m = (am - avail_m) + reqs[a.mem_idx];
-              const float s_js = score_terms(a, ac, am, sc, sm, reqd_c, reqd_m);
+              float s_js = score_terms(a, ac, am, sc, sm, reqd_c, reqd_m);
+              if (USE_STATIC) s_js = s_js + srow[best];
               const bool ok_s = (s_js > second) || ((s_js == second) && (best < second_idx));
               if (!ok_s) first_false = min(first_false, k);
             }
@@ -460,13 +482,18 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const MegaArg
   }
 }
 
-extern "C" int mega_allocate_launch(const MegaArgs* args, void* stream) {
-  cudaGetLastError();  // clear a stale error so the return value is this launch's
+template <bool USE_STATIC>
+static int launch(const MegaArgs* args, void* stream) {
   if (args->smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(mega_allocate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           args->smem_bytes);
+    cudaError_t err = cudaFuncSetAttribute(mega_allocate_kernel<USE_STATIC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, args->smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  mega_allocate_kernel<<<1, THREADS, args->smem_bytes, (cudaStream_t)stream>>>(*args);
+  mega_allocate_kernel<USE_STATIC><<<1, THREADS, args->smem_bytes, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
+}
+
+extern "C" int mega_allocate_launch(const MegaArgs* args, void* stream) {
+  cudaGetLastError();  // clear a stale error so the return value is this launch's
+  return args->use_static ? launch<true>(args, stream) : launch<false>(args, stream);
 }

@@ -15,6 +15,14 @@ from scheduler_tpu_torch.utils import metrics
 
 logger = logging.getLogger("scheduler_tpu_torch.framework")
 
+# Builtin plugins of the JAX package (its ``plugins/factory.py``).  A conf
+# that names one of them but not a plugin this package carries must not run
+# without it: skipping it would silently change the result.
+REFERENCE_PLUGINS = frozenset((
+    "gang", "priority", "drf", "proportion", "predicates", "nodeorder",
+    "conformance", "binpack",
+))
+
 
 def open_session(cache, tiers: List[Tier], device=None) -> Session:
     """Snapshot the cache into a new Session and open every configured plugin.
@@ -53,6 +61,10 @@ def open_session(cache, tiers: List[Tier], device=None) -> Session:
                 continue
             builder = get_plugin_builder(option.name)
             if builder is None:
+                if option.name in REFERENCE_PLUGINS:
+                    raise NotImplementedError(
+                        f"plugin not ported: {option.name}"
+                    )
                 logger.error("failed to get plugin %s", option.name)
                 continue
             ssn.plugins[option.name] = builder(Arguments.of(option.arguments))

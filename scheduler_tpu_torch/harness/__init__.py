@@ -1,3 +1,7 @@
-from scheduler_tpu_torch.harness.synthetic import SyntheticCluster, make_synthetic_cluster
+from scheduler_tpu_torch.harness.synthetic import (
+    SyntheticCluster,
+    make_kubemark_density_cluster,
+    make_synthetic_cluster,
+)
 
-__all__ = ["SyntheticCluster", "make_synthetic_cluster"]
+__all__ = ["SyntheticCluster", "make_kubemark_density_cluster", "make_synthetic_cluster"]

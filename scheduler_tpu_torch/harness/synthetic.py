@@ -141,3 +141,59 @@ def make_synthetic_cluster(
     return SyntheticCluster(
         cache=cache, n_nodes=n_nodes, n_pods=pod_idx, vocab=vocab, pod_names=pod_names
     )
+
+
+KUBEMARK_TS0 = 1_700_000_000.0
+
+
+def pin_shadow_timestamps(cache) -> None:
+    """Give every shadow PodGroup its pod's creation time.  The cache stamps
+    a shadow PodGroup with the wall clock when it adopts a bare pod, and the
+    session's job order breaks ties on the whole second of that stamp, so
+    two clusters built from the same pods would order their jobs apart
+    whenever one build straddles a second boundary."""
+    for job in cache.jobs.values():
+        pg = job.pod_group
+        if pg is None or not pg.shadow:
+            continue
+        ts = min(task.pod.creation_timestamp for task in job.tasks.values())
+        pg.creation_timestamp = ts
+        job.creation_timestamp = ts
+
+
+def make_kubemark_density_cluster(n_nodes: int, n_pods: int, seed: int = 0) -> SyntheticCluster:
+    """BASELINE config 2, the kubemark density scenario
+    (``scripts/scenario_ladder.py`` scenario 2; full size 1,000 nodes x 5,000
+    pods): hollow nodes labelled ``zone=z{i % 4}`` with 16 cpu, 64 GiB and
+    110 pods each, and BARE sleep pods (no PodGroup: the cache makes a
+    shadow single-member PodGroup for each) in one queue.  Every even pod
+    selects its zone ``z{idx % 4}``; requests are cpu {100, 200, 500}m and
+    memory {1, 2} GiB, drawn from ``numpy.random.default_rng(seed)``.  Each
+    shadow PodGroup takes its pod's creation time (``pin_shadow_timestamps``),
+    so that every build of the same arguments orders its jobs alike."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = ResourceVocabulary()
+    cache = SchedulerCache(vocab=vocab, async_io=False)
+    cache.run()
+    cache.add_queue(Queue(name="default", weight=1))
+    for i in range(n_nodes):
+        cache.add_node(NodeSpec(name=f"hollow-{i:05d}", allocatable={
+            "cpu": 16000.0, "memory": 64 * GIB, "pods": 110},
+            labels={"zone": f"z{i % 4}"}))
+    pod_names: List[str] = []
+    for t in range(n_pods):
+        name = f"sleep-{t:05d}"
+        pod = PodSpec(
+            name=name, namespace="d", scheduler_name="volcano",
+            containers=[{"cpu": float(rng.choice([100, 200, 500])),
+                         "memory": float(rng.choice([1, 2])) * 2**30}],
+            node_selector={"zone": f"z{t % 4}"} if t % 2 == 0 else {})
+        pod.creation_timestamp = KUBEMARK_TS0 + t * 1e-6
+        cache.add_pod(pod)
+        pod_names.append(f"d/{name}")
+    pin_shadow_timestamps(cache)
+    return SyntheticCluster(
+        cache=cache, n_nodes=n_nodes, n_pods=n_pods, vocab=vocab, pod_names=pod_names
+    )

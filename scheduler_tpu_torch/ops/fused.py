@@ -5,13 +5,16 @@ tensors -> job and task ordering -> the kernel's staged operands -> one
 launch -> decoded rows for the commit.  It mirrors the JAX package's
 ``FusedAllocator`` (``scheduler_tpu/ops/fused.py``) in its CURSOR-MODE mega
 arm: one queue, jobs laid out in init-key order, run batching of identical
-requests, cohort chunks.
+requests, cohort chunks — and, when the predicates or nodeorder plugin
+contributes session-static [T, N] mask/score tensors, the kernel's
+static-row mode (one mask and score row per static signature).
 
 Sessions that the JAX engine would run in another mode raise
-``NotImplementedError`` naming the mode — releasing capacity, static [T, N]
-rows, multi-queue proportion (and with it the qfair ladder), and the XLA
-while-loop / step-kernel path taken when the mega gate closes.  The LP
-flavor and the mesh have no switch in this package.
+``NotImplementedError`` naming the mode — releasing capacity, multi-queue
+proportion (and with it the qfair ladder), and the XLA while-loop /
+step-kernel path taken when the mega gate closes.  The LP flavor, the mesh
+and signature-class compression have no switch in this package (the last
+changes only which buffer the same static rows are gathered from).
 
 The device result is ONE int32[T] array encoding the whole action:
   >= 0: allocated on that node   |   -1: never reached (left pending)
@@ -31,6 +34,7 @@ from scheduler_tpu_torch.api.tensors import bucket, build_snapshot_tensors_colum
 from scheduler_tpu_torch.api.types import TaskStatus
 from scheduler_tpu_torch.ops import megakernel as _mk
 from scheduler_tpu_torch.ops.allocator import (
+    build_static_tensors_device,
     collect_pending,
     gang_ready_active,
     score_weights,
@@ -42,6 +46,7 @@ from scheduler_tpu_torch.ops.device import (
     scale_columns,
 )
 from scheduler_tpu_torch.ops.layout import SIG_REQ, STATS
+from scheduler_tpu_torch.utils import phases
 from scheduler_tpu_torch.utils.scheduler_helper import (
     enabled_task_order_chain as _enabled_task_order_chain,
     task_order_builtin,
@@ -278,10 +283,22 @@ class FusedAllocator:
         node_gate = pad_rows(st.nodes.ready, nb, fill=False)
         total = st.nodes.allocatable.sum(axis=0)
 
+        # Session-static [T, N] mask/score, combined and padded on the
+        # device (size-gated by ``supported``); timed as a part of the
+        # engine build.
+        static_mask_dev = static_score_dev = None
+        if self.use_static and t_total > 0:
+            with phases.phase("engine_init.static_tensors"):
+                static_mask_dev, static_score_dev = build_static_tensors_device(
+                    ssn, st, nb, tb, self.device
+                )
+
         # Run lengths: consecutive tasks with identical request rows, counted
         # from each position — the kernel batches a whole run per placement
         # step.  Runs stay within one job, EXCEPT that consecutive
-        # single-task jobs merge in cursor mode.
+        # single-task jobs merge in cursor mode.  With static tensors a run
+        # must also share its mask/score rows (same requests do not imply
+        # same selectors); that equality is checked on the device.
         t_count = t_total
         run_host = np.ones(tb, dtype=np.int32)
         merge_any = False
@@ -328,11 +345,18 @@ class FusedAllocator:
                     ) if st.nodes.count else 0
                     cap_s = np.minimum(cap_s, pods_room)
                 self.cohort_spill = bool((np.minimum(lens, MAX_BATCH) > cap_s).any())
+                merge = merge_host
+                if self.use_static:
+                    same_rows = (
+                        (static_mask_dev[1:t_count] == static_mask_dev[: t_count - 1]).all(dim=1)
+                        & (static_score_dev[1:t_count] == static_score_dev[: t_count - 1]).all(dim=1)
+                    )
+                    merge = merge & same_rows.cpu().numpy()
                 # run[i] = distance to the next break: boundary i sits between
                 # tasks i and i+1; a reverse running minimum over break
                 # positions gives the first break at-or-after every position.
                 idx = np.arange(t_count, dtype=np.int32)
-                cand = np.where(merge_host, np.int32(t_count), idx[1:])
+                cand = np.where(merge, np.int32(t_count), idx[1:])
                 next_brk = np.minimum.accumulate(cand[::-1])[::-1]
                 run = np.concatenate([next_brk - idx[: t_count - 1], [1]])
                 run_host[:t_count] = np.clip(run, 1, MAX_BATCH)
@@ -350,10 +374,6 @@ class FusedAllocator:
             raise NotImplementedError(
                 "fused allocate mode not ported: releasing capacity"
             )
-        if self.use_static:
-            raise NotImplementedError(
-                "fused allocate mode not ported: static [T,N] rows"
-            )
         binpack_only = (
             self.weights[0] == 0.0
             and self.weights[1] == 0.0
@@ -370,6 +390,20 @@ class FusedAllocator:
             n_sigs=1,  # signature count checked after the table builds
             comparators=self.comparators,
         )
+        static_sids = None
+        if mega_ok and self.use_static and t_total > 0:
+            static_sids = self._static_signature_ids(ssn)
+            mega_ok = static_sids is not None and _mk.mega_supported(
+                has_releasing=False,
+                use_static=True,
+                score_bound=score_bound,
+                cursor_mode=True,
+                r_dim=r,
+                n=nb,
+                n_sigs=1,
+                comparators=self.comparators,
+                n_static_sigs=int(static_sids.max()) + 1 if static_sids.size else 0,
+            )
         if not mega_ok:
             raise NotImplementedError(
                 "fused allocate mode not ported: XLA while-loop / K1 path "
@@ -385,15 +419,65 @@ class FusedAllocator:
         self._prepare_mega(
             policy, scale, state, node_gate, nb, tb, r, offsets, nums, deficits,
             gang_order, priorities, tiebreak, alloc_init, total, run_host,
-            score_bound,
+            score_bound, static_sids, static_mask_dev, static_score_dev,
         )
+
+    def _static_signature_ids(self, ssn) -> Optional[np.ndarray]:
+        """Dense per-task STATIC-signature ids: tasks sharing (selector row,
+        toleration row, unknown flag, affinity spec) share one [N] static
+        mask/score row, so the mega kernel keeps a small per-signature table
+        instead of the [T, N] matrices.  Sound only for the builtin device
+        builders (predicates/nodeorder), whose contributions are pure
+        functions of exactly those columns — any other builder returns None
+        and the session closes the mega gate."""
+        if (set(ssn.device_predicates) | set(ssn.device_scorers)) - {
+            "predicates", "nodeorder"
+        }:
+            return None
+        st = self.st
+        t = self.flat_count
+        sel = st.tasks.selector[:t]
+        tol = st.tasks.tolerated[:t]
+        hu = st.tasks.has_unknown_selector[:t]
+        req_aff = st.tasks.req_aff[:t]
+        pref_aff = st.tasks.pref_aff[:t]
+        cols = [hu[:, None]]
+        if sel.shape[1]:
+            cols.insert(0, sel)
+        if tol.shape[1]:
+            cols.append(tol)
+        from scheduler_tpu_torch.api.job_info import unique_row_codes
+
+        codes, _ = unique_row_codes(np.hstack(cols).astype(np.uint8))
+        _, base_ids = np.unique(codes, return_inverse=True)
+        aff_rows = req_aff | pref_aff
+        if not aff_rows.any():
+            return base_ids.astype(np.int32)
+        # Only affinity-carrying rows need the Python walk (their static rows
+        # depend on the affinity SPEC, keyed by value-based dataclass repr);
+        # everything else is the vectorized dense id above.
+        combined = base_ids.astype(np.int64)
+        offset = int(base_ids.max()) + 1
+        key_of: dict = {}
+        cores = st.tasks.cores
+        for i in np.nonzero(aff_rows)[0].tolist():
+            pod = cores[i].pod
+            key = (int(base_ids[i]), repr(pod.affinity) if pod is not None else "")
+            sid = key_of.get(key)
+            if sid is None:
+                sid = key_of[key] = offset + len(key_of)
+            combined[i] = sid
+        _, sids = np.unique(combined, return_inverse=True)  # densify
+        return sids.astype(np.int32)
 
     def _prepare_mega(self, policy, scale, state, node_gate, nb, tb, r,
                       offsets, nums, deficits, gang_order, priorities,
                       tiebreak, alloc_init, total, run_host,
-                      score_bound) -> None:
+                      score_bound, static_sids=None, static_mask_dev=None,
+                      static_score_dev=None) -> None:
         """Stage the mega kernel's operands on the device — per-signature
-        request table, lane-packed job columns, transposed node rows — and
+        request table, lane-packed job columns, transposed node rows, and
+        the per-static-signature mask/score rows in static-row mode — and
         its static arguments.  Sets ``use_mega``."""
         from scheduler_tpu_torch.api.vocab import CPU as _CPU_IDX, MEMORY as _MEM_IDX
 
@@ -450,6 +534,24 @@ class FusedAllocator:
         ns0 = _mk.build_node_ledgers(idle, to_dev(state["task_count"]), nb, r)
         alloc_t = torch.zeros((8, nb), dtype=torch.float32, device=dev)
         alloc_t[:r] = to_dev(state["allocatable"]).T
+        use_static = static_sids is not None
+        if use_static:
+            # Per-signature static rows: each static signature's [N] mask and
+            # score row, gathered on the device from its first task's row of
+            # the [T, N] tensors, plus the per-task signature-id column.
+            n_static = int(static_sids.max()) + 1 if static_sids.size else 1
+            rows_pad = max(8, -(-n_static // 8) * 8)
+            _, first_rows = np.unique(static_sids, return_index=True)
+            rep = torch.as_tensor(first_rows.astype(np.int64), device=dev)
+            smask = torch.zeros((rows_pad, nb), dtype=torch.float32, device=dev)
+            smask[:n_static] = static_mask_dev[rep].to(torch.float32)
+            sscore = torch.zeros((rows_pad, nb), dtype=torch.float32, device=dev)
+            sscore[:n_static] = static_score_dev[rep]
+            msig = _mk.pack_task_table_i32(static_sids.astype(np.int32), tb)
+        else:
+            smask = torch.zeros((8, nb), dtype=torch.float32, device=dev)
+            sscore = torch.zeros((8, nb), dtype=torch.float32, device=dev)
+            msig = _mk.pack_task_table_i32(np.zeros(0, np.int32), tb)
         # Operands of modes this package does not port: minimum-size dummies.
         zeros8 = np.zeros((8, 128), dtype=np.float32)
         self._mega_args = (
@@ -470,9 +572,9 @@ class FusedAllocator:
             to_dev(js_drf0),
             to_dev(drf_safe),
             to_dev(drf_mask),
-            to_dev(_mk.pack_task_table_i32(np.zeros(0, np.int32), tb)),  # msig
-            torch.zeros((8, nb), dtype=torch.float32, device=dev),   # smask
-            torch.zeros((8, nb), dtype=torch.float32, device=dev),   # sscore
+            to_dev(msig),
+            smask,
+            sscore,
             to_dev(np.zeros((1, 128), dtype=np.int32)),              # jqueue
             to_dev(zeros8),                                          # jq_des
             to_dev(zeros8),                                          # jq_alloc0
@@ -494,7 +596,7 @@ class FusedAllocator:
             cross_batch=self.batch_runs,
             batch_runs=self.batch_runs,
             has_releasing=False,
-            use_static=False,
+            use_static=use_static,
             score_bound=score_bound,
             mins=tuple(float(x) for x in mins_f32),
             cpu_idx=_CPU_IDX,

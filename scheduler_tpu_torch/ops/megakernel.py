@@ -1,11 +1,13 @@
 """The whole greedy allocate action as ONE CUDA kernel launch.
 
 This replaces ``scheduler_tpu/ops/megakernel.py::mega_allocate`` (a Pallas
-TPU kernel) in CURSOR MODE: one queue, jobs laid out in init-key order, no
-releasing capacity, no static [T, N] rows.  The kernel source is
-``csrc/mega_allocate.cu``; it is built with ``nvcc`` at first use into
-``build/scheduler_tpu_torch/`` (keyed on a hash of the source) and bound
-through a plain C entry point with ``ctypes``.
+TPU kernel) in CURSOR MODE — one queue, jobs laid out in init-key order, no
+releasing capacity — with or without its STATIC-ROW mode (``use_static``:
+the per-signature mask and score rows ``smask``/``sscore`` that a task
+reaches through ``msig``, staged when the predicates or nodeorder plugin is
+on).  The kernel source is ``csrc/mega_allocate.cu``; it is built with the
+port's other kernels at first use (``ops/cuda_build.py``) and bound through
+a plain C entry point with ``ctypes``.
 
 Three functions carry the port:
 
@@ -21,7 +23,8 @@ Three functions carry the port:
   ``pack_task_table_i32``, ``build_node_ledgers``) that stage the operands.
 
 Operands and result encoding follow the JAX kernel exactly (26 operands,
-the unused multi-queue / static / releasing ones as dummies): codes are
+the unused multi-queue / releasing ones, and the static ones outside
+static-row mode, as dummies): codes are
 >= 0 node, -1 unplaced, -2 failed (first infeasible task of its pop); the
 second output holds the 8 ``STATS`` counters.
 
@@ -36,17 +39,12 @@ memory, or a cooperative grid.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from scheduler_tpu_torch.ops import cuda_build
 from scheduler_tpu_torch.ops.layout import (
     JOB_SCRATCH as JROW,
     NODE_SCRATCH as NROW,
@@ -114,11 +112,11 @@ def mega_supported(
     )
 
 
-def _check_mode(has_releasing, use_static, multi_queue, qfair_ladder, mesh) -> None:
-    """Only cursor mode is ported; every other kernel mode raises."""
+def _check_mode(has_releasing, multi_queue, qfair_ladder, mesh) -> None:
+    """Cursor mode (with or without static rows) is ported; every other
+    kernel mode raises."""
     for flag, name in (
         (has_releasing, "releasing capacity"),
-        (use_static, "static [T,N] rows"),
         (multi_queue, "multi-queue proportion"),
         (qfair_ladder, "qfair ladder"),
         (mesh is not None, "mesh"),
@@ -127,34 +125,7 @@ def _check_mode(has_releasing, use_static, multi_queue, qfair_ladder, mesh) -> N
             raise NotImplementedError(f"mega_allocate mode not ported: {name}")
 
 
-# -- build + bind -------------------------------------------------------------
-
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "mega_allocate.cu",
-)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
-_lib = None
-build_info: dict = {}
-
-
-def _build_dir() -> str:
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    return os.path.join(root, "build", "scheduler_tpu_torch")
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    fallback = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(fallback):
-        return fallback
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
+# -- bind -------------------------------------------------------------------------
 
 class _MegaArgs(ctypes.Structure):
     """Mirror of ``struct MegaArgs`` in ``csrc/mega_allocate.cu``."""
@@ -164,7 +135,7 @@ class _MegaArgs(ctypes.Structure):
         for name in (
             "ns0", "alloc_t", "gate", "plim", "sig_req", "task_sig", "run_len",
             "job_off", "job_num", "job_def", "job_gang", "job_prio", "job_tb",
-            "js_drf0", "drf_safe", "drf_mask", "misc",
+            "js_drf0", "drf_safe", "drf_mask", "misc", "msig", "smask", "sscore",
             "out", "stats", "ns", "msk", "js_global",
         )
     ] + [
@@ -173,6 +144,7 @@ class _MegaArgs(ctypes.Structure):
             "nb", "s_pad", "t_rows", "t_cap", "j_pad", "js_rows", "r_dim",
             "cpu_idx", "mem_idx", "enforce_pod_count", "cross_batch",
             "batch_runs", "score_bound", "cohort", "n_comp", "smem_bytes",
+            "use_static", "static_rows",
         )
     ] + [
         ("comp", ctypes.c_int * 4),
@@ -183,38 +155,12 @@ class _MegaArgs(ctypes.Structure):
     ]
 
 
-def build(verbose: bool = False) -> dict:
-    """Compile ``csrc/mega_allocate.cu`` (once per source hash) and load it.
-    Returns the build record: library path, seconds spent compiling (0 when
-    the library was already built) and the compiler's output."""
-    global _lib, build_info
-    if _lib is not None:
-        return build_info
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = _build_dir()
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"mega_allocate-{digest}.so")
-    seconds, log = 0.0, ""
-    if not os.path.exists(path):
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", tmp, _SRC]
-        start = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - start
-        log = (res.stdout + res.stderr).strip()
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {_SRC}:\n{log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    lib.mega_allocate_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.mega_allocate_launch.restype = ctypes.c_int
-    _lib = lib
-    build_info = {"path": path, "seconds": seconds, "log": log}
-    return build_info
+def _entry():
+    """The kernel's C entry point from the port's CUDA library."""
+    fn = cuda_build.load().mega_allocate_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 # -- the wrapper ----------------------------------------------------------------
@@ -254,9 +200,8 @@ def mega_allocate(*operands: torch.Tensor, **kw):
     if len(operands) != len(OPERAND_NAMES):
         raise TypeError(f"mega_allocate takes {len(OPERAND_NAMES)} operands")
     kw.pop("interpret", None)
-    _check_mode(kw.get("has_releasing"), kw.get("use_static"),
-                kw.get("multi_queue"), kw.get("qfair_ladder", False),
-                kw.get("mesh"))
+    _check_mode(kw.get("has_releasing"), kw.get("multi_queue"),
+                kw.get("qfair_ladder", False), kw.get("mesh"))
     if operands[0].device.type == "cpu":
         return mega_allocate_reference(*operands, **kw)
     return _launch(*operands, **kw)
@@ -272,8 +217,8 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
             queue_delta=True, qfair_ladder=False, cohort=1, t_cap=0,
             mesh=None):
     global launches
-    del rel0, msig, smask, sscore, jqueue, jq_des, jq_alloc0, qf_share, qf_over
-    del has_releasing, use_static, multi_queue, queue_proportion
+    del rel0, jqueue, jq_des, jq_alloc0, qf_share, qf_over
+    del has_releasing, multi_queue, queue_proportion
     del overused_gate, queue_delta, qfair_ladder, mesh
     nb = ns0.shape[1]
     s_pad = sig_req.shape[1]
@@ -297,6 +242,13 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     _expect(drf_safe, "drf_safe", f32, (8, 1))
     _expect(drf_mask, "drf_mask", f32, (8, 1))
     _expect(misc, "misc", i32, (1, 8))
+    static_rows = smask.shape[0]
+    if use_static:
+        _expect(msig, "msig", i32, (t_rows, 128))
+        _expect(smask, "smask", f32, (static_rows, nb))
+        _expect(sscore, "sscore", f32, (static_rows, nb))
+        if static_rows <= 0:
+            raise ValueError("mega_allocate: static-row mode needs at least one row")
     t_pad = t_rows * 128
     if t_cap <= 0:
         t_cap = t_pad
@@ -304,8 +256,7 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
         cohort = 1
     cohort = max(1, int(cohort))
 
-    if _lib is None:
-        build()
+    launch = _entry()
     dev = ns0.device
     out = torch.empty((t_rows + 1) * 128, dtype=i32, device=dev)
     stats = torch.empty(STATS_WIDTH, dtype=i32, device=dev)
@@ -329,6 +280,11 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     ):
         setattr(args, field, t.data_ptr())
     args.js_global = js_global.data_ptr() if js_global is not None else None
+    if use_static:
+        args.msig, args.smask, args.sscore = (
+            msig.data_ptr(), smask.data_ptr(), sscore.data_ptr())
+    args.use_static = int(bool(use_static))
+    args.static_rows = static_rows
     args.nb, args.s_pad, args.t_rows, args.t_cap = nb, s_pad, t_rows, t_cap
     args.j_pad, args.js_rows, args.r_dim = j_pad, js_rows, r_dim
     args.cpu_idx, args.mem_idx = cpu_idx, mem_idx
@@ -345,7 +301,7 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     for i in range(8):
         args.mins[i] = float(mins[i]) if i < len(mins) else 0.0
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib.mega_allocate_launch(ctypes.addressof(args), stream)
+    rc = launch(ctypes.addressof(args), stream)
     if rc != 0:
         raise RuntimeError(f"mega_allocate launch failed: CUDA error {rc}")
     launches += 1
@@ -367,9 +323,9 @@ def mega_allocate_reference(
     """The kernel's function as a Python loop over steps on tensors, on
     whatever device the operands lie on.  Same operands, same
     ``(codes, stats)``, bit for bit."""
-    del rel0, msig, smask, sscore, jqueue, jq_des, jq_alloc0, qf_share, qf_over
+    del rel0, jqueue, jq_des, jq_alloc0, qf_share, qf_over
     del queue_proportion, overused_gate, queue_delta, interpret
-    _check_mode(has_releasing, use_static, multi_queue, qfair_ladder, mesh)
+    _check_mode(has_releasing, multi_queue, qfair_ladder, mesh)
     dev = ns0.device
     f32, i32 = torch.float32, torch.int32
     n = ns0.shape[1]
@@ -394,6 +350,8 @@ def mega_allocate_reference(
     # Read-only tables the scalar control flow indexes.
     tsig = task_sig.reshape(-1).tolist()
     rlen = run_len.reshape(-1).tolist()
+    static_sig = msig.reshape(-1).tolist() if use_static else None
+    static_rows = smask.shape[0]
     joff = job_off[0].tolist()
     jnum_l = job_num[0].tolist()
     jdef = job_deficit[0].tolist()
@@ -488,6 +446,11 @@ def mega_allocate_reference(
         t_c = min(max(joff[jb] + int(cons_c), 0), t_pad - 1)
         sig = tsig[t_c]
         rl_c = rlen[t_c]
+        if use_static:
+            # The task's static-signature rows, read once per step; cohort
+            # chunks reuse them (a run shares its rows by construction).
+            ms = min(max(static_sig[t_c], 0), static_rows - 1)
+            mrow, srow = smask[ms], sscore[ms]
         reqs = sig_req[SIG_REQ.REQ : SIG_REQ.REQ + r_dim, sig]
         initqs = sig_req[SIG_REQ.INIT : SIG_REQ.INIT + r_dim, sig]
         single0 = num_v == 1
@@ -504,6 +467,8 @@ def mega_allocate_reference(
                 feas = feas & (
                     (initqs[r] < idle[r]) | (torch.abs(idle[r] - initqs[r]) < mins[r])
                 )
+            if use_static:
+                feas = feas & (mrow > 0.0)
             if enforce_pod_count:
                 feas = feas & (tcount < plim_v)
             score = torch.zeros(n, dtype=f32, device=dev)
@@ -511,6 +476,8 @@ def mega_allocate_reference(
                 req_c = a_c - idle[cpu_idx] + reqs[cpu_idx]
                 req_m = a_m - idle[mem_idx] + reqs[mem_idx]
                 score = scores(a_c, a_m, safe_c, safe_m, req_c, req_m, score)
+            if use_static:
+                score = score + srow
             masked = torch.where(feas, score, neg_inf)
             maxv = masked.max()
             best_t = torch.where(masked == maxv, lane_n, n).min().clamp(max=n - 1)
@@ -548,6 +515,8 @@ def mega_allocate_reference(
                         a_c_b, a_m_b, safe_c[best], safe_m[best], reqd_c, reqd_m,
                         torch.zeros(MAX_BATCH, dtype=f32, device=dev),
                     )
+                    if use_static:
+                        s_js = s_js + srow[best]
                     ok_s = (s_js > second) | ((s_js == second) & (best < second_idx))
                     first_false = torch.where(~ok_s, js_vec, MAX_BATCH + 1).min()
                     ok = ok & (js_vec < first_false)

@@ -15,7 +15,17 @@ import json
 import pytest
 
 from scheduler_tpu_torch.actions import allocate as torch_allocate
-from tests.test_torch_megakernel import FLAGSHIP_CONF, build_twin, config1_spec, synthetic_twin
+from tests.test_torch_megakernel import (
+    CONFIG2_CONF,
+    FLAGSHIP_CONF,
+    PRESSURE_CONF,
+    build_twin,
+    config1_spec,
+    dynamic_spec,
+    kubemark_twin,
+    predicates_spec,
+    synthetic_twin,
+)
 
 CONFIG1_CONF = """
 actions: "allocate"
@@ -25,12 +35,32 @@ tiers:
   - name: gang
 """
 
+# Predicates and nodeorder with the inter-pod-affinity score off: the
+# scan-dynamic jobs take the host loop, the others the fused route.
+DYNAMIC_CONF = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: predicates
+  - name: nodeorder
+    arguments:
+      podaffinity.weight: 0
+"""
+
 # (fixture id, cluster builder(pkg), conf)
 CLUSTERS = {
     "config1": (lambda pkg: build_twin(pkg, config1_spec()), CONFIG1_CONF),
     "synthetic-64x600": (lambda pkg: synthetic_twin(pkg, 64, 600, 10), FLAGSHIP_CONF),
     # Contended: 8 nodes cannot hold 600 pods, so gangs fail and record FitErrors.
     "synthetic-8x600": (lambda pkg: synthetic_twin(pkg, 8, 600, 10), FLAGSHIP_CONF),
+    # BASELINE config 2 (kubemark density), cut to 64 nodes x 600 pods.
+    "config2-64x600": (lambda pkg: kubemark_twin(pkg, 64, 600), CONFIG2_CONF),
+    # Every static predicate and scorer (tests/test_torch_predicates.py).
+    "predicates": (lambda pkg: build_twin(pkg, predicates_spec()), PRESSURE_CONF),
+    # Host ports and inter-pod (anti-)affinity: split between the routes.
+    "dynamic": (lambda pkg: build_twin(pkg, dynamic_spec()), DYNAMIC_CONF),
 }
 
 
@@ -72,16 +102,17 @@ def test_allocate_matches_jax(fixture):
     jax_statuses, jax_errors, jax_binds = run_allocate("scheduler_tpu", fixture)
     statuses, errors, binds = run_allocate("scheduler_tpu_torch", fixture)
     assert torch_allocate.routes["fused"] == routes["fused"] + 1
-    assert torch_allocate.routes["host"] == routes["host"]
+    # Only the scan-dynamic jobs take the host loop.
+    assert torch_allocate.routes["host"] == routes["host"] + (fixture == "dynamic")
     assert binds == jax_binds
     assert statuses == jax_statuses
     assert errors == jax_errors
     assert binds
-    if fixture == "synthetic-8x600":
+    if fixture in ("synthetic-8x600", "predicates"):
         assert errors, "the contended cluster must record FitErrors"
 
 
-@pytest.mark.parametrize("fixture", sorted(CLUSTERS))
+@pytest.mark.parametrize("fixture", sorted(set(CLUSTERS) - {"dynamic"}))
 def test_fused_route_matches_host_loop(fixture):
     """The port's fused route (mega kernel, plain version on the CPU) and its
     host loop place identically; the host loop records per-node FitErrors

@@ -13,14 +13,16 @@ Each case builds a session with the port's harness on the card, launches
 same CUDA operands: codes and stats bitwise equal (tolerance: none).
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke as smoke
 import scheduler_tpu_torch.actions  # noqa: F401  registry side effects
 import scheduler_tpu_torch.plugins  # noqa: F401
-from scheduler_tpu_torch.harness import make_synthetic_cluster
+from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
 from scheduler_tpu_torch.ops import megakernel as mk
+from scheduler_tpu_torch.ops import predicate_kernel as pk
 
 
 def _card() -> torch.device:
@@ -50,6 +52,15 @@ CASES = {
     ),
     # More than 5,000 jobs: the kernel keeps its job ledger in global scratch.
     "global-job-ledger": (smoke.many_jobs_cluster, smoke.FLAGSHIP_CONF, {}),
+    # Static-row mode (predicates + nodeorder).
+    "static-cohort-1": (lambda: smoke.spec_cluster(smoke.static_spec()),
+                        smoke.PREDICATES_CONF, {"cohort": 1}),
+    "static-score-bound-cohort-4": (lambda: smoke.spec_cluster(smoke.selector_bound_spec()),
+                                    smoke.PREDICATES_CONF, {"cohort": 4}),
+    "static-predicates": (lambda: smoke.spec_cluster(smoke.predicates_spec()),
+                          smoke.PRESSURE_CONF, {}),
+    "config2-64x600": (lambda: make_kubemark_density_cluster(64, 600).cache,
+                       smoke.CONFIG2_CONF, {}),
 }
 
 
@@ -60,6 +71,8 @@ def test_cuda_kernel_matches_plain_version(case):
     build, conf, overrides = CASES[case]
     _, engine = smoke.engine_for(build(), conf, device)
     kw = dict(engine._mega_kw, **overrides)
+    assert kw["use_static"] == (conf is not smoke.FLAGSHIP_CONF
+                                and conf is not smoke.CONFIG1_CONF)
     j_pad = dict(zip(mk.OPERAND_NAMES, engine._mega_args))["job_off"].shape[1]
     assert mk.job_ledger_in_global(j_pad, kw["r_dim"]) == (case == "global-job-ledger")
     before = mk.launches
@@ -70,6 +83,24 @@ def test_cuda_kernel_matches_plain_version(case):
     assert torch.equal(codes, ref_codes)
     assert torch.equal(stats, ref_stats)
     assert int((codes >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,l,k", [(1, 1, 0, 0), (3, 5, 4, 2), (130, 200, 7, 3),
+                                     (256, 128, 40, 17), (40, 70, 0, 5), (40, 70, 9, 0)])
+def test_predicate_kernel_matches_plain_version(t, n, l, k):
+    """``static_predicate_mask`` on the card against its plain version, on
+    the shapes of tests/test_torch_predicates.py (tolerance: none)."""
+    device = _card()
+    rng = np.random.default_rng(t * 1000 + n)
+    ops = tuple(torch.from_numpy(a).to(device) for a in (
+        rng.random((t, l)) < 0.2, rng.random(t) < 0.1, rng.random((n, l)) < 0.5,
+        rng.random(n) < 0.15, rng.random((n, k)) < 0.3, rng.random((t, k)) < 0.5))
+    before = pk.launches
+    mask = pk.static_predicate_mask(*ops)
+    torch.cuda.synchronize()
+    assert pk.launches == before + 1
+    assert torch.equal(mask, pk.static_predicate_mask_reference(*ops))
 
 
 @pytest.mark.cuda

@@ -15,7 +15,9 @@ The twin-cluster builder here (``build_twin``) is shared with
 """
 
 import importlib
+import importlib.util
 import random
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,6 +39,7 @@ from scheduler_tpu_torch.interop import mega_operands_from_numpy
 from scheduler_tpu_torch.ops import fused as fused_mod
 from scheduler_tpu_torch.ops import megakernel as mk
 from scheduler_tpu_torch.ops.fused import FusedAllocator as TorchFused
+from chip_smoke import predicates_spec, selector_bound_spec, spec_cluster, static_spec
 
 FLAGSHIP_CONF = """
 actions: "allocate"
@@ -50,15 +53,42 @@ tiers:
 
 # The flagship conf plus nodeorder with its static node-affinity scorer off:
 # no static rows are staged, and the least-requested and balanced weights
-# turn the kernel's top-2 score bound on (JAX side only: the port has no
-# nodeorder plugin yet).
+# turn the kernel's top-2 score bound on.
 SCORE_BOUND_CONF = FLAGSHIP_CONF + """  - name: nodeorder
     arguments:
       nodeaffinity.weight: 0
 """
 
+# tests/test_megakernel.py's conf for static rows.
+PREDICATES_CONF = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: predicates
+  - name: nodeorder
+"""
+
+# BASELINE config 2 (scripts/scenario_ladder.py scenario 2).
+CONFIG2_CONF = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: drf
+  - name: predicates
+  - name: nodeorder
+"""
+
+# Config 2's plugins with the memory-pressure gate on (the predicates twin).
+PRESSURE_CONF = CONFIG2_CONF.replace(
+    "  - name: predicates\n",
+    "  - name: predicates\n    arguments:\n      predicate.MemoryPressureEnable: \"true\"\n",
+)
+
 GIB = 2.0**30
-TS0 = 1_700_000_000.0
 
 
 # -- one cluster, built in either package -----------------------------------------
@@ -99,36 +129,37 @@ def config1_spec():
     return {"nodes": nodes, "groups": [("qj", 3)], "pods": pods}
 
 
-SPECS = {"mixed": mixed_spec, "spill": spill_spec, "config1": config1_spec}
+def dynamic_spec():
+    """Scan-dynamic predicates: pods with a host port and with inter-pod
+    affinity and anti-affinity beside ordinary gangs.  Their jobs are
+    created last, so they rank below every ordinary job and take the host
+    loop after the others take the fused route."""
+    nodes = [(f"n{i}", {"cpu": 4000.0, "memory": 8 * GIB, "pods": 20},
+              {"labels": {"zone": f"z{i % 2}"}}) for i in range(6)]
+    groups = [("web", 3), ("bulk", 2), ("ports", 1), ("near", 1), ("apart", 1)]
+    web = {"labels": {"app": "web"}}
+    pods = [(f"web-{i}", "web", {"cpu": 1000.0, "memory": GIB}, 2, web) for i in range(3)]
+    pods += [(f"ports-{i}", "ports", {"cpu": 500.0, "memory": GIB}, 0,
+              {"host_ports": [8080]}) for i in range(2)]
+    pods.append(("near-0", "near", {"cpu": 500.0, "memory": GIB}, 0,
+                 {"affinity": {"pod_affinity": [({"app": "web"}, "zone")]}}))
+    pods.append(("apart-0", "apart", {"cpu": 500.0, "memory": GIB}, 0,
+                 {"affinity": {"pod_anti_affinity": [({"app": "web"},
+                                                      "kubernetes.io/hostname")]}}))
+    pods += [(f"bulk-{i}", "bulk", {"cpu": 1500.0, "memory": 2 * GIB}, 1) for i in range(6)]
+    return {"nodes": nodes, "groups": groups, "pods": pods}
+
+
+SPECS = {"mixed": mixed_spec, "spill": spill_spec, "config1": config1_spec,
+         "static": static_spec, "selector-bound": selector_bound_spec,
+         "predicates": predicates_spec, "dynamic": dynamic_spec}
 
 
 def build_twin(pkg: str, spec: dict):
     """The cluster ``spec`` in package ``pkg`` ("scheduler_tpu" or
-    "scheduler_tpu_torch"), objects and timestamps identical."""
-    objects = importlib.import_module(f"{pkg}.apis.objects")
-    vocab = importlib.import_module(f"{pkg}.api.vocab")
-    cache_mod = importlib.import_module(f"{pkg}.cache.cache")
-    cache = cache_mod.SchedulerCache(vocab=vocab.ResourceVocabulary(), async_io=False)
-    cache.run()
-    queue = objects.Queue(name="default", weight=1)
-    queue.creation_timestamp = TS0
-    cache.add_queue(queue)
-    for name, alloc in spec["nodes"]:
-        cache.add_node(objects.NodeSpec(name=name, allocatable=dict(alloc)))
-    for k, (name, min_member) in enumerate(spec["groups"]):
-        pg = objects.PodGroup(name=name, namespace="default", queue="default",
-                              min_member=min_member)
-        pg.status.phase = "Inqueue"
-        pg.creation_timestamp = TS0 + (k + 1) * 1e-6
-        cache.add_pod_group(pg)
-    for k, (name, group, req, prio) in enumerate(spec["pods"]):
-        pod = objects.PodSpec(
-            name=name, namespace="default", containers=[dict(req)], phase="Pending",
-            priority=prio, annotations={objects.GROUP_NAME_ANNOTATION: group},
-        )
-        pod.creation_timestamp = TS0 + 1.0 + k * 1e-6
-        cache.add_pod(pod)
-    return cache
+    "scheduler_tpu_torch"), objects and timestamps identical
+    (``chip_smoke.spec_cluster``, which documents the spec format)."""
+    return spec_cluster(spec, pkg)
 
 
 def synthetic_twin(pkg: str, n_nodes: int, n_pods: int, tasks_per_job: int):
@@ -136,9 +167,31 @@ def synthetic_twin(pkg: str, n_nodes: int, n_pods: int, tasks_per_job: int):
     return harness.make_synthetic_cluster(n_nodes, n_pods, tasks_per_job=tasks_per_job).cache
 
 
+def kubemark_twin(pkg: str, n_nodes: int, n_pods: int):
+    """BASELINE config 2 at ``n_nodes`` x ``n_pods``: the JAX package's
+    cluster is built by ``scripts/scenario_ladder.py`` itself, the port's by
+    its own copy, ``harness.make_kubemark_density_cluster``.  Both pin each
+    shadow PodGroup's creation time to its pod's, so the two builds order
+    their jobs alike."""
+    from scheduler_tpu_torch.harness import synthetic
+
+    if pkg == "scheduler_tpu_torch":
+        return synthetic.make_kubemark_density_cluster(n_nodes, n_pods).cache
+    path = Path(__file__).resolve().parent.parent / "scripts" / "scenario_ladder.py"
+    spec = importlib.util.spec_from_file_location("scenario_ladder", path)
+    ladder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ladder)
+    build, _ = ladder._s2_build_churn(n_nodes, n_pods, {"pods": [], "gen": 0})
+    cache = build()
+    synthetic.pin_shadow_timestamps(cache)
+    return cache
+
+
 def twin_cache(pkg: str, fixture: str):
     if fixture.startswith("synthetic"):
         return synthetic_twin(pkg, 64, 600, 10)
+    if fixture == "kubemark":
+        return kubemark_twin(pkg, 64, 600)
     return build_twin(pkg, SPECS[fixture]())
 
 
@@ -170,8 +223,20 @@ CASES = [
     ("synthetic", FLAGSHIP_CONF, {}),
     ("spill", SCORE_BOUND_CONF, {}),
     ("mixed", FLAGSHIP_CONF, {"enforce_pod_count": True}),
+    # Static-row mode (predicates + nodeorder).
+    ("static", PREDICATES_CONF, {}),
+    ("selector-bound", PREDICATES_CONF, {}),
+    ("kubemark", CONFIG2_CONF, {}),
+    ("predicates", PRESSURE_CONF, {}),
 ]
-CASE_IDS = ["mixed", "spill", "synthetic-64x600", "score-bound", "pod-count"]
+CASE_IDS = ["mixed", "spill", "synthetic-64x600", "score-bound", "pod-count",
+            "static", "static-score-bound", "config2-64x600", "static-predicates"]
+STATIC_CONFS = (PREDICATES_CONF, CONFIG2_CONF, PRESSURE_CONF)
+
+# The conf each fixture's engine is staged under.
+FIXTURE_CONF = {"mixed": FLAGSHIP_CONF, "spill": FLAGSHIP_CONF, "synthetic": FLAGSHIP_CONF,
+                "static": PREDICATES_CONF, "selector-bound": PREDICATES_CONF,
+                "kubemark": CONFIG2_CONF, "predicates": PRESSURE_CONF}
 
 
 @pytest.mark.parametrize("cohort", [1, 4])
@@ -179,9 +244,14 @@ CASE_IDS = ["mixed", "spill", "synthetic-64x600", "score-bound", "pod-count"]
 def test_reference_matches_jax_mega_allocate(monkeypatch, fixture, conf, overrides, cohort):
     engine = jax_engine(monkeypatch, fixture, conf, cohort)
     kw = engine._mega_kw
-    assert not (kw["has_releasing"] or kw["use_static"] or kw["multi_queue"])
-    if conf is SCORE_BOUND_CONF:
+    assert not (kw["has_releasing"] or kw["multi_queue"])
+    assert kw["use_static"] == engine.use_static == (conf in STATIC_CONFS)
+    if conf in (SCORE_BOUND_CONF, CONFIG2_CONF) or fixture == "selector-bound":
+        # nodeorder's weights turn the top-2 score bound on where runs batch.
         assert kw["score_bound"] and engine.batch_runs
+    if fixture == "kubemark":
+        # Config 2: the pod-count gate and cross-job batching of shadow jobs.
+        assert kw["enforce_pod_count"] and kw["cross_batch"]
     if fixture == "spill":
         # Cohort chunks engage only where a cohort spills across nodes.
         assert engine.cohort_effective == cohort
@@ -209,17 +279,24 @@ def test_pod_count_gate_binds():
 
 
 @pytest.mark.parametrize("cohort", [1, 4])
-@pytest.mark.parametrize("fixture", ["mixed", "spill", "synthetic"])
+@pytest.mark.parametrize("fixture", sorted(FIXTURE_CONF))
 def test_port_stages_the_jax_operands(monkeypatch, fixture, cohort):
     """The port's FusedAllocator, built from the same cluster, stages the
     same 26 operands (bit for bit) and static arguments as the JAX one at
     ``cohort`` chunks.  The port's chunk count follows its device (1 on the
     CPU, 4 on CUDA), so the cohort argument is held apart: the port's spill
-    estimate must make the JAX engine's choice at that count."""
-    engine = jax_engine(monkeypatch, fixture, FLAGSHIP_CONF, cohort)
+    estimate must make the JAX engine's choice at that count.  The static
+    fixtures stage ``msig``/``smask``/``sscore`` and the run lengths that
+    the static rows cut, although the JAX engine also compresses its static
+    tensors to signature classes and the port does not."""
+    conf = FIXTURE_CONF[fixture]
+    engine = jax_engine(monkeypatch, fixture, conf, cohort)
     ssn = torch_open(twin_cache("scheduler_tpu_torch", fixture),
-                     torch_conf(FLAGSHIP_CONF).tiers, device="cpu")
+                     torch_conf(conf).tiers, device="cpu")
     port = TorchFused(ssn, torch_candidates(ssn), device="cpu")
+    assert port.use_static == engine.use_static == (conf in STATIC_CONFS)
+    if fixture == "kubemark":
+        assert engine.sig_compress and engine._mega_kw["use_static"]
     assert port.use_mega and port.cohort_effective == 1
     assert port.cohort_spill == engine.cohort_spill
     spills = port.batch_runs and port.cohort_spill
@@ -232,7 +309,12 @@ def test_port_stages_the_jax_operands(monkeypatch, fixture, cohort):
     for key, value in port._mega_kw.items():
         if key != "cohort":
             assert engine._mega_kw[key] == value, key
-    assert [j.uid for j in port.jobs] == [j.uid for j in engine.jobs]
+    # Jobs by their pods' names (a shadow PodGroup's uid holds a pod uid, a
+    # process-wide counter).
+    def job_keys(jobs):
+        return [sorted(t.name for t in j.tasks.values()) for j in jobs]
+
+    assert job_keys(port.jobs) == job_keys(engine.jobs)
 
 
 def test_wrapper_runs_plain_version_on_cpu_and_rejects_unported_modes(monkeypatch):
@@ -244,7 +326,7 @@ def test_wrapper_runs_plain_version_on_cpu_and_rejects_unported_modes(monkeypatc
     ref_codes, ref_stats = mk.mega_allocate_reference(*args, **kw)
     assert torch.equal(codes, ref_codes) and torch.equal(stats, ref_stats)
     assert mk.launches == before, "the CPU path launches no kernel"
-    for mode in ("has_releasing", "use_static", "multi_queue", "qfair_ladder"):
+    for mode in ("has_releasing", "multi_queue", "qfair_ladder"):
         with pytest.raises(NotImplementedError):
             mk.mega_allocate(*args, **dict(kw, **{mode: True}))
     with pytest.raises(NotImplementedError):
