@@ -10,10 +10,10 @@ What it does, one JSON line per phase:
 
 1. device: the card, the CUDA version, and the one build of every kernel of
    the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path, twice, each on a freshly built cluster that no other session
-   has touched (a cold cycle, as a scheduler's first cycle after start-up),
-   through ``Scheduler.run_once`` on the card, with every kernel's launch
-   count set to 0 just before and read just after:
+2. main_path, three times, each on a freshly built cluster that no other
+   session has touched (a cold cycle, as a scheduler's first cycle after
+   start-up), through ``Scheduler.run_once`` on the card, with every
+   kernel's launch count set to 0 just before and read just after:
    a. BASELINE config 2, the kubemark density scenario (priority, gang, drf,
       predicates, nodeorder; 1,000 nodes x 5,000 bare pods, half of them
       selecting a zone): ``static_predicate_mask`` builds the selector mask
@@ -23,6 +23,11 @@ What it does, one JSON line per phase:
       nodes x 100,000 pods in gangs of 100): ``mega_allocate`` in cursor
       mode.  Checks: no node overcommitted, every gang bound whole or not at
       all.
+   c. config3_templates: config 3's nodes and conf, 5,000 gangs of 20 pods,
+      each gang with its own request template (``job_template_request``):
+      5,000 request signatures close the mega gate, and the engine runs the
+      ``fused_allocate`` loop with one ``placement_step`` launch a step.
+      Checks as for b.
    Each prints the phase seconds and the kernel's time from CUDA events.
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
    on the same CUDA tensors, bitwise.  ``mega_allocate`` (codes and stats):
@@ -32,9 +37,15 @@ What it does, one JSON line per phase:
    operands of both main paths at full size from second clusters built the
    same way (timed).  ``static_predicate_mask``: config 2's real operands
    (timed), a wide random case (4,096 signatures x 10,000 nodes, timed) and
-   empty label / taint vocabularies.
+   empty label / taint vocabularies.  ``placement_step`` (all four outputs,
+   timed over 200 launches): the templates loop's first step, config 2's
+   operands, a random case at 65,536 nodes and an all-infeasible one; and
+   loop_parity: the templates loop on a second cluster, once with the
+   kernel (held to its plain version at the first step and every 200th)
+   and once with the plain version on the card, equal codes.
 4. e2e_small: the fused route on the card against the host loop on small
-   clusters, bind for bind.
+   clusters, bind for bind (one of them, 4,200 single-pod jobs of distinct
+   requests, on the loop route).
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -157,6 +168,93 @@ def uniform_gang_request(j: int, t: int):
     del t
     return {"cpu": [250.0, 500.0, 1000.0][j % 3],
             "memory": [256.0, 512.0, 1024.0][j % 3] * 2.0**20}
+
+
+def job_template_request(n_jobs: int, seed: int = 0):
+    """Per-job request templates: job j takes cell c_j of a 64 x 128 grid,
+    drawn without replacement by ``numpy.random.default_rng(seed).choice(8192,
+    n_jobs, replace=False)``; every pod of the job asks cpu 125m * (1 + c %
+    64) (125m-8 cpu) and memory 256 MiB * (1 + c // 64) (256 MiB-32 GiB).
+    Returns ``request(j, t)`` for ``make_synthetic_cluster(request_fn=)``."""
+    import numpy as np
+
+    cells = np.random.default_rng(seed).choice(8192, n_jobs, replace=False)
+
+    def request(j: int, t: int):
+        del t
+        c = int(cells[j])
+        return {"cpu": 125.0 * (1 + c % 64), "memory": 256.0 * 2.0**20 * (1 + c // 64)}
+
+    return request
+
+
+def template_cluster(n_nodes: int, n_jobs: int, tasks_per_job: int, pkg: str = "scheduler_tpu_torch"):
+    """The flagship's nodes and gangs (``make_synthetic_cluster`` of package
+    ``pkg``) with per-job request templates (``job_template_request``):
+    ``n_jobs`` gangs of ``tasks_per_job`` pods, min_member the whole gang."""
+    harness = importlib.import_module(f"{pkg}.harness")
+    return harness.make_synthetic_cluster(
+        n_nodes, n_jobs * tasks_per_job, tasks_per_job=tasks_per_job,
+        request_fn=job_template_request(n_jobs)).cache
+
+
+def step_operands(seed, n, r_dim, *, infeasible=False, ties=False, exact=False):
+    """Placement-step operands in the JAX layout, as numpy arrays drawn from
+    ``numpy.random.default_rng(seed)``: cpu in millicores and memory in MiB
+    (the device units), idle a random share of allocatable, task counts
+    against pod limits, static rows; ``infeasible`` asks more cpu than any
+    node has, ``ties`` makes every node alike.
+
+    By default capacities, requests and idle shares are arbitrary, so the
+    score terms round in float32 and a change of operation order shows.
+    With ``exact`` capacities and requests are powers of two and idle a
+    multiple of allocatable / 64, so every score term is exact in float32.
+    The CPU tests need that for one combination only: under all three
+    weights with static rows, XLA's CPU backend contracts the JAX kernel's
+    balanced term into a fused multiply-add (1 ulp apart on rounding
+    operands), which the port, like its CUDA build (``--fmad=false``),
+    never does."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    r8 = 8
+    alloc = np.zeros((r8, n), np.float32)
+    if exact:
+        alloc[0] = rng.choice([4096, 16384, 65536], n)
+        alloc[1] = rng.choice([8192, 65536, 262144], n)
+    else:
+        alloc[0] = rng.choice([4000, 16000, 64000], n) - rng.integers(0, 1000, n)
+        alloc[1] = rng.choice([8000, 64000, 262144], n) - rng.integers(0, 4000, n)
+    if r_dim > 2:
+        alloc[2:r_dim] = rng.integers(0, 8, (r_dim - 2, n))
+    if exact:
+        idle = (alloc * rng.integers(0, 65, (r8, n)) / 64).astype(np.float32)
+    else:
+        idle = (alloc * rng.random((r8, n))).astype(np.float32)
+    if ties:
+        alloc[:, :] = alloc[:, :1]
+        idle[:, :] = idle[:, :1]
+    ns = np.zeros((r8 + 8, n), np.float32)
+    ns[:r8] = idle
+    ns[r8] = rng.integers(0, 30, n)
+    req = np.zeros((r8, 1), np.float32)
+    if exact:
+        req[0, 0], req[1, 0] = rng.choice([128, 512, 2048]), rng.choice([256, 1024, 8192])
+    else:
+        req[0, 0], req[1, 0] = rng.integers(100, 3000), rng.integers(100, 9000)
+    if r_dim > 2:
+        req[2:r_dim, 0] = rng.integers(0, 2, r_dim - 2)
+    initq = np.full((r8, 1), -1.0, np.float32)
+    initq[:r_dim] = req[:r_dim]
+    if infeasible:
+        initq[0, 0] = 1e9
+    mins = np.zeros((r8, 1), np.float32)
+    mins[:r_dim, 0] = [10.0, 10.0] + [0.1] * (r_dim - 2)
+    gate = (rng.random((1, n)) < 0.9) | ties
+    plim = rng.integers(10, 40, (1, n)).astype(np.float32)
+    smask = (rng.random((1, n)) < 0.8) | ties
+    sscore = (rng.integers(0, 5, (1, n)) * (0 if ties else 1)).astype(np.float32)
+    return [ns, alloc, smask, sscore, gate, plim, initq, req, mins]
 
 
 def many_jobs_cluster():
@@ -354,19 +452,20 @@ def spec_cluster(spec: dict, pkg: str = "scheduler_tpu_torch"):
     return cache
 
 
-def engine_for(cache, conf_text, device):
+def engine_for(cache, conf_text, device, engine="mega"):
     """Open a session on ``cache`` and build the fused engine over its
-    allocate candidates (the session is left open: nothing is committed)."""
+    allocate candidates (the session is left open: nothing is committed);
+    the engine's gates must choose ``engine`` ("mega" or "step")."""
     from scheduler_tpu_torch.actions.allocate import collect_candidates
     from scheduler_tpu_torch.conf import parse_scheduler_conf
     from scheduler_tpu_torch.framework import open_session
     from scheduler_tpu_torch.ops.fused import FusedAllocator
 
     ssn = open_session(cache, parse_scheduler_conf(conf_text).tiers, device=device)
-    engine = FusedAllocator(ssn, collect_candidates(ssn), device=device)
-    if not engine.use_mega:
-        raise RuntimeError("the fused engine did not stage the mega kernel")
-    return ssn, engine
+    eng = FusedAllocator(ssn, collect_candidates(ssn), device=device)
+    if eng.engine != engine:
+        raise RuntimeError(f"the fused engine chose {eng.engine}, not {engine}")
+    return ssn, eng
 
 
 # -- mega_allocate against its plain version ----------------------------------------
@@ -572,11 +671,176 @@ def compare_predicate(case, ops, timed=False, repeats=20):
     return rec
 
 
+# -- placement_step against its plain version ------------------------------------------
+
+def step_node_ops(kw) -> int:
+    """Float32 operations per node that the step's function needs: the
+    epsilon fit (6 a row over the r_dim real rows; pad rows always fit),
+    the gates, the score terms and the masked argmax."""
+    ops = 6 * kw["r_dim"] + 1 + 3
+    ops += 2 * bool(kw["enforce_pod_count"]) + 2 * bool(kw["use_static"])
+    lr_w, bal_w, bp_w = kw["weights"]
+    if lr_w or bal_w or bp_w:
+        ops += 6  # the requested columns and the safe divisors
+    return ops + 13 * bool(lr_w) + 12 * bool(bal_w) + 11 * bool(bp_w)
+
+
+def step_bytes(n, kw) -> int:
+    """Bytes that the step's function needs, each read once, and its
+    16-byte result: the r_dim real idle rows (pad rows always fit), the gate,
+    the cpu and memory rows of allocatable only when a score weight is
+    non-zero, the task-count row and the pod limit only under the pod-count
+    gate, the static mask and score rows only with static rows, and the
+    task's request, init request and epsilon rows."""
+    r_dim = kw["r_dim"]
+    nbytes = 4 * r_dim * n + n + 3 * 4 * r_dim + 16
+    if any(kw["weights"]):
+        nbytes += 2 * 4 * n
+    if kw["enforce_pod_count"]:
+        nbytes += 2 * 4 * n
+    if kw["use_static"]:
+        nbytes += n + 4 * n
+    return nbytes
+
+
+def step_bound_ms(ops, kw):
+    """``step_bytes`` at the memory rate against n x ``step_node_ops``
+    float32 operations at the peak rate."""
+    n = ops[0].shape[1]
+    t_bytes, t_ops = step_bytes(n, kw) / HBM_BYTES_PER_S, n * step_node_ops(kw) / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _step_tuple(res):
+    best, score, cap, pods = res
+    return int(best), float(score), int(cap), int(pods)
+
+
+def compare_step(case, ops, kw, repeats=200, plain_repeats=20):
+    """placement_step and its plain version on the same CUDA operands: all
+    four outputs bitwise equal.  The kernel is timed over ``repeats``
+    launches through the loop's own C path (CUDA events around each
+    launch, summed); the plain version over ``plain_repeats`` calls."""
+    import torch
+
+    from scheduler_tpu_torch.ops import step_kernel as sk
+
+    got = _step_tuple(sk.placement_step(*ops, **kw))
+    ref = _step_tuple(sk.placement_step_reference(*ops, **kw))
+    ns = ops[0]
+    loop = sk.StepLoop.for_one_task(*ops, **kw)
+    try:
+        seen = {loop.step(0, -1) for _ in range(repeats)}
+    finally:
+        loop.close()
+    start, stop = events()
+    start.record()
+    for _ in range(plain_repeats):
+        sk.placement_step_reference(*ops, **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    equal = sk.same_result(got, ref) and all(sk.same_result(r, got) for r in seen)
+    bound_ms, bound_by = step_bound_ms(ops, kw)
+    rec = {"phase": "kernel_vs_plain", "kernel": "placement_step", "case": case,
+           "n": int(ns.shape[1]), "equal": equal, "max_abs_err": sk.max_abs_err(got, ref),
+           "result": list(got), "plain_result": list(ref), "ms": loop.k1_ms / repeats,
+           "launches_timed": repeats, "plain_ms": start.elapsed_time(stop) / plain_repeats,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           **{k: kw[k] for k in ("weights", "use_static", "enforce_pod_count",
+                                 "with_capacity")}}
+    emit(rec)
+    if not equal:
+        raise SystemExit(f"placement_step and its plain version disagree: {case}")
+    return rec
+
+
+def loop_step_operands(eng, t_idx=0, **overrides):
+    """The placement-step operands of the engine's loop at its first state,
+    for task row ``t_idx``, and the kernel's static arguments."""
+    import torch
+
+    from scheduler_tpu_torch.ops.fused import FUSED_OPERAND_NAMES, stage_step_operands
+
+    named = dict(zip(FUSED_OPERAND_NAMES, eng.args))
+    lkw = eng._allocate_kw()
+    (ns_host, alloc, smask, sscore, gate, plim, task_initq, task_req, mins,
+     r8) = stage_step_operands(*(named[k] for k in FUSED_OPERAND_NAMES[:10]),
+                               use_static=lkw["use_static"])
+    srow = t_idx if lkw["use_static"] else 0
+    ops = (torch.from_numpy(ns_host).to(alloc.device), alloc, smask[srow:srow + 1],
+           sscore[srow:srow + 1], gate, plim, task_initq[t_idx][:, None].contiguous(),
+           task_req[t_idx][:, None].contiguous(), mins)
+    kw = dict(r_dim=int(named["idle"].shape[1]), r8=r8,
+              weights=tuple(float(w) for w in lkw["weights"]), use_static=lkw["use_static"],
+              enforce_pod_count=lkw["enforce_pod_count"], cpu_idx=0, mem_idx=1,
+              with_capacity=lkw["batch_runs"])
+    kw.update(overrides)
+    return ops, kw
+
+
+def phase_loop_parity(cache, device, check_every):
+    """The main path's loop on operands staged from a second cluster built
+    the same way: once with the kernel (held to its plain version at the
+    first step and every ``check_every``-th), once with the plain version on
+    the card; the codes must be equal."""
+    import torch
+
+    from scheduler_tpu_torch.ops import fused as fused_mod
+
+    t0 = time.perf_counter()
+    _, eng = engine_for(cache, FLAGSHIP_CONF, device, engine="step")
+    init_s = time.perf_counter() - t0
+    args, kw = eng.args, eng._allocate_kw()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes_k, stats_k = fused_mod.fused_allocate(*args, **kw, check_every=check_every)
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes_p, stats_p = fused_mod.fused_allocate(*args, **kw, plain_step=True)
+    plain_s = time.perf_counter() - t0
+    equal = bool(torch.equal(codes_k, codes_p))
+    rec = {"phase": "loop_parity", "case": "config3_templates", "engine_init_s": init_s,
+           "equal": equal, "placed": int((codes_k >= 0).sum()), "steps": stats_k["steps"],
+           "plain_steps": stats_p["steps"], "checked_steps": stats_k["checked"],
+           "loop_s": kernel_s,
+           "plain_loop_s": plain_s, "k1_ms": stats_k["k1_ms"],
+           "us_per_step": 1e6 * kernel_s / stats_k["steps"]}
+    emit(rec)
+    if not equal:
+        raise SystemExit("the loop with placement_step and with its plain version disagree")
+    if stats_k["checked"] < 100:
+        raise SystemExit(f"only {stats_k['checked']} loop steps were checked")
+    return eng, rec
+
+
+def phase_step_kernel_cases(eng3, eng2, device):
+    """placement_step against its plain version: the templates loop's first
+    step (nb 16,384, with capacity), config 2's operands (static rows, pod
+    count, weights (1, 1, 0), no capacity), a random case at nb 65,536 (the
+    largest bucket the step-kernel gate admits) and an all-infeasible one."""
+    import torch
+
+    def random_case(n, **flags):
+        arrays = step_operands(n, n, 2, **flags)
+        return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+    full = dict(r_dim=2, r8=8, weights=(1.0, 1.0, 1.0), use_static=True,
+                enforce_pod_count=True, cpu_idx=0, mem_idx=1, with_capacity=True)
+    recs = [compare_step("config3_templates_first_step", *loop_step_operands(eng3)),
+            compare_step("config2_operands", *loop_step_operands(eng2, with_capacity=False)),
+            compare_step("random_65536", random_case(65536), full),
+            compare_step("infeasible_16384", random_case(16384, infeasible=True), full)]
+    if recs[-1]["result"][1] != float("-inf") or recs[-1]["result"][0] != 0:
+        raise SystemExit("the infeasible case must give best 0 and score -inf")
+    return recs
+
+
 # -- checks of what a main path bound ---------------------------------------------
 
-def check_binds(cache, n_nodes, n_pods, tasks_per_job):
-    """Flagship: no node overcommitted (by the pods' own requests and by
-    the cache's idle ledger) and every gang bound whole or not at all."""
+def check_binds(cache, n_nodes, n_pods, tasks_per_job, request_fn=None):
+    """Flagship-shaped clusters: no node overcommitted (by the pods' own
+    requests, ``request_fn(j, t)`` or the flagship's mix, and by the cache's
+    idle ledger) and every gang bound whole or not at all."""
     from scheduler_tpu_torch.harness.synthetic import GIB as H_GIB, mixed_request
 
     binds = dict(cache.binder.binds)
@@ -586,7 +850,8 @@ def check_binds(cache, n_nodes, n_pods, tasks_per_job):
         name = key.split("/", 1)[1]
         group, t = name.rsplit("-", 1)
         j = int(group.split("-")[1])
-        req = mixed_request(j * tasks_per_job + int(t), False)
+        req = (request_fn(j, int(t)) if request_fn is not None
+               else mixed_request(j * tasks_per_job + int(t), False))
         cpu, mem = used.get(host, (0.0, 0.0))
         used[host] = (cpu + req["cpu"], mem + req["memory"])
         per_gang[j] = per_gang.get(j, 0) + 1
@@ -656,24 +921,29 @@ def reset_counts():
     from scheduler_tpu_torch.actions import allocate
     from scheduler_tpu_torch.ops import megakernel as mk
     from scheduler_tpu_torch.ops import predicate_kernel as pk
+    from scheduler_tpu_torch.ops import step_kernel as sk
 
     allocate.routes["fused"] = allocate.routes["host"] = 0
     mk.launches = 0
     pk.launches = 0
+    sk.launches = 0
 
 
 def read_counts():
     from scheduler_tpu_torch.actions import allocate
     from scheduler_tpu_torch.ops import megakernel as mk
     from scheduler_tpu_torch.ops import predicate_kernel as pk
+    from scheduler_tpu_torch.ops import step_kernel as sk
 
-    return ({"mega_allocate": mk.launches, "static_predicate_mask": pk.launches},
-            dict(allocate.routes))
+    return ({"mega_allocate": mk.launches, "static_predicate_mask": pk.launches,
+             "placement_step": sk.launches}, dict(allocate.routes))
 
 
-def run_cycle(cache, conf_path):
+def run_cycle(cache, conf_path, engine="mega"):
     """One ``Scheduler.run_once`` on the card with the launch counts set to
-    0 just before and read just after.  Returns (record, launches)."""
+    0 just before and read just after; the fused route must run ``engine``:
+    one ``mega_allocate`` launch, or one ``placement_step`` launch a loop
+    step and none of ``mega_allocate``.  Returns (record, launches)."""
     import torch
 
     from scheduler_tpu_torch.scheduler import Scheduler
@@ -690,11 +960,17 @@ def run_cycle(cache, conf_path):
     spent = phases.end()
     launches, routes = read_counts()
     evidence = notes.get("cohort") or {}
-    rec = {"cycle_s": cycle_s, "phases_s": spent, "kernel_ms": evidence.get("kernel_ms"),
-           "steps": evidence.get("steps"), "cohort": evidence, "launches": launches,
-           "routes": routes}
-    if launches["mega_allocate"] != 1 or evidence.get("kernel_ms") is None:
+    rec = {"cycle_s": cycle_s, "phases_s": spent, "engine": evidence.get("engine"),
+           "kernel_ms": evidence.get("kernel_ms"), "steps": evidence.get("steps"),
+           "cohort": evidence, "launches": launches, "routes": routes}
+    if evidence.get("engine") != engine or evidence.get("kernel_ms") is None:
+        raise SystemExit(f"the main path did not run the {engine} engine: {evidence}")
+    if engine == "mega" and launches["mega_allocate"] != 1:
         raise SystemExit(f"the main path did not launch mega_allocate once: {launches}")
+    if engine == "step" and not (0 < rec["steps"] == launches["placement_step"]
+                                 and launches["mega_allocate"] == 0):
+        raise SystemExit(f"the loop did not launch placement_step once a step: {launches}, "
+                         f"{rec['steps']} steps")
     if routes["host"] != 0 or routes["fused"] < 1:
         raise SystemExit(f"the main path took the host route: {routes}")
     return rec, launches
@@ -720,6 +996,23 @@ def phase_main_path_flagship(cache, conf_path, n_nodes, n_pods, tasks_per_job):
     if binds < 1:
         raise SystemExit("the main path bound nothing")
     return launches
+
+
+def phase_main_path_templates(cache, conf_path, n_nodes, n_jobs, tasks_per_job):
+    """BASELINE config 3's nodes and gangs with one request template a job:
+    more than 4,096 signatures close the mega gate, and the loop runs with
+    one placement-step launch a step."""
+    rec, launches = run_cycle(cache, conf_path, engine="step")
+    binds, gangs = check_binds(cache, n_nodes, n_jobs * tasks_per_job, tasks_per_job,
+                               request_fn=job_template_request(n_jobs))
+    steps, k1_ms, loop_ms = rec["steps"], rec["kernel_ms"], rec["cohort"]["loop_ms"]
+    emit({"phase": "main_path", "config": "config3_templates", "nodes": n_nodes,
+          "pods": n_jobs * tasks_per_job, "jobs": n_jobs, "binds": binds, "gangs_bound": gangs,
+          "k1_ms": k1_ms, "loop_ms": loop_ms, "us_per_step": 1e3 * loop_ms / steps,
+          "k1_us_per_launch": 1e3 * k1_ms / steps, **rec})
+    if binds < 1:
+        raise SystemExit("the templates main path bound nothing")
+    return launches, rec
 
 
 def phase_kernel_cases(device):
@@ -810,30 +1103,53 @@ def phase_e2e_small(conf_path):
     from scheduler_tpu_torch.scheduler import Scheduler
 
     cases = (
-        ("config1", lambda: config1_cluster(), CONFIG1_CONF),
+        ("config1", lambda: config1_cluster(), CONFIG1_CONF, "mega"),
         ("flagship_64_x_600", lambda: make_synthetic_cluster(64, 600, tasks_per_job=10).cache,
-         FLAGSHIP_CONF),
+         FLAGSHIP_CONF, "mega"),
         ("flagship_8_x_600", lambda: make_synthetic_cluster(8, 600, tasks_per_job=10).cache,
-         FLAGSHIP_CONF),
+         FLAGSHIP_CONF, "mega"),
         ("config2_64_x_600", lambda: make_kubemark_density_cluster(64, 600).cache,
-         CONFIG2_CONF),
+         CONFIG2_CONF, "mega"),
         ("config2_predicates_64_x_600", lambda: spec_cluster(config2_predicates_spec()),
-         PRESSURE_CONF),
+         PRESSURE_CONF, "mega"),
+        # 4,200 single-pod jobs of distinct requests: the loop route.
+        ("templates_64_x_4200", lambda: template_cluster(64, 4200, 1), FLAGSHIP_CONF, "step"),
     )
-    for name, build, conf_text in cases:
+    for name, build, conf_text, engine in cases:
         with open(conf_path, "w") as f:
             f.write(conf_text)
         gpu = build()
+        reset_counts()
         Scheduler(gpu, scheduler_conf=conf_path).run_once()
+        launches, _ = read_counts()
         host = build()
         ssn = open_session(host, parse_scheduler_conf(conf_text).tiers, device="cpu")
         AllocateAction()._heap_loop(ssn, collect_candidates(ssn))
         close_session(ssn)
         equal = dict(gpu.binder.binds) == dict(host.binder.binds)
-        emit({"phase": "e2e_small", "case": name, "binds": len(gpu.binder.binds),
+        emit({"phase": "e2e_small", "case": name, "engine": engine,
+              "binds": len(gpu.binder.binds), "launches": launches,
               "equal_to_host_loop": equal})
         if not equal or not gpu.binder.binds:
             raise SystemExit(f"fused route and host loop disagree: {name}")
+        took = "placement_step" if engine == "step" else "mega_allocate"
+        if launches[took] < 1 or (engine == "step") != (launches["mega_allocate"] == 0):
+            raise SystemExit(f"{name}: the fused route did not run the {engine} engine")
+
+
+def step_entry(launches, slice_rec, recs, parity):
+    """K1's entry of the kernels line; every loop step that ``parity``
+    checked was bitwise equal (a disagreement stops the run)."""
+    return {"name": "placement_step", "route": "cuda",
+            "source": "scheduler_tpu_torch/csrc/placement_step.cu",
+            "replaces": "scheduler_tpu/ops/pallas_kernels.py:117", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "checked_loop_steps": parity["checked_steps"],
+            "ms": slice_rec["ms"], "plain_ms": slice_rec["plain_ms"],
+            "bound_ms": slice_rec["bound_ms"], "bound_by": slice_rec["bound_by"],
+            "library_ms": None,
+            "cases": {r["case"]: {k: r[k] for k in ("n", "ms", "plain_ms", "bound_ms", "bound_by")}
+                      for r in recs}}
 
 
 def mega_entry(mode, launches, rec):
@@ -852,6 +1168,8 @@ def main() -> int:
     parser.add_argument("--tasks-per-job", type=int, default=100)
     parser.add_argument("--config2-nodes", type=int, default=1000)
     parser.add_argument("--config2-pods", type=int, default=5000)
+    parser.add_argument("--template-jobs", type=int, default=5000)
+    parser.add_argument("--template-tasks", type=int, default=20)
     opts = parser.parse_args()
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -900,6 +1218,12 @@ def main() -> int:
                                            tasks_per_job=opts.tasks_per_job).cache,
             opts.nodes, opts.pods)
 
+    def templates_cluster():
+        return timed_build(
+            "config3_templates",
+            lambda: template_cluster(opts.nodes, opts.template_jobs, opts.template_tasks),
+            opts.nodes, opts.template_jobs * opts.template_tasks)
+
     # The main paths first, each on a cluster no other session has touched:
     # one cold cycle each, as a scheduler's first cycle after start-up.
     with open(conf_path, "w") as f:
@@ -912,12 +1236,18 @@ def main() -> int:
     flagship_launches = phase_main_path_flagship(flagship_cluster(), conf_path, opts.nodes,
                                                  opts.pods, opts.tasks_per_job)
     gc.collect()
+    templates_launches, _ = phase_main_path_templates(
+        templates_cluster(), conf_path, opts.nodes, opts.template_jobs, opts.template_tasks)
+    gc.collect()
 
     # The same operands again, from second clusters built the same way.
     static_full, eng2 = phase_full_size(config2_cluster(), CONFIG2_CONF, device,
                                         "config2_main_path_operands")
     pred_main, pred_wide, pred_err = phase_predicate_cases(eng2.st, device)
-    del eng2
+    eng3, parity = phase_loop_parity(templates_cluster(), device, check_every=200)
+    step_recs = phase_step_kernel_cases(eng3, eng2, device)
+    del eng2, eng3
+    gc.collect()
     phase_kernel_cases(device)
     cursor_full, _ = phase_full_size(flagship_cluster(), FLAGSHIP_CONF, device,
                                      "main_path_operands")
@@ -936,6 +1266,7 @@ def main() -> int:
          "library_ms": pred_main["library_ms"],
          "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K", "ms", "plain_ms",
                                              "bound_ms", "bound_by", "library_ms")}},
+        step_entry(templates_launches["placement_step"], step_recs[0], step_recs, parity),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

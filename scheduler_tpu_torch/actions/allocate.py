@@ -9,9 +9,11 @@ re-pushed after every pop.
 The action runs in one of two routes:
 
 * **fused** (every plugin device-capable, ``FusedAllocator.supported``): the
-  whole action — job selection and every task placement — is one launch of
-  the mega kernel (``ops/megakernel.py``) on the session's device, one
-  readback, one columnar commit.
+  whole action — job selection and every task placement — runs on the
+  session's device as one launch of the mega kernel (``ops/megakernel.py``)
+  or, where its gate closes, as the ``fused_allocate`` loop with one
+  placement-step launch a step (``ops/fused.py``); one result array, one
+  columnar commit.
 * **host**: the reference's per-task predicate/prioritize/select sweep
   using the session's host callbacks — the reference semantics, taken for
   the sessions the fused route declines (and for scan-dynamic jobs).
@@ -240,11 +242,11 @@ class AllocateAction(Action):
         with phases.phase("engine_init"):
             engine = FusedAllocator(ssn, candidates, device=ssn.device)
         with phases.phase("dispatch"):
-            engine.dispatch()  # non-blocking launch on the current stream
+            engine.dispatch()  # mega: non-blocking launch; step: the whole loop
         with phases.phase("device"):
             engine.readback()  # blocking collect of the codes
-        # Cohort evidence: cohorts seen by the build, kernel steps, tasks per
-        # step, chunk placements.
+        # Engine evidence: the engine, cohorts seen by the build, loop steps,
+        # tasks per step, chunk placements or the step kernel's time.
         phases.note("cohort", engine.run_stats())
         with phases.phase("decode"):
             items, node_batches, failures = engine.run_columnar()

@@ -3,19 +3,41 @@
 ``mega_operands_from_numpy`` turns the staged operands and static arguments
 of the JAX ``mega_allocate`` (``FusedAllocator._mega_args`` / ``_mega_kw``
 there, converted to numpy by the caller) into this package's tensors, so
-both kernels can run on the same inputs.  Cluster state travels as the
-``{queues, nodes, podGroups, pods}`` JSON that ``cli.load_cluster_state``
-reads in both packages.
+both kernels can run on the same inputs; ``fused_operands_from_numpy`` does
+the same for the JAX ``fused_allocate`` loop (``FusedAllocator.args`` /
+``_allocate_kw()``).  Cluster state travels as the ``{queues, nodes,
+podGroups, pods}`` JSON that ``cli.load_cluster_state`` reads in both
+packages.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from scheduler_tpu_torch.ops.fused import FUSED_OPERAND_NAMES, HOST_OPERANDS
 from scheduler_tpu_torch.ops.megakernel import OPERAND_NAMES
+
+# Positional operands of the JAX ``fused_allocate``
+# (scheduler_tpu/ops/fused.py:175-221).
+JAX_FUSED_ARG_NAMES = (
+    "idle", "releasing", "task_count", "allocatable", "pods_limit", "node_gate",
+    "mins", "init_resreq", "resreq", "static_mask", "static_score",
+    "job_task_offset", "job_task_num", "job_deficit", "job_gang_order",
+    "job_priority", "job_tiebreak", "job_queue", "job_alloc_init", "queue_rank",
+    "queue_has_jobs", "queue_deserved", "queue_alloc_init", "drf_total", "run_len",
+    "sig_of_task", "qfair_share", "qfair_over",
+)
+
+# Static arguments of the port's loop, taken over as they are.
+_FUSED_KW = ("comparators", "weights", "enforce_pod_count", "use_static", "batch_runs",
+             "sorted_jobs", "n_queues", "has_releasing", "step_kernel")
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True, order="C")).to(dev)
 
 
 def mega_operands_from_numpy(
@@ -28,12 +50,44 @@ def mega_operands_from_numpy(
     if missing:
         raise KeyError(f"missing mega_allocate operands: {missing}")
     dev = torch.device(device)
-    operands = tuple(
-        torch.from_numpy(np.array(ops[name], copy=True, order="C")).to(dev)
-        for name in OPERAND_NAMES
-    )
+    operands = tuple(_tensor(ops[name], dev) for name in OPERAND_NAMES)
     kw = {k: v for k, v in static.items() if k != "interpret"}
     kw["weights"] = tuple(float(w) for w in kw["weights"])
     kw["mins"] = tuple(float(x) for x in kw["mins"])
     kw["comparators"] = tuple(kw["comparators"])
     return operands, kw
+
+
+def fused_operands_from_numpy(
+    args: Sequence[np.ndarray], kw: dict, device
+) -> Tuple[tuple, dict]:
+    """``(operands, kw)`` for ``ops.fused.fused_allocate`` from the JAX
+    engine's loop operands (``args``, in ``JAX_FUSED_ARG_NAMES`` order) and
+    static arguments (``kw``): the ``HOST_OPERANDS`` as numpy arrays, the
+    rest as tensors on ``device``.  Signature-class compressed static tensors
+    are expanded back to one row per task through ``sig_of_task``; the
+    ``window`` unrolling and the queue-delta switch change no result and
+    are dropped.  Arms the port does not carry raise
+    ``NotImplementedError``."""
+    if len(args) != len(JAX_FUSED_ARG_NAMES):
+        raise TypeError(f"expected the {len(JAX_FUSED_ARG_NAMES)} JAX loop operands")
+    named = dict(zip(JAX_FUSED_ARG_NAMES, args))
+    unported = [name for name in ("queue_comparators", "overused_gate", "qfair_ladder")
+                if kw.get(name)]
+    if kw.get("mesh") is not None:
+        unported.append("mesh")
+    if kw.get("has_releasing") or np.any(named["releasing"]):
+        unported.append("releasing capacity")
+    if unported:
+        raise NotImplementedError(f"fused_allocate arms not ported: {unported}")
+    if kw.get("use_static") and kw.get("sig_compress"):
+        sig = np.asarray(named["sig_of_task"])
+        named["static_mask"] = np.asarray(named["static_mask"])[sig]
+        named["static_score"] = np.asarray(named["static_score"])[sig]
+    dev = torch.device(device)
+    operands = tuple(np.array(named[name], copy=True, order="C") if name in HOST_OPERANDS
+                     else _tensor(named[name], dev) for name in FUSED_OPERAND_NAMES)
+    port_kw = {k: kw[k] for k in _FUSED_KW}
+    port_kw["weights"] = tuple(float(w) for w in port_kw["weights"])
+    port_kw["comparators"] = tuple(port_kw["comparators"])
+    return operands, port_kw

@@ -1,22 +1,33 @@
-"""Fused allocate: the ENTIRE allocate action as one kernel launch, one readback.
+"""Fused allocate: the ENTIRE allocate action on the device, one result array.
 
-Host shim of the mega kernel (``ops/megakernel.py``): session -> snapshot
-tensors -> job and task ordering -> the kernel's staged operands -> one
-launch -> decoded rows for the commit.  It mirrors the JAX package's
-``FusedAllocator`` (``scheduler_tpu/ops/fused.py``) in its CURSOR-MODE mega
-arm: one queue, jobs laid out in init-key order, run batching of identical
-requests, cohort chunks — and, when the predicates or nodeorder plugin
-contributes session-static [T, N] mask/score tensors, the kernel's
-static-row mode (one mask and score row per static signature).
+Host shim of the two device engines: session -> snapshot tensors -> job and
+task ordering -> the engine's staged operands -> the run -> decoded rows for
+the commit.  It mirrors the JAX package's ``FusedAllocator``
+(``scheduler_tpu/ops/fused.py``) in CURSOR MODE (one queue, jobs laid out in
+init-key order), with run batching of identical requests, and its two
+engines:
 
-Sessions that the JAX engine would run in another mode raise
-``NotImplementedError`` naming the mode — releasing capacity, multi-queue
-proportion (and with it the qfair ladder), and the XLA while-loop /
-step-kernel path taken when the mega gate closes.  The LP flavor, the mesh
-and signature-class compression have no switch in this package (the last
+* **mega** — the whole loop as ONE launch of the mega kernel
+  (``ops/megakernel.py``), with cohort chunks and, when the predicates or
+  nodeorder plugin contributes session-static [T, N] mask/score tensors,
+  the kernel's static-row mode (one mask and score row per static
+  signature);
+* **step** — where the mega gate closes (more than 4,096 request
+  signatures, a node bucket past 32,768, static rows past 4 MiB) and the
+  step-kernel gate is open: ``fused_allocate``, the JAX engine's while
+  loop, driven from the host with ONE launch of the placement-step kernel
+  (``ops/step_kernel.py``) per step.
+
+The engine is chosen by the JAX engine's gates before anything runs.
+Sessions that the JAX engine would run in a mode this package lacks raise
+``NotImplementedError`` naming it: releasing capacity, multi-queue
+proportion (and with it the queue delta chain and the qfair ladder), and the
+XLA step arm of the loop (no step kernel: the top-2 score bound is live, or
+the node bucket is past 65,536).  The LP flavor, the mesh and
+signature-class compression have no switch in this package (the last
 changes only which buffer the same static rows are gathered from).
 
-The device result is ONE int32[T] array encoding the whole action:
+The result is ONE int32[T] array encoding the whole action:
   >= 0: allocated on that node   |   -1: never reached (left pending)
   -2: first infeasible task of its job (host records FitErrors)
 """
@@ -45,7 +56,8 @@ from scheduler_tpu_torch.ops.device import (
     resolve_device,
     scale_columns,
 )
-from scheduler_tpu_torch.ops.layout import SIG_REQ, STATS
+from scheduler_tpu_torch.ops import step_kernel as _sk
+from scheduler_tpu_torch.ops.layout import JOB_STATE, SIG_REQ, STATS
 from scheduler_tpu_torch.utils import phases
 from scheduler_tpu_torch.utils.scheduler_helper import (
     enabled_task_order_chain as _enabled_task_order_chain,
@@ -60,8 +72,32 @@ UNPLACED = -1
 FAILED = -2
 _PIPE_BASE = -3
 
+# `cur` sentinel: no selectable job is left, the action is over.
+HALT = -100
+
 # Upper bound on placements per micro-step in the run-batched fast path.
 MAX_BATCH = 128
+
+_BIG_I32 = 2**31 - 1
+
+# Operands of ``fused_allocate``: the JAX loop's, minus the releasing ledger
+# and the queue, signature-class and ladder operands of the arms this package
+# does not carry.
+FUSED_OPERAND_NAMES = (
+    "idle", "task_count", "allocatable", "pods_limit", "node_gate", "mins",
+    "init_resreq", "resreq", "static_mask", "static_score",
+    "job_task_offset", "job_task_num", "job_deficit", "job_gang_order",
+    "job_priority", "job_tiebreak", "job_alloc_init", "drf_total", "run_len",
+)
+
+# The loop operands that only the host reads: numpy arrays in ``args``.  The
+# rest lie on the engine's device, where the placement-step kernel reads
+# what ``stage_step_operands`` makes of them.
+HOST_OPERANDS = frozenset((
+    "idle", "task_count", "job_task_offset", "job_task_num", "job_deficit",
+    "job_gang_order", "job_priority", "job_tiebreak", "job_alloc_init", "drf_total",
+    "run_len",
+))
 
 # Comparators the fused job-selection chain understands, keyed by plugin name.
 _KNOWN_JOB_ORDER = ("priority", "gang", "drf")
@@ -73,12 +109,290 @@ def _cohort_chunks(device: torch.device) -> int:
     return 4 if device.type == "cuda" else 1
 
 
-class FusedAllocator:
-    """Host shim: session -> tensors -> one mega_allocate launch -> decoded rows.
+# -- the loop engine ---------------------------------------------------------------
 
-    Built fresh every cycle.  Execution is split into a non-blocking
-    ``dispatch`` and a blocking ``readback`` so callers can overlap host
-    work with the device."""
+def _loop_arm_check(*, batch_runs, weights, sorted_jobs, n_queues, has_releasing,
+                    step_kernel, comparators) -> None:
+    """The arms of the JAX loop that this package carries: cursor mode with
+    the placement-step kernel.  Every other arm raises, named."""
+    if has_releasing:
+        raise NotImplementedError("fused_allocate arm not ported: releasing capacity")
+    if not sorted_jobs or n_queues != 1:
+        raise NotImplementedError(
+            "fused_allocate arm not ported: multi-queue / unsorted job selection")
+    if set(comparators) - set(_KNOWN_JOB_ORDER):
+        raise ValueError(f"unknown job-order comparators {comparators}")
+    binpack_only = weights[0] == 0.0 and weights[1] == 0.0 and weights[2] > 0.0
+    if not step_kernel or (batch_runs and not binpack_only):
+        raise NotImplementedError(
+            "fused_allocate arm not ported: the XLA step arm (no placement-step "
+            "kernel: top-2 score bound live, or node bucket past 65,536)")
+
+
+def stage_step_operands(idle, task_count, allocatable, pods_limit, node_gate, mins,
+                        init_resreq, resreq, static_mask, static_score, *, use_static):
+    """The placement-step kernel's operands for a whole loop, as the JAX loop
+    stages them (``scheduler_tpu/ops/fused.py:323-351``, ``:982-988``):
+    ``(ns_host, alloc, smask, sscore, gate, plim, task_initq, task_req,
+    mins, r8)``.  ``ns_host`` is the host's float32 [r8 + 8, n] node state
+    (idle rows, task-count row r8), built from the host's ``idle`` and
+    ``task_count``; ``task_initq`` / ``task_req`` hold every task's request
+    rows [T, r8] (pad rows -1 / 0); the rest lie on ``allocatable``'s
+    device.  Without ``use_static`` the static rows are [1, n] dummies the
+    kernel never reads."""
+    dev = allocatable.device
+    n, r_dim = allocatable.shape
+    t_cap = resreq.shape[0]
+    r8 = -(-r_dim // 8) * 8
+    f32 = torch.float32
+    ns_host = np.zeros((r8 + 8, n), dtype=np.float32)
+    ns_host[:r_dim] = np.asarray(idle, dtype=np.float32).T
+    ns_host[r8] = np.asarray(task_count, dtype=np.float32)
+    alloc = torch.zeros((r8, n), dtype=f32, device=dev)
+    alloc[:r_dim] = allocatable.T
+    task_initq = torch.cat(
+        [init_resreq, torch.full((t_cap, r8 - r_dim), -1.0, dtype=f32, device=dev)], dim=1
+    ).contiguous()
+    task_req = torch.cat(
+        [resreq, torch.zeros((t_cap, r8 - r_dim), dtype=f32, device=dev)], dim=1
+    ).contiguous()
+    mins_c = torch.cat([mins, torch.zeros(r8 - r_dim, dtype=f32, device=dev)])[:, None]
+    if use_static:
+        if tuple(static_mask.shape) != (t_cap, n):
+            raise ValueError(f"static rows: expected shape {(t_cap, n)}, got "
+                             f"{tuple(static_mask.shape)}")
+        smask, sscore = static_mask.contiguous(), static_score.contiguous()
+    else:
+        smask = torch.ones((1, n), dtype=torch.bool, device=dev)
+        sscore = torch.zeros((1, n), dtype=f32, device=dev)
+    gate = node_gate[None, :].contiguous()
+    plim = pods_limit.to(f32)[None, :].contiguous()
+    return ns_host, alloc, smask, sscore, gate, plim, task_initq, task_req, mins_c, r8
+
+
+def fused_allocate(
+    idle: np.ndarray,               # f32 [N, R] (device units, node-bucket padded)
+    task_count: np.ndarray,         # i32 [N]
+    allocatable: torch.Tensor,      # f32 [N, R]
+    pods_limit: torch.Tensor,       # i32 [N]
+    node_gate: torch.Tensor,        # bool [N] ready & not padding
+    mins: torch.Tensor,             # f32 [R]
+    init_resreq: torch.Tensor,      # f32 [T, R] (task-bucket padded)
+    resreq: torch.Tensor,           # f32 [T, R]
+    static_mask: torch.Tensor,      # bool [T, N] ([1, 1] dummy without use_static)
+    static_score: torch.Tensor,     # f32 [T, N]
+    job_task_offset: np.ndarray,    # i32 [J]
+    job_task_num: np.ndarray,       # i32 [J] (0 for padding)
+    job_deficit: np.ndarray,        # i32 [J] ready-break deficit
+    job_gang_order: np.ndarray,     # i32 [J] gang deficit for the ORDER comparator
+    job_priority: np.ndarray,       # i32 [J]
+    job_tiebreak: np.ndarray,       # i32 [J] rank by (creation, uid)
+    job_alloc_init: np.ndarray,     # f32 [J, R] drf allocated at session open
+    drf_total: np.ndarray,          # f32 [R] cluster totals
+    run_len: np.ndarray,            # i32 [T] identical-request run from each task
+    *,
+    comparators,
+    weights,
+    enforce_pod_count: bool,
+    use_static: bool = False,
+    batch_runs: bool = False,
+    sorted_jobs: bool = True,
+    n_queues: int = 1,
+    has_releasing: bool = False,
+    step_kernel: bool = True,
+    plain_step: bool = False,
+    check_every: int = 0,
+):
+    """The JAX engine's ``fused_allocate`` while loop
+    (``scheduler_tpu/ops/fused.py:175-1030``) in cursor mode with the
+    placement-step kernel, driven from the host.  Returns ``(codes, stats)``:
+    int32 [T] codes on the host, bit for bit the JAX loop's, and
+    ``{"steps": kernel steps, "chain_selects": selections through the
+    comparator chain, "k1_ms": the kernel's summed event time (CUDA only)}``
+    plus, with ``check_every``, the count of kernel-versus-plain checks.
+    The ``HOST_OPERANDS`` are numpy arrays read on the host; the others
+    lie on the device that runs the kernel.
+
+    Each step is one placement-step call over the whole node axis (a CUDA
+    launch on CUDA operands, its plain version on CPU operands or with
+    ``plain_step``); the node state lives on the device for it, and the host
+    keeps a float32 mirror that it updates with the step's column add and
+    pushes back one column a step.  Job selection (cursor, or the comparator
+    chain while dirty jobs exist), batch sizing, the float32 job state
+    (``JOB_STATE`` columns) and the codes stay on the host: float32 IEEE
+    operations in the JAX loop's order give its bits.  The JAX ``window``
+    unrolling is left out: it changes no result (a micro-step past the end
+    is a no-op), and here the loop simply stops when the JAX liveness
+    condition fails.  ``check_every`` > 0 holds the kernel to its plain
+    version (all four outputs, bitwise) at the first step and every
+    ``check_every``-th one."""
+    _loop_arm_check(batch_runs=batch_runs, weights=weights, sorted_jobs=sorted_jobs,
+                    n_queues=n_queues, has_releasing=has_releasing, step_kernel=step_kernel,
+                    comparators=comparators)
+    from scheduler_tpu_torch.api.vocab import CPU as _CPU_IDX, MEMORY as _MEM_IDX
+
+    dev = allocatable.device
+    n, r_dim = allocatable.shape
+    t_cap = resreq.shape[0]
+    cross_batch = batch_runs  # cursor mode
+    (ns_host, alloc_t, smask, sscore, gate, plim, task_initq, task_req, mins_c,
+     r8) = stage_step_operands(idle, task_count, allocatable, pods_limit, node_gate, mins,
+                               init_resreq, resreq, static_mask, static_score,
+                               use_static=use_static)
+    offsets = np.asarray(job_task_offset, dtype=np.int64)
+    nums = np.asarray(job_task_num, dtype=np.int64)
+    deficit = np.asarray(job_deficit, dtype=np.int64)
+    gang_order = np.asarray(job_gang_order, dtype=np.int64)
+    priority = np.asarray(job_priority, dtype=np.int32)
+    tiebreak = np.asarray(job_tiebreak, dtype=np.int32)
+    alloc_init = np.asarray(job_alloc_init, dtype=np.float32)
+    if cross_batch:
+        # Pad the job axis so the cross-job [cur, cur + m) rows never clamp.
+        def pad(a, v):
+            return np.concatenate([a, np.full((MAX_BATCH,) + a.shape[1:], v, dtype=a.dtype)])
+
+        offsets, nums, deficit, gang_order = (pad(a, 0) for a in (offsets, nums, deficit,
+                                                                 gang_order))
+        priority, tiebreak = pad(priority, 0), pad(tiebreak, _BIG_I32)
+        alloc_init = pad(alloc_init, 0)
+    j_cap = nums.shape[0]
+    n_real = int((nums > 0).sum())
+    nums_f = nums.astype(np.float32)
+    gang_f = gang_order.astype(np.float32)
+    total = np.asarray(drf_total, dtype=np.float32)
+    total_safe = np.where(total > 0, total, np.float32(1.0)).astype(np.float32)
+    total_mask = total > 0
+    req8 = task_req.cpu().numpy()  # the task rows the kernel reads, pad rows 0
+    req_h = req8[:, :r_dim]
+    neg_req8 = -req8  # the column add's -req rows, pad rows -0
+    run_l = np.asarray(run_len, dtype=np.int64).tolist()
+    offsets_l, nums_l, deficit_l = offsets.tolist(), nums.tolist(), deficit.tolist()
+
+    # job_state f32 [J, 3 + R]: consumed | n_alloc | left | drf allocated.
+    job_state = np.zeros((j_cap, JOB_STATE.DRF + r_dim), dtype=np.float32)
+    job_state[:, JOB_STATE.DRF:] = alloc_init
+    cross_head = np.zeros(JOB_STATE.DRF + r_dim, dtype=np.float32)
+    cross_head[JOB_STATE.CONSUMED] = cross_head[JOB_STATE.ALLOCATED] = 1.0
+    out = np.full(t_cap + MAX_BATCH, UNPLACED, dtype=np.int32)
+
+    def select_dirty(cursor0: int) -> int:
+        """The comparator chain over the dirty jobs and the cursor head
+        (indices <= cursor0): a lexicographic masked argmin, integer keys
+        kept integer, then the tiebreak rank."""
+        hi = min(cursor0 + 1, j_cap)
+        js = job_state[:hi]
+        cand = (js[:, JOB_STATE.LEFT] == 0) & (js[:, JOB_STATE.CONSUMED] < nums_f[:hi])
+        for name in comparators:
+            if name == "priority":
+                key, sentinel = -priority[:hi], np.int32(_BIG_I32)
+            elif name == "gang":
+                key = ((gang_f[:hi] - js[:, JOB_STATE.ALLOCATED]) <= 0).astype(np.int32)
+                sentinel = np.int32(_BIG_I32)
+            else:  # drf
+                frac = np.where(total_mask[None, :], js[:, JOB_STATE.DRF:] / total_safe[None, :],
+                                np.float32(0.0))
+                key, sentinel = frac.max(axis=1), np.float32(np.inf)
+            masked = np.where(cand, key, sentinel)
+            cand = cand & (masked == masked.min())
+        if not cand.any():
+            return HALT
+        return int(np.argmin(np.where(cand, tiebreak[:hi], np.int32(_BIG_I32))))
+
+    stepper = _sk.StepLoop(
+        ns_host, alloc_t, smask, sscore, gate, plim, task_initq, task_req, mins_c,
+        device=dev, plain=plain_step, check_every=check_every, r_dim=r_dim, r8=r8,
+        weights=tuple(float(w) for w in weights), use_static=use_static,
+        enforce_pod_count=enforce_pod_count, cpu_idx=_CPU_IDX, mem_idx=_MEM_IDX,
+        with_capacity=batch_runs)
+    ns = stepper.ns_host  # the mirror the stepper pushes columns from
+    cur, cursor, n_dirty, steps, push, chain_selects = -1, 0, 0, 0, -1, 0
+    try:
+        while True:
+            if cur < 0:
+                # Liveness: every eligible job is fresh (past the cursor),
+                # dirty, or in its pop; a HALT ends the action.
+                if cur == HALT or not (cursor < n_real or n_dirty > 0):
+                    break
+                cursor0 = cursor
+                if n_dirty > 0:
+                    sel = select_dirty(cursor0)
+                    chain_selects += 1
+                else:
+                    sel = cursor0
+                if sel < 0:
+                    cur = HALT
+                    continue
+                if sel == cursor0:
+                    cursor += 1
+                else:
+                    n_dirty -= 1  # a chain winner off the head is a dirty job
+                cur = sel
+            steps += 1
+            if steps > t_cap:
+                raise RuntimeError("fused_allocate: the loop outran its task count")
+            t_idx = min(max(offsets_l[cur] + int(job_state[cur, JOB_STATE.CONSUMED]), 0),
+                        t_cap - 1)
+            best, score, cap, pods = stepper.step(t_idx, push)
+            push = -1
+            best = min(best, n - 1)
+            if score == float("-inf"):
+                # First infeasible task: the pop ends, the job leaves.
+                job_state[cur, :JOB_STATE.DRF] += (1.0, 0.0, 1.0)
+                job_state[cur, JOB_STATE.DRF:] += np.float32(0.0) * req_h[t_idx]
+                out[t_idx] = FAILED
+                cur = -1
+                continue
+            single_pop = nums_l[cur] == 1
+            if batch_runs:
+                d = deficit_l[cur]
+                room = d - int(job_state[cur, JOB_STATE.ALLOCATED]) if d > 0 else 1
+                if single_pop and n_dirty == 0:
+                    room = MAX_BATCH  # cross-job run of one-task pops
+                hi0 = min(run_l[t_idx], MAX_BATCH, room)
+                if enforce_pod_count:
+                    hi0 = min(hi0, pods)
+                m = max(min(cap, max(hi0, 1)), 1)
+            else:
+                m = 1
+            m_f = np.float32(m)
+            # The node ledger's column add: idle rows -= m * req, task count += m.
+            ns[:r8, best] += neg_req8[t_idx] * m_f
+            ns[r8, best] += m_f
+            push = best
+            if cross_batch and single_pop:
+                # m one-task pops at once: rows [cur, cur + m) each consume,
+                # allocate and add their request; the cursor retires them.
+                cross_head[JOB_STATE.DRF:] = req_h[t_idx]
+                job_state[cur:cur + m] += cross_head
+                cursor += m - 1
+            else:
+                job_state[cur, :JOB_STATE.DRF] += (m, m, 0.0)
+                job_state[cur, JOB_STATE.DRF:] += m_f * req_h[t_idx]
+            out[t_idx:t_idx + m] = best
+            became_ready = job_state[cur, JOB_STATE.ALLOCATED] >= deficit_l[cur]
+            drained = job_state[cur, JOB_STATE.CONSUMED] >= nums_l[cur]
+            if became_ready or drained:
+                if became_ready and not drained:
+                    n_dirty += 1  # ready with a tail: re-enters the pool
+                cur = -1
+    finally:
+        stepper.close()
+    stats = {"steps": steps, "chain_selects": chain_selects, "k1_ms": stepper.k1_ms}
+    if check_every:
+        stats["checked"] = stepper.checked
+    return torch.from_numpy(out[:t_cap].copy()), stats
+
+
+class FusedAllocator:
+    """Host shim: session -> tensors -> the mega kernel or the loop ->
+    decoded rows.
+
+    Built fresh every cycle.  ``engine`` says which engine the JAX gates
+    chose; setting ``use_mega = False`` on an engine that chose the mega
+    kernel runs the loop on the same session instead (as the JAX tests do).
+    Execution is split into ``dispatch`` and a blocking ``readback``; the
+    mega kernel's dispatch does not block, so callers can overlap host work
+    with the device."""
 
     def __init__(self, ssn, jobs: Sequence[JobInfo], device=None) -> None:
         self.device = resolve_device(device)
@@ -88,7 +402,8 @@ class FusedAllocator:
         self._stats_raw = None    # collected evidence of the last readback
         self._encoded = None      # decoded int32 codes of the last readback
         self._events = None       # CUDA events around the in-flight launch
-        self.kernel_ms = None     # device time of the last launch (CUDA only)
+        self.kernel_ms = None     # the kernel's device time in the last run (CUDA only)
+        self.loop_ms = None       # the whole loop of the last step-engine run (CUDA only)
         # Cohort evidence: host-side cohort table summary + chunk count.
         self.cohort_count = 0     # maximal identical-shape runs of length >= 2
         self.cohort_tasks = 0     # tasks covered by those runs
@@ -365,7 +680,7 @@ class FusedAllocator:
         self.has_releasing = bool(np.any(st.nodes.releasing))
         self.enforce_pod_count = "pod_count" in ssn.device_dynamic_gates
 
-        # --- modes: only the cursor-mode mega arm is ported -------------------
+        # --- engines: the cursor-mode mega arm and the loop with K1 ------------
         if not single_queue:
             raise NotImplementedError(
                 "fused allocate mode not ported: multi-queue proportion"
@@ -380,6 +695,25 @@ class FusedAllocator:
             and self.weights[2] > 0.0
         )
         score_bound = self.batch_runs and not binpack_only
+        # The JAX engine's step-kernel gate (scheduler_tpu/ops/fused.py:1670-1691;
+        # no releasing capacity here): the loop can run its selection as the
+        # placement-step kernel unless the top-2 score bound needs the whole
+        # masked-score vector or the node state outgrows the kernel's budget.
+        r8 = -(-r // 8) * 8
+        self.step_kernel = bool(
+            not self.has_releasing
+            and not score_bound
+            and (2 * r8 + 12) * nb * 4 <= 8 * 1024 * 1024
+        )
+        mins_f32 = np.asarray(policy.scaled_mins(r), dtype=np.float32)
+        # The loop's operands, staged lazily (``args``): a session that runs
+        # the mega kernel never builds them.
+        self._args = None
+        self._args_parts = (
+            scale, node_gate, total, offsets, nums, deficits, gang_order, priorities,
+            tiebreak, alloc_init, run_host, static_mask_dev, static_score_dev, mins_f32,
+        )
+        self.use_mega = False
         mega_ok = _mk.mega_supported(
             has_releasing=False,
             use_static=False,
@@ -404,23 +738,28 @@ class FusedAllocator:
                 comparators=self.comparators,
                 n_static_sigs=int(static_sids.max()) + 1 if static_sids.size else 0,
             )
-        if not mega_ok:
-            raise NotImplementedError(
-                "fused allocate mode not ported: XLA while-loop / K1 path "
-                "(mega gate closed)"
+        if mega_ok:
+            self._prepare_mega(
+                policy, scale, nb, tb, r, offsets, nums, deficits,
+                gang_order, priorities, tiebreak, alloc_init, total, run_host,
+                score_bound, static_sids, static_mask_dev, static_score_dev,
             )
-        self.use_mega = False
-        state = {
+        if t_total and not self.use_mega and not self.step_kernel:
+            raise NotImplementedError(
+                "fused allocate mode not ported: the XLA step arm of the loop "
+                "(mega gate closed, no placement-step kernel: top-2 score bound "
+                "live, or node bucket past 65,536)"
+            )
+
+    def _node_state(self, scale) -> Dict[str, np.ndarray]:
+        """Padded, unit-scaled host node columns (device units)."""
+        st, nb = self.st, self.n_bucket
+        return {
             "idle": pad_rows(scale_columns(st.nodes.idle, scale), nb),
             "task_count": pad_rows(st.nodes.task_count.astype(np.int32), nb),
             "allocatable": pad_rows(scale_columns(st.nodes.allocatable, scale), nb),
             "pods_limit": pad_rows(st.nodes.pods_limit.astype(np.int32), nb),
         }
-        self._prepare_mega(
-            policy, scale, state, node_gate, nb, tb, r, offsets, nums, deficits,
-            gang_order, priorities, tiebreak, alloc_init, total, run_host,
-            score_bound, static_sids, static_mask_dev, static_score_dev,
-        )
 
     def _static_signature_ids(self, ssn) -> Optional[np.ndarray]:
         """Dense per-task STATIC-signature ids: tasks sharing (selector row,
@@ -470,7 +809,7 @@ class FusedAllocator:
         _, sids = np.unique(combined, return_inverse=True)  # densify
         return sids.astype(np.int32)
 
-    def _prepare_mega(self, policy, scale, state, node_gate, nb, tb, r,
+    def _prepare_mega(self, policy, scale, nb, tb, r,
                       offsets, nums, deficits, gang_order, priorities,
                       tiebreak, alloc_init, total, run_host,
                       score_bound, static_sids=None, static_mask_dev=None,
@@ -478,7 +817,8 @@ class FusedAllocator:
         """Stage the mega kernel's operands on the device — per-signature
         request table, lane-packed job columns, transposed node rows, and
         the per-static-signature mask/score rows in static-row mode — and
-        its static arguments.  Sets ``use_mega``."""
+        its static arguments.  Sets ``use_mega`` only if the signature table
+        fits the kernel's cap of 4,096."""
         from scheduler_tpu_torch.api.vocab import CPU as _CPU_IDX, MEMORY as _MEM_IDX
 
         t = self.flat_count
@@ -491,10 +831,9 @@ class FusedAllocator:
         inverse, uniq_rows = _mk.request_signature_ids(req_s, init_s)
         s_count = uniq_rows.shape[0]
         if s_count > 4096:
-            raise NotImplementedError(
-                "fused allocate mode not ported: XLA while-loop / K1 path "
-                "(more than 4096 request signatures)"
-            )
+            return  # the mega gate closes (scheduler_tpu/ops/fused.py:1935-1936)
+        node_gate = self._args_parts[1]
+        state = self._node_state(scale)
         s_pad = max(128, -(-s_count // 128) * 128)
         sig_req = np.zeros((16, s_pad), dtype=np.float32)
         sig_req[SIG_REQ.REQ : SIG_REQ.REQ + r, :s_count] = uniq_rows[:, :r].T
@@ -652,25 +991,100 @@ class FusedAllocator:
 
     # -- run + decode --------------------------------------------------------
 
+    @property
+    def engine(self) -> str:
+        """``"mega"`` (one launch of the whole loop), ``"step"`` (the loop
+        with one placement-step launch a step) or ``"none"`` (nothing
+        pending)."""
+        if self.flat_count == 0:
+            return "none"
+        return "mega" if self.use_mega else "step"
+
+    @property
+    def args(self) -> tuple:
+        """The loop's operands (``FUSED_OPERAND_NAMES``), staged at first use
+        as the JAX engine's ``args`` are (``scheduler_tpu/ops/fused.py:2772-2810``),
+        minus the releasing, queue, signature-class and ladder operands: the
+        ``HOST_OPERANDS`` as numpy arrays, the rest on the engine's device."""
+        if self._args is None:
+            (scale, node_gate, total, offsets, nums, deficits, gang_order, priorities,
+             tiebreak, alloc_init, run_host, static_mask_dev, static_score_dev,
+             mins_f32) = self._args_parts
+            dev = self.device
+            st, tb, t = self.st, self._t_bucket, self.flat_count
+            state = self._node_state(scale)
+
+            def to_dev(a, dtype=None):
+                a = np.ascontiguousarray(a if dtype is None else np.asarray(a, dtype=dtype))
+                return torch.from_numpy(a).to(dev)
+
+            def f32(a):
+                return np.ascontiguousarray(a, dtype=np.float32)
+
+            if static_mask_dev is None:
+                static_mask_dev = torch.ones((1, 1), dtype=torch.bool, device=dev)
+                static_score_dev = torch.zeros((1, 1), dtype=torch.float32, device=dev)
+            self._args = (
+                f32(state["idle"]),
+                state["task_count"],
+                to_dev(state["allocatable"], np.float32),
+                to_dev(state["pods_limit"]),
+                to_dev(node_gate),
+                to_dev(mins_f32),
+                to_dev(pad_rows(scale_columns(st.tasks.init_resreq[:t], scale), tb), np.float32),
+                to_dev(pad_rows(scale_columns(st.tasks.resreq[:t], scale), tb), np.float32),
+                static_mask_dev,
+                static_score_dev,
+                offsets,
+                nums,
+                deficits,
+                gang_order,
+                priorities,
+                tiebreak,
+                f32(scale_columns(alloc_init, scale)),
+                f32(scale_columns(total[None, :], scale)[0]),
+                run_host,
+            )
+        return self._args
+
+    def _allocate_kw(self) -> dict:
+        """The loop's static arguments (the JAX ``_allocate_kw`` of the arm
+        this package carries)."""
+        return dict(
+            comparators=self.comparators,
+            weights=self.weights,
+            enforce_pod_count=self.enforce_pod_count,
+            use_static=self.use_static,
+            batch_runs=self.batch_runs,
+            sorted_jobs=True,
+            n_queues=len(self.queue_uids),
+            has_releasing=self.has_releasing,
+            step_kernel=self.step_kernel,
+        )
+
     def dispatch(self) -> None:
-        """Launch the kernel WITHOUT blocking (the launch is enqueued on the
-        current stream); ``readback`` collects it.  A no-op when a launch is
-        already in flight or nothing is pending."""
-        if self._dev is not None or not self.use_mega:
+        """Start the engine: the mega kernel is enqueued on the current
+        stream WITHOUT blocking (``readback`` collects it); the loop runs to
+        its end here, since every step waits for its selection.  A no-op
+        when a run is in flight or nothing is pending."""
+        if self._dev is not None or self.flat_count == 0:
             return
         if self.device.type == "cuda":
-            # Kernel time on the device clock, read at readback.
+            # Device time on the device clock, read at readback.
             self._events = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
             self._events[0].record()
-        self._dev, self._dev_stats = _mk.mega_allocate(*self._mega_args, **self._mega_kw)
+        if self.use_mega:
+            self._dev, self._dev_stats = _mk.mega_allocate(*self._mega_args, **self._mega_kw)
+        else:
+            self._dev, self._dev_stats = fused_allocate(*self.args, **self._allocate_kw())
         if self._events is not None:
             self._events[1].record()
 
     def readback(self) -> np.ndarray:
-        """Blocking collect of the dispatched launch's placement codes
-        (dispatching first when no launch is in flight)."""
-        if not self.use_mega:
+        """Blocking collect of the dispatched run's placement codes
+        (dispatching first when nothing is in flight)."""
+        if self.flat_count == 0:
             self._encoded = np.zeros(0, dtype=np.int32)
             self._stats_raw = None
             return self._encoded
@@ -679,11 +1093,15 @@ class FusedAllocator:
         dev, self._dev = self._dev, None
         stats, self._dev_stats = self._dev_stats, None
         self._encoded = dev.cpu().numpy().astype(np.int32, copy=False)
-        self._stats_raw = stats.cpu().numpy()
+        self._stats_raw = stats if isinstance(stats, dict) else stats.cpu().numpy()
         if self._events is not None:
             start, stop = self._events
             self._events = None
-            self.kernel_ms = start.elapsed_time(stop)
+            if self.use_mega:
+                self.kernel_ms = start.elapsed_time(stop)
+            else:
+                self.loop_ms = start.elapsed_time(stop)
+                self.kernel_ms = self._stats_raw["k1_ms"]
         return self._encoded
 
     def _codes(self) -> np.ndarray:
@@ -693,28 +1111,38 @@ class FusedAllocator:
         return encoded
 
     def run_stats(self) -> dict:
-        """Cohort/step evidence of the last launch: cohorts seen by the
-        build, loop steps, tasks per step, chunk placements."""
+        """Evidence of the last run: the engine, cohorts seen by the build,
+        loop steps, tasks per step, chunk placements (mega) or the loop's
+        time (step).  ``kernel_ms`` is the kernel's device time from CUDA
+        events: the one mega launch, or the placement-step launches summed
+        (also ``k1_ms``); ``loop_ms`` is the whole loop, host steps included,
+        from CUDA events around it."""
         out = {
-            "engine": "mega" if self.use_mega else "none",
+            "engine": self.engine,
             "cohorts": self.cohort_count,
-            "cohort_chunks": self.cohort_effective,
+            "cohort_chunks": self.cohort_effective if self.use_mega else 1,
         }
         enc = self._encoded
         if enc is not None:
             codes = enc[: self.flat_count]
             out["placed"] = int(((codes >= 0) | (codes <= _PIPE_BASE)).sum())
         raw = self._stats_raw
-        if raw is not None:
+        if isinstance(raw, dict):
+            out["steps"] = raw["steps"]
+            if raw["k1_ms"] is not None:
+                out["k1_ms"] = raw["k1_ms"]
+        elif raw is not None:
             steps = int(raw[STATS.STEPS])
             out["steps"] = steps
             out["cohort_steps"] = int(raw[STATS.COHORT_STEPS])
             out["chunk_placed"] = int(raw[STATS.CHUNK_PLACED])
             out["fallback_steps"] = steps - out["cohort_steps"]
-            if steps > 0 and "placed" in out:
-                out["tasks_per_step"] = round(out["placed"] / steps, 2)
+        if out.get("steps") and "placed" in out:
+            out["tasks_per_step"] = round(out["placed"] / out["steps"], 2)
         if self.kernel_ms is not None:
             out["kernel_ms"] = self.kernel_ms
+        if self.loop_ms is not None:
+            out["loop_ms"] = self.loop_ms
         return out
 
     def run_columnar(self):

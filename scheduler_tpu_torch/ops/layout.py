@@ -1,6 +1,6 @@
-"""Row layouts of the mega kernel's scratch, stats and request tables.
+"""Row layouts of the kernels' scratch, stats and request tables.
 
-The rows this package's cursor-mode kernel reads and writes, copied from
+The rows this package's cursor-mode kernels and loop read and write, copied from
 ``scheduler_tpu/ops/layout.py`` with the same names and indices so that a
 reader can match the CUDA source, the plain PyTorch version and the JAX
 kernel row for row.  Rows of modes this package does not carry (the
@@ -41,6 +41,25 @@ class STATS:
 
 
 STATS_WIDTH = 8
+
+
+class JOB_STATE:
+    """The ``fused_allocate`` loop's per-job state columns (``ops/fused.py``
+    job_state, [J, 3 + r_dim]): the loop's twin of ``JOB_SCRATCH`` rows
+    0..2 and 8..15."""
+
+    CONSUMED = 0
+    ALLOCATED = 1
+    LEFT = 2
+    DRF = 3    # span r_dim: drf allocated, columns 3..3+r_dim-1
+
+
+class STEP_NODE:
+    """The placement-step kernel's packed node state (``ops/step_kernel.py``
+    ``ns``, f32 [r8 + 8, n]): the idle block is r8 = r_dim padded to 8
+    rows, so the task-count row sits at ``STEP_NODE.IDLE + r8``."""
+
+    IDLE = 0
 
 
 class SIG_REQ:

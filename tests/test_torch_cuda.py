@@ -9,8 +9,11 @@ checkout (``--noconftest``: the suite's conftest imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each case builds a session with the port's harness on the card, launches
-``mega_allocate`` and holds it against ``mega_allocate_reference`` on the
-same CUDA operands: codes and stats bitwise equal (tolerance: none).
+a kernel and holds it against its plain version on the same CUDA operands,
+bitwise (tolerance: none): ``mega_allocate`` (codes and stats),
+``static_predicate_mask`` (the mask), ``placement_step`` (all four outputs)
+and the ``fused_allocate`` loop with it (codes, against the loop with the
+plain version on the card).
 """
 
 import numpy as np
@@ -21,8 +24,10 @@ import chip_smoke as smoke
 import scheduler_tpu_torch.actions  # noqa: F401  registry side effects
 import scheduler_tpu_torch.plugins  # noqa: F401
 from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
+from scheduler_tpu_torch.ops import fused as fused_mod
 from scheduler_tpu_torch.ops import megakernel as mk
 from scheduler_tpu_torch.ops import predicate_kernel as pk
+from scheduler_tpu_torch.ops import step_kernel as sk
 
 
 def _card() -> torch.device:
@@ -126,3 +131,72 @@ def test_scheduler_on_cuda_binds_as_the_host_loop(tmp_path):
     close_session(ssn)
     assert dict(gpu.binder.binds) == dict(host.binder.binds)
     assert len(gpu.binder.binds) == 600
+
+
+# case id -> (nodes, seed, operand flags, kernel flags)
+STEP_CASES = {
+    "binpack-capacity": (1024, 1, {}, dict(weights=(0.0, 0.0, 1.0), with_capacity=True)),
+    "all-terms-static-pods": (2048, 2, {}, dict(weights=(1.0, 1.0, 1.0), use_static=True,
+                                                enforce_pod_count=True, with_capacity=True)),
+    "nodeorder-static": (1000, 3, {}, dict(weights=(1.0, 1.0, 0.0), use_static=True)),
+    "no-weights": (128, 4, {}, dict(weights=(0.0, 0.0, 0.0), with_capacity=True)),
+    "r-dim-3": (4096, 5, {"r_dim": 3}, dict(weights=(1.0, 1.0, 1.0), with_capacity=True)),
+    "infeasible": (16384, 6, {"infeasible": True}, dict(weights=(1.0, 1.0, 1.0),
+                                                        with_capacity=True,
+                                                        enforce_pod_count=True)),
+    "ties": (16384, 7, {"ties": True}, dict(weights=(1.0, 1.0, 1.0), with_capacity=True)),
+    "nb-65536": (65536, 8, {}, dict(weights=(0.0, 0.0, 1.0), use_static=True,
+                                    enforce_pod_count=True, with_capacity=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_step_kernel_matches_plain_version(case):
+    """``placement_step`` on the card against its plain version: all four
+    outputs bitwise equal (tolerance: none)."""
+    device = _card()
+    n, seed, flags, kernel = STEP_CASES[case]
+    flags = dict(flags)
+    r_dim = flags.pop("r_dim", 2)
+    ops = tuple(torch.from_numpy(a).to(device)
+                for a in smoke.step_operands(seed, n, r_dim, **flags))
+    kw = {"r_dim": r_dim, "r8": 8, "cpu_idx": 0, "mem_idx": 1, "use_static": False,
+          "enforce_pod_count": False, "with_capacity": False, **kernel}
+    before = sk.launches
+    got = smoke._step_tuple(sk.placement_step(*ops, **kw))
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    ref = smoke._step_tuple(sk.placement_step_reference(*ops, **kw))
+    assert sk.same_result(got, ref), (got, ref)
+    if flags.get("infeasible"):
+        assert got[0] == 0 and got[1] == float("-inf")
+
+
+# case id -> (cluster factory, conf, engine the gates choose)
+LOOP_CASES = {
+    "templates-64x120x8": (lambda: smoke.template_cluster(64, 120, 8), smoke.FLAGSHIP_CONF,
+                           "mega"),
+    "static": (lambda: smoke.spec_cluster(smoke.static_spec()), smoke.PREDICATES_CONF, "mega"),
+    "templates-64x4200": (lambda: smoke.template_cluster(64, 4200, 1), smoke.FLAGSHIP_CONF,
+                          "step"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_loop_matches_loop_with_plain_step(case):
+    """``fused_allocate`` on the card (one placement-step launch a step,
+    each held to the plain version) against the same loop with the plain
+    version: equal codes."""
+    device = _card()
+    build, conf, engine = LOOP_CASES[case]
+    _, eng = smoke.engine_for(build(), conf, device, engine=engine)
+    eng.use_mega = False
+    args, kw = eng.args, eng._allocate_kw()
+    before = sk.launches
+    codes, stats = fused_mod.fused_allocate(*args, **kw, check_every=1)
+    assert sk.launches == before + stats["steps"] and stats["checked"] == stats["steps"]
+    plain, _ = fused_mod.fused_allocate(*args, **kw, plain_step=True)
+    assert torch.equal(codes, plain)
+    assert int((codes >= 0).sum()) > 0 and stats["k1_ms"] > 0
