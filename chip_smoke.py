@@ -37,9 +37,12 @@ What it does, one JSON line per phase:
    operands of both main paths at full size from second clusters built the
    same way (timed).  ``static_predicate_mask``: config 2's real operands
    (timed), a wide random case (4,096 signatures x 10,000 nodes, timed) and
-   empty label / taint vocabularies.  ``placement_step`` (all four outputs,
-   timed over 200 launches): the templates loop's first step, config 2's
-   operands, a random case at 65,536 nodes and an all-infeasible one; and
+   empty label / taint vocabularies.  ``placement_step`` (all four outputs;
+   its device duration from a profiler trace, the events around each
+   launch, launches queued back to back and the host round trip of a loop
+   step with a push, 200 launches each): the templates loop's first step,
+   config 2's operands, a random case at 65,536 nodes and an all-infeasible
+   one; and
    loop_parity: the templates loop on a second cluster, once with the
    kernel (held to its plain version at the first step and every 200th)
    and once with the plain version on the card, equal codes.
@@ -594,6 +597,11 @@ def random_predicate_operands(s, n, l, k, device, seed=7):
     return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
+# The timed fields of a static_predicate_mask case in the kernels line.
+PREDICATE_TIMES = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "library_call_ms")
+
+
 def predicate_bound_ms(ops):
     """Each input read once and the [S, N] bool output written once at the
     memory rate, against 2*S*N*(L+K) operations at the int8 tensor-core rate
@@ -608,7 +616,9 @@ def predicate_bound_ms(ops):
 
 def predicate_library_ms(ops, repeats):
     """One torch.matmul of [sel | untolerated] by [missing ; taints] in
-    float32 with TF32 off: the contraction alone, without the gates."""
+    float32 with TF32 off: the contraction alone, without the gates.
+    Returns (events around ``repeats`` calls, over ``repeats``; the device
+    time a call from a profiler trace)."""
     import torch
 
     sel, _, labels, _, taints, tol = ops
@@ -622,12 +632,17 @@ def predicate_library_ms(ops, repeats):
         torch.matmul(a, b)
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / repeats
+    device_ms, _ = device_ms_per_call(lambda: torch.matmul(a, b), repeats)
+    return start.elapsed_time(stop) / repeats, device_ms
 
 
 def compare_predicate(case, ops, timed=False, repeats=20):
     """static_predicate_mask and its plain version on the same CUDA
-    operands: equal masks (tolerance: none)."""
+    operands: equal masks (tolerance: none).  With ``timed``: the kernel's
+    and ``torch.matmul``'s device time a call from a profiler trace
+    (``device_ms`` = ``ms``, ``library_device_ms`` = ``library_ms``) and
+    CUDA events around ``repeats`` calls of each, host dispatch included
+    (``call_ms``, ``library_call_ms``)."""
     import torch
 
     from scheduler_tpu_torch.ops import predicate_kernel as pk
@@ -654,7 +669,7 @@ def compare_predicate(case, ops, timed=False, repeats=20):
             pk.static_predicate_mask(*ops)
         stop.record()
         torch.cuda.synchronize()
-        rec["ms"] = start.elapsed_time(stop) / repeats
+        rec["call_ms"] = start.elapsed_time(stop) / repeats
         start.record()
         for _ in range(repeats):
             pk.static_predicate_mask_reference(*ops)
@@ -662,8 +677,15 @@ def compare_predicate(case, ops, timed=False, repeats=20):
         torch.cuda.synchronize()
         rec["plain_ms"] = start.elapsed_time(stop) / repeats
         rec["plain_first_ms"] = plain_ms
+        rec["device_ms"], _ = device_ms_per_call(lambda: pk.static_predicate_mask(*ops), repeats,
+                                                 match="static_predicate_mask")
         rec["bound_ms"], rec["bound_by"] = predicate_bound_ms(ops)
-        rec["library_ms"] = predicate_library_ms(ops, repeats)
+        rec["library_call_ms"], rec["library_device_ms"] = predicate_library_ms(ops, repeats)
+        # The kernel's time and the library's: device time where the trace
+        # has it (a call's events at small shapes time the host's dispatch).
+        rec["ms"] = rec["device_ms"] if rec["device_ms"] is not None else rec["call_ms"]
+        rec["library_ms"] = (rec["library_device_ms"] if rec["library_device_ms"] is not None
+                             else rec["library_call_ms"])
         rec["library"] = "torch.matmul [S, L+K] x [L+K, N] f32, TF32 off (contraction only)"
     emit(rec)
     if not equal:
@@ -716,11 +738,73 @@ def _step_tuple(res):
     return int(best), float(score), int(cap), int(pods)
 
 
+def device_ms_per_call(fn, repeats, match=None):
+    """The device time a call of ``fn`` takes: ``repeats`` calls under
+    ``torch.profiler`` (CUDA activity), the self device time in
+    ``key_averages()`` of the device events (kernels) whose name holds
+    ``match`` (all of them when None), over ``repeats``.  None where the
+    trace shows no device time.  Returns (ms, the calls' results)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        results = [fn() for _ in range(repeats)]
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        # Device events only: a CPU op's self device time repeats its kernels'.
+        if evt.device_type == DeviceType.CUDA and (match is None or match in evt.key):
+            total_us += (getattr(evt, "self_device_time_total", 0)
+                         or getattr(evt, "self_cuda_time_total", 0))
+    return (1e-3 * total_us / repeats if total_us > 0 else None), results
+
+
+def step_device_ms(loop, repeats):
+    """K1's device duration a launch over ``repeats`` loop steps (see
+    ``device_ms_per_call``).  Returns (ms, results seen)."""
+    ms, results = device_ms_per_call(lambda: loop.step(0, -1), repeats,
+                                     match="placement_step_kernel")
+    return ms, set(results)
+
+
+def step_queued_ms(loop, repeats):
+    """CUDA events around ``repeats`` launches queued back to back with no
+    wait between them: the kernel's time a launch where the launches
+    overlap their submission."""
+    import torch
+
+    loop.step(0, -1)
+    start, stop = events()
+    start.record()
+    loop.queue(0, repeats)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / repeats
+
+
+def step_round_trip_ms(loop, repeats, push_col):
+    """Host clock over ``repeats`` loop steps that each push node column
+    ``push_col`` (its values unchanged): one ``StepLoop.step`` as the loop
+    makes it, from the call to the four results on the host."""
+    seen = set()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        seen.add(loop.step(0, push_col))
+    return 1e3 * (time.perf_counter() - t0) / repeats, seen
+
+
 def compare_step(case, ops, kw, repeats=200, plain_repeats=20):
     """placement_step and its plain version on the same CUDA operands: all
-    four outputs bitwise equal.  The kernel is timed over ``repeats``
-    launches through the loop's own C path (CUDA events around each
-    launch, summed); the plain version over ``plain_repeats`` calls."""
+    four outputs bitwise equal.  The kernel is timed four ways over
+    ``repeats`` launches each: CUDA events around each launch, summed
+    (``event_ms``: it counts the host's launch submission too); its device
+    duration from a profiler trace (``device_ms``, also ``ms``); events
+    around launches queued back to back (``queued_ms``); and the host's
+    round trip of a loop step that pushes a node column
+    (``round_trip_ms``).  The plain version over ``plain_repeats`` calls."""
     import torch
 
     from scheduler_tpu_torch.ops import step_kernel as sk
@@ -733,6 +817,15 @@ def compare_step(case, ops, kw, repeats=200, plain_repeats=20):
         seen = {loop.step(0, -1) for _ in range(repeats)}
     finally:
         loop.close()
+    event_ms = loop.k1_ms / repeats
+    loop = sk.StepLoop.for_one_task(*ops, **kw)
+    try:
+        device_ms, seen_p = step_device_ms(loop, repeats)
+        queued_ms = step_queued_ms(loop, repeats)
+        round_trip_ms, seen_r = step_round_trip_ms(loop, repeats, push_col=got[0])
+    finally:
+        loop.close()
+    seen |= seen_p | seen_r
     start, stop = events()
     start.record()
     for _ in range(plain_repeats):
@@ -743,7 +836,9 @@ def compare_step(case, ops, kw, repeats=200, plain_repeats=20):
     bound_ms, bound_by = step_bound_ms(ops, kw)
     rec = {"phase": "kernel_vs_plain", "kernel": "placement_step", "case": case,
            "n": int(ns.shape[1]), "equal": equal, "max_abs_err": sk.max_abs_err(got, ref),
-           "result": list(got), "plain_result": list(ref), "ms": loop.k1_ms / repeats,
+           "result": list(got), "plain_result": list(ref),
+           "ms": device_ms if device_ms is not None else event_ms, "device_ms": device_ms,
+           "event_ms": event_ms, "queued_ms": queued_ms, "round_trip_ms": round_trip_ms,
            "launches_timed": repeats, "plain_ms": start.elapsed_time(stop) / plain_repeats,
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            **{k: kw[k] for k in ("weights", "use_static", "enforce_pod_count",
@@ -1137,6 +1232,11 @@ def phase_e2e_small(conf_path):
             raise SystemExit(f"{name}: the fused route did not run the {engine} engine")
 
 
+# The fields of each placement_step case in the kernels line.
+STEP_CASE_TIMES = ("n", "ms", "device_ms", "event_ms", "queued_ms", "round_trip_ms", "plain_ms",
+                   "bound_ms", "bound_by")
+
+
 def step_entry(launches, slice_rec, recs, parity):
     """K1's entry of the kernels line; every loop step that ``parity``
     checked was bitwise equal (a disagreement stops the run)."""
@@ -1145,11 +1245,13 @@ def step_entry(launches, slice_rec, recs, parity):
             "replaces": "scheduler_tpu/ops/pallas_kernels.py:117", "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "checked_loop_steps": parity["checked_steps"],
-            "ms": slice_rec["ms"], "plain_ms": slice_rec["plain_ms"],
+            "ms": slice_rec["ms"], "device_ms": slice_rec["device_ms"],
+            "event_ms": slice_rec["event_ms"], "queued_ms": slice_rec["queued_ms"],
+            "round_trip_ms": slice_rec["round_trip_ms"],
+            "plain_ms": slice_rec["plain_ms"],
             "bound_ms": slice_rec["bound_ms"], "bound_by": slice_rec["bound_by"],
             "library_ms": None,
-            "cases": {r["case"]: {k: r[k] for k in ("n", "ms", "plain_ms", "bound_ms", "bound_by")}
-                      for r in recs}}
+            "cases": {r["case"]: {k: r[k] for k in STEP_CASE_TIMES} for r in recs}}
 
 
 def mega_entry(mode, launches, rec):
@@ -1261,11 +1363,9 @@ def main() -> int:
          "source": "scheduler_tpu_torch/csrc/static_predicate_mask.cu",
          "replaces": "scheduler_tpu/ops/pallas_kernels.py:292",
          "launches": config2_launches["static_predicate_mask"],
-         "max_abs_err": pred_err, "ms": pred_main["ms"], "plain_ms": pred_main["plain_ms"],
-         "bound_ms": pred_main["bound_ms"], "bound_by": pred_main["bound_by"],
-         "library_ms": pred_main["library_ms"],
-         "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K", "ms", "plain_ms",
-                                             "bound_ms", "bound_by", "library_ms")}},
+         "max_abs_err": pred_err,
+         **{k: pred_main[k] for k in PREDICATE_TIMES},
+         "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K") + PREDICATE_TIMES}},
         step_entry(templates_launches["placement_step"], step_recs[0], step_recs, parity),
     ]})
     print(smi, flush=True)

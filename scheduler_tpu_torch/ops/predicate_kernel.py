@@ -2,9 +2,10 @@
 
 This replaces ``scheduler_tpu/ops/pallas_kernels.py:292``
 ``static_predicate_mask`` (a Pallas TPU kernel).  The kernel source is
-``csrc/static_predicate_mask.cu``; it is built with the port's other kernels
-at first use (``ops/cuda_build.py``) and bound through a plain C entry point
-with ``ctypes``.
+``csrc/static_predicate_mask.cu``; it packs the bool operands 32 entries a
+word itself (no pre-pass, no other host representation).  It is built with
+the port's other kernels at first use (``ops/cuda_build.py``) and bound
+through a plain C entry point with ``ctypes``.
 
 * ``static_predicate_mask`` — the wrapper.  CUDA tensors launch the kernel
   on the current stream (or raise); CPU tensors run
@@ -31,7 +32,8 @@ from scheduler_tpu_torch.ops.predicates import plugin_predicate_mask, taint_mask
 # Launches of the CUDA kernel (the CPU path never counts).
 launches = 0
 
-_TILE = 32
+# Signatures a block of the kernel (its grid's y axis).
+_TILE_S = 64
 _MAX_GRID_Y = 65535
 
 
@@ -53,47 +55,55 @@ def static_predicate_mask(selector: torch.Tensor, has_unknown: torch.Tensor,
     ``unschedulable`` bool [N], ``node_taints`` bool [N, K], ``tolerated``
     bool [S, K].  With no task or no node the mask is all true and nothing
     is launched."""
-    s, n = selector.shape[0], node_labels.shape[0]
+    s, l = selector.shape
+    n, k = node_taints.shape
     dev = selector.device
-    tensors = (("selector", selector, (s, selector.shape[1])),
-               ("has_unknown", has_unknown, (s,)),
-               ("node_labels", node_labels, (n, selector.shape[1])),
-               ("unschedulable", unschedulable, (n,)),
-               ("node_taints", node_taints, (n, node_taints.shape[1])),
-               ("tolerated", tolerated, (s, node_taints.shape[1])))
+    cuda = dev.type == "cuda"
+    tensors = (("selector", selector, (s, l)), ("has_unknown", has_unknown, (s,)),
+               ("node_labels", node_labels, (n, l)), ("unschedulable", unschedulable, (n,)),
+               ("node_taints", node_taints, (n, k)), ("tolerated", tolerated, (s, k)))
     for name, t, shape in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}")
         if t.dtype != torch.bool:
             raise ValueError(f"{name}: expected torch.bool, got {t.dtype}")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+        if cuda and not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
     if s == 0 or n == 0:
         return torch.ones((s, n), dtype=torch.bool, device=dev)
     if dev.type == "cpu":
         return static_predicate_mask_reference(selector, has_unknown, node_labels, unschedulable,
                                                node_taints, tolerated)
-    return _launch(*(t for _, t, _ in tensors))
+    if not cuda:
+        raise ValueError(f"static_predicate_mask: no kernel for device {dev}")
+    if -(-s // _TILE_S) > _MAX_GRID_Y:
+        raise ValueError(f"static_predicate_mask: {s} task rows exceed the launch grid")
+    return _launch(selector, has_unknown, node_labels, unschedulable, node_taints, tolerated)
+
+
+_fn = None
+
+
+def _entry():
+    """The kernel's C entry point, its argument types set once."""
+    global _fn
+    if _fn is None:
+        fn = cuda_build.load().static_predicate_mask_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def _launch(selector, has_unknown, node_labels, unschedulable, node_taints, tolerated):
     global launches
-    if selector.device.type != "cuda":
-        raise ValueError(f"static_predicate_mask: no kernel for device {selector.device}")
     s, l = selector.shape
     n, k = node_taints.shape
-    if -(-s // _TILE) > _MAX_GRID_Y:
-        raise ValueError(f"static_predicate_mask: {s} task rows exceed the launch grid")
-    for name, t in (("selector", selector), ("has_unknown", has_unknown),
-                    ("node_labels", node_labels), ("unschedulable", unschedulable),
-                    ("node_taints", node_taints), ("tolerated", tolerated)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor")
-    fn = cuda_build.load().static_predicate_mask_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty((s, n), dtype=torch.bool, device=selector.device)
-    stream = torch.cuda.current_stream(selector.device).cuda_stream
+    fn = _entry()
+    out = selector.new_empty(s, n)  # bool, on the selector's device
+    stream = torch._C._cuda_getCurrentRawStream(selector.device.index)  # the current stream
     rc = fn(selector.data_ptr(), has_unknown.data_ptr(), node_labels.data_ptr(),
             unschedulable.data_ptr(), node_taints.data_ptr(), tolerated.data_ptr(),
             out.data_ptr(), s, n, l, k, stream)

@@ -10,9 +10,10 @@ other kernels at first use (``ops/cuda_build.py``) and bound through plain C
 entry points with ``ctypes``.
 
 * ``StepLoop`` — the kernel bound once for a whole loop: operands staged,
-  one C call a step that pushes the node column the host changed, launches,
-  and reads the four results back as one 16-byte copy.  Each launch adds
-  one to ``launches``.
+  one C call a step that launches the kernel (the task's rows and the node
+  column the host changed ride in the launch parameters) and waits; the
+  kernel writes its four results to mapped pinned host memory.  Each launch
+  adds one to ``launches``.
 * ``placement_step`` — the one-step wrapper.  CUDA tensors run one step of
   a ``StepLoop`` bound to them (or raise); CPU tensors run
   ``placement_step_reference``.
@@ -130,18 +131,24 @@ def max_abs_err(a, b) -> float:
 
 # -- bind ------------------------------------------------------------------------
 
+# Task rows and pushed values travel in the launch parameters, so r8 is capped
+# (the kernel reads the idle rows eight at a time: r8 is 8 or 16).
+MAX_R8 = 16
+
+
 class StepParams(ctypes.Structure):
     """Mirror of ``struct StepParams`` in ``csrc/placement_step.cu``."""
 
     _fields_ = [
         (name, ctypes.c_void_p)
-        for name in ("ns", "alloc", "smask", "sscore", "gate", "plim", "initq", "req",
-                     "mins", "out", "part_v", "part_i", "ticket")
+        for name in ("ns", "alloc", "smask", "sscore", "gate", "plim", "out")
     ] + [
         (name, ctypes.c_int)
         for name in ("n", "r8", "cpu_idx", "mem_idx", "use_static", "enforce_pod_count",
-                     "with_capacity")
-    ] + [(name, ctypes.c_float) for name in ("w_lr", "w_bal", "w_bp")]
+                     "with_capacity", "push_col", "vec")
+    ] + [(name, ctypes.c_float) for name in ("w_lr", "w_bal", "w_bp")] + [
+        (name, ctypes.c_float * MAX_R8) for name in ("initq", "req", "mins")
+    ] + [("push", ctypes.c_float * (MAX_R8 + 1))]
 
 
 class _StepLoopArgs(ctypes.Structure):
@@ -149,14 +156,14 @@ class _StepLoopArgs(ctypes.Structure):
 
     _fields_ = [
         ("p", StepParams),
-        ("ns_dev", ctypes.c_void_p),
         ("ns_host", ctypes.c_void_p),
+        ("initq", ctypes.c_void_p),
+        ("req", ctypes.c_void_p),
         ("out_host", ctypes.c_void_p),
         ("ev0", ctypes.c_void_p),
         ("ev1", ctypes.c_void_p),
         ("k1_ms", ctypes.c_double),
         ("steps", ctypes.c_longlong),
-        ("push_rows", ctypes.c_int),
         ("task_stride", ctypes.c_int),
     ]
 
@@ -170,14 +177,19 @@ def _library():
     global _lib
     if _lib is None:
         lib = cuda_build.load()
-        lib.placement_step_loop_step.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                                 ctypes.c_void_p]
         for name in ("placement_step_loop_begin", "placement_step_loop_end",
-                     "placement_step_loop_step", "placement_step_max_blocks"):
+                     "placement_step_loop_step", "placement_step_loop_queue",
+                     "placement_step_max_r8"):
             getattr(lib, name).restype = ctypes.c_int
         lib.placement_step_loop_begin.argtypes = [ctypes.c_void_p]
         lib.placement_step_loop_end.argtypes = [ctypes.c_void_p]
-        lib.placement_step_max_blocks.argtypes = []
+        lib.placement_step_loop_step.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                 ctypes.c_void_p]
+        lib.placement_step_loop_queue.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_void_p]
+        lib.placement_step_max_r8.argtypes = []
+        if lib.placement_step_max_r8() != MAX_R8:
+            raise RuntimeError("placement_step: the library's MAX_R8 differs from the wrapper's")
         _lib = lib
     return _lib
 
@@ -221,11 +233,12 @@ def placement_step(ns, alloc, smask, sscore, gate, plim, initq, req, mins, *,
         raise ValueError(f"placement_step: no kernel for device {dev}")
     loop = StepLoop.for_one_task(ns, alloc, smask, sscore, gate, plim, initq, req, mins, **kw)
     try:
-        loop.step(0, -1)
+        best, score, cap, pods = loop.step(0, -1)
     finally:
         loop.close()
-    out = loop.out  # the step's four results, still on the device
-    return out[0], out[1:2].view(f32)[0], out[2], out[3]
+    i32 = torch.int32
+    out = torch.tensor([best, cap, pods], dtype=i32).to(dev)
+    return out[0], torch.tensor(score, dtype=f32).to(dev), out[1], out[2]
 
 
 # -- the kernel bound for a loop --------------------------------------------------
@@ -238,18 +251,19 @@ class StepLoop:
     rows ([T, r8], pad rows -1 / 0), ``smask`` / ``sscore`` every task's
     static rows ([T, n], or [1, n] dummies without ``use_static``), and the
     node operands are those of ``placement_step``.  ``step(t_idx,
-    push_col)`` selects for task row ``t_idx`` after pushing node column
-    ``push_col`` (-1: none) of ``ns_host`` to the device, and returns
-    ``(best, score, cap, pods)`` as Python numbers.
+    push_col)`` selects for task row ``t_idx`` after the host changed node
+    column ``push_col`` (-1: none) of ``ns_host``, and returns ``(best,
+    score, cap, pods)`` as Python numbers.
 
     On the CPU (or with ``plain``) each step is ``placement_step_reference``;
-    on CUDA it is one C call: a 2-D copy of the pushed column from a pinned
-    mirror of ``ns_host``, one launch, one 16-byte copy back and a wait,
-    with the kernel's time summed from CUDA events into ``k1_ms``.  With
-    ``check_every`` > 0 the kernel's four outputs are held to the plain
-    version on the same device operands at the first step and every
-    ``check_every``-th one (``checked`` counts them); a disagreement
-    raises."""
+    on CUDA it is one C call: one launch, whose parameters carry the task's
+    rows and the changed column (the kernel writes that column into the
+    card's copy of the node state), and a wait; the kernel writes its four
+    results to mapped pinned host memory.  CUDA events around each launch
+    are summed into ``k1_ms``.  With ``check_every`` > 0 the kernel's four
+    outputs are held to the plain version on the same device operands at
+    the first step and every ``check_every``-th one (``checked`` counts
+    them); a disagreement raises."""
 
     def __init__(self, ns_host: np.ndarray, alloc, smask, sscore, gate, plim,
                  task_initq, task_req, mins, *, device, plain=False, check_every=0, **kw):
@@ -263,20 +277,17 @@ class StepLoop:
         self.k1_ms = None
         self.steps = 0
         self._addr = None
-        dev = self.device
+        if self.cuda and (self.r8 % 8 or self.r8 > MAX_R8):
+            raise ValueError(f"placement_step: r8 {self.r8} is not 8 or 16, as the kernel needs")
+        if ns_host.dtype != np.float32 or not ns_host.flags.c_contiguous:
+            raise ValueError("placement_step: ns_host must be a C-contiguous float32 array")
+        # The loop updates ns_host in place; the kernel reads the changed
+        # column from it through each launch's parameters.
+        self.ns_host = ns_host
         if self.device.type == "cpu":
-            # The plain version reads the host's own array: nothing to push.
-            self.ns = torch.from_numpy(ns_host)
-            self.ns_host = ns_host
-        elif self.cuda:
-            pinned = torch.empty(ns_host.shape, dtype=torch.float32, pin_memory=True)
-            pinned.numpy()[:] = ns_host
-            self.ns_pinned = pinned
-            self.ns_host = pinned.numpy()  # the loop updates the pinned mirror
-            self.ns = pinned.to(dev)
+            self.ns = torch.from_numpy(ns_host)  # the plain version reads the host's array
         else:
-            self.ns_host = ns_host
-            self.ns = torch.from_numpy(ns_host).to(dev)
+            self.ns = torch.from_numpy(ns_host).to(self.device)
         self.alloc, self.gate, self.plim, self.mins = alloc, gate, plim, mins
         self.smask, self.sscore = smask, sscore
         self.task_initq, self.task_req = task_initq, task_req
@@ -293,45 +304,41 @@ class StepLoop:
                    mins.contiguous(), device=ns.device, **kw)
 
     def _bind(self) -> None:
-        dev = self.device
         kw = self.kw
-        self.out = torch.zeros(4, dtype=torch.int32, device=dev)
-        self.out_host = torch.zeros(4, dtype=torch.int32, pin_memory=True)
-        self.res_i = self.out_host.numpy()
-        self.res_f = self.res_i.view(np.float32)
         self._lib = _library()
-        blocks = self._lib.placement_step_max_blocks()
-        # Per-block (score, index) pairs and the ticket counter, which must
-        # be 0 before a launch (the kernel's last block resets it).
-        self.scratch = torch.zeros(2 * blocks + 1, dtype=torch.int32, device=dev)
-        self.mins_flat = self.mins.reshape(-1).contiguous()
+        # Host copies of the task rows: each launch's parameters carry one.
+        self.initq_host = np.ascontiguousarray(self.task_initq.detach().cpu().numpy(), np.float32)
+        self.req_host = np.ascontiguousarray(self.task_req.detach().cpu().numpy(), np.float32)
         args = _StepLoopArgs()
         p = args.p
         p.ns, p.alloc, p.gate, p.plim = (self.ns.data_ptr(), self.alloc.data_ptr(),
                                          self.gate.data_ptr(), self.plim.data_ptr())
         p.smask, p.sscore = self.smask.data_ptr(), self.sscore.data_ptr()
-        p.initq, p.req = self.task_initq.data_ptr(), self.task_req.data_ptr()
-        p.mins, p.out = self.mins_flat.data_ptr(), self.out.data_ptr()
-        p.part_v = self.scratch.data_ptr()
-        p.part_i = self.scratch.data_ptr() + 4 * blocks
-        p.ticket = self.scratch.data_ptr() + 8 * blocks
         p.n, p.r8, p.cpu_idx, p.mem_idx = (self.ns.shape[1], self.r8, kw["cpu_idx"],
                                            kw["mem_idx"])
         p.use_static = int(bool(self.use_static))
         p.enforce_pod_count = int(bool(kw["enforce_pod_count"]))
         p.with_capacity = int(bool(kw["with_capacity"]))
+        p.push_col = -1
         p.w_lr, p.w_bal, p.w_bp = (float(w) for w in kw["weights"])
-        args.ns_dev = self.ns.data_ptr()
-        args.ns_host = self.ns_pinned.data_ptr()
-        args.out_host = self.out_host.data_ptr()
-        args.push_rows = self.r8 + 1
+        for r, m in enumerate(self.mins.reshape(-1).detach().cpu().numpy()):
+            p.mins[r] = float(m)
+        args.ns_host = self.ns_host.ctypes.data
+        args.initq = self.initq_host.ctypes.data
+        args.req = self.req_host.ctypes.data
         args.task_stride = self.r8
         self._args = args
         self._addr = ctypes.addressof(args)
-        self._stream = torch.cuda.current_stream(dev).cuda_stream
+        self._stream = torch.cuda.current_stream(self.device).cuda_stream
         rc = self._lib.placement_step_loop_begin(self._addr)
         if rc != 0:
-            raise RuntimeError(f"placement_step: event creation failed: CUDA error {rc}")
+            self._lib.placement_step_loop_end(self._addr)
+            self._addr = None
+            raise RuntimeError("placement_step: mapped result or event setup failed: "
+                               f"CUDA error {rc}")
+        # The kernel's four results, in mapped pinned host memory.
+        self.res_i = (ctypes.c_int32 * 4).from_address(args.out_host)
+        self.res_f = (ctypes.c_float * 4).from_address(args.out_host)
 
     def step(self, t_idx: int, push_col: int):
         global launches
@@ -342,7 +349,7 @@ class StepLoop:
                 raise RuntimeError(f"placement_step launch failed: CUDA error {rc}")
             launches += 1
             res_i = self.res_i
-            result = int(res_i[0]), float(self.res_f[1]), int(res_i[2]), int(res_i[3])
+            result = res_i[0], self.res_f[1], res_i[2], res_i[3]
             if self.check_every and (self.steps - 1) % self.check_every == 0:
                 self._check(t_idx, result)
             return result
@@ -350,6 +357,16 @@ class StepLoop:
             col = torch.from_numpy(np.ascontiguousarray(self.ns_host[: self.r8 + 1, push_col]))
             self.ns[: self.r8 + 1, push_col] = col.to(self.device)
         return self._plain(t_idx)
+
+    def queue(self, t_idx: int, count: int) -> None:
+        """``count`` launches for task row ``t_idx`` queued back to back on
+        the stream, no push and no wait (timing the kernel apart from the
+        round trip; CUDA only)."""
+        global launches
+        rc = self._lib.placement_step_loop_queue(self._addr, t_idx, count, self._stream)
+        if rc != 0:
+            raise RuntimeError(f"placement_step launch failed: CUDA error {rc}")
+        launches += count
 
     def _plain(self, t_idx: int):
         """The plain version on the loop's device operands for task row t_idx."""
@@ -365,7 +382,7 @@ class StepLoop:
 
     def _check(self, t_idx: int, result) -> None:
         """Hold the kernel's result to the plain version on the same device
-        state (the kernel does not write the node state it reads)."""
+        state (the kernel wrote the pushed column before it returned)."""
         plain = self._plain(t_idx)
         self.checked += 1
         if not same_result(result, plain):
@@ -373,8 +390,10 @@ class StepLoop:
                                f"at loop step {self.steps}, task row {t_idx}")
 
     def close(self) -> None:
-        """Release the CUDA events and keep the kernel's summed time."""
+        """Release the events and the mapped result; keep the kernel's
+        summed time."""
         if self.cuda and self._addr is not None:
+            self.res_i = self.res_f = None
             rc = self._lib.placement_step_loop_end(self._addr)
             self.k1_ms = float(self._args.k1_ms)
             self._addr = None

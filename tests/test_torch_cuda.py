@@ -11,9 +11,11 @@ checkout (``--noconftest``: the suite's conftest imports JAX):
 Each case builds a session with the port's harness on the card, launches
 a kernel and holds it against its plain version on the same CUDA operands,
 bitwise (tolerance: none): ``mega_allocate`` (codes and stats),
-``static_predicate_mask`` (the mask), ``placement_step`` (all four outputs)
-and the ``fused_allocate`` loop with it (codes, against the loop with the
-plain version on the card).
+``static_predicate_mask`` (the mask; vocabulary widths around its packed
+word), ``placement_step`` (all four outputs; node counts across its
+cluster, ties across CTAs, a pushed column) and the ``fused_allocate``
+loop with it (codes, against the loop with the plain version on the
+card).
 """
 
 import numpy as np
@@ -108,6 +110,46 @@ def test_predicate_kernel_matches_plain_version(t, n, l, k):
     assert torch.equal(mask, pk.static_predicate_mask_reference(*ops))
 
 
+# Vocabulary widths around the packed word (32 entries) and the staged chunk
+# (1,024 entries): every alignment class of the in-kernel packing (16-byte,
+# 4-byte and byte rows) and partial last words.
+VOCAB = [0, 1, 31, 32, 33, 255, 256, 257, 1004]
+SIGS = [1, 3, 33, 4096]
+NODES = [1, 31, 1000, 10000]
+PACKED_CASES = [(SIGS[i % 4], NODES[(i + i // 4) % 4], L, VOCAB[(3 * i + 2) % 9])
+                for i, L in enumerate(VOCAB)]
+PACKED_CASES += [(SIGS[(i + 1) % 4], NODES[(i + 2) % 4], VOCAB[(5 * i + 1) % 9], K)
+                 for i, K in enumerate(VOCAB)]
+PACKED_CASES = sorted(set(PACKED_CASES + [(4096, 10000, 1004, 33)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,l,k", PACKED_CASES)
+def test_predicate_kernel_packing_matches_plain_version(s, n, l, k):
+    """``static_predicate_mask`` on the card against its plain version
+    (tolerance: none) at vocabulary widths around the packed word, with
+    about two required label pairs a signature present on most nodes and
+    about one taint a node, so both outcomes occur; signatures with
+    ``has_unknown`` and unschedulable nodes included."""
+    device = _card()
+    rng = np.random.default_rng(s * 7 + n * 3 + l * 11 + k)
+    unknown = rng.random(s) < 0.1
+    unknown[0] = s > 1
+    unsched = rng.random(n) < 0.1
+    unsched[-1] = n > 1
+    ops = tuple(torch.from_numpy(a).to(device) for a in (
+        rng.random((s, l)) < 2.0 / max(l, 1), unknown, rng.random((n, l)) < 0.95, unsched,
+        rng.random((n, k)) < 1.0 / max(k, 1), rng.random((s, k)) < 0.5))
+    before = pk.launches
+    mask = pk.static_predicate_mask(*ops)
+    torch.cuda.synchronize()
+    assert pk.launches == before + 1
+    ref = pk.static_predicate_mask_reference(*ops)
+    assert torch.equal(mask, ref)
+    if s * n > 100:
+        assert 0 < int(ref.sum()) < s * n
+
+
 @pytest.mark.cuda
 def test_scheduler_on_cuda_binds_as_the_host_loop(tmp_path):
     """``Scheduler.run_once`` on the card (fused route, one kernel launch)
@@ -171,6 +213,137 @@ def test_step_kernel_matches_plain_version(case):
     assert sk.same_result(got, ref), (got, ref)
     if flags.get("infeasible"):
         assert got[0] == 0 and got[1] == float("-inf")
+
+
+FULL_STEP = dict(weights=(1.0, 1.0, 1.0), use_static=True, enforce_pod_count=True,
+                 with_capacity=True)
+BARE_STEP = dict(weights=(0.0, 0.0, 1.0), use_static=False, enforce_pod_count=False,
+                 with_capacity=False)
+
+
+def _step_kw(**flags):
+    return {"r_dim": 2, "r8": 8, "cpu_idx": 0, "mem_idx": 1, **flags}
+
+
+def _step_ops(device, seed, n, **flags):
+    return [torch.from_numpy(a).to(device) for a in smoke.step_operands(seed, n, 2, **flags)]
+
+
+def _run_step(ops, kw):
+    before = sk.launches
+    got = smoke._step_tuple(sk.placement_step(*ops, **kw))
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    ref = smoke._step_tuple(sk.placement_step_reference(*ops, **kw))
+    assert sk.same_result(got, ref), (got, ref)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 1024, 8193, 16384, 65536])
+@pytest.mark.parametrize("flags", ["full", "bare"])
+def test_step_kernel_node_counts(n, flags):
+    """``placement_step`` against its plain version at node counts below
+    one group of 4, ragged (not a multiple of 4: scalar loads) and across
+    the cluster's 8,192 threads, with every gate and the capacity grid on,
+    and with binpack alone (tolerance: none)."""
+    device = _card()
+    kw = _step_kw(**(FULL_STEP if flags == "full" else BARE_STEP))
+    _run_step(_step_ops(device, n, n), kw)
+
+
+def _alike_nodes(n, **flags):
+    """``step_operands`` with every node alike, empty and large enough for
+    any request (so each passes the fit and the pod-count gate)."""
+    arrays = smoke.step_operands(n, n, 2, ties=True, **flags)
+    ns, alloc = arrays[0], arrays[1]
+    alloc[:2] = np.array([[64000.0], [262144.0]], np.float32)
+    ns[:2] = alloc[:2]
+    ns[8] = 0.0
+    return arrays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,a,b", [(16384, 13000, 5000), (65536, 40000, 9000),
+                                   (8193, 8192, 4100), (1024, 1020, 3)])
+def test_step_kernel_ties_across_ctas_take_the_lowest_index(n, a, b):
+    """Two equal maxima in different CTAs of the cluster (or, at 1,024
+    nodes, in different warps): the lower node index wins.  All nodes are
+    alike and only ``a`` and ``b`` pass the gate."""
+    device = _card()
+    arrays = _alike_nodes(n)
+    arrays[4][:] = False
+    arrays[4][0, [a, b]] = True
+    ops = [torch.from_numpy(x).to(device) for x in arrays]
+    got = _run_step(ops, _step_kw(**FULL_STEP))
+    assert got[0] == min(a, b) and got[1] > float("-inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8193, 65536])
+@pytest.mark.parametrize("special", ["ties", "infeasible"])
+def test_step_kernel_all_equal_or_infeasible_gives_node_0(n, special):
+    """Every node alike and feasible: best is node 0.  Nothing feasible:
+    best 0 and score -inf."""
+    device = _card()
+    arrays = _alike_nodes(n, infeasible=special == "infeasible")
+    ops = [torch.from_numpy(x).to(device) for x in arrays]
+    got = _run_step(ops, _step_kw(**FULL_STEP))
+    assert got[0] == 0
+    assert (got[1] == float("-inf")) == (special == "infeasible")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(16384, 7777), (8193, 8192)])
+def test_step_kernel_scores_the_pushed_column(n, c):
+    """A loop step after the host changed node column ``c``: the kernel
+    scores ``c`` with the pushed values (which make it the winner; the
+    card's old values leave it infeasible), takes the capacity grid and pod
+    room from them, and writes them into the card's node state."""
+    device = _card()
+    kw = _step_kw(**FULL_STEP)
+    arrays = smoke.step_operands(c, n, 2)
+    ns, alloc, smask, sscore, gate, plim = arrays[:6]
+    alloc[:2, c] = (64000.0, 262144.0)  # room for any request of step_operands
+    ns[0, c] = 0.0  # no cpu left on the card's copy: infeasible
+    smask[0, c] = gate[0, c] = True
+    sscore[0, c] = 1000.0
+    ops = [torch.from_numpy(x).to(device) for x in arrays]
+    loop = sk.StepLoop.for_one_task(*ops, **kw)
+    try:
+        assert loop.step(0, -1)[0] != c
+        loop.ns_host[:2, c] = alloc[:2, c]  # the host frees node c
+        loop.ns_host[8, c] = 0.0
+        before = sk.launches
+        got = loop.step(0, c)
+        assert sk.launches == before + 1
+        pushed = torch.from_numpy(loop.ns_host).to(device)
+        ref = smoke._step_tuple(sk.placement_step_reference(pushed, *ops[1:], **kw))
+        assert sk.same_result(got, ref), (got, ref)
+        assert got[0] == c and got[2] > 0 and got[3] == int(plim[0, c])
+        assert torch.equal(loop.ns[:9, c].cpu(), torch.from_numpy(loop.ns_host[:9, c]))
+    finally:
+        loop.close()
+
+
+@pytest.mark.cuda
+def test_step_kernel_refuses_r8_past_its_parameters():
+    """r8 above the launch parameters' 16 rows raises in the wrapper."""
+    device = _card()
+    n, r8 = 64, 24
+    f32 = torch.float32
+    ops = (torch.zeros((r8 + 8, n), dtype=f32, device=device),
+           torch.zeros((r8, n), dtype=f32, device=device),
+           torch.ones((1, n), dtype=torch.bool, device=device),
+           torch.zeros((1, n), dtype=f32, device=device),
+           torch.ones((1, n), dtype=torch.bool, device=device),
+           torch.ones((1, n), dtype=f32, device=device),
+           torch.zeros((r8, 1), dtype=f32, device=device),
+           torch.zeros((r8, 1), dtype=f32, device=device),
+           torch.zeros((r8, 1), dtype=f32, device=device))
+    kw = dict(_step_kw(**BARE_STEP), r8=r8)
+    with pytest.raises(ValueError, match="r8"):
+        sk.placement_step(*ops, **kw)
 
 
 # case id -> (cluster factory, conf, engine the gates choose)
