@@ -32,10 +32,12 @@ What it does, one JSON line per phase:
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
    on the same CUDA tensors, bitwise.  ``mega_allocate`` (codes and stats):
    BASELINE config 1, a 1,000 x 10,000 flagship session, a case with
-   non-binpack weights and the pod-count gate, a 6,000-job case whose job
-   ledger lives in global scratch, three small static-row sessions, and the
+   non-binpack weights and the pod-count gate, a 12,000-job case whose job
+   ledger lives in global scratch, four small static-row sessions, seven
+   synthetic cases across the launch plans (``MEGA_SYNTHETIC``), and the
    operands of both main paths at full size from second clusters built the
-   same way (timed).  ``static_predicate_mask``: config 2's real operands
+   same way (timed: profiler device time and events, µs a step, the launch
+   plan).  ``static_predicate_mask``: config 2's real operands
    (timed), a wide random case (4,096 signatures x 10,000 nodes, timed) and
    empty label / taint vocabularies.  ``placement_step`` (all four outputs;
    its device duration from a profiler trace, the events around each
@@ -260,13 +262,181 @@ def step_operands(seed, n, r_dim, *, infeasible=False, ties=False, exact=False):
     return [ns, alloc, smask, sscore, gate, plim, initq, req, mins]
 
 
+def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=False,
+                  infeasible_job=False, use_static=False, exact=False,
+                  weights=(0.0, 0.0, 1.0), score_bound=False, enforce_pod_count=False,
+                  cohort=1, max_tasks=6, comparators=("priority", "gang", "drf")):
+    """``mega_allocate`` operands (numpy, by ``OPERAND_NAMES``) and static
+    arguments for a synthetic session drawn from
+    ``numpy.random.default_rng(seed)``: ``nb`` node lanes of which the first
+    ``n_nodes`` are real (90 % of them ready), ``r_dim`` resources, and
+    ``n_jobs`` jobs of 1 to ``max_tasks`` tasks, each with one or two
+    request signatures (so runs break inside a job), a gang deficit,
+    priority, creation rank and drf usage.  Run batching, cross-job
+    batching and ``cohort`` chunks are on.
+
+    ``gated`` lists the only nodes whose gate is set; ``alike`` makes every
+    node the same (equal scores: ties); ``infeasible_job`` adds a job that
+    no node can hold (its chunk fails); ``use_static`` adds three static
+    signatures (mask and score rows).  With ``exact`` capacities, idle
+    shares and requests are powers of two or multiples of them, so every
+    score term is exact in float32 (the CPU tests need that: XLA's CPU
+    backend contracts the JAX kernel's multi-term score into fused
+    multiply-adds)."""
+    import numpy as np
+
+    from scheduler_tpu_torch.ops.megakernel import MAX_BATCH, pack_lane_i32, pack_task_table_i32
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    n_nodes = nb if n_nodes is None else n_nodes
+    # Nodes: cpu in cores, memory in GiB, other resources in units.
+    scale = np.array([16.0, 64.0] + [4.0] * 6, f32)[:r_dim, None]
+    alloc = np.zeros((8, nb), f32)
+    ns0 = np.zeros((16, nb), f32)
+    if alike:
+        alloc[:r_dim] = scale
+        ns0[:r_dim] = scale
+    else:
+        alloc[:r_dim, :n_nodes] = scale * rng.choice([0.5, 1.0, 2.0], (r_dim, n_nodes))
+        if exact:
+            share = rng.integers(0, 65, (r_dim, n_nodes)) / 64.0
+        else:
+            share = rng.random((r_dim, n_nodes))
+        ns0[:r_dim, :n_nodes] = alloc[:r_dim, :n_nodes] * share
+        ns0[8, :n_nodes] = rng.integers(0, 6, n_nodes)
+    plim = np.zeros((1, nb), f32)
+    plim[0, :n_nodes] = 110.0 if alike else rng.integers(6, 30, n_nodes)
+    gate = np.zeros((1, nb), bool)
+    if gated is None:
+        gate[0, :n_nodes] = rng.random(n_nodes) < 0.9
+    else:
+        gate[0, list(gated)] = True
+
+    # Request signatures; signature 0 asks more than any node holds.
+    n_sig = 48
+    req = np.zeros((n_sig, r_dim), f32)
+    req[:, 0] = rng.choice([0.25, 0.5, 1.0, 2.0, 4.0], n_sig)
+    req[:, 1] = rng.choice([0.5, 1.0, 2.0, 8.0], n_sig)
+    if r_dim > 2:
+        req[:, 2:] = rng.choice([0.0, 0.5, 1.0], (n_sig, r_dim - 2))
+    if not exact:
+        req[:, :2] *= rng.choice([1.0, 1.1, 0.7], (n_sig, 2)).astype(f32)
+    req[0, 0] = 1e6
+    init = req.copy()
+    s_pad = 128
+    sig_req = np.zeros((16, s_pad), f32)
+    sig_req[0:r_dim, :n_sig] = req.T
+    sig_req[8:8 + r_dim, :n_sig] = init.T
+
+    # Jobs and their tasks, in lane order.
+    sizes = rng.integers(1, max_tasks + 1, n_jobs)
+    n_static = 3
+    task_sig, task_static, task_job, offsets = [], [], [], []
+    a = b = 1
+    st = 0
+    for j, k in enumerate(sizes):
+        offsets.append(len(task_sig))
+        if k > 1 or rng.random() < 0.2:  # single-task jobs share runs of signatures
+            a, b = rng.integers(1, n_sig, 2)
+            st = int(rng.integers(0, n_static))
+        if infeasible_job and j == n_jobs // 2:
+            a = b = 0
+        cut = int(rng.integers(1, k + 1)) if rng.random() < 0.3 else k
+        task_sig += [a] * cut + [b] * (k - cut)
+        task_static += [st] * k
+        task_job += [j] * k
+    # A run: equal signatures in one job, or across consecutive single-task
+    # jobs (the cross-job batch).
+    n_tasks = len(task_sig)
+    run_len = [1] * n_tasks
+    for t in range(n_tasks - 2, -1, -1):
+        same_job = task_job[t + 1] == task_job[t]
+        singles = sizes[task_job[t]] == 1 and sizes[task_job[t + 1]] == 1
+        if ((same_job or singles) and task_sig[t + 1] == task_sig[t]
+                and task_static[t + 1] == task_static[t]):
+            run_len[t] = run_len[t + 1] + 1
+    j_pad = -(-(n_jobs + MAX_BATCH) // 128) * 128
+    deficit = np.array([rng.integers(1, k + 1) for k in sizes])
+    js_drf0 = np.zeros((8, j_pad), f32)
+    js_drf0[:r_dim, :n_jobs] = rng.choice([0.0, 1.0, 2.0], (r_dim, n_jobs))
+    total = alloc[:r_dim].sum(axis=1)
+    drf_safe = np.ones((8, 1), f32)
+    drf_safe[:r_dim, 0] = np.where(total > 0, total, 1.0)
+    drf_mask = np.zeros((8, 1), f32)
+    drf_mask[:r_dim, 0] = total > 0
+    job_tb = np.full((1, j_pad), 2**31 - 1, np.int32)
+    job_tb[0, :n_jobs] = rng.permutation(n_jobs)
+    misc = np.zeros((1, 8), np.int32)
+    misc[0, 0] = n_jobs
+
+    rows_pad = 8
+    smask = np.zeros((rows_pad, nb), f32)
+    sscore = np.zeros((rows_pad, nb), f32)
+    if use_static:
+        smask[:n_static] = rng.random((n_static, nb)) < 0.85
+        sscore[:n_static] = rng.integers(0, 10, (n_static, nb))
+    zeros8 = np.zeros((8, 128), f32)
+    ops = {
+        "ns0": ns0, "alloc_t": alloc, "rel0": np.zeros((8, nb), f32), "gate": gate,
+        "plim": plim, "sig_req": sig_req,
+        "task_sig": pack_task_table_i32(np.array(task_sig, np.int32), n_tasks),
+        "run_len": pack_task_table_i32(np.array(run_len, np.int32), n_tasks, fill=1),
+        "job_off": pack_lane_i32(np.array(offsets, np.int32), j_pad),
+        "job_num": pack_lane_i32(sizes.astype(np.int32), j_pad),
+        "job_deficit": pack_lane_i32(deficit.astype(np.int32), j_pad),
+        "job_gang": pack_lane_i32(deficit.astype(np.int32), j_pad),
+        "job_prio": pack_lane_i32(rng.integers(0, 3, n_jobs).astype(np.int32), j_pad),
+        "job_tb": job_tb, "js_drf0": js_drf0, "drf_safe": drf_safe, "drf_mask": drf_mask,
+        "msig": pack_task_table_i32(np.array(task_static if use_static else [], np.int32),
+                                    n_tasks),
+        "smask": smask, "sscore": sscore,
+        "jqueue": np.zeros((1, 128), np.int32), "jq_des": zeros8, "jq_alloc0": zeros8,
+        "qf_share": zeros8, "qf_over": zeros8, "misc": misc,
+    }
+    kw = dict(
+        r_dim=r_dim, weights=tuple(float(w) for w in weights),
+        enforce_pod_count=enforce_pod_count, comparators=tuple(comparators),
+        cross_batch=True, batch_runs=True, has_releasing=False, use_static=use_static,
+        score_bound=score_bound, mins=tuple([0.01] * r_dim), cpu_idx=0, mem_idx=1,
+        multi_queue=False, queue_proportion=False, overused_gate=False, queue_delta=True,
+        qfair_ladder=False, cohort=cohort, t_cap=n_tasks, mesh=None,
+    )
+    return ops, kw
+
+
+# Synthetic K2 cases at the widths the launch plan distinguishes:
+# case id -> mega_operands arguments.  The cluster's CTAs hold equal shares
+# of the gated prefix, so nodes far apart in index lie in different CTAs.
+MEGA_SYNTHETIC = {
+    "nb1024-r8": dict(seed=1, nb=1024, r_dim=8, n_jobs=300, n_nodes=1000,
+                      weights=(1.0, 1.0, 1.0), score_bound=True, enforce_pod_count=True,
+                      cohort=4),
+    "nb16384-r8": dict(seed=2, nb=16384, r_dim=8, n_jobs=400, n_nodes=10000,
+                       weights=(0.0, 0.0, 1.0), cohort=4),
+    "nb32768-r8": dict(seed=3, nb=32768, r_dim=8, n_jobs=1000, n_nodes=30000,
+                       weights=(1.0, 1.0, 1.0), score_bound=True, use_static=True),
+    "ties-across-ctas": dict(seed=4, nb=16384, r_dim=2, n_jobs=200, alike=True,
+                             gated=(15000, 9000, 3800, 1800), weights=(0.0, 0.0, 1.0)),
+    "second-best-other-cta": dict(seed=5, nb=16384, r_dim=2, n_jobs=200, alike=True,
+                                  gated=(100, 12000), weights=(0.0, 1.0, 0.0),
+                                  score_bound=True, cohort=4),
+    "infeasible-chunk": dict(seed=6, nb=4096, r_dim=3, n_jobs=200, infeasible_job=True,
+                             weights=(1.0, 0.0, 1.0), score_bound=True, cohort=4),
+    "job-ledger-on-chip-8320": dict(seed=7, nb=1024, r_dim=2, n_jobs=8100, max_tasks=1,
+                                    weights=(0.0, 1.0, 1.0), score_bound=True,
+                                    enforce_pod_count=True, use_static=True, cohort=4),
+}
+
+
 def many_jobs_cluster():
-    """6,000 single-task jobs on 64 nodes: the job ledger outgrows shared
-    memory (j_pad 6144) and lives in global scratch; the cluster is too
-    small for them all, so some jobs fail."""
+    """12,000 single-task jobs on 64 nodes: the compact job ledger
+    (j_pad 12,160, r_dim 2: 243,200 bytes) outgrows a CTA's shared memory
+    and lives in global scratch, one copy a CTA; the cluster is too small
+    for them all, so some jobs fail."""
     from scheduler_tpu_torch.harness import make_synthetic_cluster
 
-    return make_synthetic_cluster(64, 6000, tasks_per_job=1).cache
+    return make_synthetic_cluster(64, 12_000, tasks_per_job=1).cache
 
 
 def static_spec():
@@ -521,8 +691,11 @@ def events():
 
 def compare(case, args, kw, n_real, timed=False, repeats=3):
     """mega_allocate and its plain version on the same CUDA operands: codes
-    and stats must be bitwise equal.  With ``timed`` both are timed with
-    CUDA events."""
+    and stats must be bitwise equal; the record carries the kernel's launch
+    plan.  With ``timed`` the kernel's device time a launch comes from a
+    profiler trace (``device_ms``, also ``ms``) beside CUDA events around
+    ``repeats`` launches (``event_ms``), with ``us_per_step`` = ms /
+    STATS.STEPS; the plain version is timed with events."""
     import torch
 
     from scheduler_tpu_torch.ops import megakernel as mk
@@ -547,6 +720,7 @@ def compare(case, args, kw, n_real, timed=False, repeats=3):
         "static_rows": int(args[18].shape[0]) if kw["use_static"] else 0,
         "cohort": kw["cohort"], "score_bound": kw["score_bound"],
         "enforce_pod_count": kw["enforce_pod_count"],
+        "plan": mk.plan_for(args, kw).summary(),
     }
     if timed:
         start.record()
@@ -554,7 +728,11 @@ def compare(case, args, kw, n_real, timed=False, repeats=3):
             mk.mega_allocate(*args, **kw)
         stop.record()
         torch.cuda.synchronize()
-        rec["ms"] = start.elapsed_time(stop) / repeats
+        rec["event_ms"] = start.elapsed_time(stop) / repeats
+        rec["device_ms"], _ = device_ms_per_call(lambda: mk.mega_allocate(*args, **kw), repeats,
+                                                 match="mega_allocate_kernel")
+        rec["ms"] = rec["device_ms"] if rec["device_ms"] is not None else rec["event_ms"]
+        rec["us_per_step"] = 1e3 * rec["ms"] / max(1, int(stats_k[0]))
         rec["plain_ms"] = plain_ms
         rec["bound_ms"], rec["bound_by"] = mega_bound_ms(args, kw, codes_k, stats_k, n_real)
     emit(rec)
@@ -753,13 +931,18 @@ def device_ms_per_call(fn, repeats, match=None):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         results = [fn() for _ in range(repeats)]
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, launches = 0.0, 0
     for evt in prof.key_averages():
         # Device events only: a CPU op's self device time repeats its kernels'.
         if evt.device_type == DeviceType.CUDA and (match is None or match in evt.key):
             total_us += (getattr(evt, "self_device_time_total", 0)
                          or getattr(evt, "self_cuda_time_total", 0))
-    return (1e-3 * total_us / repeats if total_us > 0 else None), results
+            launches += evt.count
+    # A named kernel is averaged over the launches the trace holds (a trace
+    # can miss one of a few long launches); a call of several kernels over
+    # the calls.
+    per = launches if match is not None and launches else repeats
+    return (1e-3 * total_us / per if total_us > 0 else None), results
 
 
 def step_device_ms(loop, repeats):
@@ -1112,6 +1295,7 @@ def phase_main_path_templates(cache, conf_path, n_nodes, n_jobs, tasks_per_job):
 
 def phase_kernel_cases(device):
     from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
+    from scheduler_tpu_torch.interop import mega_operands_from_numpy
     from scheduler_tpu_torch.ops import megakernel as mk
 
     _, eng = engine_for(config1_cluster(), CONFIG1_CONF, device)
@@ -1134,10 +1318,16 @@ def phase_kernel_cases(device):
     compare("score_bound_pod_count", eng._mega_args, kw, eng.st.nodes.count)
 
     _, eng = engine_for(many_jobs_cluster(), FLAGSHIP_CONF, device)
-    j_pad = dict(zip(mk.OPERAND_NAMES, eng._mega_args))["job_off"].shape[1]
-    if not mk.job_ledger_in_global(j_pad, eng._mega_kw["r_dim"]):
+    if not mk.plan_for(eng._mega_args, eng._mega_kw).job_ledger_in_global:
         raise SystemExit("the many-jobs case must put the job ledger in global scratch")
     compare("global_job_ledger", eng._mega_args, eng._mega_kw, eng.st.nodes.count)
+
+    # Synthetic operands across the launch plans (r_dim 8 up to nb 32,768 on
+    # 16 CTAs, ties and second-best across CTAs, an infeasible chunk, config
+    # 2's j_pad with the job ledger on chip).
+    for case, spec in MEGA_SYNTHETIC.items():
+        args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
+        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"])
 
     # Static-row mode on small sessions, at one and four cohort chunks.
     for case, cache_fn, conf in (
@@ -1158,18 +1348,14 @@ def phase_kernel_cases(device):
 def phase_full_size(cache, conf_text, device, case):
     """A main path's operands (a session opened on a cluster built as the
     main path's was): kernel against plain, timed."""
+    from scheduler_tpu_torch.ops import megakernel as mk
+
     t0 = time.perf_counter()
     _, eng = engine_for(cache, conf_text, device)
     init_s = time.perf_counter() - t0
     rec = compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count, timed=True)
-    steps = rec["stats"][0]
-    nb = rec["nb"]
-    r_dim = eng._mega_kw["r_dim"]
-    # The floor of a design that re-reads the idle and task-count rows of the
-    # node ledger from device memory on every step.
-    ledger_floor_ms = 1e3 * steps * (r_dim + 1) * nb * 4 / HBM_BYTES_PER_S
-    emit({"phase": "full_size", "case": case, "engine_init_s": init_s,
-          "ledger_reread_floor_ms": ledger_floor_ms})
+    emit({"phase": "full_size", "case": case, "engine_init_s": init_s, "plan": rec["plan"],
+          "covered_nodes": mk.covered_nodes(dict(zip(mk.OPERAND_NAMES, eng._mega_args))["gate"])})
     return rec, eng
 
 
@@ -1259,6 +1445,8 @@ def mega_entry(mode, launches, rec):
             "source": "scheduler_tpu_torch/csrc/mega_allocate.cu",
             "replaces": "scheduler_tpu/ops/megakernel.py:181",
             "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "event_ms": rec["event_ms"],
+            "steps": rec["stats"][0], "us_per_step": rec["us_per_step"], "plan": rec["plan"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None}
 
@@ -1342,17 +1530,19 @@ def main() -> int:
         templates_cluster(), conf_path, opts.nodes, opts.template_jobs, opts.template_tasks)
     gc.collect()
 
-    # The same operands again, from second clusters built the same way.
+    # The same operands again, from second clusters built the same way (K2
+    # first: its profiler traces come before the other kernels' many).
     static_full, eng2 = phase_full_size(config2_cluster(), CONFIG2_CONF, device,
                                         "config2_main_path_operands")
+    cursor_full, _ = phase_full_size(flagship_cluster(), FLAGSHIP_CONF, device,
+                                     "main_path_operands")
+    gc.collect()
     pred_main, pred_wide, pred_err = phase_predicate_cases(eng2.st, device)
     eng3, parity = phase_loop_parity(templates_cluster(), device, check_every=200)
     step_recs = phase_step_kernel_cases(eng3, eng2, device)
     del eng2, eng3
     gc.collect()
     phase_kernel_cases(device)
-    cursor_full, _ = phase_full_size(flagship_cluster(), FLAGSHIP_CONF, device,
-                                     "main_path_operands")
     gc.collect()
     phase_e2e_small(conf_path)
 

@@ -1,62 +1,170 @@
-// mega_allocate: the whole greedy allocate action in one kernel launch.
+// mega_allocate (K2): the whole greedy allocate action in one kernel launch.
 //
-// Replaces scheduler_tpu/ops/megakernel.py::mega_allocate (a Pallas TPU
-// kernel) in CURSOR MODE: one queue, jobs in init-key order, no releasing
-// capacity; with use_static, a task's static-signature mask row is ANDed
-// into the fit and its score row added after the dynamic score terms (the
-// rows are read through msig once per step).  The plain PyTorch version of the same
+// Replaces scheduler_tpu/ops/megakernel.py:181 mega_allocate (a Pallas TPU
+// kernel; kernel body :259-957, pallas_call :959-987) in CURSOR MODE: one
+// queue, jobs in init-key order, no releasing capacity; with use_static
+// (template instantiation mega_allocate_kernel<true>), a task's
+// static-signature mask row is ANDed into the fit and its score row added
+// after the dynamic score terms.  The plain PyTorch version of the same
 // function is scheduler_tpu_torch/ops/megakernel.py::mega_allocate_reference;
 // the two must agree bit for bit on codes and stats.
 //
-// What bounds it on this card: the loop is a dependent chain of about
-// STATS.STEPS steps, and every step needs block-wide reductions over the
-// node axis (fit, score, masked argmax) and over the job lanes — per-step
-// barrier latency, not bytes or FLOPs.  The design keeps it simple and
-// right: ONE persistent block of 1024 threads runs the whole loop, with
-// __syncthreads() between the phases of a step.  The node ledger (16 rows
-// x nb floats, 1 MiB at nb = 16384) lives in a global scratch buffer that
-// stays in L2; the job ledger lives in shared memory when it fits (else in
-// global scratch).  Loop scalars are replicated in every thread's registers
-// and advance identically from block-reduced values.  Faster designs for a
-// later change: a thread-block cluster with the node ledger in distributed
-// shared memory, or a cooperative grid over the node axis.
+// What bounds it on this card: per-chunk latency.  The loop is a dependent
+// chain of STATS.STEPS steps (18,117 at the flagship), each of one or more
+// placement chunks, and each chunk is a fit + score + masked argmax over
+// every node followed by the run-batching grid on the winner.  Bytes and
+// operations are small (the bound is 0.09 ms at the flagship); what costs is
+// the rounds of each chunk: memory round trips, barriers, reductions.
+//
+// The design (the launch plan is ops/megakernel.py::mega_plan):
+//
+// * One thread-block cluster of C CTAs x THREADS threads, persistent for the
+//   whole action.  C is 8 (the portable size) where the node slice, the
+//   exchange slots and the compact job ledger fit a CTA's shared memory,
+//   else 16 (non-portable, launched with cudaLaunchKernelEx and a runtime
+//   cluster dimension).  The entry point checks
+//   cudaOccupancyMaxActiveClusters and refuses a plan that cannot run.
+// * The node ledger lives on chip from the first chunk to the last.  At the
+//   start every CTA finds the last node whose gate is set (nodes past it can
+//   never win) and takes an equal contiguous share of [0, last + 1).  It
+//   loads its slice once into shared memory: the r_dim idle rows, the task
+//   count, the pod limit, the allocatable cpu and memory rows and the gate
+//   (and its slice of the static rows where they fit).  Only the thread
+//   that scores a node reads it, and only warp 0 of the CTA that owns the
+//   winner writes it; nothing goes back to global memory.
+// * One pass per chunk: every thread keeps a running (score, lowest index)
+//   pair over its nodes, and a top-2 where the score bound is on (the merge
+//   of two top-2 lists is exact, so best and second-best come out of the
+//   same pass).  The node pass is compiled for each r_dim (1..8), so every
+//   load of a node is issued before any is used and the fit is branch-free.
+//   Warp shuffles, then warp 0, reduce a CTA's pairs.
+// * No cluster barrier in the loop.  Warp 0 stores the CTA's slot (its
+//   top-2 and its winner's column: idle rows, task count, pod limit,
+//   allocatable cpu and memory, static score) into every CTA of the cluster
+//   with st.async, each store completing its bytes on the receiving CTA's
+//   mbarrier; four warps of every CTA wait on their own mbarrier for the C
+//   slots.  (cluster.sync() compiles to a fence of the whole card and an
+//   invalidation of L1: about 0.5 us a chunk by scripts/k2_phases.py.)
+//   Every lane of the four warps then merges the C
+//   slots from its own shared memory with the same rule (a tree in
+//   registers), reads the winner's column from its owner's slot, and the
+//   four warps share the 128-candidate batch grid (a candidate a lane,
+//   combined through shared memory and a named barrier).  Side by side,
+//   warp 1 updates the node column (owner only), warp 2 the CTA's copy of
+//   the job ledger, and warp 0 publishes the outcome and prefetches into L1
+//   the task-table and job lines the next step most likely reads (the head
+//   of a step is a chain of dependent loads).
+// * The slots and their mbarriers are double-buffered by chunk parity.  A
+//   CTA pushes chunk k + 2 only after it has every slot of chunk k + 1,
+//   which each CTA pushes only after it has read its slots of chunk k: so
+//   no push overwrites a slot that is still read, and no push reaches an
+//   mbarrier phase before the receiver is done with the one before.  A
+//   wait of about ten seconds traps (a fault, not a hang).
+// * The loop's scalar state is replicated: every CTA runs the selection and
+//   the pop-end logic from identical values, so every CTA takes the same
+//   trip count and branches (each CTA waits for every other's slot every
+//   chunk).  Rank 0 alone writes codes and stats; a cluster barrier before
+//   the loop (mbarriers set) and one after it (no CTA exits while a peer
+//   may still push into it) are the only ones.
+// * The job ledger is compact (3 + r_dim rows: consumed, allocated, left,
+//   drf) and sits in shared memory where the plan finds room, in this order:
+//   node slice, job ledger, request table, job operands, static rows.  What
+//   does not fit is read from global memory; a job ledger that does not fit
+//   is one copy a CTA in global scratch ([C, 3 + r_dim, j_pad]).
 //
 // Bitwise parity with the float32 reference rests on: no FMA contraction
 // (built with --fmad=false), IEEE division (-prec-div=true, the default),
-// every expression evaluated in the reference's operation order, and
-// lowest-index tie breaking in every argmax / argmin.
+// every expression evaluated in the reference's operation order (the static
+// score after the dynamic terms), the epsilon fit init < avail |
+// |avail - init| < min, and lowest-index tie breaking at every level of
+// every reduction (thread, warp, CTA, cluster).  The reference's second-best
+// takes the winner's own entry as -inf; where no other node is feasible its
+// index is the lowest -inf index, which the merge reproduces with one
+// virtual entry for the first uncovered node and min(second, best).
+//
+// Registers (-Xptxas -v, sm_90a, __launch_bounds__(THREADS, 1)): cursor
+// mode 114 a thread, static-row mode 118, no spills in either (32 bytes of
+// stack for the comparator thresholds), 3,024 bytes of static shared memory.
+// scripts/k2_phases.py builds it with -DMEGA_PHASE_CLOCKS to time each
+// phase of the loop.
 //
 // Build: with the port's other kernels, by scheduler_tpu_torch/ops/cuda_build.py
 // (nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define THREADS 1024
+namespace cg = cooperative_groups;
+
+#define THREADS 512
 #define WARPS (THREADS / 32)
+#define GRID_WARPS 4  // warps that share the 128-candidate batch grid
+#define MAX_CTAS 16
 #define MAX_BATCH 128
 #define BIG_I32 2147483647
 #define UNPLACED (-1)
 #define FAILED (-2)
 #define HALT (-100)
+#define ERR_NO_CLUSTER 10001  // the plan's cluster cannot be scheduled
 
-// Row layouts (scheduler_tpu_torch/ops/layout.py).
-#define NROW_IDLE 0
+// Operand row layouts (scheduler_tpu_torch/ops/layout.py).
 #define NROW_TASK_COUNT 8
-#define NROW_ROWS 16
-#define JROW_CONSUMED 0
-#define JROW_ALLOCATED 1
-#define JROW_LEFT 2
-#define JROW_DRF 8
 #define SIG_REQ_REQ 0
 #define SIG_REQ_INIT 8
 #define STATS_WIDTH 8
+
+// The compact job ledger's rows (layout.py JOB_STATE).
+#define JS_CONSUMED 0
+#define JS_ALLOCATED 1
+#define JS_LEFT 2
+#define JS_DRF 3
+
+// Node slice arrays in shared memory, after the r_dim idle rows.
+#define NS_TC 0
+#define NS_PLIM 1
+#define NS_AC 2
+#define NS_AM 3
+#define NS_FLOAT_ROWS 4
+
+// An exchange slot: the CTA's top-2, then its winner's column.
+#define SLOT_WORDS 20
+#define SL_V1 0
+#define SL_I1 1
+#define SL_V2 2
+#define SL_I2 3
+#define SL_IDLE 4   // span 8
+#define SL_TC 12
+#define SL_PLIM 13
+#define SL_AC 14
+#define SL_AM 15
+#define SL_SS 16
+#define SL_IC 17    // idle cpu and memory again, for the score bound
+#define SL_IM 18
+
+// Phase clocks: built with -DMEGA_PHASE_CLOCKS (scripts/k2_phases.py), thread
+// 0 of rank 0 sums the SM clock spent in each phase of the loop into
+// phase_clocks[0..PHASES), then the whole loop's clocks and nanoseconds.
+#define PHASES 10
+#ifdef MEGA_PHASE_CLOCKS
+#define TICK(k)                   \
+  do {                            \
+    const long long _t = clock64(); \
+    clocks[k] += _t - clock_at;   \
+    clock_at = _t;                \
+  } while (0)
+#else
+#define TICK(k) \
+  do {          \
+  } while (0)
+#endif
 
 #define COMP_PRIORITY 0
 #define COMP_GANG 1
 #define COMP_DRF 2
 
+// Mirrors _MegaArgs in scheduler_tpu_torch/ops/megakernel.py.
 struct MegaArgs {
   const float* ns0;       // [16, nb] idle rows 0..7, task count row 8
   const float* alloc_t;   // [8, nb] allocatable
@@ -80,12 +188,15 @@ struct MegaArgs {
   const float* sscore;    // [static_rows, nb] static score rows (use_static)
   int* out;               // [(t_rows + 1) * 128] result codes
   int* stats;             // [8] evidence counters
-  float* ns;              // [16, nb] live node ledger (scratch)
-  float* msk;             // [nb] masked scores of the current chunk (scratch)
-  float* js_global;       // [js_rows, j_pad] job ledger when it does not fit shared memory
-  int nb, s_pad, t_rows, t_cap, j_pad, js_rows, r_dim, cpu_idx, mem_idx;
+  float* js_global;       // [C, 3 + r_dim, j_pad] job ledgers where the plan keeps them off chip
+  long long* phase_clocks;  // [PHASES + 2] (built with -DMEGA_PHASE_CLOCKS; else unused)
+  int nb, s_pad, t_rows, t_cap, j_pad, r_dim, cpu_idx, mem_idx;
   int enforce_pod_count, cross_batch, batch_runs, score_bound, cohort, n_comp;
-  int smem_bytes, use_static, static_rows;
+  int use_static, static_rows;
+  // The launch plan (ops/megakernel.py::mega_plan): CTAs, node capacity of
+  // a CTA's slice, dynamic shared memory, and each region's byte offset in
+  // it (-1: the region stays in global memory).
+  int ctas, slice, smem_bytes, off_js, off_sig, off_job, off_static;
   int comp[4];
   float w_lr, w_bal, w_bp;
   float mins[8];
@@ -116,11 +227,97 @@ __device__ __forceinline__ float score_terms(const MegaArgs& a, float a_cpu, flo
   return s;
 }
 
-// (value, index) pairs: larger value wins, the lower index on ties.
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
+// (value, index) order: larger value first, the lower index on ties.
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+struct Top2 {
+  float v1;
+  int i1;
+  float v2;
+  int i2;
+};
+
+__device__ __forceinline__ Top2 top2_empty() { return {-INFINITY, BIG_I32, -INFINITY, BIG_I32}; }
+
+// The two best of two disjoint top-2 lists: exact and associative, since
+// (value, index) is a total order on distinct indices.
+__device__ __forceinline__ void merge2(Top2& a, const Top2& b) {
+  if (better(b.v1, b.i1, a.v1, a.i1)) {
+    if (better(a.v1, a.i1, b.v2, b.i2)) {
+      a.v2 = a.v1;
+      a.i2 = a.i1;
+    } else {
+      a.v2 = b.v2;
+      a.i2 = b.i2;
+    }
+    a.v1 = b.v1;
+    a.i1 = b.i1;
+  } else if (better(b.v1, b.i1, a.v2, a.i2)) {
+    a.v2 = b.v1;
+    a.i2 = b.i1;
+  }
+}
+
+__device__ __forceinline__ Top2 shfl_xor2(const Top2& t, int off, bool both) {
+  Top2 o;
+  o.v1 = __shfl_xor_sync(0xffffffffu, t.v1, off);
+  o.i1 = __shfl_xor_sync(0xffffffffu, t.i1, off);
+  if (both) {
+    o.v2 = __shfl_xor_sync(0xffffffffu, t.v2, off);
+    o.i2 = __shfl_xor_sync(0xffffffffu, t.i2, off);
+  } else {
+    o.v2 = -INFINITY;
+    o.i2 = BIG_I32;
+  }
+  return o;
+}
+
+// Every lane of the warp ends with the warp's top-2 (top-1 unless `both`).
+__device__ __forceinline__ void warp_top2(Top2& t, bool both, int first_off) {
+  for (int off = first_off; off > 0; off >>= 1) merge2(t, shfl_xor2(t, off, both));
+}
+
+// Distributed shared memory without a cluster barrier: a CTA stores its
+// slot into every CTA with st.async, each store completing its bytes on the
+// receiver's mbarrier, and a receiver waits on its own mbarrier.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void store_async(uint32_t remote, float v, uint32_t remote_bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(remote), "r"(__float_as_uint(v)), "r"(remote_bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Wait for phase `parity` of `bar` to complete; a wait of about ten seconds
+// (a fault in the kernel) traps instead of hanging the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 34)) __trap();
   }
 }
 
@@ -131,46 +328,14 @@ struct Reduce {
   int out_i;
 };
 
-// Block-wide argmax of per-thread (value, index) pairs; every thread gets
-// the result.
-__device__ void block_argmax(float& v, int& i, Reduce* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    float v2 = __shfl_down_sync(0xffffffffu, v, off);
-    int i2 = __shfl_down_sync(0xffffffffu, i, off);
-    argmax_merge(v, i, v2, i2);
-  }
-  if (lane == 0) {
-    red->v[warp] = v;
-    red->i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    v = red->v[lane];
-    i = red->i[lane];
-    for (int off = 16; off > 0; off >>= 1) {
-      float v2 = __shfl_down_sync(0xffffffffu, v, off);
-      int i2 = __shfl_down_sync(0xffffffffu, i, off);
-      argmax_merge(v, i, v2, i2);
-    }
-    if (lane == 0) {
-      red->out_v = v;
-      red->out_i = i;
-    }
-  }
-  __syncthreads();
-  v = red->out_v;
-  i = red->out_i;
-}
-
-// Block-wide minimum of a float; every thread gets the result.
+// Block-wide minimum of a float / an int; every thread gets the result.
 __device__ float block_min_f(float v, Reduce* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
   if (lane == 0) red->v[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = red->v[lane];
+    v = lane < WARPS ? red->v[lane] : INFINITY;
     for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
     if (lane == 0) red->out_v = v;
   }
@@ -184,7 +349,7 @@ __device__ int block_min_i(int v, Reduce* red) {
   if (lane == 0) red->i[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = red->i[lane];
+    v = lane < WARPS ? red->i[lane] : BIG_I32;
     for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_down_sync(0xffffffffu, v, off));
     if (lane == 0) red->out_i = v;
   }
@@ -192,35 +357,46 @@ __device__ int block_min_i(int v, Reduce* red) {
   return red->out_i;
 }
 
-// Comparator keys of job lane l.
-__device__ __forceinline__ int key_priority(const MegaArgs& a, int l) { return -a.job_prio[l]; }
+// The job lanes' operands, in shared memory or global memory.
+struct Jobs {
+  const int* off;
+  const int* num;
+  const int* def;
+  const int* gang;
+  const int* prio;
+  const int* tb;
+};
 
-__device__ __forceinline__ int key_gang(const MegaArgs& a, const float* js, int l) {
-  return (((float)a.job_gang[l] - js[JROW_ALLOCATED * a.j_pad + l]) <= 0.0f) ? 1 : 0;
+// Comparator keys of job lane l.
+__device__ __forceinline__ int key_priority(const Jobs& jo, int l) { return -jo.prio[l]; }
+
+__device__ __forceinline__ int key_gang(const Jobs& jo, const float* js, int jp, int l) {
+  return (((float)jo.gang[l] - js[JS_ALLOCATED * jp + l]) <= 0.0f) ? 1 : 0;
 }
 
 __device__ __forceinline__ float key_drf(const MegaArgs& a, const float* js, int l) {
   // Max over all 8 rows, padding rows contributing 0 (as the reference's
-  // [8, J] fraction block does).
+  // [8, J] fraction block does: drf_mask is 0 past r_dim).
   float key = 0.0f;
   for (int r = 0; r < 8; ++r) {
     float frac = 0.0f;
-    if (r < a.r_dim && a.drf_mask[r] > 0.0f) frac = js[(JROW_DRF + r) * a.j_pad + l] / a.drf_safe[r];
+    if (r < a.r_dim && a.drf_mask[r] > 0.0f) frac = js[(JS_DRF + r) * a.j_pad + l] / a.drf_safe[r];
     key = (r == 0) ? frac : fmaxf(key, frac);
   }
   return key;
 }
 
 // Lane l survives the base filter and every comparator before `upto`.
-__device__ bool job_candidate(const MegaArgs& a, const float* js, int l, int cursor, int upto,
-                              const int* thr_i, const float* thr_f) {
+__device__ bool job_candidate(const MegaArgs& a, const Jobs& jo, const float* js, int l, int cursor,
+                              int upto, const int* thr_i, const float* thr_f) {
   const int jp = a.j_pad;
-  bool cand = (js[JROW_LEFT * jp + l] == 0.0f) && (js[JROW_CONSUMED * jp + l] < (float)a.job_num[l]) &&
-              (a.job_num[l] > 0) && (l <= cursor);
+  const int num = jo.num[l];
+  bool cand = (js[JS_LEFT * jp + l] == 0.0f) && (js[JS_CONSUMED * jp + l] < (float)num) &&
+              (num > 0) && (l <= cursor);
   for (int c = 0; c < upto && cand; ++c) {
     int comp = a.comp[c];
-    if (comp == COMP_PRIORITY) cand = key_priority(a, l) == thr_i[c];
-    else if (comp == COMP_GANG) cand = key_gang(a, js, l) == thr_i[c];
+    if (comp == COMP_PRIORITY) cand = key_priority(jo, l) == thr_i[c];
+    else if (comp == COMP_GANG) cand = key_gang(jo, js, jp, l) == thr_i[c];
     else cand = key_drf(a, js, l) == thr_f[c];
   }
   return cand;
@@ -228,7 +404,9 @@ __device__ bool job_candidate(const MegaArgs& a, const float* js, int l, int cur
 
 // The comparator chain (priority -> gang -> drf, then creation/uid rank,
 // lowest lane on ties) over the job lanes <= cursor; HALT when none is left.
-__device__ int chain_select(const MegaArgs& a, const float* js, int cursor, Reduce* red) {
+// Every CTA runs it on its own copy of the job ledger, with CTA barriers only.
+__device__ int chain_select(const MegaArgs& a, const Jobs& jo, const float* js, int cursor,
+                            Reduce* red) {
   int thr_i[4];
   float thr_f[4];
   for (int c = 0; c < a.n_comp; ++c) {
@@ -236,66 +414,242 @@ __device__ int chain_select(const MegaArgs& a, const float* js, int cursor, Redu
     if (comp == COMP_DRF) {
       float v = INFINITY;
       for (int l = threadIdx.x; l < a.j_pad; l += THREADS)
-        if (job_candidate(a, js, l, cursor, c, thr_i, thr_f)) v = fminf(v, key_drf(a, js, l));
+        if (job_candidate(a, jo, js, l, cursor, c, thr_i, thr_f)) v = fminf(v, key_drf(a, js, l));
       thr_f[c] = block_min_f(v, red);
       thr_i[c] = 0;
     } else {
       int v = BIG_I32;
       for (int l = threadIdx.x; l < a.j_pad; l += THREADS)
-        if (job_candidate(a, js, l, cursor, c, thr_i, thr_f))
-          v = min(v, comp == COMP_PRIORITY ? key_priority(a, l) : key_gang(a, js, l));
+        if (job_candidate(a, jo, js, l, cursor, c, thr_i, thr_f))
+          v = min(v, comp == COMP_PRIORITY ? key_priority(jo, l) : key_gang(jo, js, a.j_pad, l));
       thr_i[c] = block_min_i(v, red);
       thr_f[c] = 0.0f;
     }
   }
   int v = BIG_I32;
   for (int l = threadIdx.x; l < a.j_pad; l += THREADS)
-    if (job_candidate(a, js, l, cursor, a.n_comp, thr_i, thr_f)) v = min(v, a.job_tb[l]);
+    if (job_candidate(a, jo, js, l, cursor, a.n_comp, thr_i, thr_f)) v = min(v, jo.tb[l]);
   const int low = block_min_i(v, red);
   if (low >= BIG_I32) return HALT;
   int lane = a.j_pad;
   for (int l = threadIdx.x; l < a.j_pad; l += THREADS)
-    if (job_candidate(a, js, l, cursor, a.n_comp, thr_i, thr_f) && a.job_tb[l] == low) lane = min(lane, l);
+    if (job_candidate(a, jo, js, l, cursor, a.n_comp, thr_i, thr_f) && jo.tb[l] == low)
+      lane = min(lane, l);
   return block_min_i(lane, red);
+}
+
+// A CTA's node slice in shared memory.
+struct NodeSlice {
+  float* idle;  // [r_dim][S]
+  float* tcount;
+  float* plim;
+  float* acpu;
+  float* amem;
+  uint8_t* gate;
+  int S;
+};
+
+// One chunk's fit + score over the CTA's nodes, with r_dim = R known at
+// compile time: every load of a node is issued before any is used, the fit
+// is branch-free, and each thread keeps a running top-2 (top-1 unless
+// `top2`) of (masked score, node index) in increasing node order.
+template <bool USE_STATIC, int R>
+__device__ __forceinline__ Top2 node_pass(const MegaArgs& a, const NodeSlice& ns, int base, int count,
+                                          const float (&initqs)[8], const float (&mins)[8],
+                                          float req_cpu, float req_mem, const float* mrow,
+                                          const float* srow, bool any_w, bool top2) {
+  const int S = ns.S;
+  Top2 t = top2_empty();
+  for (int l = threadIdx.x; l < count; l += THREADS) {
+    float id[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) id[r] = ns.idle[r * S + l];
+    const bool g = ns.gate[l] != 0;
+    const float tc = a.enforce_pod_count ? ns.tcount[l] : 0.0f;
+    const float pl = a.enforce_pod_count ? ns.plim[l] : 0.0f;
+    const float ac = any_w ? ns.acpu[l] : 0.0f, am = any_w ? ns.amem[l] : 0.0f;
+    const float ic = any_w ? ns.idle[a.cpu_idx * S + l] : 0.0f;
+    const float im = any_w ? ns.idle[a.mem_idx * S + l] : 0.0f;
+    const float mk = USE_STATIC ? mrow[l] : 1.0f;
+    const float ss = USE_STATIC ? srow[l] : 0.0f;
+    bool feas = g;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      feas = feas & ((initqs[r] < id[r]) | (fabsf(id[r] - initqs[r]) < mins[r]));
+    if (USE_STATIC) feas = feas & (mk > 0.0f);
+    if (a.enforce_pod_count) feas = feas & (tc < pl);
+    float score = 0.0f;
+    if (any_w) {
+      const float sc = ac > 0.0f ? ac : 1.0f, sm = am > 0.0f ? am : 1.0f;
+      const float req_c = (ac - ic) + req_cpu;
+      const float req_m = (am - im) + req_mem;
+      score = score_terms(a, ac, am, sc, sm, req_c, req_m);
+    }
+    // The static score comes after every dynamic term, as in the reference.
+    if (USE_STATIC) score = score + ss;
+    const float masked = feas ? score : -INFINITY;
+    const int n = base + l;
+    if (better(masked, n, t.v1, t.i1)) {
+      t.v2 = t.v1;
+      t.i2 = t.i1;
+      t.v1 = masked;
+      t.i1 = n;
+    } else if (top2 && better(masked, n, t.v2, t.i2)) {
+      t.v2 = masked;
+      t.i2 = n;
+    }
+  }
+  return t;
 }
 
 // USE_STATIC selects static-row mode at compile time: cursor mode keeps the
 // register budget it has without the static rows.
 template <bool USE_STATIC>
-__global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const MegaArgs a) {
-  extern __shared__ float smem_js[];
+__global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_constant__ MegaArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Every CTA's slot of the chunk, pushed here by its owner: [parity][rank][word],
+  // and the mbarrier each parity's pushes complete on.
+  __shared__ __align__(16) float slots[2][MAX_CTAS][SLOT_WORDS];
+  __shared__ __align__(8) uint64_t slot_bar[2];
+  __shared__ Top2 warp_top[WARPS];
   __shared__ Reduce red;
-  __shared__ int sh_fit;
-  float* js = a.smem_bytes > 0 ? smem_js : a.js_global;
-  const int tid = threadIdx.x;
-  const int nb = a.nb, jp = a.j_pad, r_dim = a.r_dim;
+  __shared__ int sh_res[3];  // the chunk's winner, whether it placed, batch size
+  __shared__ int grid_bad[GRID_WARPS];  // first k the score bound refuses, a warp
+  __shared__ unsigned grid_ok[GRID_WARPS];  // k that fit and are <= hi0, a bit each
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = a.ctas;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nb = a.nb, jp = a.j_pad, r_dim = a.r_dim, S = a.slice;
   const int t_pad = a.t_rows * 128;
   const int out_len = (a.t_rows + 1) * 128;
   const int cohort = a.batch_runs ? max(1, a.cohort) : 1;
   const int max_steps = a.t_cap + 8;
   const int n_real = a.misc[0];
   const float neg_inf = -INFINITY;
-  float* idle = a.ns + NROW_IDLE * nb;
-  float* tcount = a.ns + NROW_TASK_COUNT * nb;
-  const float* a_cpu_row = a.alloc_t + a.cpu_idx * nb;
-  const float* a_mem_row = a.alloc_t + a.mem_idx * nb;
   const bool any_w = a.w_lr != 0.0f || a.w_bal != 0.0f || a.w_bp != 0.0f;
+  const bool top2 = a.score_bound && a.batch_runs;
+  float mins[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) mins[r] = a.mins[r];
 
-  // State into scratch; result initialized to UNPLACED.
-  for (int x = tid; x < NROW_ROWS * nb; x += THREADS) a.ns[x] = a.ns0[x];
-  for (int x = tid; x < a.js_rows * jp; x += THREADS) {
-    const int row = x / jp, l = x - row * jp;
-    js[x] = row >= JROW_DRF ? a.js_drf0[(row - JROW_DRF) * jp + l] : 0.0f;
+  // ---- the partition: equal contiguous shares of [0, last gated + 1) ----
+  int last = -1;
+  for (int n = tid; n < nb; n += THREADS)
+    if (a.gate[n] != 0) last = n;
+  const int n_cover = max(1, -block_min_i(-last, &red) + 1);
+  const int share = (n_cover + C - 1) / C;
+  const int base = min(rank * share, n_cover);
+  const int count = min(share, n_cover - base);
+
+  // ---- the CTA's state into shared memory, once ----
+  float* idle = reinterpret_cast<float*>(smem);  // [r_dim][S]
+  float* tcount = idle + (r_dim + NS_TC) * S;
+  float* plim = idle + (r_dim + NS_PLIM) * S;
+  float* acpu = idle + (r_dim + NS_AC) * S;
+  float* amem = idle + (r_dim + NS_AM) * S;
+  uint8_t* gate = reinterpret_cast<uint8_t*>(idle + (r_dim + NS_FLOAT_ROWS) * S);
+  const NodeSlice nsl = {idle, tcount, plim, acpu, amem, gate, S};
+  for (int l = tid; l < count; l += THREADS) {
+    const int n = base + l;
+    for (int r = 0; r < r_dim; ++r) idle[r * S + l] = a.ns0[r * nb + n];
+    tcount[l] = a.ns0[NROW_TASK_COUNT * nb + n];
+    plim[l] = a.plim[n];
+    acpu[l] = a.alloc_t[a.cpu_idx * nb + n];
+    amem[l] = a.alloc_t[a.mem_idx * nb + n];
+    gate[l] = a.gate[n];
   }
-  for (int x = tid; x < out_len; x += THREADS) a.out[x] = UNPLACED;
+  const int js_rows = JS_DRF + r_dim;
+  float* js = a.off_js >= 0 ? reinterpret_cast<float*>(smem + a.off_js)
+                            : a.js_global + (size_t)rank * js_rows * jp;
+  for (int x = tid; x < js_rows * jp; x += THREADS) {
+    const int row = x / jp, l = x - row * jp;
+    js[x] = row >= JS_DRF ? a.js_drf0[(row - JS_DRF) * jp + l] : 0.0f;
+  }
+  // Request table: rows r (request) and r_dim + r (init) of stride s_pad.
+  const float* req_tab = a.sig_req + SIG_REQ_REQ * a.s_pad;
+  const float* init_tab = a.sig_req + SIG_REQ_INIT * a.s_pad;
+  if (a.off_sig >= 0) {
+    float* t = reinterpret_cast<float*>(smem + a.off_sig);
+    for (int x = tid; x < r_dim * a.s_pad; x += THREADS) {
+      t[x] = req_tab[x];
+      t[r_dim * a.s_pad + x] = init_tab[x];
+    }
+    req_tab = t;
+    init_tab = t + r_dim * a.s_pad;
+  }
+  Jobs jo = {a.job_off, a.job_num, a.job_def, a.job_gang, a.job_prio, a.job_tb};
+  if (a.off_job >= 0) {
+    int* t = reinterpret_cast<int*>(smem + a.off_job);
+    for (int l = tid; l < jp; l += THREADS) {
+      t[l] = a.job_off[l];
+      t[jp + l] = a.job_num[l];
+      t[2 * jp + l] = a.job_def[l];
+      t[3 * jp + l] = a.job_gang[l];
+      t[4 * jp + l] = a.job_prio[l];
+      t[5 * jp + l] = a.job_tb[l];
+    }
+    jo = {t, t + jp, t + 2 * jp, t + 3 * jp, t + 4 * jp, t + 5 * jp};
+  }
+  // Static rows, indexed by the CTA's local node index.
+  const float* smask_tab = nullptr;
+  const float* sscore_tab = nullptr;
+  int static_stride = nb;
+  if (USE_STATIC && a.off_static < 0) {
+    smask_tab = a.smask + base;
+    sscore_tab = a.sscore + base;
+  } else if (USE_STATIC) {
+    float* t = reinterpret_cast<float*>(smem + a.off_static);
+    for (int x = tid; x < a.static_rows * count; x += THREADS) {
+      const int row = x / count, l = x - row * count;
+      t[row * S + l] = a.smask[(size_t)row * nb + base + l];
+      t[(a.static_rows + row) * S + l] = a.sscore[(size_t)row * nb + base + l];
+    }
+    smask_tab = t;
+    sscore_tab = t + a.static_rows * S;
+    static_stride = S;
+  }
+  if (rank == 0)
+    for (int x = tid; x < out_len; x += THREADS) a.out[x] = UNPLACED;
+  // The node row whose entry of the winner's column lane SL_IDLE + w of
+  // warp 0 puts into slot word SL_IDLE + w (the static score row changes a
+  // step).
+  const float* col_src = nullptr;
+  {
+    const int w = lane - SL_IDLE;
+    if (w < 0) col_src = nullptr;
+    else if (w < r_dim) col_src = idle + w * S;
+    else if (w == SL_TC - SL_IDLE) col_src = tcount;
+    else if (w == SL_PLIM - SL_IDLE) col_src = plim;
+    else if (w == SL_AC - SL_IDLE) col_src = acpu;
+    else if (w == SL_AM - SL_IDLE) col_src = amem;
+    else if (w == SL_IC - SL_IDLE && any_w) col_src = idle + a.cpu_idx * S;
+    else if (w == SL_IM - SL_IDLE && any_w) col_src = idle + a.mem_idx * S;
+  }
+  if (tid == 0) {
+    bar_init(&slot_bar[0]);
+    bar_init(&slot_bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
+  cluster.sync();  // every CTA's mbarriers are set before any push
 
   int cur = -1, cursor = 0, n_dirty = 0, steps = 0, coh_steps = 0, chunk_pl = 0;
+  int parity = 0;
+  unsigned chunk_no = 0;  // chunks so far: parity = chunk_no & 1
+#ifdef MEGA_PHASE_CLOCKS
+  long long clocks[PHASES] = {};
+  long long clock_at = clock64();
+  const long long clock0 = clock_at;
+  unsigned long long ns0;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));
+#endif
   while (steps < max_steps && (cur >= 0 || (cur != HALT && (cursor < n_real || n_dirty > 0)))) {
-    // ---- selection (cursor mode) ----
+    // ---- selection (cursor mode), in every CTA ----
     int sel;
     if (cur == -1) {
-      if (n_dirty > 0) sel = chain_select(a, js, cursor, &red);
+      if (n_dirty > 0) sel = chain_select(a, jo, js, cursor, &red);
       else sel = cursor < n_real ? cursor : HALT;
     } else {
       sel = cur;
@@ -306,139 +660,276 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const MegaArg
     int cur_r = sel;
 
     int jb = min(max(sel, 0), jp - 1);
-    float cons_c = js[JROW_CONSUMED * jp + jb];
-    float nalloc_c = js[JROW_ALLOCATED * jp + jb];
-    const int num_v = a.job_num[jb];
-    const int deficit_v = a.job_def[jb];
-    int t_c = min(max(a.job_off[jb] + (int)cons_c, 0), t_pad - 1);
+    float cons_c = js[JS_CONSUMED * jp + jb];
+    float nalloc_c = js[JS_ALLOCATED * jp + jb];
+    const int num_v = jo.num[jb];
+    const int deficit_v = jo.def[jb];
+    int t_c = min(max(jo.off[jb] + (int)cons_c, 0), t_pad - 1);
     const int sig = a.task_sig[t_c];
     int rl_c = a.run_len[t_c];
     // Static-row mode: the task's signature rows, read once per step (the
     // cohort chunks below reuse them: a run shares its rows by construction
-    // of the run merge).  They stay in L2 across steps.
+    // of the run merge).
     const float* mrow = nullptr;
     const float* srow = nullptr;
     if (USE_STATIC) {
       const int ms = min(max(a.msig[t_c], 0), a.static_rows - 1);
-      mrow = a.smask + (size_t)ms * nb;
-      srow = a.sscore + (size_t)ms * nb;
+      mrow = smask_tab + (size_t)ms * static_stride;
+      srow = sscore_tab + (size_t)ms * static_stride;
     }
     float reqs[8], initqs[8];
+#pragma unroll
     for (int r = 0; r < 8; ++r) {
-      reqs[r] = r < r_dim ? a.sig_req[(SIG_REQ_REQ + r) * a.s_pad + sig] : 0.0f;
-      initqs[r] = r < r_dim ? a.sig_req[(SIG_REQ_INIT + r) * a.s_pad + sig] : 0.0f;
+      reqs[r] = r < r_dim ? req_tab[r * a.s_pad + sig] : 0.0f;
+      initqs[r] = r < r_dim ? init_tab[r * a.s_pad + sig] : 0.0f;
     }
+    const float req_cpu = req_tab[a.cpu_idx * a.s_pad + sig];
+    const float req_mem = req_tab[a.mem_idx * a.s_pad + sig];
     const bool single0 = num_v == 1;
     bool act = sel >= 0;
 
+    TICK(0);  // the head of the step: selection, task entry, request rows
     // ---- cohort chunks ----
     for (int c = 0; c < cohort && act; ++c) {
-      // fit + score + masked argmax over every node
-      float bv = neg_inf;
-      int bi = BIG_I32;
-      for (int n = tid; n < nb; n += THREADS) {
-        bool feas = a.gate[n] != 0;
-        for (int r = 0; r < r_dim; ++r) {
-          const float id = idle[r * nb + n];
-          feas = feas && ((initqs[r] < id) || (fabsf(id - initqs[r]) < a.mins[r]));
-        }
-        if (USE_STATIC) feas = feas && (mrow[n] > 0.0f);
-        if (a.enforce_pod_count) feas = feas && (tcount[n] < a.plim[n]);
-        float score = 0.0f;
-        if (any_w) {
-          const float ac = a_cpu_row[n], am = a_mem_row[n];
-          const float sc = ac > 0.0f ? ac : 1.0f, sm = am > 0.0f ? am : 1.0f;
-          const float req_c = (ac - idle[a.cpu_idx * nb + n]) + reqs[a.cpu_idx];
-          const float req_m = (am - idle[a.mem_idx * nb + n]) + reqs[a.mem_idx];
-          score = score_terms(a, ac, am, sc, sm, req_c, req_m);
-        }
-        // The static score comes after every dynamic term, as in the reference.
-        if (USE_STATIC) score = score + srow[n];
-        const float masked = feas ? score : neg_inf;
-        a.msk[n] = masked;
-        argmax_merge(bv, bi, masked, n);
+      // This chunk's pushes, C slots of SLOT_WORDS floats, complete on
+      // slot_bar[parity] (its phase before this one completed two chunks ago).
+      if (tid == 0) bar_expect(&slot_bar[parity], C * SLOT_WORDS * 4);
+      // fit + score over the CTA's nodes: a running top-2 (top-1 unless the
+      // score bound needs the second-best).  Every load of a node is issued
+      // before any is used, and the fit is branch-free.
+      Top2 t;
+      switch (r_dim) {
+        case 1: t = node_pass<USE_STATIC, 1>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 2: t = node_pass<USE_STATIC, 2>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 3: t = node_pass<USE_STATIC, 3>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 4: t = node_pass<USE_STATIC, 4>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 5: t = node_pass<USE_STATIC, 5>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 6: t = node_pass<USE_STATIC, 6>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 7: t = node_pass<USE_STATIC, 7>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        default: t = node_pass<USE_STATIC, 8>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
       }
-      block_argmax(bv, bi, &red);
-      const int best = min(bi, nb - 1);
-      const bool alloc_here = bv > neg_inf;
-      const bool failed = !alloc_here;
+      if (!top2) {
+        t.v2 = neg_inf;
+        t.i2 = BIG_I32;
+      }
+      TICK(1);  // the node pass
+      // CTA: warps, then warp 0 pushes the CTA's slot (pairs and winner's
+      // column) into every CTA of the cluster.
+      warp_top2(t, top2, 16);
+      if (lane == 0) warp_top[warp] = t;
+      __syncthreads();
+      TICK(2);  // warp reductions and the CTA barrier
+      if (warp == 0) {
+        t = lane < WARPS ? warp_top[lane] : top2_empty();
+        warp_top2(t, top2, WARPS / 2);  // lanes 0..WARPS-1 end with the CTA's pairs
+        const int win = __shfl_sync(0xffffffffu, t.i1, 0);
+        const int loc = win - base;
+        const bool mine = win != BIG_I32 && loc >= 0 && loc < count;
+        // Lane w holds word w of the slot (lanes 0..3: the pairs; 4..19: the
+        // winner's column) and stores it into every CTA's copy of this slot.
+        const int w = lane - SL_IDLE;
+        const float* src = (USE_STATIC && w == SL_SS - SL_IDLE) ? srow : col_src;
+        float word = (w >= 0 && mine && src) ? src[loc] : 0.0f;
+        if (lane == SL_V1) word = t.v1;
+        if (lane == SL_I1) word = __int_as_float(t.i1);
+        if (lane == SL_V2) word = t.v2;
+        if (lane == SL_I2) word = __int_as_float(t.i2);
+        if (lane < SLOT_WORDS) {
+          const uint32_t mine_at = smem_addr(&slots[parity][rank][lane]);
+          const uint32_t bar_at = smem_addr(&slot_bar[parity]);
+          for (int p = 0; p < C; ++p)
+            store_async(cluster_addr(mine_at, p), word, cluster_addr(bar_at, p));
+        }
+      }
+      TICK(3);  // the CTA's pairs and the push of its slot
+      // The grid warps wait until every CTA's slot of this chunk is here.
+      if (warp < GRID_WARPS) bar_wait(&slot_bar[parity], (chunk_no >> 1) & 1u);
+      TICK(4);  // the wait for the C slots
 
-      // run batching on the winner (top-2 score bound unless binpack-only)
-      int m = 1;
-      if (a.batch_runs && alloc_here) {
-        float second = neg_inf;
-        int second_idx = BIG_I32;
-        if (a.score_bound) {
-          for (int n = tid; n < nb; n += THREADS) argmax_merge(second, second_idx, n == best ? neg_inf : a.msk[n], n);
-          block_argmax(second, second_idx, &red);
+      // Cluster: warps 0..GRID_WARPS-1 of every CTA merge the C slots; each
+      // takes 32 candidates of the batch grid, warp 0 combines them.
+      if (warp < GRID_WARPS) {
+        // Every lane merges the C slots' pairs itself (broadcast reads of its
+        // own shared memory, a tree of merges in registers, eight slots at a
+        // time): no shuffles.
+        Top2 g = top2_empty();
+        for (int p0 = 0; p0 < C; p0 += 8) {
+          Top2 q[8];
+#pragma unroll
+          for (int p = 0; p < 8; ++p) {
+            if (p0 + p < C) {
+              const float4 x = *reinterpret_cast<const float4*>(slots[parity][p0 + p]);
+              q[p] = {x.x, __float_as_int(x.y), x.z, __float_as_int(x.w)};
+            } else {
+              q[p] = top2_empty();
+            }
+          }
+#pragma unroll
+          for (int step = 1; step < 8; step <<= 1)
+#pragma unroll
+            for (int p = 0; p + step < 8; p += 2 * step) merge2(q[p], q[p + step]);
+          merge2(g, q[0]);
         }
-        int room = deficit_v > 0 ? deficit_v - (int)nalloc_c : 1;
-        if (a.cross_batch && single0 && dirty_r == 0) room = MAX_BATCH;
-        int hi0 = min(min(rl_c, MAX_BATCH), room);
-        if (a.enforce_pod_count) hi0 = min(hi0, (int)(a.plim[best] - tcount[best]));
-        hi0 = max(hi0, 1);
-        if (tid < 32) {
-          // One warp: lane handles k = lane + 1 + 32 q of the 128-wide grid.
-          bool ok[4];
-          int first_false = MAX_BATCH + 1;
-          for (int q = 0; q < 4; ++q) {
-            const int k = tid + 1 + 32 * q;
-            const float jm1 = (float)(k - 1);
+        // The uncovered nodes [n_cover, nb) are all -inf: the first of them
+        // stands for them all.
+        if (n_cover < nb) merge2(g, Top2{neg_inf, n_cover, neg_inf, BIG_I32});
+        const float bv = g.v1;
+        const int best = min(g.i1, nb - 1);
+        const bool alloc_here = bv > neg_inf;
+        const int owner = min(best / share, C - 1);
+        const float* col = slots[parity][owner];  // the winner's column
+        TICK(5);  // the merge of the C slots
+
+        // run batching on the winner (top-2 score bound unless binpack-only)
+        int m = 1;
+        if (a.batch_runs && alloc_here) {
+          // The winner's column, from its owner's slot.
+          float cidle[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            cidle[r] = r < r_dim ? col[SL_IDLE + r] : 0.0f;
+          int room = deficit_v > 0 ? deficit_v - (int)nalloc_c : 1;
+          if (a.cross_batch && single0 && dirty_r == 0) room = MAX_BATCH;
+          int hi0 = min(min(rl_c, MAX_BATCH), room);
+          if (a.enforce_pod_count) {
+            const float c_tc = col[SL_TC];
+            const float c_plim = col[SL_PLIM];
+            hi0 = min(hi0, (int)(c_plim - c_tc));
+          }
+          hi0 = max(hi0, 1);
+          // Candidate k places k tasks: avail = idle - (k - 1) req must
+          // still fit every row.
+          auto fits = [&](float jm1) {
             bool okk = true;
-            for (int r = 0; r < r_dim; ++r) {
-              const float avail = idle[r * nb + best] - jm1 * reqs[r];
-              okk = okk && ((initqs[r] < avail) || (fabsf(avail - initqs[r]) < a.mins[r]));
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              if (r < r_dim) {
+                const float avail = cidle[r] - jm1 * reqs[r];
+                okk = okk & ((initqs[r] < avail) | (fabsf(avail - initqs[r]) < mins[r]));
+              }
             }
-            ok[q] = okk;
-            if (a.score_bound) {
-              const float ac = a_cpu_row[best], am = a_mem_row[best];
-              const float avail_c = idle[a.cpu_idx * nb + best] - jm1 * reqs[a.cpu_idx];
-              const float avail_m = idle[a.mem_idx * nb + best] - jm1 * reqs[a.mem_idx];
-              const float sc = ac > 0.0f ? ac : 1.0f, sm = am > 0.0f ? am : 1.0f;
-              const float reqd_c = (ac - avail_c) + reqs[a.cpu_idx];
-              const float reqd_m = (am - avail_m) + reqs[a.mem_idx];
-              float s_js = score_terms(a, ac, am, sc, sm, reqd_c, reqd_m);
-              if (USE_STATIC) s_js = s_js + srow[best];
-              const bool ok_s = (s_js > second) || ((s_js == second) && (best < second_idx));
-              if (!ok_s) first_false = min(first_false, k);
-            }
+            return okk;
+          };
+          // Four warps share the grid, a candidate a lane: k = 32 warp +
+          // lane + 1 (one warp taking four candidates a lane measured
+          // slower, even for the fit alone).  okm[w] bit b: k = 32 w + b + 1
+          // fits and k <= hi0.
+          const int k = 32 * warp + lane + 1;
+          const float jm1 = (float)(k - 1);
+          int bad = MAX_BATCH + 1;
+          if (a.score_bound) {
+            // The reference's second-best sets the winner's own entry to
+            // -inf: with no other node feasible, its index is the lowest
+            // -inf one.
+            const float second = g.v2;
+            const int second_idx = second == neg_inf ? min(g.i2, best) : g.i2;
+            const float c_ac = col[SL_AC];
+            const float c_am = col[SL_AM];
+            const float c_ic = col[SL_IC];
+            const float c_im = col[SL_IM];
+            const float avail_c = c_ic - jm1 * req_cpu;
+            const float avail_m = c_im - jm1 * req_mem;
+            const float sc = c_ac > 0.0f ? c_ac : 1.0f, sm = c_am > 0.0f ? c_am : 1.0f;
+            const float reqd_c = (c_ac - avail_c) + req_cpu;
+            const float reqd_m = (c_am - avail_m) + req_mem;
+            float s_js = score_terms(a, c_ac, c_am, sc, sm, reqd_c, reqd_m);
+            if (USE_STATIC) s_js = s_js + col[SL_SS];
+            const bool ok_s = (s_js > second) || ((s_js == second) && (best < second_idx));
+            if (!ok_s) bad = k;
+            for (int off = 16; off > 0; off >>= 1) bad = min(bad, __shfl_xor_sync(0xffffffffu, bad, off));
           }
-          for (int off = 16; off > 0; off >>= 1)
-            first_false = min(first_false, __shfl_xor_sync(0xffffffffu, first_false, off));
-          int fit = 1;
-          for (int q = 0; q < 4; ++q) {
-            const int k = tid + 1 + 32 * q;
-            if (ok[q] && k < first_false && k <= hi0) fit = max(fit, k);
+          const unsigned mine = __ballot_sync(0xffffffffu, fits(jm1) && k <= hi0);
+          if (lane == 0) {
+            grid_bad[warp] = bad;
+            grid_ok[warp] = mine;
           }
-          for (int off = 16; off > 0; off >>= 1) fit = max(fit, __shfl_xor_sync(0xffffffffu, fit, off));
-          if (tid == 0) sh_fit = fit;
+          asm volatile("bar.sync 1, %0;" ::"n"(32 * GRID_WARPS) : "memory");
+          unsigned okm[GRID_WARPS];
+          int first_false = MAX_BATCH + 1;
+#pragma unroll
+          for (int w = 0; w < GRID_WARPS; ++w) {
+            first_false = min(first_false, grid_bad[w]);
+            okm[w] = grid_ok[w];
+          }
+          // m = the largest k that fits, <= hi0, below the first k the bound
+          // refuses (1 if none).
+#pragma unroll
+          for (int w = 0; w < GRID_WARPS; ++w) {
+            const int keep = first_false - 1 - 32 * w;
+            unsigned bits = okm[w];
+            if (keep <= 0) bits = 0u;
+            else if (keep < 32) bits &= (1u << keep) - 1u;
+            if (bits) m = max(m, 32 * w + (31 - __clz(bits)) + 1);
+          }
         }
-        __syncthreads();
-        m = sh_fit;
+        TICK(6);  // the batch grid
+        // The chunk's outcome, known to all four warps; three of them apply
+        // it side by side.
+        const bool cross_active = a.cross_batch && single0 && alloc_here;
+        const int consumed = alloc_here ? m : 1;
+        const float m_alloc = alloc_here ? (float)m : 0.0f;
+        const int kw = cross_active ? m : 1;
+        if (warp == 0) {
+          if (lane == 0) {
+            sh_res[0] = best;
+            sh_res[1] = alloc_here ? 1 : 0;
+            sh_res[2] = m;
+          }
+          // The next step most often reads the task table at t_c + consumed
+          // and the job after this window: bring their lines into L1 now.
+          const int t_next = min(t_c + consumed, t_pad - 1);
+          const int j_next = min(jb + kw, jp - 1);
+          const void* line = nullptr;
+          if (lane == 0) line = a.task_sig + t_next;
+          else if (lane == 1) line = a.run_len + t_next;
+          else if (lane == 2 && USE_STATIC) line = a.msig + t_next;
+          else if (a.off_job < 0 && lane == 3) line = a.job_off + j_next;
+          else if (a.off_job < 0 && lane == 4) line = a.job_num + j_next;
+          else if (a.off_job < 0 && lane == 5) line = a.job_def + j_next;
+          if (line != nullptr) asm volatile("prefetch.global.L1 [%0];" ::"l"(line));
+        } else if (warp == 1) {
+          // node ledger: the winner's column, in its owner only
+          if (alloc_here && owner == rank) {
+            const int loc = best - base;
+            float rq = 0.0f;
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              if (r == lane) rq = reqs[r];
+            if (lane < r_dim) idle[lane * S + loc] = idle[lane * S + loc] - rq * m_alloc;
+            if (lane == 31) tcount[loc] = tcount[loc] + m_alloc;
+          }
+        } else if (warp == 2) {
+          // job ledger (this CTA's copy): one lane, or the window of a
+          // cross-job batch
+          const bool failed = !alloc_here;
+          for (int x = lane; x < kw; x += 32) {
+            const int l = jb + x;
+            if (l >= jp) break;
+            const float drf_scale = cross_active ? 1.0f : m_alloc;
+            js[JS_CONSUMED * jp + l] = js[JS_CONSUMED * jp + l] + (cross_active ? 1.0f : (float)consumed);
+            js[JS_ALLOCATED * jp + l] = js[JS_ALLOCATED * jp + l] + (cross_active ? 1.0f : m_alloc);
+            js[JS_LEFT * jp + l] = js[JS_LEFT * jp + l] + (cross_active ? 0.0f : (failed ? 1.0f : 0.0f));
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              if (r < r_dim) js[(JS_DRF + r) * jp + l] = js[(JS_DRF + r) * jp + l] + reqs[r] * drf_scale;
+          }
+        }
       }
+      TICK(7);  // the ledger updates
+      __syncthreads();
+      TICK(8);  // the closing CTA barrier
+      parity ^= 1;
+      ++chunk_no;
+      const int best = sh_res[0];
+      const bool alloc_here = sh_res[1] != 0;
+      const bool failed = !alloc_here;
+      const int m = sh_res[2];
       const bool cross_active = a.cross_batch && single0 && alloc_here;
-      const int consumed = alloc_here ? m : (failed ? 1 : 0);
+      const int consumed = alloc_here ? m : 1;
       const float m_alloc = alloc_here ? (float)m : 0.0f;
 
-      // node ledger: the winner's column
-      if (tid == 0 && alloc_here) {
-        for (int r = 0; r < r_dim; ++r) idle[r * nb + best] = idle[r * nb + best] - reqs[r] * m_alloc;
-        tcount[best] = tcount[best] + m_alloc;
-      }
-      // job ledger: one lane, or the window of a cross-job batch
-      const int k = cross_active ? m : 1;
-      if (tid < k && jb + tid < jp) {
-        const int l = jb + tid;
-        const float drf_scale = cross_active ? 1.0f : m_alloc;
-        js[JROW_CONSUMED * jp + l] = js[JROW_CONSUMED * jp + l] + (cross_active ? 1.0f : (float)consumed);
-        js[JROW_ALLOCATED * jp + l] = js[JROW_ALLOCATED * jp + l] + (cross_active ? 1.0f : m_alloc);
-        js[JROW_LEFT * jp + l] = js[JROW_LEFT * jp + l] + (cross_active ? 0.0f : (failed ? 1.0f : 0.0f));
-        for (int r = 0; r < r_dim; ++r)
-          js[(JROW_DRF + r) * jp + l] = js[(JROW_DRF + r) * jp + l] + reqs[r] * drf_scale;
-      }
       // result codes of the consumed tasks
-      const int code = alloc_here ? best : FAILED;
-      if (tid < consumed && t_c + tid < out_len) a.out[t_c + tid] = code;
+      if (rank == 0 && tid < consumed && t_c + tid < out_len) a.out[t_c + tid] = alloc_here ? best : FAILED;
 
       // pop end / running scalars
       const float row_after_alloc = nalloc_c + (cross_active ? 1.0f : m_alloc);
@@ -467,33 +958,64 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const MegaArg
         }
         act = act_next;
       }
-      __syncthreads();
     }
+    TICK(9);  // the scalars after the last chunk
     cur = cur_r;
     cursor = cursor_r;
     n_dirty = dirty_r;
     steps += 1;
   }
-  if (tid == 0) {
+#ifdef MEGA_PHASE_CLOCKS
+  unsigned long long ns1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));
+  if (rank == 0 && tid == 0 && a.phase_clocks != nullptr) {
+    for (int k = 0; k < PHASES; ++k) a.phase_clocks[k] = clocks[k];
+    a.phase_clocks[PHASES] = clock64() - clock0;
+    a.phase_clocks[PHASES + 1] = (long long)(ns1 - ns0);
+  }
+#endif
+  if (rank == 0 && tid == 0) {
     a.stats[0] = steps;
     a.stats[1] = coh_steps;
     a.stats[2] = chunk_pl;
     for (int x = 3; x < STATS_WIDTH; ++x) a.stats[x] = 0;
   }
+  cluster.sync();  // no CTA exits while a peer may still push into it
 }
 
 template <bool USE_STATIC>
 static int launch(const MegaArgs* args, void* stream) {
-  if (args->smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(mega_allocate_kernel<USE_STATIC>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, args->smem_bytes);
+  auto kernel = mega_allocate_kernel<USE_STATIC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         args->smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (args->ctas > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
-  mega_allocate_kernel<USE_STATIC><<<1, THREADS, args->smem_bytes, (cudaStream_t)stream>>>(*args);
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = args->ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.gridDim = dim3(args->ctas, 1, 1);
+  config.blockDim = dim3(THREADS, 1, 1);
+  config.dynamicSmemBytes = args->smem_bytes;
+  config.stream = (cudaStream_t)stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &config);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return ERR_NO_CLUSTER;
+  err = cudaLaunchKernelEx(&config, kernel, *args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 extern "C" int mega_allocate_launch(const MegaArgs* args, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
+  if (args->ctas < 1 || args->ctas > MAX_CTAS) return (int)cudaErrorInvalidValue;
   return args->use_static ? launch<true>(args, stream) : launch<false>(args, stream);
 }

@@ -49,8 +49,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest(srcs) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(srcs, flags=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for src in srcs:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
@@ -77,11 +77,25 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     return _lib
 
 
-def _compile(srcs, out_dir, path, verbose):
+def load_variant(names, defines) -> ctypes.CDLL:
+    """A separate library of the sources ``names`` (file names under
+    ``csrc/``) built with the preprocessor ``defines`` (e.g. an instrumented
+    build for a measurement script); the port's own library is untouched."""
+    srcs = [os.path.join(_PKG, "csrc", name) for name in names]
+    flags = tuple(f"-D{d}" for d in defines)
+    out_dir = _build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"variant-{_digest(srcs, flags)}.so")
+    if not os.path.exists(path):
+        _compile(srcs, out_dir, path, False, flags)
+    return ctypes.CDLL(path)
+
+
+def _compile(srcs, out_dir, path, verbose, flags=()):
     """Compile every source to an object in parallel, then link them into
     ``path``.  Returns (seconds, compiler output)."""
     nvcc = _nvcc()
-    extra = ("-Xptxas", "-v") if verbose else ()
+    extra = (("-Xptxas", "-v") if verbose else ()) + tuple(flags)
     start = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs, procs = [], []

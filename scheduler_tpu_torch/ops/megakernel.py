@@ -29,17 +29,23 @@ static-row mode, as dummies): codes are
 second output holds the 8 ``STATS`` counters.
 
 Where the kernel's time goes on the card: the loop is a dependent chain of
-about ``STATS.STEPS`` steps, each needing block-wide reductions over the
-node axis (fit, score, argmax) — per-step latency bounds it, not bytes or
-FLOPs.  The design is one persistent 1024-thread block; the later redesigns
-are a thread-block cluster with the node ledger in distributed shared
-memory, or a cooperative grid.
+``STATS.STEPS`` steps of one or more placement chunks, and each chunk is a
+fit + score + masked argmax over every node and a batch grid on the winner:
+per-chunk latency bounds it (memory round trips, barriers, reductions), not
+bytes or FLOPs.  The kernel is one thread-block cluster, persistent for the
+whole action, that keeps the node ledger in its CTAs' shared memory from the
+first chunk to the last; once a chunk every CTA stores its best pairs and
+winner column into every CTA (distributed shared memory, completing on the
+receiver's mbarrier) and merges the C it receives, with no cluster barrier
+in the loop (the design is in the source note).  ``mega_plan`` is its
+launch plan: the cluster size, the node slices and what sits in shared
+memory; a shape that the mega gate admits and the plan cannot launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +53,7 @@ import torch
 from scheduler_tpu_torch.ops import cuda_build
 from scheduler_tpu_torch.ops.layout import (
     JOB_SCRATCH as JROW,
+    JOB_STATE,
     NODE_SCRATCH as NROW,
     SIG_REQ,
     STATS,
@@ -74,6 +81,12 @@ _COMPARATOR_CODES = {"priority": 0, "gang": 1, "drf": 2}
 
 # Launches of the CUDA kernel (the CPU path never counts).
 launches = 0
+
+# An int64 CUDA tensor of PHASE_WORDS that a kernel built with
+# -DMEGA_PHASE_CLOCKS fills with its per-phase clock sums
+# (scripts/k2_phases.py); None in normal use.
+phase_clocks = None
+PHASE_WORDS = 12
 
 
 def task_table_rows(t_pad: int) -> int:
@@ -136,15 +149,16 @@ class _MegaArgs(ctypes.Structure):
             "ns0", "alloc_t", "gate", "plim", "sig_req", "task_sig", "run_len",
             "job_off", "job_num", "job_def", "job_gang", "job_prio", "job_tb",
             "js_drf0", "drf_safe", "drf_mask", "misc", "msig", "smask", "sscore",
-            "out", "stats", "ns", "msk", "js_global",
+            "out", "stats", "js_global", "phase_clocks",
         )
     ] + [
         (name, ctypes.c_int)
         for name in (
-            "nb", "s_pad", "t_rows", "t_cap", "j_pad", "js_rows", "r_dim",
+            "nb", "s_pad", "t_rows", "t_cap", "j_pad", "r_dim",
             "cpu_idx", "mem_idx", "enforce_pod_count", "cross_batch",
-            "batch_runs", "score_bound", "cohort", "n_comp", "smem_bytes",
-            "use_static", "static_rows",
+            "batch_runs", "score_bound", "cohort", "n_comp",
+            "use_static", "static_rows", "ctas", "slice", "smem_bytes",
+            "off_js", "off_sig", "off_job", "off_static",
         )
     ] + [
         ("comp", ctypes.c_int * 4),
@@ -163,22 +177,127 @@ def _entry():
     return fn
 
 
-# -- the wrapper ----------------------------------------------------------------
+# -- the launch plan --------------------------------------------------------------
 
-# Job scratch beyond this many bytes lives in device memory instead of
-# shared memory (an SM offers 227 KB to one block).
-_SMEM_JOB_LIMIT = 200 * 1024
+# Shared memory one CTA may hold on the H100 (227 KB), and the part of it the
+# kernel's static arrays take (every CTA's exchange slots, warp pairs,
+# reduction area; under 3.2 KB by -Xptxas -v).
+SMEM_LIMIT = 232_448
+_STATIC_SMEM = 4096
+THREADS = 512  # a CTA (csrc/mega_allocate.cu THREADS)
+_ERR_NO_CLUSTER = 10001
+
+
+class MegaPlan(NamedTuple):
+    """How the kernel launches for one shape: ``ctas`` CTAs of ``threads``
+    in one cluster, each with room for ``slice`` nodes, ``smem_bytes`` of
+    dynamic shared memory, and each region's byte offset in it (None: the
+    region stays in global memory; the job ledger then takes one copy a CTA
+    in global scratch)."""
+
+    ctas: int
+    threads: int
+    slice: int
+    smem_bytes: int
+    off_js: Optional[int]
+    off_sig: Optional[int]
+    off_job: Optional[int]
+    off_static: Optional[int]
+
+    @property
+    def job_ledger_in_global(self) -> bool:
+        return self.off_js is None
+
+    def summary(self) -> dict:
+        """The plan as the records of ``chip_smoke.py`` report it."""
+        return {"ctas": self.ctas, "threads": self.threads, "slice": self.slice,
+                "smem_bytes": self.smem_bytes,
+                "on_chip": [name for name, off in (
+                    ("job_ledger", self.off_js), ("sig_req", self.off_sig),
+                    ("job_operands", self.off_job), ("static_rows", self.off_static))
+                    if off is not None]}
+
+
+def _align(x: int, to: int = 16) -> int:
+    return -(-x // to) * to
+
+
+def node_slice_bytes(slice_: int, r_dim: int) -> int:
+    """A CTA's node slice: r_dim idle rows, task count, pod limit,
+    allocatable cpu and memory (float32) and the gate (a byte a node)."""
+    return _align((r_dim + 4) * slice_ * 4 + slice_)
 
 
 def job_ledger_bytes(j_pad: int, r_dim: int) -> int:
-    """Bytes of the kernel's job ledger: it sits in shared memory up to
-    ``_SMEM_JOB_LIMIT`` and in global scratch past it."""
-    return (JROW.DRF + r_dim) * j_pad * 4
+    """The compact job ledger: consumed, allocated, left and r_dim drf rows."""
+    return (JOB_STATE.DRF + r_dim) * j_pad * 4
 
 
-def job_ledger_in_global(j_pad: int, r_dim: int) -> bool:
-    return job_ledger_bytes(j_pad, r_dim) > _SMEM_JOB_LIMIT
+def mega_plan(nb: int, r_dim: int, j_pad: int, s_pad: int, static_rows: int,
+              use_static: bool) -> MegaPlan:
+    """The kernel's launch plan for a shape.  C = 8 CTAs (the portable
+    cluster size) where the node slice and the compact job ledger fit a
+    CTA's shared memory, else 16 where that brings the node slice or the job
+    ledger on chip.  After the node slice, each region goes into shared
+    memory if it still fits, in this order: job ledger, request table (2 x
+    r_dim rows), job operands (6 lanes' words), static rows (mask and score
+    of the CTA's slice)."""
+    budget = SMEM_LIMIT - _STATIC_SMEM
 
+    def slice_for(ctas):
+        return _align(-(-nb // ctas), 4)
+
+    def node(ctas):
+        return node_slice_bytes(slice_for(ctas), r_dim)
+
+    job = job_ledger_bytes(j_pad, r_dim)
+    if node(8) > budget:
+        ctas = 16
+    elif node(8) + job <= budget or node(16) + job > budget:
+        ctas = 8
+    else:
+        ctas = 16
+    slice_ = slice_for(ctas)
+    used = node(ctas)
+    if used > budget:
+        raise ValueError(f"mega_allocate: no launch plan for nb={nb}, r_dim={r_dim}")
+    offsets = []
+    for size in (job, 2 * r_dim * s_pad * 4, 6 * j_pad * 4,
+                 2 * static_rows * slice_ * 4 if use_static else None):
+        if size is not None and used + size <= budget:
+            offsets.append(used)
+            used = _align(used + size)
+        else:
+            offsets.append(None)
+    return MegaPlan(ctas, THREADS, slice_, used, *offsets)
+
+
+def plan_for(operands, kw) -> MegaPlan:
+    """``mega_plan`` for the kernel's 26 operands and static arguments."""
+    ops = dict(zip(OPERAND_NAMES, operands))
+    return mega_plan(ops["ns0"].shape[1], kw["r_dim"], ops["job_off"].shape[1],
+                     ops["sig_req"].shape[1], ops["smask"].shape[0], kw["use_static"])
+
+
+def covered_nodes(gate) -> int:
+    """The nodes the kernel's partition covers: [0, last gated node + 1),
+    at least one (nodes past the last gated one can never win)."""
+    gated = torch.nonzero(torch.as_tensor(gate).reshape(-1))
+    return max(1, int(gated.max()) + 1) if gated.numel() else 1
+
+
+def node_slices(n_cover: int, ctas: int):
+    """Each CTA's (first node, node count): equal contiguous shares of
+    ``[0, n_cover)``, as the kernel cuts them."""
+    share = -(-n_cover // ctas)
+    out = []
+    for rank in range(ctas):
+        base = min(rank * share, n_cover)
+        out.append((base, min(share, n_cover - base)))
+    return out
+
+
+# -- the wrapper ----------------------------------------------------------------
 
 def _expect(t: torch.Tensor, name: str, dtype, shape) -> None:
     if t.device.type != "cuda":
@@ -226,6 +345,8 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     j_pad = job_off.shape[1]
     if not 0 < r_dim <= 8 or len(comparators) > 3 or nb <= 0:
         raise ValueError("mega_allocate: unsupported r_dim, comparators or node count")
+    if any(float(w) for w in weights) and max(cpu_idx, mem_idx) >= r_dim:
+        raise ValueError("mega_allocate: the score rows must lie within r_dim")
     f32, i32 = torch.float32, torch.int32
     _expect(ns0, "ns0", f32, (node_scratch_rows(False), nb))
     _expect(alloc_t, "alloc_t", f32, (8, nb))
@@ -256,17 +377,15 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
         cohort = 1
     cohort = max(1, int(cohort))
 
+    plan = mega_plan(nb, r_dim, j_pad, s_pad, static_rows, use_static)
     launch = _entry()
     dev = ns0.device
     out = torch.empty((t_rows + 1) * 128, dtype=i32, device=dev)
     stats = torch.empty(STATS_WIDTH, dtype=i32, device=dev)
-    ns = torch.empty((node_scratch_rows(False), nb), dtype=f32, device=dev)
-    msk = torch.empty(nb, dtype=f32, device=dev)
-    js_rows = JROW.DRF + r_dim
-    js_bytes = job_ledger_bytes(j_pad, r_dim)
     js_global = None
-    if job_ledger_in_global(j_pad, r_dim):
-        js_global = torch.empty((js_rows, j_pad), dtype=f32, device=dev)
+    if plan.job_ledger_in_global:
+        js_global = torch.empty((plan.ctas, JOB_STATE.DRF + r_dim, j_pad), dtype=f32,
+                                device=dev)
 
     args = _MegaArgs()
     for field, t in (
@@ -275,18 +394,18 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
         ("job_off", job_off), ("job_num", job_num), ("job_def", job_deficit),
         ("job_gang", job_gang), ("job_prio", job_prio), ("job_tb", job_tb),
         ("js_drf0", js_drf0), ("drf_safe", drf_safe), ("drf_mask", drf_mask),
-        ("misc", misc), ("out", out), ("stats", stats), ("ns", ns),
-        ("msk", msk),
+        ("misc", misc), ("out", out), ("stats", stats),
     ):
         setattr(args, field, t.data_ptr())
     args.js_global = js_global.data_ptr() if js_global is not None else None
+    args.phase_clocks = phase_clocks.data_ptr() if phase_clocks is not None else None
     if use_static:
         args.msig, args.smask, args.sscore = (
             msig.data_ptr(), smask.data_ptr(), sscore.data_ptr())
     args.use_static = int(bool(use_static))
     args.static_rows = static_rows
     args.nb, args.s_pad, args.t_rows, args.t_cap = nb, s_pad, t_rows, t_cap
-    args.j_pad, args.js_rows, args.r_dim = j_pad, js_rows, r_dim
+    args.j_pad, args.r_dim = j_pad, r_dim
     args.cpu_idx, args.mem_idx = cpu_idx, mem_idx
     args.enforce_pod_count = int(bool(enforce_pod_count))
     args.cross_batch = int(bool(cross_batch))
@@ -296,12 +415,17 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     args.n_comp = len(comparators)
     for i, name in enumerate(comparators):
         args.comp[i] = _COMPARATOR_CODES[name]
-    args.smem_bytes = 0 if js_global is not None else js_bytes
+    args.ctas, args.slice, args.smem_bytes = plan.ctas, plan.slice, plan.smem_bytes
+    for field in ("off_js", "off_sig", "off_job", "off_static"):
+        off = getattr(plan, field)
+        setattr(args, field, -1 if off is None else off)
     args.w_lr, args.w_bal, args.w_bp = (float(w) for w in weights)
     for i in range(8):
         args.mins[i] = float(mins[i]) if i < len(mins) else 0.0
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = launch(ctypes.addressof(args), stream)
+    if rc == _ERR_NO_CLUSTER:
+        raise RuntimeError(f"mega_allocate: the card cannot schedule the plan's cluster {plan}")
     if rc != 0:
         raise RuntimeError(f"mega_allocate launch failed: CUDA error {rc}")
     launches += 1

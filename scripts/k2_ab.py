@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Time K2 (``mega_allocate``) of one checkout of the port on the card.
+
+    python3 scripts/k2_ab.py --tree DIR [--label NAME]
+
+imports ``scheduler_tpu_torch`` and ``chip_smoke.py`` from ``DIR`` (the
+root of a checkout: this one by default, or an unpacked earlier commit),
+builds that tree's kernels, and prints one JSON line:
+
+* one cold cycle of BASELINE config 2 and of config 3 through
+  ``Scheduler.run_once`` (cycle seconds, K2's events in the cycle, steps);
+* K2 alone on the operands of both main paths, from second clusters built
+  the same way: device time a launch from a profiler trace, CUDA events
+  around ``--repeats`` launches, µs a step, and whether codes and stats
+  equal the first launch's (the kernel's bits against the plain version
+  are ``chip_smoke.py``'s to check).
+
+To compare two commits on one card, run both trees in one call in the
+order base, new, new, base.  Needs a CUDA device; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--label", default=None)
+    parser.add_argument("--repeats", type=int, default=3)
+    opts = parser.parse_args()
+    tree = os.path.abspath(opts.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k2_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as smoke
+    import scheduler_tpu_torch.actions  # noqa: F401
+    import scheduler_tpu_torch.plugins  # noqa: F401
+    from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
+    from scheduler_tpu_torch.ops import cuda_build
+    from scheduler_tpu_torch.ops import megakernel as mk
+
+    device = torch.device("cuda")
+    cuda_build.load()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    configs = {
+        "config2": (lambda: make_kubemark_density_cluster(1000, 5000).cache, smoke.CONFIG2_CONF),
+        "config3": (lambda: make_synthetic_cluster(10_000, 100_000, tasks_per_job=100).cache,
+                    smoke.FLAGSHIP_CONF),
+    }
+    out = {"tree": opts.label or tree, "gpu": smi, "build_s": cuda_build.build_info["seconds"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        conf_path = os.path.join(tmp, "conf.yaml")
+        for name, (build, conf) in configs.items():
+            with open(conf_path, "w") as f:
+                f.write(conf)
+            rec, launches = smoke.run_cycle(build(), conf_path)
+            out[name + "_cycle"] = {"cycle_s": rec["cycle_s"], "kernel_ms": rec["kernel_ms"],
+                                    "steps": rec["steps"], "launches": launches["mega_allocate"]}
+            gc.collect()
+    for name, (build, conf) in configs.items():
+        _, eng = smoke.engine_for(build(), conf, device)
+        args, kw = eng._mega_args, eng._mega_kw
+        codes0, stats0 = mk.mega_allocate(*args, **kw)
+        start, stop = smoke.events()
+        start.record()
+        for _ in range(opts.repeats):
+            codes, stats = mk.mega_allocate(*args, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        event_ms = start.elapsed_time(stop) / opts.repeats
+        device_ms, _ = smoke.device_ms_per_call(lambda: mk.mega_allocate(*args, **kw),
+                                                opts.repeats, match="mega_allocate_kernel")
+        steps = int(stats0[0])
+        ms = device_ms if device_ms is not None else event_ms
+        out[name + "_alone"] = {
+            "device_ms": device_ms, "event_ms": event_ms, "steps": steps,
+            "us_per_step": 1e3 * ms / steps,
+            "same_result": bool(torch.equal(codes, codes0) and torch.equal(stats, stats0)),
+        }
+        del eng
+        gc.collect()
+    out["at"] = time.strftime("%Y-%m-%dT%H:%M:%S")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,8 @@ checkout (``--noconftest``: the suite's conftest imports JAX):
 
 Each case builds a session with the port's harness on the card, launches
 a kernel and holds it against its plain version on the same CUDA operands,
-bitwise (tolerance: none): ``mega_allocate`` (codes and stats),
+bitwise (tolerance: none): ``mega_allocate`` (codes and stats; sessions
+and synthetic operands across its launch plans),
 ``static_predicate_mask`` (the mask; vocabulary widths around its packed
 word), ``placement_step`` (all four outputs; node counts across its
 cluster, ties across CTAs, a pushed column) and the ``fused_allocate``
@@ -26,6 +27,7 @@ import chip_smoke as smoke
 import scheduler_tpu_torch.actions  # noqa: F401  registry side effects
 import scheduler_tpu_torch.plugins  # noqa: F401
 from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
+from scheduler_tpu_torch.interop import mega_operands_from_numpy
 from scheduler_tpu_torch.ops import fused as fused_mod
 from scheduler_tpu_torch.ops import megakernel as mk
 from scheduler_tpu_torch.ops import predicate_kernel as pk
@@ -57,7 +59,8 @@ CASES = {
         {"weights": (1.0, 1.0, 1.0), "score_bound": True, "enforce_pod_count": True,
          "cohort": 4},
     ),
-    # More than 5,000 jobs: the kernel keeps its job ledger in global scratch.
+    # 12,000 jobs: the compact job ledger outgrows a CTA's shared memory and
+    # the kernel keeps one copy a CTA in global scratch.
     "global-job-ledger": (smoke.many_jobs_cluster, smoke.FLAGSHIP_CONF, {}),
     # Static-row mode (predicates + nodeorder).
     "static-cohort-1": (lambda: smoke.spec_cluster(smoke.static_spec()),
@@ -80,8 +83,8 @@ def test_cuda_kernel_matches_plain_version(case):
     kw = dict(engine._mega_kw, **overrides)
     assert kw["use_static"] == (conf is not smoke.FLAGSHIP_CONF
                                 and conf is not smoke.CONFIG1_CONF)
-    j_pad = dict(zip(mk.OPERAND_NAMES, engine._mega_args))["job_off"].shape[1]
-    assert mk.job_ledger_in_global(j_pad, kw["r_dim"]) == (case == "global-job-ledger")
+    plan = mk.plan_for(engine._mega_args, kw)
+    assert plan.job_ledger_in_global == (case == "global-job-ledger")
     before = mk.launches
     codes, stats = mk.mega_allocate(*engine._mega_args, **kw)
     torch.cuda.synchronize()
@@ -90,6 +93,45 @@ def test_cuda_kernel_matches_plain_version(case):
     assert torch.equal(codes, ref_codes)
     assert torch.equal(stats, ref_stats)
     assert int((codes >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(smoke.MEGA_SYNTHETIC))
+def test_cuda_kernel_synthetic_operands(case):
+    """``mega_allocate`` on synthetic operands (``chip_smoke.MEGA_SYNTHETIC``)
+    against its plain version, bitwise (tolerance: none): nb 1,024, 16,384
+    and 32,768 at r_dim 8 (the widest takes the 16-CTA plan), equal scores
+    on gated nodes in different CTAs (the lowest index wins), the score
+    bound's second-best in another CTA than the winner, a chunk where no
+    node fits (FAILED), and config 2's j_pad of 8,320 with the job ledger on
+    chip."""
+    device = _card()
+    spec = smoke.MEGA_SYNTHETIC[case]
+    ops, kw = smoke.mega_operands(**spec)
+    args, kw = mega_operands_from_numpy(ops, kw, device)
+    plan = mk.plan_for(args, kw)
+    if case == "nb32768-r8":
+        assert plan.ctas == 16
+    if case == "job-ledger-on-chip-8320":
+        assert ops["job_off"].shape[1] == 8320 and not plan.job_ledger_in_global
+    before = mk.launches
+    codes, stats = mk.mega_allocate(*args, **kw)
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    ref_codes, ref_stats = mk.mega_allocate_reference(*args, **kw)
+    assert torch.equal(codes, ref_codes)
+    assert torch.equal(stats, ref_stats)
+    placed = codes[codes >= 0]
+    assert placed.numel() > 0
+    if spec.get("gated"):
+        assert set(placed.tolist()) <= set(spec["gated"])
+        n_cover = mk.covered_nodes(ops["gate"])
+        ranks = {g // -(-n_cover // plan.ctas) for g in spec["gated"]}
+        assert len(ranks) == len(spec["gated"]), "the gated nodes lie in different CTAs"
+        if case == "ties-across-ctas":
+            assert int(placed[0]) == min(spec["gated"])
+    if case == "infeasible-chunk":
+        assert int((codes == mk.FAILED).sum()) > 0
 
 
 @pytest.mark.cuda

@@ -39,6 +39,7 @@ from scheduler_tpu_torch.interop import mega_operands_from_numpy
 from scheduler_tpu_torch.ops import fused as fused_mod
 from scheduler_tpu_torch.ops import megakernel as mk
 from scheduler_tpu_torch.ops.fused import FusedAllocator as TorchFused
+import chip_smoke as smoke
 from chip_smoke import predicates_spec, selector_bound_spec, spec_cluster, static_spec
 
 FLAGSHIP_CONF = """
@@ -331,3 +332,144 @@ def test_wrapper_runs_plain_version_on_cpu_and_rejects_unported_modes(monkeypatc
             mk.mega_allocate(*args, **dict(kw, **{mode: True}))
     with pytest.raises(NotImplementedError):
         mk.mega_allocate(*args, **dict(kw, mesh=object()))
+
+
+# -- synthetic operands and the launch plan -----------------------------------------
+
+# chip_smoke.MEGA_SYNTHETIC's cases at CPU size, with exact score terms: all
+# three score terms with the pod-count gate at r_dim 8, equal scores on
+# nodes far apart (ties), the score bound's second-best far from the winner,
+# a chunk where no node fits, and static rows with cross-job batches.
+SYNTHETIC_CPU = {
+    "r8-all-terms-pods": dict(seed=1, nb=256, r_dim=8, n_jobs=30, n_nodes=200,
+                              weights=(1.0, 1.0, 1.0), score_bound=True,
+                              enforce_pod_count=True, cohort=4),
+    "ties": dict(seed=4, nb=256, r_dim=2, n_jobs=20, alike=True, gated=(250, 130, 40, 7)),
+    "second-best": dict(seed=5, nb=256, r_dim=2, n_jobs=20, alike=True, gated=(3, 200),
+                        weights=(0.0, 1.0, 0.0), score_bound=True, cohort=4),
+    "infeasible-chunk": dict(seed=6, nb=256, r_dim=3, n_jobs=20, infeasible_job=True,
+                             weights=(1.0, 0.0, 1.0), score_bound=True, cohort=4),
+    "static-cross-job": dict(seed=7, nb=256, r_dim=2, n_jobs=40, max_tasks=1,
+                             weights=(0.0, 1.0, 1.0), score_bound=True,
+                             enforce_pod_count=True, use_static=True, cohort=4),
+}
+
+
+@pytest.mark.parametrize("cohort", [1, 4])
+@pytest.mark.parametrize("case", sorted(SYNTHETIC_CPU))
+def test_reference_matches_jax_on_synthetic_operands(case, cohort):
+    """``chip_smoke.mega_operands`` (the operands of the card's synthetic
+    K2 cases) through the JAX kernel in interpret mode and the port: codes
+    and stats bitwise equal (tolerance: none)."""
+    spec = dict(SYNTHETIC_CPU[case], cohort=cohort)
+    ops, kw = smoke.mega_operands(exact=True, **spec)
+    codes_j, stats_j = jax_mega(*(ops[name] for name in mk.OPERAND_NAMES), interpret=True, **kw)
+    args, torch_kw = mega_operands_from_numpy(ops, kw, "cpu")
+    codes_t, stats_t = mk.mega_allocate(*args, **torch_kw)
+    np.testing.assert_array_equal(codes_t.numpy(), np.asarray(codes_j))
+    np.testing.assert_array_equal(stats_t.numpy(), np.asarray(stats_j))
+    placed = codes_t[codes_t >= 0]
+    assert placed.numel() > 0
+    if case == "infeasible-chunk":
+        assert int((codes_t == mk.FAILED).sum()) > 0
+    if spec.get("gated"):
+        assert set(placed.tolist()) <= set(spec["gated"])
+        if case == "ties":
+            assert int(placed[0]) == min(spec["gated"]), "equal scores: the lowest index wins"
+
+
+# Every shape the mega gate admits, on a grid: node buckets up to 32,768,
+# job lanes past what any CTA holds, request tables up to 4,096 signatures,
+# static rows up to the gate's s_pad x n x 8 <= 4 MiB.
+PLAN_NB = (128, 1024, 4096, 10_112, 16_384, 20_480, 32_768)
+PLAN_J_PAD = (256, 1152, 5248, 8320, 12_160, 16_384, 65_536)
+PLAN_S_PAD = (128, 1024, 4096)
+
+
+@pytest.mark.parametrize("r_dim", range(1, 9))
+def test_mega_plan_fits_every_admitted_shape(r_dim):
+    budget = mk.SMEM_LIMIT - mk._STATIC_SMEM
+    for nb in PLAN_NB:
+        max_rows = (4 * 1024 * 1024) // (nb * 8)
+        statics = [(False, 8)] + [(True, rows) for rows in (8, 64, max_rows)
+                                  if 8 <= rows <= max_rows and rows % 8 == 0]
+        for j_pad in PLAN_J_PAD:
+            for s_pad in PLAN_S_PAD:
+                for use_static, rows in statics:
+                    assert mk.mega_supported(
+                        has_releasing=False, use_static=use_static, score_bound=True,
+                        cursor_mode=True, r_dim=r_dim, n=nb, n_sigs=s_pad,
+                        comparators=("priority", "gang", "drf"),
+                        n_static_sigs=rows if use_static else 0)
+                    plan = mk.mega_plan(nb, r_dim, j_pad, s_pad, rows, use_static)
+                    shape = (nb, r_dim, j_pad, s_pad, rows, use_static)
+                    assert plan.ctas in (8, 16), shape
+                    assert plan.threads == mk.THREADS
+                    assert plan.smem_bytes + mk._STATIC_SMEM <= mk.SMEM_LIMIT, shape
+                    assert plan.slice * plan.ctas >= nb and plan.slice % 4 == 0
+                    node = mk.node_slice_bytes(plan.slice, r_dim)
+                    # The regions, in the plan's order: on chip exactly where
+                    # they still fit, disjoint, inside the dynamic allocation.
+                    used = node
+                    for off, size in (
+                        (plan.off_js, mk.job_ledger_bytes(j_pad, r_dim)),
+                        (plan.off_sig, 2 * r_dim * s_pad * 4),
+                        (plan.off_job, 6 * j_pad * 4),
+                        (plan.off_static, 2 * rows * plan.slice * 4 if use_static else None),
+                    ):
+                        fits = size is not None and used + size <= budget
+                        assert (off is not None) == fits, shape
+                        if fits:
+                            assert off == used and off % 16 == 0
+                            used = -(-(used + size) // 16) * 16
+                    assert plan.smem_bytes == used
+                    # C = 16 only where 8 CTAs could not hold the node slice
+                    # with the job ledger and 16 can.
+                    eight = mk.node_slice_bytes(-(-nb // 32) * 4, r_dim)
+                    job = mk.job_ledger_bytes(j_pad, r_dim)
+                    if plan.ctas == 16:
+                        assert eight > budget or (eight + job > budget and not plan.job_ledger_in_global)
+                    else:
+                        assert eight + job <= budget or plan.job_ledger_in_global
+                    for n_cover in {1, nb // 3 + 1, nb}:
+                        slices = mk.node_slices(n_cover, plan.ctas)
+                        assert sum(count for _, count in slices) == n_cover
+                        assert all(count <= plan.slice for _, count in slices)
+                        starts = [base for base, count in slices if count]
+                        assert starts == sorted(starts) and starts[0] == 0
+
+
+def test_mega_plan_at_the_main_paths():
+    """The plans of the two main paths, the widest node ledger and the
+    many-jobs case that keeps its job ledger in global memory."""
+    flagship = mk.mega_plan(16_384, 2, 1152, 128, 8, False)
+    assert flagship.ctas == 8 and flagship.slice == 2048
+    assert flagship.summary()["on_chip"] == ["job_ledger", "sig_req", "job_operands"]
+    config2 = mk.mega_plan(1024, 2, 8320, 128, 8, True)
+    assert config2.ctas == 8 and not config2.job_ledger_in_global
+    assert config2.off_static is not None and config2.off_job is None
+    widest = mk.mega_plan(32_768, 8, 1152, 128, 8, False)
+    assert widest.ctas == 16 and not widest.job_ledger_in_global
+    assert mk.mega_plan(64, 2, 12_160, 128, 8, False).job_ledger_in_global
+    assert not mk.mega_plan(64, 2, 8320, 128, 8, False).job_ledger_in_global
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_node_slices_cover_the_gated_prefix(seed):
+    """The partition covers [0, last gated node + 1) in equal contiguous
+    shares; with no node gated it covers node 0 alone."""
+    rng = np.random.default_rng(seed)
+    nb = int(rng.choice([128, 1024, 16_384]))
+    gate = rng.random(nb) < 0.3
+    gate[int(rng.integers(0, nb)):] = False
+    if seed == 3:
+        gate[:] = False
+    n_cover = mk.covered_nodes(torch.from_numpy(gate))
+    last = int(np.flatnonzero(gate).max()) if gate.any() else -1
+    assert n_cover == max(1, last + 1)
+    for ctas in (8, 16):
+        slices = mk.node_slices(n_cover, ctas)
+        covered = np.concatenate([np.arange(base, base + count) for base, count in slices])
+        np.testing.assert_array_equal(covered, np.arange(n_cover))
+        counts = [count for _, count in slices if count]
+        assert max(counts) - min(counts[:-1] or counts) == 0
