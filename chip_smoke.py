@@ -10,7 +10,7 @@ What it does, one JSON line per phase:
 
 1. device: the card, the CUDA version, and the one build of every kernel of
    the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path, three times, each on a freshly built cluster that no other
+2. main_path, six times, each on a freshly built cluster that no other
    session has touched (a cold cycle, as a scheduler's first cycle after
    start-up), through ``Scheduler.run_once`` on the card, with every
    kernel's launch count set to 0 just before and read just after:
@@ -28,16 +28,35 @@ What it does, one JSON line per phase:
       5,000 request signatures close the mega gate, and the engine runs the
       ``fused_allocate`` loop with one ``placement_step`` launch a step.
       Checks as for b.
+   d. the multi-queue flagship (``bench.py`` with three queues): config 3's
+      cluster with its gangs dealt to queues q0, q1, q2 of weights 1:2:3
+      and proportion in the conf: ``mega_allocate`` in multi-queue mode.
+      Checks: 100,000 binds in 1,000 whole gangs, no node overcommitted, the
+      queue chain's evidence.
+   e. BASELINE config 5, GPU topology gangs (config 2's plugins; 1,500
+      nodes of 8 GPUs x 1,000 gangs of 8 one-GPU pods, each gang selecting
+      one of 8 zones): ``static_predicate_mask`` and ``mega_allocate`` in
+      static-row mode at r_dim 3.  Checks: 8,000 binds, every pod in its
+      zone, no node past its 8 GPUs.
+   f. config 2 under the plugin tiers of the JAX package's default conf
+      (conformance and proportion join; allocate only): one queue, but
+      ``mega_allocate`` runs in multi-queue mode with static rows after
+      ``static_predicate_mask``.  Checks: config 2's, and binds equal to the
+      port's host loop on a twin cluster.
    Each prints the phase seconds and the kernel's time from CUDA events.
+   d, e and f each run in a child process of the script, after one config-1
+   cycle there (``--child``, ``child_main``), so that the garbage
+   collection at the head of the cycle walks that path's cluster alone.
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
    on the same CUDA tensors, bitwise.  ``mega_allocate`` (codes and stats):
    BASELINE config 1, a 1,000 x 10,000 flagship session, a case with
    non-binpack weights and the pod-count gate, a 12,000-job case whose job
    ledger lives in global scratch, four small static-row sessions, seven
-   synthetic cases across the launch plans (``MEGA_SYNTHETIC``), and the
-   operands of both main paths at full size from second clusters built the
-   same way (timed: profiler device time and events, µs a step, the launch
-   plan).  ``static_predicate_mask``: config 2's real operands
+   synthetic cases across the launch plans (``MEGA_SYNTHETIC``), four in
+   multi-queue mode (``MEGA_SYNTHETIC_MQ``), the 1:9 starvation session,
+   and the operands of the five main paths that run it at full size from
+   second clusters built the same way (timed: profiler device time and
+   events, µs a step, the launch plan).  ``static_predicate_mask``: config 2's real operands
    (timed), a wide random case (4,096 signatures x 10,000 nodes, timed) and
    empty label / taint vocabularies.  ``placement_step`` (all four outputs;
    its device duration from a profiler trace, the events around each
@@ -65,6 +84,7 @@ import gc
 import importlib
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -105,6 +125,35 @@ tiers:
   - name: gang
   - name: drf
   - name: predicates
+  - name: nodeorder
+"""
+
+# The multi-queue flagship (bench.py with SCHEDULER_TPU_BENCH_QUEUES=3):
+# proportion's share order and overused gate join the flagship's plugins.
+MULTIQ_CONF = FLAGSHIP_CONF.replace("  - name: binpack\n",
+                                    "  - name: proportion\n  - name: binpack\n")
+# Its queues: config 3's gangs dealt round-robin to three queues of weights
+# 1:2:3, as bench.py builds them.
+MQ_QUEUES = ("q0", "q1", "q2")
+MQ_WEIGHTS = {"q0": 1, "q1": 2, "q2": 3}
+
+# BASELINE config 5 (scripts/scenario_ladder.py): 1,500 nodes, 1,000 gangs of 8.
+CONFIG5_NODES = 1500
+CONFIG5_GANGS = 1000
+
+# The plugin tiers of the JAX package's default conf (scheduler_tpu/conf.py),
+# allocate only: one queue, but proportion makes the session multi-queue.
+DEFAULT_TIERS_CONF = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: conformance
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
   - name: nodeorder
 """
 
@@ -265,7 +314,8 @@ def step_operands(seed, n, r_dim, *, infeasible=False, ties=False, exact=False):
 def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=False,
                   infeasible_job=False, use_static=False, exact=False,
                   weights=(0.0, 0.0, 1.0), score_bound=False, enforce_pod_count=False,
-                  cohort=1, max_tasks=6, comparators=("priority", "gang", "drf")):
+                  cohort=1, max_tasks=6, comparators=("priority", "gang", "drf"),
+                  queues=0, starved=False, tied=False):
     """``mega_allocate`` operands (numpy, by ``OPERAND_NAMES``) and static
     arguments for a synthetic session drawn from
     ``numpy.random.default_rng(seed)``: ``nb`` node lanes of which the first
@@ -278,7 +328,15 @@ def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=Fa
     ``gated`` lists the only nodes whose gate is set; ``alike`` makes every
     node the same (equal scores: ties); ``infeasible_job`` adds a job that
     no node can hold (its chunk fails); ``use_static`` adds three static
-    signatures (mask and score rows).  With ``exact`` capacities, idle
+    signatures (mask and score rows).  ``queues`` > 0 makes a multi-queue
+    session (proportion's share order and overused gate, no cross-job
+    batching): jobs spread over the queues but the second, which stays
+    empty where there are three or more; each queue deserves a power-of-two
+    fraction of the cluster and starts with none, a quarter or half of it
+    allocated; ``starved`` makes queue 0 deserve almost nothing (overused
+    after its first placements) and ``tied`` gives queues 1 and 2 the same
+    deserved and allocated (equal shares: the lower queue index wins).
+    With ``exact`` capacities, idle
     shares and requests are powers of two or multiples of them, so every
     score term is exact in float32 (the CPU tests need that: XLA's CPU
     backend contracts the JAX kernel's multi-term score into fused
@@ -347,12 +405,12 @@ def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=Fa
         task_static += [st] * k
         task_job += [j] * k
     # A run: equal signatures in one job, or across consecutive single-task
-    # jobs (the cross-job batch).
+    # jobs (the cross-job batch, cursor mode only).
     n_tasks = len(task_sig)
     run_len = [1] * n_tasks
     for t in range(n_tasks - 2, -1, -1):
         same_job = task_job[t + 1] == task_job[t]
-        singles = sizes[task_job[t]] == 1 and sizes[task_job[t + 1]] == 1
+        singles = not queues and sizes[task_job[t]] == 1 and sizes[task_job[t + 1]] == 1
         if ((same_job or singles) and task_sig[t + 1] == task_sig[t]
                 and task_static[t + 1] == task_static[t]):
             run_len[t] = run_len[t + 1] + 1
@@ -377,6 +435,21 @@ def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=Fa
         smask[:n_static] = rng.random((n_static, nb)) < 0.85
         sscore[:n_static] = rng.integers(0, 10, (n_static, nb))
     zeros8 = np.zeros((8, 128), f32)
+    jqueue, jq_des, jq_alloc0 = np.zeros((1, 128), np.int32), zeros8, zeros8
+    if queues:
+        names = [q for q in range(queues) if q != 1] if queues > 2 else list(range(queues))
+        jq = rng.choice(names, n_jobs).astype(np.int32)
+        des = (total[None, :] * rng.choice([1 / 64, 1 / 8, 1 / 2], (queues, 1))).astype(f32)
+        if starved:
+            des[0] = total / 4096
+        held = (des * rng.choice([0.0, 0.25, 0.5], (queues, 1))).astype(f32)
+        if tied:
+            des[2], held[2] = des[1], held[1]
+        jqueue = pack_lane_i32(jq, j_pad)
+        jq_des = np.zeros((8, j_pad), f32)
+        jq_des[:r_dim, :n_jobs] = des[jq].T
+        jq_alloc0 = np.zeros((8, j_pad), f32)
+        jq_alloc0[:r_dim, :n_jobs] = held[jq].T
     ops = {
         "ns0": ns0, "alloc_t": alloc, "rel0": np.zeros((8, nb), f32), "gate": gate,
         "plim": plim, "sig_req": sig_req,
@@ -391,15 +464,16 @@ def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=Fa
         "msig": pack_task_table_i32(np.array(task_static if use_static else [], np.int32),
                                     n_tasks),
         "smask": smask, "sscore": sscore,
-        "jqueue": np.zeros((1, 128), np.int32), "jq_des": zeros8, "jq_alloc0": zeros8,
+        "jqueue": jqueue, "jq_des": jq_des, "jq_alloc0": jq_alloc0,
         "qf_share": zeros8, "qf_over": zeros8, "misc": misc,
     }
     kw = dict(
         r_dim=r_dim, weights=tuple(float(w) for w in weights),
         enforce_pod_count=enforce_pod_count, comparators=tuple(comparators),
-        cross_batch=True, batch_runs=True, has_releasing=False, use_static=use_static,
+        cross_batch=not queues, batch_runs=True, has_releasing=False, use_static=use_static,
         score_bound=score_bound, mins=tuple([0.01] * r_dim), cpu_idx=0, mem_idx=1,
-        multi_queue=False, queue_proportion=False, overused_gate=False, queue_delta=True,
+        multi_queue=bool(queues), queue_proportion=bool(queues), overused_gate=bool(queues),
+        queue_delta=True,
         qfair_ladder=False, cohort=cohort, t_cap=n_tasks, mesh=None,
     )
     return ops, kw
@@ -426,6 +500,26 @@ MEGA_SYNTHETIC = {
     "job-ledger-on-chip-8320": dict(seed=7, nb=1024, r_dim=2, n_jobs=8100, max_tasks=1,
                                     weights=(0.0, 1.0, 1.0), score_bound=True,
                                     enforce_pod_count=True, use_static=True, cohort=4),
+}
+
+
+# Synthetic K2 cases in multi-queue mode (``mega_operands(queues=...)``):
+# two to eight queues, one of them empty where there are three or more, a
+# queue starved by its overused gate, equal shares across queues (the lower
+# queue index wins), both instantiations, nb 1,024 and 16,384, and config
+# 2's j_pad of 8,320 with the queue ledger beside the job ledger on chip.
+MEGA_SYNTHETIC_MQ = {
+    "mq2-nb1024-all-terms-pods": dict(seed=21, nb=1024, r_dim=2, n_jobs=300, n_nodes=1000,
+                                      queues=2, weights=(1.0, 1.0, 1.0), score_bound=True,
+                                      enforce_pod_count=True, cohort=4),
+    "mq3-starved-nb16384": dict(seed=22, nb=16384, r_dim=3, n_jobs=400, n_nodes=10000,
+                                queues=3, starved=True, cohort=4),
+    "mq8-tied-static-nb16384": dict(seed=23, nb=16384, r_dim=2, n_jobs=400, n_nodes=10000,
+                                    queues=8, tied=True, weights=(0.0, 1.0, 1.0),
+                                    score_bound=True, use_static=True),
+    "mq5-static-8320": dict(seed=24, nb=1024, r_dim=2, n_jobs=8100, max_tasks=1, queues=5,
+                            weights=(0.0, 1.0, 1.0), score_bound=True,
+                            enforce_pod_count=True, use_static=True, cohort=4),
 }
 
 
@@ -466,6 +560,23 @@ def selector_bound_spec():
         pods += [(f"g{g}-{i}", f"g{g}", {"cpu": 2000.0, "memory": 4 * GIB}, 0,
                   {"node_selector": {"zone": f"z{g % 4}"}}) for i in range(8)]
     return {"nodes": nodes, "groups": groups, "pods": pods}
+
+
+def multi_queue_spec(weights=(1, 3, 2), n_nodes=8):
+    """tests/test_megakernel.py ``_multi_queue_cluster``: queues q0, q1, ...
+    of the given weights on ``n_nodes`` nodes of 4 cpu and 8 GiB, and nine
+    gangs of four pods (minMember 2, mixed cpu requests) dealt round-robin
+    to the queues.  With weights (1, 9) on 3 nodes, queue q0's share
+    crosses its deserved partway: its overused gate denies it the rest."""
+    rnd = random.Random(7)
+    queues = [(f"q{i}", w) for i, w in enumerate(weights)]
+    nodes = [(f"n{i}", {"cpu": 4000.0, "memory": 8 * GIB, "pods": 30}) for i in range(n_nodes)]
+    groups, pods = [], []
+    for g in range(9):
+        groups.append((f"g{g}", 2, queues[g % len(queues)][0]))
+        pods += [(f"g{g}-{i}", f"g{g}", {"cpu": float(rnd.choice([500, 1000, 1500])),
+                                          "memory": GIB}, g % 3) for i in range(4)]
+    return {"queues": queues, "nodes": nodes, "groups": groups, "pods": pods}
 
 
 def _node_extra(i: int) -> dict:
@@ -575,7 +686,8 @@ def spec_cluster(spec: dict, pkg: str = "scheduler_tpu_torch"):
     timestamps are identical in both).  A node is ``(name,
     allocatable[, extra])`` with extra keys ``labels``, ``taints`` ([(key,
     value, effect)]), ``unschedulable`` and ``conditions``; a group is
-    ``(name, min_member)``; a pod is ``(name, group, request, priority[,
+    ``(name, min_member[, queue])``; ``queues`` (optional, default
+    ``[("default", 1)]``) lists ``(name, weight)`` in creation order; a pod is ``(name, group, request, priority[,
     extra])``, group None for a bare pod (a shadow PodGroup, stamped with the
     pod's creation time), with extra keys ``node_selector``, ``tolerations``
     ([(key, operator, value, effect)]), ``affinity`` (see ``_objects_of``),
@@ -588,9 +700,10 @@ def spec_cluster(spec: dict, pkg: str = "scheduler_tpu_torch"):
     ts0 = 1_700_000_000.0
     cache = cache_mod.SchedulerCache(vocab=vocab.ResourceVocabulary(), async_io=False)
     cache.run()
-    queue = objects.Queue(name="default", weight=1)
-    queue.creation_timestamp = ts0
-    cache.add_queue(queue)
+    for k, (qname, weight) in enumerate(spec.get("queues", [("default", 1)])):
+        queue = objects.Queue(name=qname, weight=weight)
+        queue.creation_timestamp = ts0 + k * 1e-6
+        cache.add_queue(queue)
     for name, alloc, *rest in spec["nodes"]:
         extra = rest[0] if rest else {}
         cache.add_node(objects.NodeSpec(
@@ -599,9 +712,9 @@ def spec_cluster(spec: dict, pkg: str = "scheduler_tpu_torch"):
             unschedulable=extra.get("unschedulable", False),
             conditions=dict(extra.get("conditions", {})),
         ))
-    for k, (name, min_member) in enumerate(spec["groups"]):
-        pg = objects.PodGroup(name=name, namespace="default", queue="default",
-                              min_member=min_member)
+    for k, (name, min_member, *queue) in enumerate(spec["groups"]):
+        pg = objects.PodGroup(name=name, namespace="default",
+                              queue=queue[0] if queue else "default", min_member=min_member)
         pg.status.phase = "Inqueue"
         pg.creation_timestamp = ts0 + (k + 1) * 1e-6
         cache.add_pod_group(pg)
@@ -647,7 +760,9 @@ def read_inputs(args, kw):
     """The operands the kernel reads in its mode (the others are dummies)."""
     from scheduler_tpu_torch.ops.megakernel import OPERAND_NAMES
 
-    unread = {"rel0", "jqueue", "jq_des", "jq_alloc0", "qf_share", "qf_over"}
+    unread = {"rel0", "qf_share", "qf_over"}
+    if not kw["multi_queue"]:
+        unread |= {"jqueue", "jq_des", "jq_alloc0"}
     if not kw["use_static"]:
         unread |= {"msig", "smask", "sscore"}
     return [a for name, a in zip(OPERAND_NAMES, args) if name not in unread]
@@ -670,17 +785,54 @@ def node_step_ops(kw) -> int:
     return ops
 
 
+def queue_chain_ops(args, kw, codes, stats) -> int:
+    """Operations of multi-queue mode's queue chain in this run.  At each
+    pop, over every real job lane: the eligibility test (3 compares, 2
+    ands), the queue pop (the overused flag and the share of the lane's
+    queue, their compares against the minimum, the queue index: 6) and the
+    job chain within the winning queue (2 a priority or gang key, 2 per dim
+    for drf, the rank: 2).  Per placement: the queue's refresh (r_dim adds;
+    a dim's division, selects, maximum, difference and compare: 7 each).
+    Pops are counted from below, as the jobs that consumed a task (each
+    took at least one pop)."""
+    import torch
+
+    from scheduler_tpu_torch.ops.layout import STATS
+    from scheduler_tpu_torch.ops.megakernel import OPERAND_NAMES
+
+    ops = dict(zip(OPERAND_NAMES, args))
+    n_jobs = int(ops["misc"][0, 0])
+    num = ops["job_num"][0, :n_jobs].long()
+    job_of_task = torch.repeat_interleave(torch.arange(n_jobs, device=num.device), num)
+    touched = codes[: job_of_task.numel()] != -1
+    pops = int(torch.unique(job_of_task[touched]).numel())
+    r = kw["r_dim"]
+    chain = sum(2 * r if name == "drf" else 2 for name in kw["comparators"]) + 2
+    lane_ops = 5 + 6 + chain
+    return pops * n_jobs * lane_ops + int(stats[STATS.QDELTA_UPDATES]) * 8 * r
+
+
 def mega_bound_ms(args, kw, codes, stats, n_real: int):
     """The least time the card could take for this run: each input read
     once and each output written once at the memory rate, against the node
-    loop's float32 operations (steps x real nodes x ops) at the peak rate."""
+    loop's float32 operations (steps x real nodes x ops), and in multi-queue
+    mode the queue chain's (``queue_chain_ops``), at the peak rate."""
     from scheduler_tpu_torch.ops.layout import STATS
 
     nbytes = sum(a.numel() * a.element_size() for a in read_inputs(args, kw))
     nbytes += codes.numel() * codes.element_size() + stats.numel() * stats.element_size()
     ops = int(stats[STATS.STEPS]) * n_real * node_step_ops(kw)
+    if kw["multi_queue"]:
+        ops += queue_chain_ops(args, kw, codes, stats)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def mega_mode(kw) -> str:
+    """The kernel instantiation a call runs."""
+    if kw["multi_queue"]:
+        return "multi_queue_static" if kw["use_static"] else "multi_queue"
+    return "static" if kw["use_static"] else "cursor"
 
 
 def events():
@@ -689,10 +841,11 @@ def events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
 
-def compare(case, args, kw, n_real, timed=False, repeats=3):
+def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
     """mega_allocate and its plain version on the same CUDA operands: codes
     and stats must be bitwise equal; the record carries the kernel's launch
-    plan.  With ``timed`` the kernel's device time a launch comes from a
+    plan.  ``n_queues``: the queue count, as the engine passes it (multi-queue
+    mode).  With ``timed`` the kernel's device time a launch comes from a
     profiler trace (``device_ms``, also ``ms``) beside CUDA events around
     ``repeats`` launches (``event_ms``), with ``us_per_step`` = ms /
     STATS.STEPS; the plain version is timed with events."""
@@ -700,7 +853,7 @@ def compare(case, args, kw, n_real, timed=False, repeats=3):
 
     from scheduler_tpu_torch.ops import megakernel as mk
 
-    codes_k, stats_k = mk.mega_allocate(*args, **kw)
+    codes_k, stats_k = mk.mega_allocate(*args, n_queues=n_queues, **kw)
     torch.cuda.synchronize()
     start, stop = events()
     start.record()
@@ -712,7 +865,7 @@ def compare(case, args, kw, n_real, timed=False, repeats=3):
     max_abs_err = int((codes_k.long() - codes_r.long()).abs().max()) if codes_k.numel() else 0
     rec = {
         "phase": "kernel_vs_plain", "kernel": "mega_allocate", "case": case,
-        "mode": "static" if kw["use_static"] else "cursor", "equal": equal,
+        "mode": mega_mode(kw), "equal": equal,
         "max_abs_err": max_abs_err,
         "placed": int((codes_k >= 0).sum()),
         "stats": stats_k.tolist(), "plain_stats": stats_r.tolist(),
@@ -720,17 +873,18 @@ def compare(case, args, kw, n_real, timed=False, repeats=3):
         "static_rows": int(args[18].shape[0]) if kw["use_static"] else 0,
         "cohort": kw["cohort"], "score_bound": kw["score_bound"],
         "enforce_pod_count": kw["enforce_pod_count"],
-        "plan": mk.plan_for(args, kw).summary(),
+        "plan": mk.plan_for(args, kw, n_queues).summary(),
     }
     if timed:
         start.record()
         for _ in range(repeats):
-            mk.mega_allocate(*args, **kw)
+            mk.mega_allocate(*args, n_queues=n_queues, **kw)
         stop.record()
         torch.cuda.synchronize()
         rec["event_ms"] = start.elapsed_time(stop) / repeats
-        rec["device_ms"], _ = device_ms_per_call(lambda: mk.mega_allocate(*args, **kw), repeats,
-                                                 match="mega_allocate_kernel")
+        rec["device_ms"], _ = device_ms_per_call(
+            lambda: mk.mega_allocate(*args, n_queues=n_queues, **kw), repeats,
+            match="mega_allocate_kernel")
         rec["ms"] = rec["device_ms"] if rec["device_ms"] is not None else rec["event_ms"]
         rec["us_per_step"] = 1e3 * rec["ms"] / max(1, int(stats_k[0]))
         rec["plain_ms"] = plain_ms
@@ -1153,29 +1307,44 @@ def check_idle_ledger(cache):
 
 
 def check_config2_binds(cache):
-    """Config 2: no node overcommitted by its pods' requests or past its
-    pod limit, and every bound pod with a zone selector on a node of that
-    zone.  Returns (binds, most pods on one node)."""
+    """Configs 2 and 5: no node overcommitted in any resource its pods
+    request (cpu, memory, GPUs) or past its pod limit, and every bound pod
+    with a zone selector on a node of that zone.  Returns (binds, most pods
+    on one node)."""
     binds = dict(cache.binder.binds)
     pods = {f"{t.namespace}/{t.name}": t.pod
             for job in cache.jobs.values() for t in job.tasks.values()}
     used, count = {}, {}
     for key, host in binds.items():
         pod = pods[key]
-        req = pod.containers[0]
-        cpu, mem = used.get(host, (0.0, 0.0))
-        used[host] = (cpu + req["cpu"], mem + req["memory"])
+        on_host = used.setdefault(host, {})
+        for name, qty in pod.containers[0].items():
+            on_host[name] = on_host.get(name, 0.0) + qty
         count[host] = count.get(host, 0) + 1
         labels = cache.nodes[host].node.labels
         for k, v in pod.node_selector.items():
             if labels.get(k) != v:
                 raise SystemExit(f"{key} selects {k}={v} but sits on {host} ({labels})")
-    for host, (cpu, mem) in used.items():
+    for host, on_host in used.items():
         alloc = cache.nodes[host].node.allocatable
-        if cpu > alloc["cpu"] or mem > alloc["memory"] or count[host] > alloc["pods"]:
-            raise SystemExit(f"node {host} overcommitted: {cpu} cpu, {mem} B, {count[host]} pods")
+        if any(qty > alloc.get(name, 0.0) for name, qty in on_host.items()) or \
+                count[host] > alloc["pods"]:
+            raise SystemExit(f"node {host} overcommitted: {on_host}, {count[host]} pods")
     check_idle_ledger(cache)
     return len(binds), max(count.values(), default=0)
+
+
+def host_loop_binds(cache, conf_text):
+    """The port's host loop (``AllocateAction._heap_loop``) on ``cache``, on
+    the CPU: its binds."""
+    from scheduler_tpu_torch.actions.allocate import AllocateAction, collect_candidates
+    from scheduler_tpu_torch.conf import parse_scheduler_conf
+    from scheduler_tpu_torch.framework import close_session, open_session
+
+    ssn = open_session(cache, parse_scheduler_conf(conf_text).tiers, device="cpu")
+    AllocateAction()._heap_loop(ssn, collect_candidates(ssn))
+    close_session(ssn)
+    return dict(cache.binder.binds)
 
 
 # -- phases -------------------------------------------------------------------------
@@ -1188,7 +1357,7 @@ def phase_device():
     cuda_build.load(verbose=True)
     info = cuda_build.build_info
     regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln or ln.endswith(".cu:")]
+            if "registers" in ln or "stack frame" in ln or ln.endswith(".cu:")]
     emit({"phase": "device", "gpu": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "sources": info["sources"],
@@ -1293,17 +1462,185 @@ def phase_main_path_templates(cache, conf_path, n_nodes, n_jobs, tasks_per_job):
     return launches, rec
 
 
+def phase_main_path_mq_flagship(cache, conf_path, n_nodes, n_pods, tasks_per_job):
+    """The multi-queue flagship: config 3's cluster with its gangs dealt to
+    three queues of weights 1:2:3 and proportion in the conf; the mega
+    kernel in multi-queue mode.  Every gang must bind whole."""
+    rec, launches = run_cycle(cache, conf_path)
+    binds, gangs = check_binds(cache, n_nodes, n_pods, tasks_per_job)
+    chain = rec["cohort"].get("queue_chain") or {}
+    emit({"phase": "main_path", "config": "config3_multi_queue", "nodes": n_nodes,
+          "pods": n_pods, "queues": len(MQ_QUEUES), "binds": binds, "gangs_bound": gangs,
+          "queue_chain": chain, "qfair": rec["cohort"].get("qfair"), **rec})
+    n_gangs = -(-n_pods // tasks_per_job)
+    if binds != n_pods or gangs != n_gangs:
+        raise SystemExit(f"the multi-queue flagship bound {binds} pods in {gangs} gangs, "
+                         f"not {n_pods} in {n_gangs}")
+    if chain.get("queues") != len(MQ_QUEUES) or not chain.get("delta_updates"):
+        raise SystemExit(f"the multi-queue flagship did not run the queue chain: {chain}")
+    return launches
+
+
+def phase_main_path_config5(cache, conf_path, n_nodes, n_gangs):
+    """BASELINE config 5, GPU topology gangs: K3 for the zone selectors, the
+    mega kernel in static-row mode at r_dim 3.  Every pod must bind, in its
+    zone, with no node past its 8 GPUs."""
+    rec, launches = run_cycle(cache, conf_path)
+    binds, most = check_config2_binds(cache)
+    emit({"phase": "main_path", "config": "config5", "nodes": n_nodes, "gangs": n_gangs,
+          "pods": 8 * n_gangs, "binds": binds, "most_pods_on_a_node": most, **rec})
+    if launches["static_predicate_mask"] < 1:
+        raise SystemExit("the config-5 main path did not launch static_predicate_mask")
+    if binds != 8 * n_gangs:
+        raise SystemExit(f"config 5 bound {binds} pods, not {8 * n_gangs}")
+    return launches
+
+
+def phase_main_path_default_tiers(cache, conf_path, n_nodes, n_pods):
+    """BASELINE config 2 under the JAX default conf's plugin tiers
+    (conformance and proportion join): one queue, but the mega kernel runs
+    in multi-queue mode with static rows.  Checks as config 2's; the binds
+    are held to the host loop's later (``HostLoopTwin``).  Returns (launches,
+    binds)."""
+    rec, launches = run_cycle(cache, conf_path)
+    binds, most = check_config2_binds(cache)
+    chain = rec["cohort"].get("queue_chain") or {}
+    emit({"phase": "main_path", "config": "config2_default_tiers", "nodes": n_nodes,
+          "pods": n_pods, "binds": binds, "most_pods_on_a_node": most,
+          "queue_chain": chain, **rec})
+    if launches["static_predicate_mask"] < 1:
+        raise SystemExit("the default-tiers main path did not launch static_predicate_mask")
+    if binds < 1:
+        raise SystemExit("config 2 under the default tiers bound nothing")
+    if chain.get("queues") != 1 or not chain.get("delta_updates"):
+        raise SystemExit(f"the default-tiers main path did not run the queue chain: {chain}")
+    return launches, dict(cache.binder.binds)
+
+
+def child_argv(child, path, opts):
+    """The command line of this script's child process ``child`` (see
+    ``--child``), writing its result to ``path``."""
+    return [sys.executable, os.path.abspath(__file__), "--child", child, "--out", path,
+            "--nodes", str(opts.nodes), "--pods", str(opts.pods),
+            "--tasks-per-job", str(opts.tasks_per_job),
+            "--config2-nodes", str(opts.config2_nodes), "--config2-pods", str(opts.config2_pods)]
+
+
+def run_child(out_dir, child, opts):
+    """Run child process ``child`` to its end (its JSON lines go to this
+    script's standard output) and return the result it wrote."""
+    path = os.path.join(out_dir, f"{child}.json")
+    rc = subprocess.run(child_argv(child, path, opts)).returncode
+    if rc != 0:
+        raise SystemExit(f"the {child} process failed: rc {rc}")
+    with open(path) as f:
+        return json.load(f)
+
+
+class HostLoopTwin:
+    """The port's host loop on a twin of a config-2 cluster under the
+    default tiers, in a child process of this script on the CPU (at full
+    size it takes minutes of one core, so it runs beside the kernel phases
+    that follow the main paths); ``check`` waits for it and holds the main
+    path's binds to its own."""
+
+    def __init__(self, out_dir, opts):
+        self.path = os.path.join(out_dir, "host_loop_binds.json")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(child_argv("host_loop", self.path, opts))
+
+    def stop(self):
+        """End the child process if it still runs (a phase failed first)."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def check(self, binds):
+        rc = self.proc.wait()
+        if rc != 0:
+            raise SystemExit(f"the host loop's process failed: rc {rc}")
+        with open(self.path) as f:
+            host = json.load(f)
+        equal = binds == host
+        emit({"phase": "host_loop_parity", "config": "config2_default_tiers",
+              "binds": len(binds), "host_loop_binds": len(host), "equal_to_host_loop": equal,
+              "wall_s": time.perf_counter() - self.t0})
+        if not equal:
+            raise SystemExit("config 2 under the default tiers: binds differ from the host loop's")
+
+
+def child_main(child, path, opts) -> int:
+    """``--child``: ``host_loop`` writes the host loop's binds on a config-2
+    cluster under the default tiers (for ``HostLoopTwin``); each other child
+    is one main path's cold cycle in a process of its own, after one
+    config-1 cycle that warms the card, the kernel library and PyTorch up.
+    ``Scheduler.run_once`` collects garbage at the head of every cycle, and
+    a cluster this script drops is never freed (a job's task rows and its
+    tasks refer to each other through a numpy object array, which the
+    cycle collector does not walk): in a process of its own the phase walks
+    the path's cluster alone.  It writes the path's launch counts (and the
+    default tiers' binds)."""
+    from scheduler_tpu_torch.harness import (
+        make_gpu_topology_cluster,
+        make_kubemark_density_cluster,
+        make_synthetic_cluster,
+    )
+
+    if child == "host_loop":
+        binds = host_loop_binds(
+            make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache,
+            DEFAULT_TIERS_CONF)
+        with open(path, "w") as f:
+            json.dump(binds, f)
+        return 0
+    conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
+    with open(conf_path, "w") as f:
+        f.write(CONFIG1_CONF)
+    run_cycle(config1_cluster(), conf_path)
+    gc.collect()
+    conf = {"config3_multi_queue": MULTIQ_CONF, "config5": CONFIG2_CONF,
+            "config2_default_tiers": DEFAULT_TIERS_CONF}[child]
+    with open(conf_path, "w") as f:
+        f.write(conf)  # config 5's plugins are config 2's
+    t0 = time.perf_counter()
+    if child == "config3_multi_queue":
+        cache = make_synthetic_cluster(opts.nodes, opts.pods, tasks_per_job=opts.tasks_per_job,
+                                       queues=MQ_QUEUES, queue_weights=MQ_WEIGHTS).cache
+        nodes, pods = opts.nodes, opts.pods
+    elif child == "config5":
+        cache = make_gpu_topology_cluster(CONFIG5_NODES, CONFIG5_GANGS).cache
+        nodes, pods = CONFIG5_NODES, 8 * CONFIG5_GANGS
+    else:
+        cache = make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache
+        nodes, pods = opts.config2_nodes, opts.config2_pods
+    emit({"phase": "cluster", "config": child, "nodes": nodes, "pods": pods,
+          "build_s": time.perf_counter() - t0})
+    out = {}
+    if child == "config3_multi_queue":
+        out["launches"] = phase_main_path_mq_flagship(cache, conf_path, nodes, pods,
+                                                      opts.tasks_per_job)
+    elif child == "config5":
+        out["launches"] = phase_main_path_config5(cache, conf_path, nodes, CONFIG5_GANGS)
+    else:
+        out["launches"], out["binds"] = phase_main_path_default_tiers(cache, conf_path, nodes,
+                                                                      pods)
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def phase_kernel_cases(device):
     from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
     from scheduler_tpu_torch.interop import mega_operands_from_numpy
     from scheduler_tpu_torch.ops import megakernel as mk
 
     _, eng = engine_for(config1_cluster(), CONFIG1_CONF, device)
-    compare("config1", eng._mega_args, eng._mega_kw, eng.st.nodes.count)
+    compare("config1", eng._mega_args, eng._mega_kw, eng.st.nodes.count, len(eng.queue_uids))
 
     cl = make_synthetic_cluster(1000, 10_000, tasks_per_job=100)
     _, eng = engine_for(cl.cache, FLAGSHIP_CONF, device)
-    compare("flagship_1k_x_10k", eng._mega_args, eng._mega_kw, eng.st.nodes.count)
+    compare("flagship_1k_x_10k", eng._mega_args, eng._mega_kw, eng.st.nodes.count,
+            len(eng.queue_uids))
 
     # Kernel level: identical-request gangs on a tight cluster, with the
     # least-requested and balanced weights (so the top-2 score bound cuts
@@ -1318,7 +1655,7 @@ def phase_kernel_cases(device):
     compare("score_bound_pod_count", eng._mega_args, kw, eng.st.nodes.count)
 
     _, eng = engine_for(many_jobs_cluster(), FLAGSHIP_CONF, device)
-    if not mk.plan_for(eng._mega_args, eng._mega_kw).job_ledger_in_global:
+    if not mk.plan_for(eng._mega_args, eng._mega_kw, len(eng.queue_uids)).job_ledger_in_global:
         raise SystemExit("the many-jobs case must put the job ledger in global scratch")
     compare("global_job_ledger", eng._mega_args, eng._mega_kw, eng.st.nodes.count)
 
@@ -1328,6 +1665,15 @@ def phase_kernel_cases(device):
     for case, spec in MEGA_SYNTHETIC.items():
         args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
         compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"])
+    # Multi-queue mode on synthetic operands, and on the 1:9 starvation
+    # session at one and four cohort chunks.
+    for case, spec in MEGA_SYNTHETIC_MQ.items():
+        args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
+        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"], spec["queues"])
+    _, eng = engine_for(spec_cluster(multi_queue_spec((1, 9), 3)), MULTIQ_CONF, device)
+    for cohort in (1, 4):
+        compare(f"mq_starvation_cohort_{cohort}", eng._mega_args,
+                dict(eng._mega_kw, cohort=cohort), eng.st.nodes.count, len(eng.queue_uids))
 
     # Static-row mode on small sessions, at one and four cohort chunks.
     for case, cache_fn, conf in (
@@ -1353,7 +1699,8 @@ def phase_full_size(cache, conf_text, device, case):
     t0 = time.perf_counter()
     _, eng = engine_for(cache, conf_text, device)
     init_s = time.perf_counter() - t0
-    rec = compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count, timed=True)
+    rec = compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count, len(eng.queue_uids),
+                  timed=True)
     emit({"phase": "full_size", "case": case, "engine_init_s": init_s, "plan": rec["plan"],
           "covered_nodes": mk.covered_nodes(dict(zip(mk.OPERAND_NAMES, eng._mega_args))["gate"])})
     return rec, eng
@@ -1380,7 +1727,11 @@ def phase_e2e_small(conf_path):
     from scheduler_tpu_torch.actions.allocate import AllocateAction, collect_candidates
     from scheduler_tpu_torch.conf import parse_scheduler_conf
     from scheduler_tpu_torch.framework import close_session, open_session
-    from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
+    from scheduler_tpu_torch.harness import (
+        make_gpu_topology_cluster,
+        make_kubemark_density_cluster,
+        make_synthetic_cluster,
+    )
     from scheduler_tpu_torch.scheduler import Scheduler
 
     cases = (
@@ -1395,6 +1746,17 @@ def phase_e2e_small(conf_path):
          PRESSURE_CONF, "mega"),
         # 4,200 single-pod jobs of distinct requests: the loop route.
         ("templates_64_x_4200", lambda: template_cluster(64, 4200, 1), FLAGSHIP_CONF, "step"),
+        # Multi-queue mode: three queues, the 1:9 starvation shape, config 2
+        # under the default tiers; and config 5.
+        ("mq3_64_x_600", lambda: make_synthetic_cluster(
+            64, 600, tasks_per_job=10, queues=MQ_QUEUES, queue_weights=MQ_WEIGHTS).cache,
+         MULTIQ_CONF, "mega"),
+        ("mq_starvation", lambda: spec_cluster(multi_queue_spec((1, 9), 3)), MULTIQ_CONF,
+         "mega"),
+        ("config2_default_tiers_64_x_600", lambda: make_kubemark_density_cluster(64, 600).cache,
+         DEFAULT_TIERS_CONF, "mega"),
+        ("config5_75_x_50", lambda: make_gpu_topology_cluster(75, 50).cache, CONFIG2_CONF,
+         "mega"),
     )
     for name, build, conf_text, engine in cases:
         with open(conf_path, "w") as f:
@@ -1440,8 +1802,12 @@ def step_entry(launches, slice_rec, recs, parity):
             "cases": {r["case"]: {k: r[k] for k in STEP_CASE_TIMES} for r in recs}}
 
 
-def mega_entry(mode, launches, rec):
-    return {"name": "mega_allocate", "mode": mode, "route": "cuda",
+def mega_entry(mode, launches, rec, path=None):
+    """K2's entry of the kernels line for one instantiation on one main
+    path (``path``: the main path, where the mode has more than one)."""
+    if rec["mode"] != mode:
+        raise SystemExit(f"the {path or mode} operands ran {rec['mode']}, not {mode}")
+    return {"name": "mega_allocate", "mode": mode, "path": path, "route": "cuda",
             "source": "scheduler_tpu_torch/csrc/mega_allocate.cu",
             "replaces": "scheduler_tpu/ops/megakernel.py:181",
             "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -1460,6 +1826,11 @@ def main() -> int:
     parser.add_argument("--config2-pods", type=int, default=5000)
     parser.add_argument("--template-jobs", type=int, default=5000)
     parser.add_argument("--template-tasks", type=int, default=20)
+    parser.add_argument("--child", choices=("host_loop", "config3_multi_queue", "config5",
+                                            "config2_default_tiers"),
+                        help="run only this child process of the script (child_main) and "
+                             "write its result to --out")
+    parser.add_argument("--out", metavar="PATH")
     opts = parser.parse_args()
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1476,7 +1847,14 @@ def main() -> int:
         return 2
     import scheduler_tpu_torch.actions  # noqa: F401
     import scheduler_tpu_torch.plugins  # noqa: F401
-    from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
+
+    if opts.child:
+        return child_main(opts.child, opts.out, opts)
+    from scheduler_tpu_torch.harness import (
+        make_gpu_topology_cluster,
+        make_kubemark_density_cluster,
+        make_synthetic_cluster,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1485,6 +1863,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     conf_path = os.path.join(out_dir, "chip_smoke_conf.yaml")
 
+    t_start = time.perf_counter()
     phase_device()
     smi = nvidia_smi_line()
 
@@ -1508,6 +1887,25 @@ def main() -> int:
                                            tasks_per_job=opts.tasks_per_job).cache,
             opts.nodes, opts.pods)
 
+    def mq_flagship_cluster():
+        return timed_build(
+            "config3_multi_queue",
+            lambda: make_synthetic_cluster(
+                opts.nodes, opts.pods, tasks_per_job=opts.tasks_per_job, queues=MQ_QUEUES,
+                queue_weights=MQ_WEIGHTS).cache,
+            opts.nodes, opts.pods)
+
+    def config5_cluster():
+        return timed_build(
+            "config5", lambda: make_gpu_topology_cluster(CONFIG5_NODES, CONFIG5_GANGS).cache,
+            CONFIG5_NODES, 8 * CONFIG5_GANGS)
+
+    def default_tiers_cluster():
+        return timed_build(
+            "config2_default_tiers",
+            lambda: make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache,
+            opts.config2_nodes, opts.config2_pods)
+
     def templates_cluster():
         return timed_build(
             "config3_templates",
@@ -1529,30 +1927,60 @@ def main() -> int:
     templates_launches, _ = phase_main_path_templates(
         templates_cluster(), conf_path, opts.nodes, opts.template_jobs, opts.template_tasks)
     gc.collect()
+    # The paths of multi-queue mode and config 5, each in a process of its
+    # own, one after another (child_main).
+    mq_launches = run_child(out_dir, "config3_multi_queue", opts)["launches"]
+    config5_launches = run_child(out_dir, "config5", opts)["launches"]
+    tiers = run_child(out_dir, "config2_default_tiers", opts)
+    tiers_launches, tiers_binds = tiers["launches"], tiers["binds"]
+    # After the timed cycles: the host loop's twin, beside the kernel phases.
+    host_twin = HostLoopTwin(out_dir, opts)
 
-    # The same operands again, from second clusters built the same way (K2
-    # first: its profiler traces come before the other kernels' many).
-    static_full, eng2 = phase_full_size(config2_cluster(), CONFIG2_CONF, device,
-                                        "config2_main_path_operands")
-    cursor_full, _ = phase_full_size(flagship_cluster(), FLAGSHIP_CONF, device,
-                                     "main_path_operands")
-    gc.collect()
-    pred_main, pred_wide, pred_err = phase_predicate_cases(eng2.st, device)
-    eng3, parity = phase_loop_parity(templates_cluster(), device, check_every=200)
-    step_recs = phase_step_kernel_cases(eng3, eng2, device)
-    del eng2, eng3
-    gc.collect()
-    phase_kernel_cases(device)
-    gc.collect()
-    phase_e2e_small(conf_path)
+    try:
+        # The same operands again, from second clusters built the same way (K2
+        # first: its profiler traces come before the other kernels' many).
+        static_full, eng2 = phase_full_size(config2_cluster(), CONFIG2_CONF, device,
+                                            "config2_main_path_operands")
+        cursor_full, _ = phase_full_size(flagship_cluster(), FLAGSHIP_CONF, device,
+                                         "main_path_operands")
+        gc.collect()
+        mq_full, _ = phase_full_size(mq_flagship_cluster(), MULTIQ_CONF, device,
+                                     "multi_queue_main_path_operands")
+        gc.collect()
+        config5_full, _ = phase_full_size(config5_cluster(), CONFIG2_CONF, device,
+                                          "config5_main_path_operands")
+        tiers_full, _ = phase_full_size(default_tiers_cluster(), DEFAULT_TIERS_CONF, device,
+                                        "config2_default_tiers_main_path_operands")
+        gc.collect()
+        pred_main, pred_wide, pred_err = phase_predicate_cases(eng2.st, device)
+        eng3, parity = phase_loop_parity(templates_cluster(), device, check_every=200)
+        step_recs = phase_step_kernel_cases(eng3, eng2, device)
+        del eng2, eng3
+        gc.collect()
+        phase_kernel_cases(device)
+        gc.collect()
+        phase_e2e_small(conf_path)
+        host_twin.check(tiers_binds)
+    finally:
+        host_twin.stop()
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     emit({"kernels": [
         mega_entry("cursor", flagship_launches["mega_allocate"], cursor_full),
         mega_entry("static", config2_launches["mega_allocate"], static_full),
+        mega_entry("static", config5_launches["mega_allocate"], config5_full, "config5"),
+        mega_entry("multi_queue", mq_launches["mega_allocate"], mq_full,
+                   "config3_multi_queue"),
+        mega_entry("multi_queue_static", tiers_launches["mega_allocate"], tiers_full,
+                   "config2_default_tiers"),
         {"name": "static_predicate_mask", "route": "cuda",
          "source": "scheduler_tpu_torch/csrc/static_predicate_mask.cu",
          "replaces": "scheduler_tpu/ops/pallas_kernels.py:292",
          "launches": config2_launches["static_predicate_mask"],
+         "launches_by_path": {
+             "config2": config2_launches["static_predicate_mask"],
+             "config5": config5_launches["static_predicate_mask"],
+             "config2_default_tiers": tiers_launches["static_predicate_mask"]},
          "max_abs_err": pred_err,
          **{k: pred_main[k] for k in PREDICATE_TIMES},
          "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K") + PREDICATE_TIMES}},

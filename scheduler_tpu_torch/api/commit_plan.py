@@ -63,6 +63,7 @@ class CommitPlan:
         self._node_deltas: Optional[Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray, int, int]]] = None
         self._job_alloc: Optional[Dict[str, np.ndarray]] = None
         self._job_all: Optional[Dict[str, np.ndarray]] = None
+        self._queue_all: Optional[Dict[str, np.ndarray]] = None
 
     # -- ledgers -------------------------------------------------------------
 
@@ -117,6 +118,16 @@ class CommitPlan:
                 np.where(self._placed, np.int32(0), np.int32(-1))
             )
         return self._job_all
+
+    def queue_all(self) -> Dict[str, np.ndarray]:
+        """queue uid -> summed resreq of ALL placements (proportion shares)."""
+        if self._queue_all is None:
+            s = len(self.queue_uids)
+            seg = np.where(self._placed, self.queue_ids, -1).astype(np.int32)
+            sums = native.segment_sum(self.matrix, seg, s)
+            counts = native.segment_count(seg, s)
+            self._queue_all = {self.queue_uids[k]: sums[k] for k in np.nonzero(counts)[0]}
+        return self._queue_all
 
     def bind_deltas(
         self, ready_job_uids: Iterable[str]

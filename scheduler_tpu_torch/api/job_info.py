@@ -24,7 +24,7 @@ eager object implementation would hold.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -673,6 +673,25 @@ class JobInfo:
 
     def status_count(self, status: TaskStatus) -> int:
         return self._counts.get(int(status), 0)
+
+    def status_sum(self, statuses: Sequence[TaskStatus]):
+        """(dense [R] resreq sum, ORed has_scalars) over live tasks in the given
+        statuses — byte-identical to folding ``add`` per task (matrix rows are
+        exact copies of each resreq)."""
+        st = self._store
+        bits = 0
+        for s in statuses:
+            bits |= int(s)
+        mask = (st.status[: st.n].astype(np.int64) & bits) != 0
+        rows = np.nonzero(mask)[0]
+        r = self.vocab.size
+        if rows.shape[0] == 0:
+            return np.zeros(r, dtype=np.float64), False
+        req, _, _ = self.request_matrices()
+        return (
+            self._pad_row(req[rows].sum(axis=0)),
+            bool(st.has_scalars[rows].any()),
+        )
 
     def _pad_row(self, row: np.ndarray) -> np.ndarray:
         """Pad a matrix-derived [R_matrix] row to the CURRENT vocab width —

@@ -305,6 +305,12 @@ class ResourceVec:
         return ", ".join(parts)
 
 
+def le_mask(a: np.ndarray, b: np.ndarray, mins: np.ndarray) -> np.ndarray:
+    """Batched epsilon-tolerant <= per ROW: the ``less_equal``/``sub_array``
+    rule (per dim: a < b OR |b - a| < min threshold), all-dims reduced."""
+    return np.all((a < b) | (np.abs(b - a) < mins), axis=-1)
+
+
 def sum_rows(reqs) -> Tuple[np.ndarray, bool]:
     """Dense [R] sum + ORed has_scalars over ResourceVecs — THE way to fold a
     batch of requests into one ``add_array``/``sub_array`` delta (keeps the

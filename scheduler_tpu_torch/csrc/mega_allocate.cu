@@ -1,13 +1,18 @@
 // mega_allocate (K2): the whole greedy allocate action in one kernel launch.
 //
 // Replaces scheduler_tpu/ops/megakernel.py:181 mega_allocate (a Pallas TPU
-// kernel; kernel body :259-957, pallas_call :959-987) in CURSOR MODE: one
-// queue, jobs in init-key order, no releasing capacity; with use_static
-// (template instantiation mega_allocate_kernel<true>), a task's
-// static-signature mask row is ANDed into the fit and its score row added
-// after the dynamic score terms.  The plain PyTorch version of the same
-// function is scheduler_tpu_torch/ops/megakernel.py::mega_allocate_reference;
-// the two must agree bit for bit on codes and stats.
+// kernel; kernel body :259-957, pallas_call :959-987) without releasing
+// capacity, as four template instantiations mega_allocate_kernel<USE_STATIC,
+// MQ>.  USE_STATIC: a task's static-signature mask row is ANDed into the fit
+// and its score row added after the dynamic score terms.  MQ = false is
+// CURSOR MODE (one queue, jobs in init-key order, a job taken by the cursor
+// while none is dirty); MQ = true is MULTI-QUEUE MODE with the delta chain
+// (proportion's queue order and overused gate: at each pop the least-share
+// queue not overused, then the job chain within it; each placement grows
+// its queue's allocated and re-derives that queue's share and flag).  The
+// plain PyTorch version of the same function is
+// scheduler_tpu_torch/ops/megakernel.py::mega_allocate_reference; the two
+// must agree bit for bit on codes and stats.
 //
 // What bounds it on this card: per-chunk latency.  The loop is a dependent
 // chain of STATS.STEPS steps (18,117 at the flagship), each of one or more
@@ -68,9 +73,22 @@
 //   may still push into it) are the only ones.
 // * The job ledger is compact (3 + r_dim rows: consumed, allocated, left,
 //   drf) and sits in shared memory where the plan finds room, in this order:
-//   node slice, job ledger, request table, job operands, static rows.  What
-//   does not fit is read from global memory; a job ledger that does not fit
-//   is one copy a CTA in global scratch ([C, 3 + r_dim, j_pad]).
+//   node slice, (queue ledger,) job ledger, request table, job operands,
+//   static rows.  What does not fit is read from global memory; a job
+//   ledger that does not fit is one copy a CTA in global scratch
+//   ([C, 3 + r_dim, j_pad]).
+// * A job pop is one pass over the job lanes and one block reduction: each
+//   lane's key packs the reference's selection order (in multi-queue mode
+//   the queue's share and index, then every comparator's key, the
+//   creation/uid rank and the lane) into four 64-bit words, and the least
+//   key wins.  The reference's filters, field by field, keep that minimum.
+// * Multi-queue mode keeps its queue ledger per queue, not per job lane as
+//   the JAX kernel does (Mosaic cannot gather by a dynamic lane): every CTA
+//   holds each queue's deserved and allocated rows, share and overused flag
+//   in shared memory, seeded from the lanes of the queue's jobs, and reads
+//   a lane's queue through its index.  The reference's masked add x +
+//   (req m) 1.0 on the queue's lanes is the per-queue add, and the refresh
+//   folds the same values in the same order, so the bits are the same.
 //
 // Bitwise parity with the float32 reference rests on: no FMA contraction
 // (built with --fmad=false), IEEE division (-prec-div=true, the default),
@@ -83,8 +101,8 @@
 // virtual entry for the first uncovered node and min(second, best).
 //
 // Registers (-Xptxas -v, sm_90a, __launch_bounds__(THREADS, 1)): cursor
-// mode 114 a thread, static-row mode 118, no spills in either (32 bytes of
-// stack for the comparator thresholds), 3,024 bytes of static shared memory.
+// mode 114 a thread, static-row mode 118, multi-queue 110, multi-queue with
+// static rows 110; no stack, no spills; 3,504 bytes of static shared memory.
 // scripts/k2_phases.py builds it with -DMEGA_PHASE_CLOCKS to time each
 // phase of the loop.
 //
@@ -186,6 +204,9 @@ struct MegaArgs {
   const int* msig;        // [t_rows * 128] static signature per task (use_static)
   const float* smask;     // [static_rows, nb] static mask rows, 1.0 / 0.0 (use_static)
   const float* sscore;    // [static_rows, nb] static score rows (use_static)
+  const int* jqueue;      // [j_pad] queue index (= queue rank) of each job (multi_queue)
+  const float* jq_des;    // [8, j_pad] deserved of each job's queue (multi_queue)
+  const float* jq_alloc0; // [8, j_pad] allocated of each job's queue at open (multi_queue)
   int* out;               // [(t_rows + 1) * 128] result codes
   int* stats;             // [8] evidence counters
   float* js_global;       // [C, 3 + r_dim, j_pad] job ledgers where the plan keeps them off chip
@@ -193,10 +214,11 @@ struct MegaArgs {
   int nb, s_pad, t_rows, t_cap, j_pad, r_dim, cpu_idx, mem_idx;
   int enforce_pod_count, cross_batch, batch_runs, score_bound, cohort, n_comp;
   int use_static, static_rows;
+  int multi_queue, queue_proportion, overused_gate, n_queues;
   // The launch plan (ops/megakernel.py::mega_plan): CTAs, node capacity of
   // a CTA's slice, dynamic shared memory, and each region's byte offset in
   // it (-1: the region stays in global memory).
-  int ctas, slice, smem_bytes, off_js, off_sig, off_job, off_static;
+  int ctas, slice, smem_bytes, off_queue, off_js, off_sig, off_job, off_static;
   int comp[4];
   float w_lr, w_bal, w_bp;
   float mins[8];
@@ -322,27 +344,11 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 struct Reduce {
-  float v[WARPS];
   int i[WARPS];
-  float out_v;
   int out_i;
 };
 
-// Block-wide minimum of a float / an int; every thread gets the result.
-__device__ float block_min_f(float v, Reduce* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
-  if (lane == 0) red->v[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < WARPS ? red->v[lane] : INFINITY;
-    for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_down_sync(0xffffffffu, v, off));
-    if (lane == 0) red->out_v = v;
-  }
-  __syncthreads();
-  return red->out_v;
-}
-
+// Block-wide minimum of an int; every thread gets the result.
 __device__ int block_min_i(int v, Reduce* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_down_sync(0xffffffffu, v, off));
@@ -365,6 +371,7 @@ struct Jobs {
   const int* gang;
   const int* prio;
   const int* tb;
+  const int* q;  // queue index (multi-queue mode)
 };
 
 // Comparator keys of job lane l.
@@ -386,56 +393,136 @@ __device__ __forceinline__ float key_drf(const MegaArgs& a, const float* js, int
   return key;
 }
 
-// Lane l survives the base filter and every comparator before `upto`.
-__device__ bool job_candidate(const MegaArgs& a, const Jobs& jo, const float* js, int l, int cursor,
-                              int upto, const int* thr_i, const float* thr_f) {
-  const int jp = a.j_pad;
+// Lane l can still be selected: no failed placement, tasks left.
+__device__ __forceinline__ bool job_eligible(const Jobs& jo, const float* js, int jp, int l) {
   const int num = jo.num[l];
-  bool cand = (js[JS_LEFT * jp + l] == 0.0f) && (js[JS_CONSUMED * jp + l] < (float)num) &&
-              (num > 0) && (l <= cursor);
-  for (int c = 0; c < upto && cand; ++c) {
-    int comp = a.comp[c];
-    if (comp == COMP_PRIORITY) cand = key_priority(jo, l) == thr_i[c];
-    else if (comp == COMP_GANG) cand = key_gang(jo, js, jp, l) == thr_i[c];
-    else cand = key_drf(a, js, l) == thr_f[c];
-  }
-  return cand;
+  return (js[JS_LEFT * jp + l] == 0.0f) && (js[JS_CONSUMED * jp + l] < (float)num) && (num > 0);
 }
 
-// The comparator chain (priority -> gang -> drf, then creation/uid rank,
-// lowest lane on ties) over the job lanes <= cursor; HALT when none is left.
-// Every CTA runs it on its own copy of the job ledger, with CTA barriers only.
-__device__ int chain_select(const MegaArgs& a, const Jobs& jo, const float* js, int cursor,
-                            Reduce* red) {
-  int thr_i[4];
-  float thr_f[4];
-  for (int c = 0; c < a.n_comp; ++c) {
-    int comp = a.comp[c];
-    if (comp == COMP_DRF) {
-      float v = INFINITY;
-      for (int l = threadIdx.x; l < a.j_pad; l += THREADS)
-        if (job_candidate(a, jo, js, l, cursor, c, thr_i, thr_f)) v = fminf(v, key_drf(a, js, l));
-      thr_f[c] = block_min_f(v, red);
-      thr_i[c] = 0;
-    } else {
-      int v = BIG_I32;
-      for (int l = threadIdx.x; l < a.j_pad; l += THREADS)
-        if (job_candidate(a, jo, js, l, cursor, c, thr_i, thr_f))
-          v = min(v, comp == COMP_PRIORITY ? key_priority(jo, l) : key_gang(jo, js, a.j_pad, l));
-      thr_i[c] = block_min_i(v, red);
-      thr_f[c] = 0.0f;
-    }
+// A CTA's queue ledger in shared memory (multi-queue mode): per queue its
+// deserved and live allocated (r_dim floats each), share and overused flag.
+struct Queues {
+  float* des;    // [n_queues][r_dim]
+  float* alloc;  // [n_queues][r_dim]
+  float* share;  // [n_queues]
+  float* over;   // [n_queues], 1.0 = overused
+};
+
+// Proportion's share and overused flag of one queue, in the reference's
+// float32 order (ops/megakernel.py::queue_share_overused): dims ascending,
+// share = max of allocated / deserved (0/0 -> 0; cpu and memory x/0 -> 1;
+// other dims with deserved 0 -> 0), overused = deserved - allocated < min
+// on every dim.
+__device__ __forceinline__ void share_overused(const float* d, const float* al, int r_dim,
+                                               const float* mins, float* share, float* over) {
+  float sh = 0.0f;
+  bool ov = true;
+  for (int r = 0; r < r_dim; ++r) {
+    float fr = d[r] > 0.0f ? al[r] / d[r] : 0.0f;
+    if (r < 2 && !(d[r] > 0.0f) && al[r] > 0.0f) fr = 1.0f;
+    sh = r == 0 ? fr : fmaxf(sh, fr);
+    ov = ov && (d[r] - al[r]) < mins[r];
   }
-  int v = BIG_I32;
-  for (int l = threadIdx.x; l < a.j_pad; l += THREADS)
-    if (job_candidate(a, jo, js, l, cursor, a.n_comp, thr_i, thr_f)) v = min(v, jo.tb[l]);
-  const int low = block_min_i(v, red);
-  if (low >= BIG_I32) return HALT;
-  int lane = a.j_pad;
-  for (int l = threadIdx.x; l < a.j_pad; l += THREADS)
-    if (job_candidate(a, jo, js, l, cursor, a.n_comp, thr_i, thr_f) && jo.tb[l] == low)
-      lane = min(lane, l);
-  return block_min_i(lane, red);
+  *share = sh;
+  *over = ov ? 1.0f : 0.0f;
+}
+
+// A job lane's selection key: the reference's selection as one
+// lexicographic order, packed into four 64-bit words compared in turn.  In
+// multi-queue mode the queue pop leads (the queue's share, then its index:
+// the least share wins, then the lowest queue), then the comparator chain
+// (each comparator's key in the conf's order, the least wins), the
+// creation/uid rank and the lane.  Filtering the lanes field by field, as
+// the reference does (the pop, then each comparator on the survivors), keeps
+// the lexicographic minimum, so one pass and one block reduction select the
+// same lane.
+struct JobKey {
+  unsigned long long w[4];
+};
+
+__device__ __forceinline__ JobKey key_none() { return {{~0ull, ~0ull, ~0ull, ~0ull}}; }
+
+__device__ __forceinline__ bool key_less(const JobKey& x, const JobKey& y) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (x.w[k] != y.w[k]) return x.w[k] < y.w[k];
+  return false;
+}
+
+// Order-preserving maps onto 32 bits: an int, and a float with -0 and +0
+// equal (the reference compares the keys with ==).
+__device__ __forceinline__ uint32_t ord_i(int i) { return (uint32_t)i ^ 0x80000000u; }
+
+__device__ __forceinline__ uint32_t ord_f(float f) {
+  const uint32_t u = __float_as_uint(f == 0.0f ? 0.0f : f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+struct KeyReduce {
+  JobKey w[WARPS];
+  JobKey out;
+};
+
+// Block-wide lexicographic minimum of the keys; every thread gets it.
+__device__ JobKey block_min_key(JobKey k, KeyReduce* kr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) {
+    JobKey o;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o.w[i] = __shfl_down_sync(0xffffffffu, k.w[i], off);
+    if (key_less(o, k)) k = o;
+  }
+  if (lane == 0) kr->w[warp] = k;
+  __syncthreads();
+  if (warp == 0) {
+    k = lane < WARPS ? kr->w[lane] : key_none();
+    for (int off = 16; off > 0; off >>= 1) {
+      JobKey o;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o.w[i] = __shfl_down_sync(0xffffffffu, k.w[i], off);
+      if (key_less(o, k)) k = o;
+    }
+    if (lane == 0) kr->out = k;
+  }
+  __syncthreads();
+  return kr->out;
+}
+
+// The job to pop: over the eligible lanes at or before the cursor, or, in
+// multi-queue mode, the eligible lanes of the queues that are not overused,
+// the least key.  HALT when none is left.  Every CTA runs it on its own
+// copy of the job ledger, with CTA barriers only.
+template <bool MQ>
+__device__ int job_select(const MegaArgs& a, const Jobs& jo, const float* js, const Queues& qs,
+                          int cursor, KeyReduce* kr) {
+  const int jp = a.j_pad;
+  const int last = MQ ? jp - 1 : min(cursor, jp - 1);
+  JobKey best = key_none();
+  for (int l = threadIdx.x; l <= last; l += THREADS) {
+    if (!job_eligible(jo, js, jp, l)) continue;
+    unsigned long long head = 0;
+    if (MQ) {
+      const int q = jo.q[l];
+      if (a.overused_gate && qs.over[q] >= 0.5f) continue;
+      head = ((unsigned long long)(a.queue_proportion ? ord_f(qs.share[q]) : 0u) << 32) |
+             (uint32_t)q;
+    }
+    uint32_t c[3] = {0u, 0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (i >= a.n_comp) break;
+      const int comp = a.comp[i];
+      c[i] = comp == COMP_PRIORITY ? ord_i(key_priority(jo, l))
+             : comp == COMP_GANG   ? ord_i(key_gang(jo, js, jp, l))
+                                   : ord_f(key_drf(a, js, l));
+    }
+    const JobKey k = {{head, ((unsigned long long)c[0] << 32) | c[1],
+                       ((unsigned long long)c[2] << 32) | ord_i(jo.tb[l]),
+                       (unsigned long long)l}};
+    if (key_less(k, best)) best = k;
+  }
+  best = block_min_key(best, kr);
+  return best.w[3] == ~0ull ? HALT : (int)best.w[3];
 }
 
 // A CTA's node slice in shared memory.
@@ -502,9 +589,9 @@ __device__ __forceinline__ Top2 node_pass(const MegaArgs& a, const NodeSlice& ns
   return t;
 }
 
-// USE_STATIC selects static-row mode at compile time: cursor mode keeps the
-// register budget it has without the static rows.
-template <bool USE_STATIC>
+// USE_STATIC selects static-row mode and MQ multi-queue mode at compile
+// time: cursor mode keeps the register budget it has without either.
+template <bool USE_STATIC, bool MQ>
 __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_constant__ MegaArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   // Every CTA's slot of the chunk, pushed here by its owner: [parity][rank][word],
@@ -513,6 +600,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   __shared__ __align__(8) uint64_t slot_bar[2];
   __shared__ Top2 warp_top[WARPS];
   __shared__ Reduce red;
+  __shared__ KeyReduce kred;
   __shared__ int sh_res[3];  // the chunk's winner, whether it placed, batch size
   __shared__ int grid_bad[GRID_WARPS];  // first k the score bound refuses, a warp
   __shared__ unsigned grid_ok[GRID_WARPS];  // k that fit and are <= hi0, a bit each
@@ -579,7 +667,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
     req_tab = t;
     init_tab = t + r_dim * a.s_pad;
   }
-  Jobs jo = {a.job_off, a.job_num, a.job_def, a.job_gang, a.job_prio, a.job_tb};
+  Jobs jo = {a.job_off, a.job_num, a.job_def, a.job_gang, a.job_prio, a.job_tb, a.jqueue};
   if (a.off_job >= 0) {
     int* t = reinterpret_cast<int*>(smem + a.off_job);
     for (int l = tid; l < jp; l += THREADS) {
@@ -589,8 +677,35 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
       t[3 * jp + l] = a.job_gang[l];
       t[4 * jp + l] = a.job_prio[l];
       t[5 * jp + l] = a.job_tb[l];
+      if (MQ) t[6 * jp + l] = a.jqueue[l];
     }
-    jo = {t, t + jp, t + 2 * jp, t + 3 * jp, t + 4 * jp, t + 5 * jp};
+    jo = {t, t + jp, t + 2 * jp, t + 3 * jp, t + 4 * jp, t + 5 * jp, t + 6 * jp};
+  }
+  // Multi-queue mode: the queue ledger, one entry a queue, from the lanes of
+  // the queue's jobs (the engine stages the same values on every lane of a
+  // queue; padding lanes hold no job and are skipped), then each queue's
+  // share and overused flag.  A queue index outside the ledger traps: the
+  // ledger is sized by the caller's queue count, and nothing else bounds it.
+  Queues qs = {};
+  if (MQ) {
+    float* t = reinterpret_cast<float*>(smem + a.off_queue);
+    const int nq = a.n_queues;
+    qs = {t, t + nq * r_dim, t + 2 * nq * r_dim, t + 2 * nq * r_dim + nq};
+    for (int x = tid; x < (2 * r_dim + 2) * nq; x += THREADS) t[x] = 0.0f;
+    __syncthreads();
+    for (int l = tid; l < jp; l += THREADS) {
+      if (a.job_num[l] <= 0) continue;
+      const int q = a.jqueue[l];
+      if (q < 0 || q >= nq) __trap();
+      for (int r = 0; r < r_dim; ++r) {
+        qs.des[q * r_dim + r] = a.jq_des[r * jp + l];
+        qs.alloc[q * r_dim + r] = a.jq_alloc0[r * jp + l];
+      }
+    }
+    __syncthreads();
+    for (int q = tid; q < nq; q += THREADS)
+      share_overused(qs.des + q * r_dim, qs.alloc + q * r_dim, r_dim, a.mins, qs.share + q,
+                     qs.over + q);
   }
   // Static rows, indexed by the CTA's local node index.
   const float* smask_tab = nullptr;
@@ -635,7 +750,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   __syncthreads();
   cluster.sync();  // every CTA's mbarriers are set before any push
 
-  int cur = -1, cursor = 0, n_dirty = 0, steps = 0, coh_steps = 0, chunk_pl = 0;
+  int cur = -1, cursor = 0, n_dirty = 0, steps = 0, coh_steps = 0, chunk_pl = 0, qd_evt = 0;
   int parity = 0;
   unsigned chunk_no = 0;  // chunks so far: parity = chunk_no & 1
 #ifdef MEGA_PHASE_CLOCKS
@@ -645,16 +760,23 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   unsigned long long ns0;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));
 #endif
-  while (steps < max_steps && (cur >= 0 || (cur != HALT && (cursor < n_real || n_dirty > 0)))) {
-    // ---- selection (cursor mode), in every CTA ----
+  // Multi-queue mode has no cursor: its selection finds exhaustion (HALT).
+  while (steps < max_steps &&
+         (MQ ? cur != HALT : (cur >= 0 || (cur != HALT && (cursor < n_real || n_dirty > 0))))) {
+    // ---- selection, in every CTA: in multi-queue mode the queue pop and
+    // the chain within the winning queue at every pop (live shares move
+    // with every placement), else the cursor ----
     int sel;
-    if (cur == -1) {
-      if (n_dirty > 0) sel = chain_select(a, jo, js, cursor, &red);
+    if (cur == -1 && MQ) {
+      sel = job_select<true>(a, jo, js, qs, 0, &kred);
+    } else if (cur == -1) {
+      if (n_dirty > 0) sel = job_select<false>(a, jo, js, qs, cursor, &kred);
       else sel = cursor < n_real ? cursor : HALT;
     } else {
       sel = cur;
     }
-    const bool newly = cur == -1 && sel >= 0;
+    // The cursor and the dirty count are cursor-mode state.
+    const bool newly = !MQ && cur == -1 && sel >= 0;
     int cursor_r = cursor + ((newly && sel == cursor) ? 1 : 0);
     int dirty_r = n_dirty - ((newly && sel != cursor) ? 1 : 0);
     int cur_r = sel;
@@ -686,6 +808,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
     const float req_cpu = req_tab[a.cpu_idx * a.s_pad + sig];
     const float req_mem = req_tab[a.mem_idx * a.s_pad + sig];
     const bool single0 = num_v == 1;
+    const int q_job = MQ ? jo.q[jb] : 0;
     bool act = sel >= 0;
 
     TICK(0);  // the head of the step: selection, task entry, request rows
@@ -913,6 +1036,16 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
             for (int r = 0; r < 8; ++r)
               if (r < r_dim) js[(JS_DRF + r) * jp + l] = js[(JS_DRF + r) * jp + l] + reqs[r] * drf_scale;
           }
+        } else if (MQ && warp == 3 && lane == 0 && alloc_here) {
+          // proportion's allocate handler: the job's queue grows by the
+          // placement, then its share and overused flag are re-derived from
+          // the values just written (this CTA's copy of the queue ledger).
+          float* qa = qs.alloc + q_job * r_dim;
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            if (r < r_dim) qa[r] = qa[r] + reqs[r] * m_alloc;
+          share_overused(qs.des + q_job * r_dim, qa, r_dim, a.mins, qs.share + q_job,
+                         qs.over + q_job);
         }
       }
       TICK(7);  // the ledger updates
@@ -941,6 +1074,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
       dirty_r += (became_ready && !drained) ? 1 : 0;
       if (a.cross_batch) cursor_r += (cross_active ? m - 1 : 0) + ((c > 0 && single0) ? 1 : 0);
       if (c >= 1 && alloc_here) chunk_pl += m;
+      if (MQ && alloc_here) qd_evt += 1;
       if (c + 1 < cohort) {
         const bool cont_injob = alloc_here && !end_pop && (rl_c > consumed);
         const bool cont_cross = cross_active && (dirty_r == 0) && (rl_c > m);
@@ -978,14 +1112,15 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
     a.stats[0] = steps;
     a.stats[1] = coh_steps;
     a.stats[2] = chunk_pl;
-    for (int x = 3; x < STATS_WIDTH; ++x) a.stats[x] = 0;
+    a.stats[3] = MQ && (a.queue_proportion || a.overused_gate) ? qd_evt : 0;
+    for (int x = 4; x < STATS_WIDTH; ++x) a.stats[x] = 0;
   }
   cluster.sync();  // no CTA exits while a peer may still push into it
 }
 
-template <bool USE_STATIC>
+template <bool USE_STATIC, bool MQ>
 static int launch(const MegaArgs* args, void* stream) {
-  auto kernel = mega_allocate_kernel<USE_STATIC>;
+  auto kernel = mega_allocate_kernel<USE_STATIC, MQ>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          args->smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -1017,5 +1152,7 @@ static int launch(const MegaArgs* args, void* stream) {
 extern "C" int mega_allocate_launch(const MegaArgs* args, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
   if (args->ctas < 1 || args->ctas > MAX_CTAS) return (int)cudaErrorInvalidValue;
-  return args->use_static ? launch<true>(args, stream) : launch<false>(args, stream);
+  if (args->multi_queue)
+    return args->use_static ? launch<true, true>(args, stream) : launch<false, true>(args, stream);
+  return args->use_static ? launch<true, false>(args, stream) : launch<false, false>(args, stream);
 }

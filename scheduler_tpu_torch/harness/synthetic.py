@@ -197,3 +197,44 @@ def make_kubemark_density_cluster(n_nodes: int, n_pods: int, seed: int = 0) -> S
     return SyntheticCluster(
         cache=cache, n_nodes=n_nodes, n_pods=n_pods, vocab=vocab, pod_names=pod_names
     )
+
+
+GPU = "nvidia.com/gpu"
+
+
+def make_gpu_topology_cluster(n_nodes: int, n_gangs: int, gang: int = 8) -> SyntheticCluster:
+    """BASELINE config 5, GPU topology gangs (``scripts/scenario_ladder.py``
+    scenario 5, its cluster build without the churn; full size 1,500 nodes x
+    1,000 gangs of 8): nodes of 64 cpu, 256 GiB, 8 GPUs and 110 pods,
+    labelled ``zone=z{i % 8}``, and gang PodGroups (minMember ``gang``) whose
+    pods each ask 4 cpu, 16 GiB and one GPU and select the zone
+    ``z{j % 8}`` of their gang j.  Timestamps are fixed, so every build
+    orders its jobs alike."""
+    vocab = ResourceVocabulary((GPU,))
+    cache = SchedulerCache(vocab=vocab, async_io=False)
+    cache.run()
+    cache.add_queue(Queue(name="default", weight=1))
+    for i in range(n_nodes):
+        cache.add_node(NodeSpec(
+            name=f"gpu-{i:04d}",
+            allocatable={"cpu": 64000.0, "memory": 256 * GIB, GPU: 8.0, "pods": 110},
+            labels={"zone": f"z{i % 8}"}))
+    pod_names: List[str] = []
+    for j in range(n_gangs):
+        group = f"train{j}"
+        pg = PodGroup(name=group, namespace="d", queue="default", min_member=gang)
+        pg.status.phase = "Inqueue"
+        pg.creation_timestamp = KUBEMARK_TS0 + j
+        cache.add_pod_group(pg)
+        for t in range(gang):
+            pod = PodSpec(
+                name=f"{group}-{t}", namespace="d",
+                containers=[{"cpu": 4000.0, "memory": 16 * GIB, GPU: 1.0}],
+                annotations={GROUP_NAME_ANNOTATION: group},
+                node_selector={"zone": f"z{j % 8}"})
+            pod.creation_timestamp = KUBEMARK_TS0 + j + t * 1e-6
+            cache.add_pod(pod)
+            pod_names.append(f"d/{group}-{t}")
+    return SyntheticCluster(
+        cache=cache, n_nodes=n_nodes, n_pods=n_gangs * gang, vocab=vocab, pod_names=pod_names
+    )

@@ -3,9 +3,11 @@
 ``mega_operands_from_numpy`` turns the staged operands and static arguments
 of the JAX ``mega_allocate`` (``FusedAllocator._mega_args`` / ``_mega_kw``
 there, converted to numpy by the caller) into this package's tensors, so
-both kernels can run on the same inputs; ``fused_operands_from_numpy`` does
-the same for the JAX ``fused_allocate`` loop (``FusedAllocator.args`` /
-``_allocate_kw()``).  Cluster state travels as the ``{queues, nodes,
+both kernels can run on the same inputs, in cursor and in multi-queue mode
+(the queue operands ``jqueue``, ``jq_des`` and ``jq_alloc0`` travel like the
+others); ``fused_operands_from_numpy`` does the same for the JAX
+``fused_allocate`` loop (``FusedAllocator.args`` / ``_allocate_kw()``),
+whose queue arms this package does not carry.  Cluster state travels as the ``{queues, nodes,
 podGroups, pods}`` JSON that ``cli.load_cluster_state`` reads in both
 packages.
 """

@@ -3,29 +3,35 @@
 Host shim of the two device engines: session -> snapshot tensors -> job and
 task ordering -> the engine's staged operands -> the run -> decoded rows for
 the commit.  It mirrors the JAX package's ``FusedAllocator``
-(``scheduler_tpu/ops/fused.py``) in CURSOR MODE (one queue, jobs laid out in
-init-key order), with run batching of identical requests, and its two
+(``scheduler_tpu/ops/fused.py``), with run batching of identical requests,
+in its two job-selection modes: CURSOR MODE (one queue and no queue chain,
+jobs laid out in init-key order) and MULTI-QUEUE MODE (several queues, or
+any session whose conf names proportion: the queue pop by proportion's live
+share and overused gate, then the job chain within the winning queue, with
+the deserved and allocated rows of proportion's host water-fill).  Its two
 engines:
 
 * **mega** — the whole loop as ONE launch of the mega kernel
-  (``ops/megakernel.py``), with cohort chunks and, when the predicates or
-  nodeorder plugin contributes session-static [T, N] mask/score tensors,
-  the kernel's static-row mode (one mask and score row per static
-  signature);
+  (``ops/megakernel.py``), in either selection mode, with cohort chunks
+  and, when the predicates or nodeorder plugin contributes session-static
+  [T, N] mask/score tensors, the kernel's static-row mode (one mask and
+  score row per static signature);
 * **step** — where the mega gate closes (more than 4,096 request
   signatures, a node bucket past 32,768, static rows past 4 MiB) and the
   step-kernel gate is open: ``fused_allocate``, the JAX engine's while
   loop, driven from the host with ONE launch of the placement-step kernel
-  (``ops/step_kernel.py``) per step.
+  (``ops/step_kernel.py``) per step, in cursor mode only.
 
 The engine is chosen by the JAX engine's gates before anything runs.
 Sessions that the JAX engine would run in a mode this package lacks raise
-``NotImplementedError`` naming it: releasing capacity, multi-queue
-proportion (and with it the queue delta chain and the qfair ladder), and the
-XLA step arm of the loop (no step kernel: the top-2 score bound is live, or
-the node bucket is past 65,536).  The LP flavor, the mesh and
-signature-class compression have no switch in this package (the last
-changes only which buffer the same static rows are gathered from).
+``NotImplementedError`` naming it: releasing capacity, the loop's
+multi-queue arm (a multi-queue session the mega gate closes), the qfair
+ladder's device water-fill (never chosen here: proportion runs the host
+water-fill), and the XLA step arm of the loop (no step kernel: the top-2
+score bound is live, or the node bucket is past 65,536).  The LP flavor,
+the mesh and signature-class compression have no switch in this package
+(the last changes only which buffer the same static rows are gathered
+from).
 
 The result is ONE int32[T] array encoding the whole action:
   >= 0: allocated on that node   |   -1: never reached (left pending)
@@ -680,11 +686,22 @@ class FusedAllocator:
         self.has_releasing = bool(np.any(st.nodes.releasing))
         self.enforce_pod_count = "pod_count" in ssn.device_dynamic_gates
 
-        # --- engines: the cursor-mode mega arm and the loop with K1 ------------
-        if not single_queue:
-            raise NotImplementedError(
-                "fused allocate mode not ported: multi-queue proportion"
-            )
+        # --- the queue chain: proportion's deserved / allocated rows --------
+        # (scheduler_tpu/ops/fused.py:1551-1571), in queue-rank order, scaled
+        # to device units.  The qfair ladder needs the device water-fill,
+        # which this package does not carry.
+        queue_deserved = np.zeros((len(queue_names), r), dtype=np.float64)
+        queue_alloc = np.zeros((len(queue_names), r), dtype=np.float64)
+        self.qfair_reason = None
+        self._qfair = {}
+        if self.queue_comparators or self.overused_gate:
+            fair = ssn.device_queue_fair["proportion"](queue_names)
+            queue_deserved[:] = scale_columns(fair["deserved"], scale)
+            queue_alloc[:] = scale_columns(fair["allocated"], scale)
+            self._qfair = dict(fair.get("qfair", {}))
+            self.qfair_reason = "the device water-fill and its ladder are not ported"
+
+        # --- engines: the mega kernel and the loop with K1 --------------------
         if self.has_releasing:
             raise NotImplementedError(
                 "fused allocate mode not ported: releasing capacity"
@@ -714,11 +731,15 @@ class FusedAllocator:
             tiebreak, alloc_init, run_host, static_mask_dev, static_score_dev, mins_f32,
         )
         self.use_mega = False
+        # Multi-queue sessions run the kernel's queue-chain mode: proportion
+        # is the only queue chain it knows (scheduler_tpu/ops/fused.py:1709).
+        mq_ok = not single_queue and set(self.queue_comparators) <= {"proportion"}
         mega_ok = _mk.mega_supported(
             has_releasing=False,
             use_static=False,
             score_bound=score_bound,
-            cursor_mode=True,
+            cursor_mode=single_queue,
+            multi_queue=mq_ok,
             r_dim=r,
             n=nb,
             n_sigs=1,  # signature count checked after the table builds
@@ -731,7 +752,8 @@ class FusedAllocator:
                 has_releasing=False,
                 use_static=True,
                 score_bound=score_bound,
-                cursor_mode=True,
+                cursor_mode=single_queue,
+                multi_queue=mq_ok,
                 r_dim=r,
                 n=nb,
                 n_sigs=1,
@@ -743,6 +765,12 @@ class FusedAllocator:
                 policy, scale, nb, tb, r, offsets, nums, deficits,
                 gang_order, priorities, tiebreak, alloc_init, total, run_host,
                 score_bound, static_sids, static_mask_dev, static_score_dev,
+                single_queue, queues_idx, queue_deserved, queue_alloc,
+            )
+        if t_total and not self.use_mega and not single_queue:
+            raise NotImplementedError(
+                "fused_allocate arm not ported: multi-queue / unsorted job selection "
+                "(a multi-queue session that the mega gate closes)"
             )
         if t_total and not self.use_mega and not self.step_kernel:
             raise NotImplementedError(
@@ -812,13 +840,15 @@ class FusedAllocator:
     def _prepare_mega(self, policy, scale, nb, tb, r,
                       offsets, nums, deficits, gang_order, priorities,
                       tiebreak, alloc_init, total, run_host,
-                      score_bound, static_sids=None, static_mask_dev=None,
-                      static_score_dev=None) -> None:
+                      score_bound, static_sids, static_mask_dev,
+                      static_score_dev, single_queue, queues_idx,
+                      queue_deserved, queue_alloc) -> None:
         """Stage the mega kernel's operands on the device — per-signature
-        request table, lane-packed job columns, transposed node rows, and
-        the per-static-signature mask/score rows in static-row mode — and
-        its static arguments.  Sets ``use_mega`` only if the signature table
-        fits the kernel's cap of 4,096."""
+        request table, lane-packed job columns, transposed node rows, the
+        per-static-signature mask/score rows in static-row mode and the
+        queue operands in multi-queue mode — and its static arguments.  Sets
+        ``use_mega`` only if the signature table fits the kernel's cap of
+        4,096."""
         from scheduler_tpu_torch.api.vocab import CPU as _CPU_IDX, MEMORY as _MEM_IDX
 
         t = self.flat_count
@@ -891,8 +921,21 @@ class FusedAllocator:
             smask = torch.zeros((8, nb), dtype=torch.float32, device=dev)
             sscore = torch.zeros((8, nb), dtype=torch.float32, device=dev)
             msig = _mk.pack_task_table_i32(np.zeros(0, np.int32), tb)
-        # Operands of modes this package does not port: minimum-size dummies.
+        # Multi-queue mode (scheduler_tpu/ops/fused.py:2001-2040): each job
+        # lane carries its queue's index (which is also the queue's rank)
+        # and that queue's deserved and allocated-at-open rows.  Otherwise,
+        # and for the qfair ladder's tables, minimum-size dummies.
         zeros8 = np.zeros((8, 128), dtype=np.float32)
+        if single_queue:
+            jqueue = np.zeros((1, 128), dtype=np.int32)
+            jq_des = jq_alloc0 = zeros8
+        else:
+            jq = queues_idx[:jb].astype(np.int32)
+            jqueue = _mk.pack_lane_i32(jq, j_pad)
+            jq_des = np.zeros((8, j_pad), dtype=np.float32)
+            jq_des[:r, :jb] = np.asarray(queue_deserved, dtype=np.float32)[jq].T
+            jq_alloc0 = np.zeros((8, j_pad), dtype=np.float32)
+            jq_alloc0[:r, :jb] = np.asarray(queue_alloc, dtype=np.float32)[jq].T
         self._mega_args = (
             ns0,
             alloc_t,
@@ -914,9 +957,9 @@ class FusedAllocator:
             to_dev(msig),
             smask,
             sscore,
-            to_dev(np.zeros((1, 128), dtype=np.int32)),              # jqueue
-            to_dev(zeros8),                                          # jq_des
-            to_dev(zeros8),                                          # jq_alloc0
+            to_dev(jqueue),
+            to_dev(jq_des),
+            to_dev(jq_alloc0),
             to_dev(zeros8),                                          # qf_share
             to_dev(zeros8),                                          # qf_over
             to_dev(misc),
@@ -932,7 +975,8 @@ class FusedAllocator:
             weights=self.weights,
             enforce_pod_count=self.enforce_pod_count,
             comparators=self.comparators,
-            cross_batch=self.batch_runs,
+            # Cross-job batching needs the cursor invariant: one queue only.
+            cross_batch=self.batch_runs and single_queue,
             batch_runs=self.batch_runs,
             has_releasing=False,
             use_static=use_static,
@@ -940,9 +984,9 @@ class FusedAllocator:
             mins=tuple(float(x) for x in mins_f32),
             cpu_idx=_CPU_IDX,
             mem_idx=_MEM_IDX,
-            multi_queue=False,
-            queue_proportion=False,
-            overused_gate=False,
+            multi_queue=not single_queue,
+            queue_proportion="proportion" in self.queue_comparators,
+            overused_gate=self.overused_gate,
             queue_delta=True,
             qfair_ladder=False,
             cohort=cohort_eff,
@@ -1075,7 +1119,10 @@ class FusedAllocator:
                             torch.cuda.Event(enable_timing=True))
             self._events[0].record()
         if self.use_mega:
-            self._dev, self._dev_stats = _mk.mega_allocate(*self._mega_args, **self._mega_kw)
+            # The session's queue count bounds the queue indices: the launch
+            # need not read them back from the device.
+            self._dev, self._dev_stats = _mk.mega_allocate(
+                *self._mega_args, n_queues=len(self.queue_uids), **self._mega_kw)
         else:
             self._dev, self._dev_stats = fused_allocate(*self.args, **self._allocate_kw())
         if self._events is not None:
@@ -1122,6 +1169,12 @@ class FusedAllocator:
             "cohorts": self.cohort_count,
             "cohort_chunks": self.cohort_effective if self.use_mega else 1,
         }
+        if self.queue_comparators or self.overused_gate:
+            # Queue-chain evidence: the delta chain (the one this package
+            # carries) with the kernel's counters below, and proportion's
+            # water-fill block with why the qfair ladder did not engage.
+            out["queue_chain"] = {"queues": len(self.queue_uids), "mode": "delta"}
+            out["qfair"] = dict(self._qfair, engaged=False, reason=self.qfair_reason)
         enc = self._encoded
         if enc is not None:
             codes = enc[: self.flat_count]
@@ -1137,6 +1190,9 @@ class FusedAllocator:
             out["cohort_steps"] = int(raw[STATS.COHORT_STEPS])
             out["chunk_placed"] = int(raw[STATS.CHUNK_PLACED])
             out["fallback_steps"] = steps - out["cohort_steps"]
+            if "queue_chain" in out:
+                out["queue_chain"]["delta_updates"] = int(raw[STATS.QDELTA_UPDATES])
+                out["queue_chain"]["full_recomputes"] = int(raw[STATS.QFULL_RECOMPUTES])
         if out.get("steps") and "placed" in out:
             out["tasks_per_step"] = round(out["placed"] / out["steps"], 2)
         if self.kernel_ms is not None:

@@ -1,10 +1,10 @@
 """Row layouts of the kernels' scratch, stats and request tables.
 
-The rows this package's cursor-mode kernels and loop read and write, copied from
+The rows this package's kernels and loop read and write, copied from
 ``scheduler_tpu/ops/layout.py`` with the same names and indices so that a
 reader can match the CUDA source, the plain PyTorch version and the JAX
 kernel row for row.  Rows of modes this package does not carry (the
-releasing ledger, the multi-queue share rows) are left out.
+releasing ledger, the qfair ladder's rung counter) are left out.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ class JOB_SCRATCH:
     ALLOCATED = 1    # tasks actually placed (gang-ready arithmetic)
     LEFT = 2         # nonzero once a placement failed (pop ended)
     DRF = 8          # span 8: live drf allocated per job
-    QUEUE_ALLOC = 16  # end of the cursor-mode block (queue rows not ported)
+    QUEUE_ALLOC = 16  # span 8: live allocated of the job's QUEUE, per lane
+    SHARE = 24       # maintained share of the lane's queue (delta chain)
+    OVERUSED = 25    # maintained overused flag of the lane's queue
 
 
 class STATS:
@@ -34,9 +36,9 @@ class STATS:
     STEPS = 0             # loop steps taken
     COHORT_STEPS = 1      # steps where the cohort chunk path engaged
     CHUNK_PLACED = 2      # placements made by chunks >= 1 (multi-node wins)
-    QDELTA_UPDATES = 3    # multi-queue delta updates (0 in cursor mode)
-    QFULL_RECOMPUTES = 4  # multi-queue full recomputes (0 in cursor mode)
-    QFAIR_LOOKUPS = 5     # class-ladder lookups (0 in cursor mode)
+    QDELTA_UPDATES = 3    # queue-share delta updates applied (delta chain)
+    QFULL_RECOMPUTES = 4  # full queue-chain recomputes (0: not ported)
+    QFAIR_LOOKUPS = 5     # class-ladder lookups (0: not ported)
     UNUSED = 6            # span 2: zeroed tail, reserved
 
 
@@ -79,8 +81,10 @@ def node_scratch_rows(has_releasing: bool) -> int:
 
 
 def job_scratch_rows(multi_queue: bool, use_qdelta: bool) -> int:
-    """Rows of the job scratch allocation.  Only the cursor-mode block is
-    ported: the multi-queue rows raise."""
-    if multi_queue or use_qdelta:
-        raise NotImplementedError("multi-queue job scratch rows are not ported")
+    """Rows of the job scratch allocation (the delta rows pad to a multiple
+    of 8, as in the JAX kernel)."""
+    if use_qdelta:
+        return -(-(JOB_SCRATCH.OVERUSED + 1) // 8) * 8
+    if multi_queue:
+        return JOB_SCRATCH.SHARE
     return JOB_SCRATCH.QUEUE_ALLOC

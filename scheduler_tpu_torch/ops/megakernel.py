@@ -1,13 +1,23 @@
 """The whole greedy allocate action as ONE CUDA kernel launch.
 
 This replaces ``scheduler_tpu/ops/megakernel.py::mega_allocate`` (a Pallas
-TPU kernel) in CURSOR MODE — one queue, jobs laid out in init-key order, no
-releasing capacity — with or without its STATIC-ROW mode (``use_static``:
-the per-signature mask and score rows ``smask``/``sscore`` that a task
-reaches through ``msig``, staged when the predicates or nodeorder plugin is
-on).  The kernel source is ``csrc/mega_allocate.cu``; it is built with the
-port's other kernels at first use (``ops/cuda_build.py``) and bound through
-a plain C entry point with ``ctypes``.
+TPU kernel) without releasing capacity, in two job-selection modes, each
+with or without its STATIC-ROW mode (``use_static``: the per-signature mask
+and score rows ``smask``/``sscore`` that a task reaches through ``msig``,
+staged when the predicates or nodeorder plugin is on):
+
+* CURSOR MODE — one queue, jobs laid out in init-key order, a job selected
+  by the cursor while no job is dirty;
+* MULTI-QUEUE MODE (``multi_queue``) with the delta chain — at every pop
+  the queue of least proportion share among those not overused
+  (``queue_proportion``, ``overused_gate``), then the job chain within it;
+  each placement grows its queue's allocated and re-derives that queue's
+  share and overused flag.
+
+The qfair ladder, the full-recompute queue chain, releasing capacity and
+the mesh raise.  The kernel source is ``csrc/mega_allocate.cu``; it is built
+with the port's other kernels at first use (``ops/cuda_build.py``) and bound
+through a plain C entry point with ``ctypes``.
 
 Three functions carry the port:
 
@@ -23,8 +33,8 @@ Three functions carry the port:
   ``pack_task_table_i32``, ``build_node_ledgers``) that stage the operands.
 
 Operands and result encoding follow the JAX kernel exactly (26 operands,
-the unused multi-queue / releasing ones, and the static ones outside
-static-row mode, as dummies): codes are
+the unused releasing and ladder ones, and the queue and static ones outside
+their modes, as dummies): codes are
 >= 0 node, -1 unplaced, -2 failed (first infeasible task of its pop); the
 second output holds the 8 ``STATS`` counters.
 
@@ -58,6 +68,7 @@ from scheduler_tpu_torch.ops.layout import (
     SIG_REQ,
     STATS,
     STATS_WIDTH,
+    job_scratch_rows,
     node_scratch_rows,
 )
 
@@ -125,17 +136,42 @@ def mega_supported(
     )
 
 
-def _check_mode(has_releasing, multi_queue, qfair_ladder, mesh) -> None:
-    """Cursor mode (with or without static rows) is ported; every other
-    kernel mode raises."""
+def _check_mode(has_releasing, multi_queue, qfair_ladder, mesh, queue_delta=True,
+                queue_proportion=False, overused_gate=False) -> None:
+    """Cursor mode and multi-queue mode with the delta chain (each with or
+    without static rows) are ported; every other kernel mode raises."""
     for flag, name in (
         (has_releasing, "releasing capacity"),
-        (multi_queue, "multi-queue proportion"),
+        (multi_queue and not queue_delta and (queue_proportion or overused_gate),
+         "full-recompute queue chain"),
         (qfair_ladder, "qfair ladder"),
         (mesh is not None, "mesh"),
     ):
         if flag:
             raise NotImplementedError(f"mega_allocate mode not ported: {name}")
+
+
+def queue_share_overused(deserved, allocated, mins, r_dim: int):
+    """Proportion's share and overused flag, as the JAX kernels derive them
+    (``scheduler_tpu/ops/pallas_kernels.py:81-115``): ``deserved`` and
+    ``allocated`` are float32 tensors indexed by dim first (rows [r_dim, J]
+    or one queue's [r_dim]).  Dims fold in ascending order.
+
+      share    = max over dims of allocated / deserved, with 0/0 -> 0 and,
+                 for cpu and memory (dims 0 and 1), x/0 -> 1; other dims
+                 with deserved 0 contribute 0
+      overused = deserved - allocated < min on every dim"""
+    share = over = None
+    for r in range(r_dim):
+        d, a = deserved[r], allocated[r]
+        pos = d > 0.0
+        fr = torch.where(pos, a / torch.where(pos, d, 1.0), 0.0)
+        if r < 2:
+            fr = torch.where(~pos & (a > 0.0), 1.0, fr)
+        share = fr if share is None else torch.maximum(share, fr)
+        le = (d - a) < mins[r]
+        over = le if over is None else over & le
+    return share, over
 
 
 # -- bind -------------------------------------------------------------------------
@@ -149,7 +185,7 @@ class _MegaArgs(ctypes.Structure):
             "ns0", "alloc_t", "gate", "plim", "sig_req", "task_sig", "run_len",
             "job_off", "job_num", "job_def", "job_gang", "job_prio", "job_tb",
             "js_drf0", "drf_safe", "drf_mask", "misc", "msig", "smask", "sscore",
-            "out", "stats", "js_global", "phase_clocks",
+            "jqueue", "jq_des", "jq_alloc0", "out", "stats", "js_global", "phase_clocks",
         )
     ] + [
         (name, ctypes.c_int)
@@ -157,8 +193,9 @@ class _MegaArgs(ctypes.Structure):
             "nb", "s_pad", "t_rows", "t_cap", "j_pad", "r_dim",
             "cpu_idx", "mem_idx", "enforce_pod_count", "cross_batch",
             "batch_runs", "score_bound", "cohort", "n_comp",
-            "use_static", "static_rows", "ctas", "slice", "smem_bytes",
-            "off_js", "off_sig", "off_job", "off_static",
+            "use_static", "static_rows", "multi_queue", "queue_proportion",
+            "overused_gate", "n_queues", "ctas", "slice", "smem_bytes",
+            "off_queue", "off_js", "off_sig", "off_job", "off_static",
         )
     ] + [
         ("comp", ctypes.c_int * 4),
@@ -181,7 +218,7 @@ def _entry():
 
 # Shared memory one CTA may hold on the H100 (227 KB), and the part of it the
 # kernel's static arrays take (every CTA's exchange slots, warp pairs,
-# reduction area; under 3.2 KB by -Xptxas -v).
+# reduction areas; 3,504 bytes by -Xptxas -v).
 SMEM_LIMIT = 232_448
 _STATIC_SMEM = 4096
 THREADS = 512  # a CTA (csrc/mega_allocate.cu THREADS)
@@ -193,12 +230,14 @@ class MegaPlan(NamedTuple):
     in one cluster, each with room for ``slice`` nodes, ``smem_bytes`` of
     dynamic shared memory, and each region's byte offset in it (None: the
     region stays in global memory; the job ledger then takes one copy a CTA
-    in global scratch)."""
+    in global scratch).  The queue ledger of multi-queue mode is always on
+    chip (None outside that mode)."""
 
     ctas: int
     threads: int
     slice: int
     smem_bytes: int
+    off_queue: Optional[int]
     off_js: Optional[int]
     off_sig: Optional[int]
     off_job: Optional[int]
@@ -213,8 +252,9 @@ class MegaPlan(NamedTuple):
         return {"ctas": self.ctas, "threads": self.threads, "slice": self.slice,
                 "smem_bytes": self.smem_bytes,
                 "on_chip": [name for name, off in (
-                    ("job_ledger", self.off_js), ("sig_req", self.off_sig),
-                    ("job_operands", self.off_job), ("static_rows", self.off_static))
+                    ("queue_ledger", self.off_queue), ("job_ledger", self.off_js),
+                    ("sig_req", self.off_sig), ("job_operands", self.off_job),
+                    ("static_rows", self.off_static))
                     if off is not None]}
 
 
@@ -233,22 +273,36 @@ def job_ledger_bytes(j_pad: int, r_dim: int) -> int:
     return (JOB_STATE.DRF + r_dim) * j_pad * 4
 
 
+def queue_ledger_bytes(n_queues: int, r_dim: int) -> int:
+    """Multi-queue mode's queue ledger: each queue's deserved and live
+    allocated (r_dim floats each), share and overused flag."""
+    return _align((2 * r_dim + 2) * n_queues * 4)
+
+
+def job_operand_lanes(n_queues: int) -> int:
+    """Words a job lane of the job operands: offset, count, deficit, gang,
+    priority, rank, and the queue index in multi-queue mode."""
+    return 7 if n_queues else 6
+
+
 def mega_plan(nb: int, r_dim: int, j_pad: int, s_pad: int, static_rows: int,
-              use_static: bool) -> MegaPlan:
-    """The kernel's launch plan for a shape.  C = 8 CTAs (the portable
-    cluster size) where the node slice and the compact job ledger fit a
-    CTA's shared memory, else 16 where that brings the node slice or the job
-    ledger on chip.  After the node slice, each region goes into shared
-    memory if it still fits, in this order: job ledger, request table (2 x
-    r_dim rows), job operands (6 lanes' words), static rows (mask and score
-    of the CTA's slice)."""
+              use_static: bool, n_queues: int = 0) -> MegaPlan:
+    """The kernel's launch plan for a shape (``n_queues`` > 0: multi-queue
+    mode).  C = 8 CTAs (the portable cluster size) where the node slice, the
+    queue ledger and the compact job ledger fit a CTA's shared memory, else
+    16 where that brings the node slice or the job ledger on chip.  The
+    queue ledger sits on chip after the node slice.  Then each region goes
+    into shared memory if it still fits, in this order: job ledger, request
+    table (2 x r_dim rows), job operands (``job_operand_lanes`` words a
+    lane), static rows (mask and score of the CTA's slice)."""
     budget = SMEM_LIMIT - _STATIC_SMEM
+    queue = queue_ledger_bytes(n_queues, r_dim)
 
     def slice_for(ctas):
         return _align(-(-nb // ctas), 4)
 
     def node(ctas):
-        return node_slice_bytes(slice_for(ctas), r_dim)
+        return node_slice_bytes(slice_for(ctas), r_dim) + queue
 
     job = job_ledger_bytes(j_pad, r_dim)
     if node(8) > budget:
@@ -260,23 +314,38 @@ def mega_plan(nb: int, r_dim: int, j_pad: int, s_pad: int, static_rows: int,
     slice_ = slice_for(ctas)
     used = node(ctas)
     if used > budget:
-        raise ValueError(f"mega_allocate: no launch plan for nb={nb}, r_dim={r_dim}")
+        raise ValueError(f"mega_allocate: no launch plan for nb={nb}, r_dim={r_dim}, "
+                         f"{n_queues} queues")
+    off_queue = used - queue if n_queues else None
     offsets = []
-    for size in (job, 2 * r_dim * s_pad * 4, 6 * j_pad * 4,
+    for size in (job, 2 * r_dim * s_pad * 4, job_operand_lanes(n_queues) * j_pad * 4,
                  2 * static_rows * slice_ * 4 if use_static else None):
         if size is not None and used + size <= budget:
             offsets.append(used)
             used = _align(used + size)
         else:
             offsets.append(None)
-    return MegaPlan(ctas, THREADS, slice_, used, *offsets)
+    return MegaPlan(ctas, THREADS, slice_, used, off_queue, *offsets)
 
 
-def plan_for(operands, kw) -> MegaPlan:
-    """``mega_plan`` for the kernel's 26 operands and static arguments."""
+def _queues_for(kw, n_queues: Optional[int]) -> int:
+    """The queue ledger's size: ``n_queues`` in multi-queue mode, where it
+    is required and positive; 0 in the other modes."""
+    if not kw.get("multi_queue"):
+        return 0
+    if n_queues is None or n_queues <= 0:
+        raise ValueError("mega_allocate: multi-queue mode needs n_queues, the session's "
+                         "queue count")
+    return int(n_queues)
+
+
+def plan_for(operands, kw, n_queues: Optional[int] = None) -> MegaPlan:
+    """``mega_plan`` for the kernel's 26 operands and static arguments
+    (``n_queues`` as ``mega_allocate`` takes it)."""
     ops = dict(zip(OPERAND_NAMES, operands))
     return mega_plan(ops["ns0"].shape[1], kw["r_dim"], ops["job_off"].shape[1],
-                     ops["sig_req"].shape[1], ops["smask"].shape[0], kw["use_static"])
+                     ops["sig_req"].shape[1], ops["smask"].shape[0], kw["use_static"],
+                     _queues_for(kw, n_queues))
 
 
 def covered_nodes(gate) -> int:
@@ -310,20 +379,31 @@ def _expect(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def mega_allocate(*operands: torch.Tensor, **kw):
+def mega_allocate(*operands: torch.Tensor, n_queues: Optional[int] = None, **kw):
     """Run the whole allocate loop: ``(codes i32 [t_cap], stats i32 [8])``.
 
     Takes the JAX kernel's 26 operands (``OPERAND_NAMES``) and static
     arguments.  CPU operands run ``mega_allocate_reference``; CUDA operands
-    launch the kernel, which raises if the launch is refused."""
+    launch the kernel, which raises if the launch is refused.  Multi-queue
+    mode needs ``n_queues``, the session's queue count: it sizes the
+    kernel's queue ledger, and every queue index of ``jqueue`` on a job
+    lane must lie below it (the plain version checks; the kernel traps)."""
     if len(operands) != len(OPERAND_NAMES):
         raise TypeError(f"mega_allocate takes {len(OPERAND_NAMES)} operands")
     kw.pop("interpret", None)
-    _check_mode(kw.get("has_releasing"), kw.get("multi_queue"),
-                kw.get("qfair_ladder", False), kw.get("mesh"))
+    _check_mode(kw.get("has_releasing"), kw.get("multi_queue"), kw.get("qfair_ladder", False),
+                kw.get("mesh"), kw.get("queue_delta", True), kw.get("queue_proportion", False),
+                kw.get("overused_gate", False))
+    n_queues = _queues_for(kw, n_queues)
     if operands[0].device.type == "cpu":
+        if n_queues:
+            ops = dict(zip(OPERAND_NAMES, operands))
+            named = ops["jqueue"][0][ops["job_num"][0] > 0]
+            if named.numel() and not (0 <= int(named.min()) and int(named.max()) < n_queues):
+                raise ValueError(f"mega_allocate: a job lane names a queue outside "
+                                 f"[0, {n_queues})")
         return mega_allocate_reference(*operands, **kw)
-    return _launch(*operands, **kw)
+    return _launch(*operands, n_queues=n_queues, **kw)
 
 
 def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
@@ -334,11 +414,9 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
             has_releasing, use_static, score_bound, mins, cpu_idx, mem_idx,
             multi_queue, queue_proportion=False, overused_gate=False,
             queue_delta=True, qfair_ladder=False, cohort=1, t_cap=0,
-            mesh=None):
+            mesh=None, n_queues=0):
     global launches
-    del rel0, jqueue, jq_des, jq_alloc0, qf_share, qf_over
-    del has_releasing, multi_queue, queue_proportion
-    del overused_gate, queue_delta, qfair_ladder, mesh
+    del rel0, qf_share, qf_over, has_releasing, queue_delta, qfair_ladder, mesh
     nb = ns0.shape[1]
     s_pad = sig_req.shape[1]
     t_rows = task_sig.shape[0]
@@ -370,6 +448,10 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
         _expect(sscore, "sscore", f32, (static_rows, nb))
         if static_rows <= 0:
             raise ValueError("mega_allocate: static-row mode needs at least one row")
+    if multi_queue:
+        _expect(jqueue, "jqueue", i32, (1, j_pad))
+        _expect(jq_des, "jq_des", f32, (8, j_pad))
+        _expect(jq_alloc0, "jq_alloc0", f32, (8, j_pad))
     t_pad = t_rows * 128
     if t_cap <= 0:
         t_cap = t_pad
@@ -377,7 +459,7 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
         cohort = 1
     cohort = max(1, int(cohort))
 
-    plan = mega_plan(nb, r_dim, j_pad, s_pad, static_rows, use_static)
+    plan = mega_plan(nb, r_dim, j_pad, s_pad, static_rows, use_static, n_queues)
     launch = _entry()
     dev = ns0.device
     out = torch.empty((t_rows + 1) * 128, dtype=i32, device=dev)
@@ -404,6 +486,13 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
             msig.data_ptr(), smask.data_ptr(), sscore.data_ptr())
     args.use_static = int(bool(use_static))
     args.static_rows = static_rows
+    if multi_queue:
+        args.jqueue, args.jq_des, args.jq_alloc0 = (
+            jqueue.data_ptr(), jq_des.data_ptr(), jq_alloc0.data_ptr())
+    args.multi_queue = int(bool(multi_queue))
+    args.queue_proportion = int(bool(queue_proportion))
+    args.overused_gate = int(bool(overused_gate))
+    args.n_queues = n_queues
     args.nb, args.s_pad, args.t_rows, args.t_cap = nb, s_pad, t_rows, t_cap
     args.j_pad, args.r_dim = j_pad, r_dim
     args.cpu_idx, args.mem_idx = cpu_idx, mem_idx
@@ -416,7 +505,7 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     for i, name in enumerate(comparators):
         args.comp[i] = _COMPARATOR_CODES[name]
     args.ctas, args.slice, args.smem_bytes = plan.ctas, plan.slice, plan.smem_bytes
-    for field in ("off_js", "off_sig", "off_job", "off_static"):
+    for field in ("off_queue", "off_js", "off_sig", "off_job", "off_static"):
         off = getattr(plan, field)
         setattr(args, field, -1 if off is None else off)
     args.w_lr, args.w_bal, args.w_bp = (float(w) for w in weights)
@@ -447,9 +536,9 @@ def mega_allocate_reference(
     """The kernel's function as a Python loop over steps on tensors, on
     whatever device the operands lie on.  Same operands, same
     ``(codes, stats)``, bit for bit."""
-    del rel0, jqueue, jq_des, jq_alloc0, qf_share, qf_over
-    del queue_proportion, overused_gate, queue_delta, interpret
-    _check_mode(has_releasing, multi_queue, qfair_ladder, mesh)
+    del rel0, qf_share, qf_over, interpret
+    _check_mode(has_releasing, multi_queue, qfair_ladder, mesh, queue_delta,
+                queue_proportion, overused_gate)
     dev = ns0.device
     f32, i32 = torch.float32, torch.int32
     n = ns0.shape[1]
@@ -466,9 +555,23 @@ def mega_allocate_reference(
     neg_inf, pos_inf = float("-inf"), float("inf")
 
     # Live state: node ledger (idle rows + task count), job ledger, result.
+    # In multi-queue mode the job ledger carries the queue rows as the JAX
+    # kernel lays them out, replicated on the lanes of each queue's jobs:
+    # the queue's live allocated, and (delta chain) its share and overused
+    # flag, seeded here and refreshed for the winning queue per placement.
+    use_qdelta = multi_queue and (queue_proportion or overused_gate)
     ns = ns0.clone()
-    js = torch.zeros((JROW.QUEUE_ALLOC, j_pad), dtype=f32, device=dev)
+    js = torch.zeros((job_scratch_rows(multi_queue, use_qdelta), j_pad), dtype=f32, device=dev)
     js[JROW.DRF : JROW.QUEUE_ALLOC] = js_drf0
+    jq_v = jqueue[0] if multi_queue else None
+    if multi_queue:
+        js[JROW.QUEUE_ALLOC : JROW.SHARE] = jq_alloc0
+    if use_qdelta:
+        share0, over0 = queue_share_overused(jq_des[:r_dim], jq_alloc0[:r_dim], mins, r_dim)
+        if queue_proportion:
+            js[JROW.SHARE] = share0
+        if overused_gate:
+            js[JROW.OVERUSED] = over0.to(f32)
     out = torch.full(((t_rows + 1) * 128,), UNPLACED, dtype=i32, device=dev)
 
     # Read-only tables the scalar control flow indexes.
@@ -520,14 +623,22 @@ def mega_allocate_reference(
         return out_s
 
     def chain_select(cursor: int) -> int:
-        """Comparator chain over the job lanes: priority -> gang -> drf, then
-        the creation/uid rank, lowest lane on ties; HALT when none is left."""
-        cand = (
-            (js[JROW.LEFT] == 0.0)
-            & (js[JROW.CONSUMED] < jnum_f)
-            & (jnum > 0)
-            & (lane_j <= cursor)
-        )
+        """Comparator chain over the job lanes: in multi-queue mode first the
+        queue pop (jobs of overused queues dropped, the least-share queue,
+        the lowest queue rank), else the lanes up to the cursor; then
+        priority -> gang -> drf, the creation/uid rank, lowest lane on ties;
+        HALT when none is left."""
+        cand = (js[JROW.LEFT] == 0.0) & (js[JROW.CONSUMED] < jnum_f) & (jnum > 0)
+        if multi_queue:
+            if overused_gate:
+                cand = cand & (js[JROW.OVERUSED] < 0.5)
+            if queue_proportion:
+                maskedq = torch.where(cand, js[JROW.SHARE], pos_inf)
+                cand = cand & (maskedq == maskedq.min())
+            qrank = torch.where(cand, jq_v, _BIG_I32)
+            cand = cand & (qrank == qrank.min())
+        else:
+            cand = cand & (lane_j <= cursor)
         for name in comparators:
             if name == "priority":
                 masked = torch.where(cand, -jprio, _BIG_I32)
@@ -546,20 +657,29 @@ def mega_allocate_reference(
             return HALT
         return int(torch.where(tbv == low, lane_j, j_pad).min())
 
+    def alive(cur, cursor, n_dirty) -> bool:
+        if multi_queue:
+            # The selection finds exhaustion itself (HALT).
+            return cur != HALT
+        return cur >= 0 or (cur != HALT and (cursor < n_real or n_dirty > 0))
+
     cur, cursor, n_dirty = -1, 0, 0
-    steps = coh_steps = chunk_pl = 0
-    while steps < max_steps and (
-        cur >= 0 or (cur != HALT and (cursor < n_real or n_dirty > 0))
-    ):
-        # ---- selection (cursor mode) ----
-        if cur == -1:
+    steps = coh_steps = chunk_pl = qd_evt = 0
+    while steps < max_steps and alive(cur, cursor, n_dirty):
+        # ---- selection: the full chain in multi-queue mode (live shares
+        # move with every placement), else the cursor ----
+        if cur == -1 and multi_queue:
+            sel = chain_select(0)
+        elif cur == -1:
             if n_dirty > 0:
                 sel = chain_select(cursor)
             else:
                 sel = cursor if cursor < n_real else HALT
         else:
             sel = cur
-        newly = cur == -1 and sel >= 0
+        # The cursor and the dirty count are cursor-mode state: inert in
+        # multi-queue mode.
+        newly = cur == -1 and sel >= 0 and not multi_queue
         cursor_r = cursor + int(newly and sel == cursor)
         dirty_r = n_dirty - int(newly and sel != cursor)
         cur_r = sel
@@ -662,6 +782,23 @@ def mega_allocate_reference(
             js[JROW.LEFT, win] += 0.0 if cross_active else float(failed)
             drf_scale = 1.0 if cross_active else m_alloc
             js[JROW.DRF : JROW.DRF + r_dim, win] += (reqs * drf_scale)[:, None]
+            if multi_queue:
+                # proportion's allocate handler: the placement grows its
+                # queue's allocated, on every lane of that queue; the delta
+                # chain then re-derives the queue's share and overused flag
+                # from the values just written.
+                qwin = jq_v == jq_v[jb]
+                qa = js[JROW.QUEUE_ALLOC : JROW.QUEUE_ALLOC + r_dim]
+                qa += (reqs * drf_scale)[:, None] * qwin.to(f32)
+                if use_qdelta:
+                    share_new, over_new = queue_share_overused(
+                        jq_des[:r_dim, jb], qa[:, jb], mins, r_dim)
+                    if queue_proportion:
+                        js[JROW.SHARE] = torch.where(qwin, share_new, js[JROW.SHARE])
+                    if overused_gate:
+                        js[JROW.OVERUSED] = torch.where(qwin, over_new.to(f32),
+                                                        js[JROW.OVERUSED])
+                    qd_evt += int(alloc_here)
 
             # result codes of the consumed tasks
             code = best if alloc_here else FAILED
@@ -701,6 +838,7 @@ def mega_allocate_reference(
     stats[STATS.STEPS] = steps
     stats[STATS.COHORT_STEPS] = coh_steps
     stats[STATS.CHUNK_PLACED] = chunk_pl
+    stats[STATS.QDELTA_UPDATES] = qd_evt
     return out[:t_cap], stats
 
 

@@ -7,9 +7,12 @@ imports ``scheduler_tpu_torch`` and ``chip_smoke.py`` from ``DIR`` (the
 root of a checkout: this one by default, or an unpacked earlier commit),
 builds that tree's kernels, and prints one JSON line:
 
-* one cold cycle of BASELINE config 2 and of config 3 through
-  ``Scheduler.run_once`` (cycle seconds, K2's events in the cycle, steps);
-* K2 alone on the operands of both main paths, from second clusters built
+* one cold cycle through ``Scheduler.run_once`` (cycle seconds, K2's
+  events in the cycle, steps) of each of BASELINE config 2 (static-row
+  mode), config 3 (cursor mode), the multi-queue flagship (config 3 in
+  queues of weights 1:2:3: multi-queue mode) and config 2 under the JAX
+  default conf's plugin tiers (multi-queue mode with static rows);
+* K2 alone on the operands of those main paths, from second clusters built
   the same way: device time a launch from a profiler trace, CUDA events
   around ``--repeats`` launches, µs a step, and whether codes and stats
   equal the first launch's (the kernel's bits against the plain version
@@ -59,6 +62,13 @@ def main() -> int:
         "config2": (lambda: make_kubemark_density_cluster(1000, 5000).cache, smoke.CONFIG2_CONF),
         "config3": (lambda: make_synthetic_cluster(10_000, 100_000, tasks_per_job=100).cache,
                     smoke.FLAGSHIP_CONF),
+        "config3_multi_queue": (
+            lambda: make_synthetic_cluster(10_000, 100_000, tasks_per_job=100,
+                                           queues=("q0", "q1", "q2"),
+                                           queue_weights={"q0": 1, "q1": 2, "q2": 3}).cache,
+            smoke.MULTIQ_CONF),
+        "config2_default_tiers": (lambda: make_kubemark_density_cluster(1000, 5000).cache,
+                                  smoke.DEFAULT_TIERS_CONF),
     }
     out = {"tree": opts.label or tree, "gpu": smi, "build_s": cuda_build.build_info["seconds"]}
     with tempfile.TemporaryDirectory() as tmp:
@@ -72,7 +82,7 @@ def main() -> int:
             gc.collect()
     for name, (build, conf) in configs.items():
         _, eng = smoke.engine_for(build(), conf, device)
-        args, kw = eng._mega_args, eng._mega_kw
+        args, kw = eng._mega_args, dict(eng._mega_kw, n_queues=len(eng.queue_uids))
         codes0, stats0 = mk.mega_allocate(*args, **kw)
         start, stop = smoke.events()
         start.record()

@@ -7,6 +7,8 @@ status and node, and every FitError string.  The port runs with
 ``device="cpu"``, where the mega kernel's wrapper runs its plain PyTorch
 version.  The port's fused route is also held to its own host loop, the
 reference semantics it takes for the sessions the fused route declines.
+The JAX package runs proportion's host water-fill
+(``SCHEDULER_TPU_QFAIR=host``), the port's only one.
 """
 
 import importlib
@@ -14,6 +16,7 @@ import json
 
 import pytest
 
+from chip_smoke import DEFAULT_TIERS_CONF, MULTIQ_CONF, multi_queue_spec
 from scheduler_tpu_torch.actions import allocate as torch_allocate
 from tests.test_torch_megakernel import (
     CONFIG2_CONF,
@@ -22,6 +25,7 @@ from tests.test_torch_megakernel import (
     build_twin,
     config1_spec,
     dynamic_spec,
+    gpu_topology_twin,
     kubemark_twin,
     predicates_spec,
     synthetic_twin,
@@ -61,7 +65,21 @@ CLUSTERS = {
     "predicates": (lambda pkg: build_twin(pkg, predicates_spec()), PRESSURE_CONF),
     # Host ports and inter-pod (anti-)affinity: split between the routes.
     "dynamic": (lambda pkg: build_twin(pkg, dynamic_spec()), DYNAMIC_CONF),
+    # The multi-queue flagship (weights 1:2:3), cut to 32 nodes x 600 pods.
+    "mq3-32x600": (lambda pkg: synthetic_twin(pkg, 32, 600, 10, queues=3), MULTIQ_CONF),
+    # Weights 1:9 on 3 nodes: queue q0 turns overused partway.
+    "mq-starvation": (lambda pkg: build_twin(pkg, multi_queue_spec((1, 9), 3)), MULTIQ_CONF),
+    # BASELINE config 5 (GPU topology gangs) at 0.05 scale: 75 nodes, 50 gangs.
+    "config5-75x50": (lambda pkg: gpu_topology_twin(pkg, 75, 50), CONFIG2_CONF),
+    # Config 2 under the JAX default conf's plugin tiers: proportion makes
+    # the one-queue session multi-queue (static-row instantiation).
+    "config2-default-tiers": (lambda pkg: kubemark_twin(pkg, 64, 600), DEFAULT_TIERS_CONF),
 }
+
+
+@pytest.fixture(autouse=True)
+def _host_water_fill(monkeypatch):
+    monkeypatch.setenv("SCHEDULER_TPU_QFAIR", "host")
 
 
 def open_session(pkg, cache, conf_text):
@@ -108,7 +126,7 @@ def test_allocate_matches_jax(fixture):
     assert statuses == jax_statuses
     assert errors == jax_errors
     assert binds
-    if fixture in ("synthetic-8x600", "predicates"):
+    if fixture in ("synthetic-8x600", "predicates", "mq-starvation"):
         assert errors, "the contended cluster must record FitErrors"
 
 
@@ -128,6 +146,19 @@ def test_fused_route_matches_host_loop(fixture):
     assert binds == host_binds
     assert statuses == host_statuses
     assert set(errors) == set(host_errors)
+
+
+def test_multi_queue_session_past_the_mega_gate_raises():
+    """A multi-queue session that the mega gate closes (here: more than
+    4,096 request signatures) would take the loop's multi-queue arm, which
+    is not ported: the engine build raises, naming it."""
+    from chip_smoke import template_cluster
+    from scheduler_tpu_torch.actions.allocate import collect_candidates
+    from scheduler_tpu_torch.ops.fused import FusedAllocator
+
+    ssn = open_session("scheduler_tpu_torch", template_cluster(16, 4200, 1), MULTIQ_CONF)
+    with pytest.raises(NotImplementedError, match="multi-queue"):
+        FusedAllocator(ssn, collect_candidates(ssn), device="cpu")
 
 
 def test_scheduler_run_once_matches_jax(tmp_path):

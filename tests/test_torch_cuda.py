@@ -26,7 +26,11 @@ import torch
 import chip_smoke as smoke
 import scheduler_tpu_torch.actions  # noqa: F401  registry side effects
 import scheduler_tpu_torch.plugins  # noqa: F401
-from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
+from scheduler_tpu_torch.harness import (
+    make_gpu_topology_cluster,
+    make_kubemark_density_cluster,
+    make_synthetic_cluster,
+)
 from scheduler_tpu_torch.interop import mega_operands_from_numpy
 from scheduler_tpu_torch.ops import fused as fused_mod
 from scheduler_tpu_torch.ops import megakernel as mk
@@ -40,12 +44,15 @@ def _card() -> torch.device:
     return torch.device("cuda")
 
 
-def _spill_cluster():
+def _spill_cluster(queues=1):
     """Identical-request gangs larger than one node's room on a cluster too
     small for them all: runs batch, cohorts spill across nodes, and some
-    gangs fail."""
+    gangs fail.  With ``queues`` > 1 the gangs are dealt to queues q0, q1,
+    ... of weights 1, 2, ..."""
+    names = tuple(f"q{i}" for i in range(queues)) if queues > 1 else ("default",)
     return make_synthetic_cluster(
-        8, 1600, tasks_per_job=100, request_fn=smoke.uniform_gang_request
+        8, 1600, tasks_per_job=100, request_fn=smoke.uniform_gang_request, queues=names,
+        queue_weights={q: i + 1 for i, q in enumerate(names)},
     ).cache
 
 
@@ -71,6 +78,16 @@ CASES = {
                           smoke.PRESSURE_CONF, {}),
     "config2-64x600": (lambda: make_kubemark_density_cluster(64, 600).cache,
                        smoke.CONFIG2_CONF, {}),
+    # Multi-queue mode, cursor instantiation: three queues of spilling
+    # gangs, and the 1:9 starvation shape.
+    "mq-spill-3q-cohort-4": (lambda: _spill_cluster(queues=3), smoke.MULTIQ_CONF, {"cohort": 4}),
+    "mq-starvation": (lambda: smoke.spec_cluster(smoke.multi_queue_spec((1, 9), 3)),
+                      smoke.MULTIQ_CONF, {}),
+    # Multi-queue mode, static-row instantiation: the default conf's tiers.
+    "mq-config2-default-tiers": (lambda: make_kubemark_density_cluster(64, 600).cache,
+                                 smoke.DEFAULT_TIERS_CONF, {"cohort": 4}),
+    "mq-config5-default-tiers": (lambda: make_gpu_topology_cluster(75, 50).cache,
+                                 smoke.DEFAULT_TIERS_CONF, {}),
 }
 
 
@@ -81,18 +98,48 @@ def test_cuda_kernel_matches_plain_version(case):
     build, conf, overrides = CASES[case]
     _, engine = smoke.engine_for(build(), conf, device)
     kw = dict(engine._mega_kw, **overrides)
-    assert kw["use_static"] == (conf is not smoke.FLAGSHIP_CONF
-                                and conf is not smoke.CONFIG1_CONF)
-    plan = mk.plan_for(engine._mega_args, kw)
+    assert kw["use_static"] == (conf not in (smoke.FLAGSHIP_CONF, smoke.CONFIG1_CONF,
+                                             smoke.MULTIQ_CONF))
+    assert kw["multi_queue"] == case.startswith("mq-")
+    n_queues = len(engine.queue_uids)
+    plan = mk.plan_for(engine._mega_args, kw, n_queues)
     assert plan.job_ledger_in_global == (case == "global-job-ledger")
     before = mk.launches
-    codes, stats = mk.mega_allocate(*engine._mega_args, **kw)
+    codes, stats = mk.mega_allocate(*engine._mega_args, n_queues=n_queues, **kw)
     torch.cuda.synchronize()
     assert mk.launches == before + 1
     ref_codes, ref_stats = mk.mega_allocate_reference(*engine._mega_args, **kw)
     assert torch.equal(codes, ref_codes)
     assert torch.equal(stats, ref_stats)
     assert int((codes >= 0).sum()) > 0
+    if kw["multi_queue"]:
+        assert int(stats[mk.STATS.QDELTA_UPDATES]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(smoke.MEGA_SYNTHETIC_MQ))
+def test_cuda_kernel_multi_queue_synthetic_operands(case):
+    """``mega_allocate`` in multi-queue mode on synthetic operands
+    (``chip_smoke.MEGA_SYNTHETIC_MQ``) against its plain version, bitwise
+    (tolerance: none): two to eight queues with one empty, a queue starved
+    by its overused gate, equal shares across queues, both instantiations,
+    and j_pad 8,320 with the queue ledger and the job ledger on chip."""
+    device = _card()
+    spec = smoke.MEGA_SYNTHETIC_MQ[case]
+    ops, kw = smoke.mega_operands(**spec)
+    args, kw = mega_operands_from_numpy(ops, kw, device)
+    plan = mk.plan_for(args, kw, spec["queues"])
+    assert plan.off_queue is not None
+    if case == "mq5-static-8320":
+        assert ops["job_off"].shape[1] == 8320 and not plan.job_ledger_in_global
+    before = mk.launches
+    codes, stats = mk.mega_allocate(*args, n_queues=spec["queues"], **kw)
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    ref_codes, ref_stats = mk.mega_allocate_reference(*args, **kw)
+    assert torch.equal(codes, ref_codes)
+    assert torch.equal(stats, ref_stats)
+    assert int((codes >= 0).sum()) > 0 and int(stats[mk.STATS.QDELTA_UPDATES]) > 0
 
 
 @pytest.mark.cuda

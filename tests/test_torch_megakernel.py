@@ -163,9 +163,34 @@ def build_twin(pkg: str, spec: dict):
     return spec_cluster(spec, pkg)
 
 
-def synthetic_twin(pkg: str, n_nodes: int, n_pods: int, tasks_per_job: int):
+def synthetic_twin(pkg: str, n_nodes: int, n_pods: int, tasks_per_job: int, queues: int = 1):
+    """The flagship's synthetic cluster; with ``queues`` > 1, queues q0, q1,
+    ... of weights 1, 2, ... (``bench.py``'s multi-queue flagship)."""
     harness = importlib.import_module(f"{pkg}.harness")
-    return harness.make_synthetic_cluster(n_nodes, n_pods, tasks_per_job=tasks_per_job).cache
+    names = tuple(f"q{i}" for i in range(queues)) if queues > 1 else ("default",)
+    return harness.make_synthetic_cluster(
+        n_nodes, n_pods, tasks_per_job=tasks_per_job, queues=names,
+        queue_weights={q: i + 1 for i, q in enumerate(names)}).cache
+
+
+def _scenario_ladder():
+    path = Path(__file__).resolve().parent.parent / "scripts" / "scenario_ladder.py"
+    spec = importlib.util.spec_from_file_location("scenario_ladder", path)
+    ladder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ladder)
+    return ladder
+
+
+def gpu_topology_twin(pkg: str, n_nodes: int, n_gangs: int):
+    """BASELINE config 5 at ``n_nodes`` x ``n_gangs`` gangs of 8: the JAX
+    package's cluster is built by ``scripts/scenario_ladder.py`` itself, the
+    port's by its copy, ``harness.make_gpu_topology_cluster``."""
+    if pkg == "scheduler_tpu_torch":
+        from scheduler_tpu_torch.harness import make_gpu_topology_cluster
+
+        return make_gpu_topology_cluster(n_nodes, n_gangs).cache
+    build, _ = _scenario_ladder()._s5_build_churn(n_nodes, n_gangs, 8, {"jobs": [], "gen": 0})
+    return build()
 
 
 def kubemark_twin(pkg: str, n_nodes: int, n_pods: int):
@@ -178,11 +203,7 @@ def kubemark_twin(pkg: str, n_nodes: int, n_pods: int):
 
     if pkg == "scheduler_tpu_torch":
         return synthetic.make_kubemark_density_cluster(n_nodes, n_pods).cache
-    path = Path(__file__).resolve().parent.parent / "scripts" / "scenario_ladder.py"
-    spec = importlib.util.spec_from_file_location("scenario_ladder", path)
-    ladder = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ladder)
-    build, _ = ladder._s2_build_churn(n_nodes, n_pods, {"pods": [], "gen": 0})
+    build, _ = _scenario_ladder()._s2_build_churn(n_nodes, n_pods, {"pods": [], "gen": 0})
     cache = build()
     synthetic.pin_shadow_timestamps(cache)
     return cache
@@ -213,7 +234,7 @@ def run_both(engine, **overrides):
     codes_j, stats_j = jax_mega(*engine._mega_args, **kw)
     ops = {name: np.asarray(a) for name, a in zip(mk.OPERAND_NAMES, engine._mega_args)}
     args, torch_kw = mega_operands_from_numpy(ops, kw, "cpu")
-    codes_t, stats_t = mk.mega_allocate(*args, **torch_kw)
+    codes_t, stats_t = mk.mega_allocate(*args, n_queues=len(engine.queue_uids), **torch_kw)
     return (np.asarray(codes_j), np.asarray(stats_j)), (codes_t.numpy(), stats_t.numpy())
 
 
@@ -327,9 +348,10 @@ def test_wrapper_runs_plain_version_on_cpu_and_rejects_unported_modes(monkeypatc
     ref_codes, ref_stats = mk.mega_allocate_reference(*args, **kw)
     assert torch.equal(codes, ref_codes) and torch.equal(stats, ref_stats)
     assert mk.launches == before, "the CPU path launches no kernel"
-    for mode in ("has_releasing", "multi_queue", "qfair_ladder"):
+    for mode in ({"has_releasing": True}, {"qfair_ladder": True},
+                 {"multi_queue": True, "queue_proportion": True, "queue_delta": False}):
         with pytest.raises(NotImplementedError):
-            mk.mega_allocate(*args, **dict(kw, **{mode: True}))
+            mk.mega_allocate(*args, **dict(kw, **mode))
     with pytest.raises(NotImplementedError):
         mk.mega_allocate(*args, **dict(kw, mesh=object()))
 

@@ -143,10 +143,17 @@ def test_host_predicate_matches_jax():
 # -- a plugin the port does not carry ------------------------------------------------
 
 @pytest.mark.parametrize("plugin", ["proportion", "conformance"])
-def test_unported_plugin_raises(plugin):
+def test_unported_plugin_raises(plugin, monkeypatch):
+    """A builtin of the JAX package with no builder registered in the port
+    raises at session open (every builtin is ported now, so the test takes
+    one out of the port's registry)."""
     from scheduler_tpu_torch.conf import parse_scheduler_conf
-    from scheduler_tpu_torch.framework import open_session
+    from scheduler_tpu_torch.framework import open_session, registry
     from scheduler_tpu_torch.harness import make_synthetic_cluster
+
+    builders = dict(registry._plugin_builders)
+    del builders[plugin]
+    monkeypatch.setattr(registry, "_plugin_builders", builders)
 
     conf = parse_scheduler_conf(
         f'actions: "allocate"\ntiers:\n- plugins:\n  - name: gang\n  - name: {plugin}\n')
