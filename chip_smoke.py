@@ -10,7 +10,7 @@ What it does, one JSON line per phase:
 
 1. device: the card, the CUDA version, and the one build of every kernel of
    the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path, six times, each on a freshly built cluster that no other
+2. main_path, seven times, each on a freshly built cluster that no other
    session has touched (a cold cycle, as a scheduler's first cycle after
    start-up), through ``Scheduler.run_once`` on the card, with every
    kernel's launch count set to 0 just before and read just after:
@@ -43,9 +43,21 @@ What it does, one JSON line per phase:
       ``mega_allocate`` runs in multi-queue mode with static rows after
       ``static_predicate_mask``.  Checks: config 2's, and binds equal to the
       port's host loop on a twin cluster.
-   Each prints the phase seconds and the kernel's time from CUDA events.
-   d, e and f each run in a child process of the script, after one config-1
-   cycle there (``--child``, ``child_main``), so that the garbage
+   g. the qfair ladder flagship (``bench.py``'s multi-queue family at the
+      widest and deepest shape the ladder admits,
+      ``harness.make_mq_ladder_cluster``: 10,000 nodes, 100 queues of
+      weights 1..100, 100,000 single-pod jobs, one request class a queue,
+      r_dim 8; the multi-queue conf): proportion's water-fill as one
+      ``qfair_solve`` launch, then ``mega_allocate`` in multi-queue mode
+      with the qfair ladder.  Checks: the ladder engaged (1,001 rungs, 100
+      classes, a converged solve), one rung lookup a placement, no node
+      overcommitted in any of its 8 dims or past 110 pods; then, on a
+      session of the same cluster, the device water-fill's deserved rows
+      bit for bit the host water-fill's.
+   Each prints the phase seconds and the kernel's time from CUDA events;
+   d and f also the water-fill's evidence and why the ladder declined.
+   d, e, f and g each run in a child process of the script, after one
+   config-1 cycle there (``--child``, ``child_main``), so that the garbage
    collection at the head of the cycle walks that path's cluster alone.
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
    on the same CUDA tensors, bitwise.  ``mega_allocate`` (codes and stats):
@@ -53,10 +65,21 @@ What it does, one JSON line per phase:
    non-binpack weights and the pod-count gate, a 12,000-job case whose job
    ledger lives in global scratch, four small static-row sessions, seven
    synthetic cases across the launch plans (``MEGA_SYNTHETIC``), four in
-   multi-queue mode (``MEGA_SYNTHETIC_MQ``), the 1:9 starvation session,
-   and the operands of the five main paths that run it at full size from
-   second clusters built the same way (timed: profiler device time and
-   events, µs a step, the launch plan).  ``static_predicate_mask``: config 2's real operands
+   multi-queue mode (``MEGA_SYNTHETIC_MQ``), the 1:9 starvation session
+   (also on the full-recompute queue chain), two with the qfair ladder
+   (``MEGA_SYNTHETIC_LADDER``, both instantiations), the ladder flagship's
+   shape at 1,000 nodes x 20 queues x 200 jobs a queue (also on the
+   full-recompute chain), and the operands of the five main paths a to f
+   that run it at full size from second clusters built the same way
+   (timed: profiler device time and events, µs a step, the launch plan).
+   The ladder flagship's operands (100 queues of 1,000 job lanes): the
+   ladder against the delta chain on the same operands, equal codes, each
+   timed three times in turns; and against its plain version (timed; its
+   100,001 steps take minutes, so in a child process of the script,
+   ``--child mq_ladder_plain``, beside the untimed phases).  ``qfair_solve``: the ladder
+   flagship's water-fill (timed, beside the host water-fill's time and
+   bits) and random fleets of 1 to 128 queues and 2 to 18 dims.
+   ``static_predicate_mask``: config 2's real operands
    (timed), a wide random case (4,096 signatures x 10,000 nodes, timed) and
    empty label / taint vocabularies.  ``placement_step`` (all four outputs;
    its device duration from a profiler trace, the events around each
@@ -90,10 +113,11 @@ import sys
 import time
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# rate, float32 rate outside the tensor cores, and the int8 tensor-core rate
-# (dense).  They set each kernel's bound.
+# rate, float32 and float64 rates outside the tensor cores, and the int8
+# tensor-core rate (dense).  They set each kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 INT8_OPS_PER_S = 1979e12
 
 GIB = 2.0**30
@@ -140,6 +164,18 @@ MQ_WEIGHTS = {"q0": 1, "q1": 2, "q2": 3}
 # BASELINE config 5 (scripts/scenario_ladder.py): 1,500 nodes, 1,000 gangs of 8.
 CONFIG5_NODES = 1500
 CONFIG5_GANGS = 1000
+
+# The qfair ladder flagship (bench.py's multi-queue family, one_mq_cycle, at
+# the widest and deepest shape the mega kernel and the ladder admit):
+# 10,000 nodes, queues q0..q99 of weights 1..100, 100,000 single-pod jobs
+# (1,000 a queue: 1,001 rungs), one request class a queue over 6 scalars
+# (r_dim 8), the multi-queue flagship's conf.
+LADDER_NODES = 10_000
+LADDER_PODS = 100_000
+LADDER_QUEUES = 100
+LADDER_VOCAB = 6
+# The ladder session at the size its plain version runs in seconds.
+LADDER_SMALL = (1000, 4000, 20, 6)
 
 # The plugin tiers of the JAX package's default conf (scheduler_tpu/conf.py),
 # allocate only: one queue, but proportion makes the session multi-queue.
@@ -523,6 +559,56 @@ MEGA_SYNTHETIC_MQ = {
 }
 
 
+def ladder_operands(seed, nb, r_dim, n_jobs, queues, **flags):
+    """``mega_allocate`` operands in multi-queue mode with the qfair ladder:
+    ``mega_operands(queues=...)`` with single-task jobs, every job of queue q
+    asking request signature 1 + q (one class a queue), no run batching, and
+    the rung tables that ``ops/qfair.build_ladder`` makes from each queue's
+    deserved and allocated rows, class request and job count (queues on the
+    128 columns, rungs on the rows, padded to 8)."""
+    import numpy as np
+
+    from scheduler_tpu_torch.ops.megakernel import pack_task_table_i32
+    from scheduler_tpu_torch.ops.qfair import build_ladder
+
+    ops, kw = mega_operands(seed, nb, r_dim, n_jobs, queues=queues, max_tasks=1, **flags)
+    jq = ops["jqueue"][0, :n_jobs].astype(np.int64)
+    ops["task_sig"] = pack_task_table_i32((1 + jq).astype(np.int32), n_jobs)
+    ops["run_len"] = pack_task_table_i32(np.ones(n_jobs, np.int32), n_jobs, fill=1)
+    des = np.zeros((queues, r_dim), np.float32)
+    held = np.zeros((queues, r_dim), np.float32)
+    lanes = np.unique(jq, return_index=True)
+    des[lanes[0]] = ops["jq_des"][:r_dim, lanes[1]].T
+    held[lanes[0]] = ops["jq_alloc0"][:r_dim, lanes[1]].T
+    req_rows = ops["sig_req"][:r_dim, 1:1 + queues].T.copy()
+    counts = np.bincount(jq, minlength=queues)
+    share, over = build_ladder(des, held, req_rows, counts,
+                               np.asarray(kw["mins"], np.float32), r_dim)
+    k_pad = -(-share.shape[1] // 8) * 8
+    ops["qf_share"] = np.zeros((k_pad, 128), np.float32)
+    ops["qf_share"][: share.shape[1], :queues] = share.T
+    ops["qf_over"] = np.zeros((k_pad, 128), np.float32)
+    ops["qf_over"][: share.shape[1], :queues] = over.T
+    kw.update(batch_runs=False, cross_batch=False, cohort=1, qfair_ladder=True)
+    return ops, kw
+
+
+# Synthetic K2 cases with the qfair ladder (``ladder_operands``): both
+# instantiations, a queue starved by its overused gate, equal shares, one
+# queue empty, and queues of 900 job lanes (more than a CTA's 512 threads,
+# so each rescan of a queue takes two strided passes).
+MEGA_SYNTHETIC_LADDER = {
+    "ladder-q3-starved-nb1024": dict(seed=31, nb=1024, r_dim=3, n_jobs=600, n_nodes=1000,
+                                     queues=3, starved=True, weights=(0.0, 0.0, 1.0)),
+    "ladder-q3-deep-nb1024": dict(seed=33, nb=1024, r_dim=4, n_jobs=1800, n_nodes=1000,
+                                  queues=3, starved=True, weights=(1.0, 0.0, 1.0)),
+    "ladder-q8-tied-static-nb16384": dict(seed=32, nb=16384, r_dim=2, n_jobs=2000,
+                                          n_nodes=10000, queues=8, tied=True,
+                                          weights=(0.0, 1.0, 1.0), use_static=True,
+                                          enforce_pod_count=True),
+}
+
+
 def many_jobs_cluster():
     """12,000 single-task jobs on 64 nodes: the compact job ledger
     (j_pad 12,160, r_dim 2: 243,200 bytes) outgrows a CTA's shared memory
@@ -760,7 +846,9 @@ def read_inputs(args, kw):
     """The operands the kernel reads in its mode (the others are dummies)."""
     from scheduler_tpu_torch.ops.megakernel import OPERAND_NAMES
 
-    unread = {"rel0", "qf_share", "qf_over"}
+    unread = {"rel0"}
+    if not kw.get("qfair_ladder"):
+        unread |= {"qf_share", "qf_over"}
     if not kw["multi_queue"]:
         unread |= {"jqueue", "jq_des", "jq_alloc0"}
     if not kw["use_static"]:
@@ -785,16 +873,18 @@ def node_step_ops(kw) -> int:
     return ops
 
 
-def queue_chain_ops(args, kw, codes, stats) -> int:
+def queue_chain_ops(args, kw, codes, stats, n_queues=0) -> int:
     """Operations of multi-queue mode's queue chain in this run.  At each
-    pop, over every real job lane: the eligibility test (3 compares, 2
-    ands), the queue pop (the overused flag and the share of the lane's
-    queue, their compares against the minimum, the queue index: 6) and the
-    job chain within the winning queue (2 a priority or gang key, 2 per dim
-    for drf, the rank: 2).  Per placement: the queue's refresh (r_dim adds;
-    a dim's division, selects, maximum, difference and compare: 7 each).
-    Pops are counted from below, as the jobs that consumed a task (each
-    took at least one pop)."""
+    pop, over the real job lanes of the queue whose job was placed since
+    the last pop (all lanes before the first): the eligibility test (3
+    compares, 2 ands) and the job chain (2 a priority or gang key, 2 per dim
+    for drf, the rank: 2); then over the queues, the pop (the overused flag
+    and share, their compares, the index: 6).  Per placement: the delta
+    chain's refresh of the queue (r_dim adds; a dim's division, selects,
+    maximum, difference and compare: 7 each), or the ladder's count add and
+    two reads (3); per step of the full-recompute chain, every queue's
+    derive (7 a dim).  Pops are counted from below, as the jobs that
+    consumed a task (each took at least one pop)."""
     import torch
 
     from scheduler_tpu_torch.ops.layout import STATS
@@ -803,16 +893,20 @@ def queue_chain_ops(args, kw, codes, stats) -> int:
     ops = dict(zip(OPERAND_NAMES, args))
     n_jobs = int(ops["misc"][0, 0])
     num = ops["job_num"][0, :n_jobs].long()
+    queue = ops["jqueue"][0, :n_jobs].long()
     job_of_task = torch.repeat_interleave(torch.arange(n_jobs, device=num.device), num)
     touched = codes[: job_of_task.numel()] != -1
-    pops = int(torch.unique(job_of_task[touched]).numel())
+    popped = torch.unique(job_of_task[touched])
+    lanes_of = torch.bincount(queue, minlength=max(1, n_queues))
+    rescanned = int(lanes_of[queue[popped]].sum()) + n_jobs
     r = kw["r_dim"]
-    chain = sum(2 * r if name == "drf" else 2 for name in kw["comparators"]) + 2
-    lane_ops = 5 + 6 + chain
-    return pops * n_jobs * lane_ops + int(stats[STATS.QDELTA_UPDATES]) * 8 * r
+    lane_ops = 5 + sum(2 * r if name == "drf" else 2 for name in kw["comparators"]) + 2
+    return (rescanned * lane_ops + popped.numel() * max(1, n_queues) * 6
+            + int(stats[STATS.QDELTA_UPDATES]) * 8 * r + int(stats[STATS.QFAIR_LOOKUPS]) * 3
+            + int(stats[STATS.QFULL_RECOMPUTES]) * n_queues * 7 * r)
 
 
-def mega_bound_ms(args, kw, codes, stats, n_real: int):
+def mega_bound_ms(args, kw, codes, stats, n_real: int, n_queues: int = 0):
     """The least time the card could take for this run: each input read
     once and each output written once at the memory rate, against the node
     loop's float32 operations (steps x real nodes x ops), and in multi-queue
@@ -823,15 +917,19 @@ def mega_bound_ms(args, kw, codes, stats, n_real: int):
     nbytes += codes.numel() * codes.element_size() + stats.numel() * stats.element_size()
     ops = int(stats[STATS.STEPS]) * n_real * node_step_ops(kw)
     if kw["multi_queue"]:
-        ops += queue_chain_ops(args, kw, codes, stats)
+        ops += queue_chain_ops(args, kw, codes, stats, n_queues)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
 def mega_mode(kw) -> str:
-    """The kernel instantiation a call runs."""
+    """The kernel instantiation a call runs, and in multi-queue mode the
+    queue chain where it is not the delta chain (``_ladder``, ``_full``)."""
     if kw["multi_queue"]:
-        return "multi_queue_static" if kw["use_static"] else "multi_queue"
+        mode = "multi_queue_static" if kw["use_static"] else "multi_queue"
+        if kw.get("qfair_ladder"):
+            return mode + "_ladder"
+        return mode if kw.get("queue_delta", True) else mode + "_full"
     return "static" if kw["use_static"] else "cursor"
 
 
@@ -848,7 +946,7 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
     mode).  With ``timed`` the kernel's device time a launch comes from a
     profiler trace (``device_ms``, also ``ms``) beside CUDA events around
     ``repeats`` launches (``event_ms``), with ``us_per_step`` = ms /
-    STATS.STEPS; the plain version is timed with events."""
+    STATS.STEPS.  The plain version is timed with events (``plain_ms``)."""
     import torch
 
     from scheduler_tpu_torch.ops import megakernel as mk
@@ -866,7 +964,7 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
     rec = {
         "phase": "kernel_vs_plain", "kernel": "mega_allocate", "case": case,
         "mode": mega_mode(kw), "equal": equal,
-        "max_abs_err": max_abs_err,
+        "max_abs_err": max_abs_err, "plain_ms": plain_ms,
         "placed": int((codes_k >= 0).sum()),
         "stats": stats_k.tolist(), "plain_stats": stats_r.tolist(),
         "nb": int(args[0].shape[1]), "t_pad": int(codes_k.numel()),
@@ -887,12 +985,194 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
             match="mega_allocate_kernel")
         rec["ms"] = rec["device_ms"] if rec["device_ms"] is not None else rec["event_ms"]
         rec["us_per_step"] = 1e3 * rec["ms"] / max(1, int(stats_k[0]))
-        rec["plain_ms"] = plain_ms
-        rec["bound_ms"], rec["bound_by"] = mega_bound_ms(args, kw, codes_k, stats_k, n_real)
+        rec["bound_ms"], rec["bound_by"] = mega_bound_ms(args, kw, codes_k, stats_k, n_real,
+                                                         n_queues)
     emit(rec)
     if not equal:
         raise SystemExit(f"kernel and plain version disagree: {case}")
     return rec
+
+
+def compare_chains(case, args, kw, n_real, n_queues, repeats=3):
+    """K2 in qfair-ladder mode against the same launch on the delta chain
+    (``qfair_ladder=False``) on one session's staged operands: equal codes
+    and steps, the ladder's lookups and the delta chain's refreshes each
+    equal to the placements.  Each chain is timed: CUDA events around one
+    launch, ``repeats`` times, the chains in turns (ladder, delta, ladder,
+    ...), and the profiler's device time over ``repeats`` launches.
+    Returns {chain: record}."""
+    import torch
+
+    from scheduler_tpu_torch.ops import megakernel as mk
+
+    chains = {"ladder": kw, "delta": dict(kw, qfair_ladder=False)}
+    runs = {c: mk.mega_allocate(*args, n_queues=n_queues, **ckw) for c, ckw in chains.items()}
+    torch.cuda.synchronize()
+    times = {c: [] for c in chains}
+    for _ in range(repeats):
+        for c, ckw in chains.items():
+            start, stop = events()
+            start.record()
+            mk.mega_allocate(*args, n_queues=n_queues, **ckw)
+            stop.record()
+            torch.cuda.synchronize()
+            times[c].append(start.elapsed_time(stop))
+    (codes_l, stats_l), (codes_d, stats_d) = runs["ladder"], runs["delta"]
+    placed = int((codes_l >= 0).sum())
+    equal = bool(torch.equal(codes_l, codes_d)) and int(stats_l[0]) == int(stats_d[0])
+    recs = {}
+    for c, ckw in chains.items():
+        codes, stats = runs[c]
+        device_ms, _ = device_ms_per_call(
+            lambda: mk.mega_allocate(*args, n_queues=n_queues, **ckw), repeats,
+            match="mega_allocate_kernel")
+        ms = device_ms if device_ms is not None else sum(times[c]) / repeats
+        bound_ms, bound_by = mega_bound_ms(args, ckw, codes, stats, n_real, n_queues)
+        recs[c] = {"phase": "ladder_vs_delta", "case": case, "chain": c, "mode": mega_mode(ckw),
+                   "equal_codes": equal, "placed": placed, "stats": stats.tolist(),
+                   "event_ms": times[c], "device_ms": device_ms, "ms": ms,
+                   "us_per_step": 1e3 * ms / max(1, int(stats[0])),
+                   "us_per_step_events": [1e3 * t / max(1, int(stats[0])) for t in times[c]],
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "plan": mk.plan_for(args, ckw, n_queues).summary()}
+        emit(recs[c])
+    if not equal:
+        raise SystemExit(f"{case}: the ladder and the delta chain place apart")
+    if (int(stats_l[mk.STATS.QFAIR_LOOKUPS]) != placed
+            or int(stats_d[mk.STATS.QDELTA_UPDATES]) != placed or placed < 1):
+        raise SystemExit(f"{case}: lookups {stats_l.tolist()} / refreshes {stats_d.tolist()} "
+                         f"are not the {placed} placements")
+    return recs
+
+
+# -- qfair_solve against its plain version ---------------------------------------------
+
+def qfair_fleet(q_n, r_n, seed, device):
+    """Random water-fill operands (``qfair_solve``'s, as tensors on
+    ``device``): integer weights, about a third of the queues asking far
+    less than their slice (capped), scalar requests on half the cells, a
+    pool that grows with the queue count."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+    request = rng.uniform(100.0, 4000.0, (q_n, r_n))
+    request[rng.random(q_n) < 0.3] *= 0.05
+    request[:, 2:][rng.random((q_n, r_n - 2)) < 0.5] = 0.0
+    return (torch.tensor(rng.integers(1, 10, q_n), dtype=f64, device=device),
+            torch.tensor(request, dtype=f64, device=device),
+            torch.tensor(rng.uniform(2000.0, 90_000.0, r_n) * max(1, q_n // 8), dtype=f64,
+                         device=device),
+            torch.tensor(request[:, 2:].sum(axis=1) > 0, device=device), bool(seed % 2),
+            torch.full((r_n,), 1e-2, dtype=f64, device=device))
+
+
+def qfair_bound_ms(ops, qf_raw):
+    """The least time for the water-fill: its inputs read and outputs
+    written once at the memory rate, against its float64 operations (each
+    round run: the weight fold, and about 10 a dim a queue) at the peak."""
+    weights, request = ops[0], ops[1]
+    q_n, r_n = request.shape
+    rounds = max(0, int(qf_raw[1]))
+    nbytes = 8 * (q_n + 2 * q_n * r_n + 2 * r_n + 1) + 2 * q_n
+    flops = rounds * q_n * (1 + 10 * r_n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def compare_qfair(case, ops, iters, timed=False, repeats=20):
+    """qfair_solve and its plain version on the same CUDA operands: deserved
+    bit for bit, met and the evidence equal.  With ``timed``: the kernel's
+    device time (profiler) and events around ``repeats`` launches, the
+    plain version's events, the bound."""
+    import torch
+
+    from scheduler_tpu_torch.ops import qfair as qf
+
+    got = qf.qfair_solve(*ops, iters=iters)
+    torch.cuda.synchronize()
+    start, stop = events()
+    start.record()
+    ref = qf.qfair_solve_reference(*ops, iters=iters)
+    stop.record()
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got[0].view(torch.int64), ref[0].view(torch.int64))
+                 and torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]))
+    diff = (got[0] - ref[0]).abs()
+    rec = {"phase": "kernel_vs_plain", "kernel": "qfair_solve", "case": case,
+           "queues": int(ops[1].shape[0]), "dims": int(ops[1].shape[1]), "iterations": iters,
+           "converged_at": int(got[2][1]), "met": int(got[1].sum()), "equal": equal,
+           "max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+           "plain_ms": start.elapsed_time(stop)}
+    if timed:
+        start.record()
+        for _ in range(repeats):
+            qf.qfair_solve(*ops, iters=iters)
+        stop.record()
+        torch.cuda.synchronize()
+        rec["event_ms"] = start.elapsed_time(stop) / repeats
+        rec["device_ms"], _ = device_ms_per_call(lambda: qf.qfair_solve(*ops, iters=iters),
+                                                 repeats, match="qfair_solve_kernel")
+        rec["ms"] = rec["device_ms"] if rec["device_ms"] is not None else rec["event_ms"]
+        rec["bound_ms"], rec["bound_by"] = qfair_bound_ms(ops, got[2])
+    emit(rec)
+    if not equal:
+        raise SystemExit(f"qfair_solve and its plain version disagree: {case}")
+    return rec
+
+
+def proportion_solve_operands(ssn, device):
+    """The water-fill's operands of an open session, as proportion passes
+    them (``ProportionPlugin.solve_inputs``), as tensors on ``device``."""
+    import torch
+
+    vocab = next(iter(ssn.jobs.values())).vocab
+    weights, request, total, req_hs, total_hs, mins = (
+        ssn.plugins["proportion"].solve_inputs(vocab))
+    return (torch.from_numpy(weights).to(device), torch.from_numpy(request).to(device),
+            torch.from_numpy(total).to(device), torch.from_numpy(req_hs).to(device), total_hs,
+            torch.from_numpy(mins).to(device))
+
+
+def device_vs_host_solve(ssn):
+    """The open session's proportion ran the device water-fill; run the host
+    water-fill on the same queue attributes and hold the deserved rows to
+    each other bit for bit.  Returns a record (raises if they differ)."""
+    import numpy as np
+
+    from scheduler_tpu_torch.api.resource import ResourceVec
+
+    plugin = ssn.plugins["proportion"]
+    evidence = dict(plugin._qfair_evidence)
+    vocab = next(iter(ssn.jobs.values())).vocab
+    device = {uid: a.deserved.array.copy() for uid, a in plugin.queue_attrs.items()}
+    for attr in plugin.queue_attrs.values():
+        attr.deserved = ResourceVec.empty(vocab)
+    plugin._qfair_evidence = {}
+    plugin._solve_host(vocab)
+    host_ms = plugin._qfair_evidence["solve_ms"]
+    equal = all(np.array_equal(device[uid].view(np.int64), a.deserved.array.view(np.int64))
+                for uid, a in plugin.queue_attrs.items())
+    rec = {"phase": "device_solve_vs_host", "queues": len(device), "equal": equal,
+           "evidence": evidence, "device_solve_ms": evidence.get("solve_ms"),
+           "host_solve_ms": host_ms}
+    emit(rec)
+    if evidence.get("flavor") != "device" or not equal:
+        raise SystemExit(f"the device water-fill and the host's disagree: {rec}")
+    return rec
+
+
+def phase_qfair_cases(device):
+    """qfair_solve against its plain version on random fleets: 1 to 128
+    queues, 2 to 18 dims, capped and uncapped.  Returns the worst error."""
+    worst = 0.0
+    for q_n, r_n, seed in ((1, 2, 0), (3, 4, 1), (8, 8, 2), (40, 18, 3), (100, 8, 4),
+                           (128, 18, 5), (128, 2, 6)):
+        rec = compare_qfair(f"random_{q_n}q_{r_n}r", qfair_fleet(q_n, r_n, seed, device),
+                            q_n + 4)
+        worst = max(worst, rec["max_abs_err"])
+    return worst
 
 
 # -- static_predicate_mask against its plain version ------------------------------------
@@ -1368,11 +1648,13 @@ def reset_counts():
     from scheduler_tpu_torch.actions import allocate
     from scheduler_tpu_torch.ops import megakernel as mk
     from scheduler_tpu_torch.ops import predicate_kernel as pk
+    from scheduler_tpu_torch.ops import qfair as qf
     from scheduler_tpu_torch.ops import step_kernel as sk
 
     allocate.routes["fused"] = allocate.routes["host"] = 0
     mk.launches = 0
     pk.launches = 0
+    qf.launches = 0
     sk.launches = 0
 
 
@@ -1380,10 +1662,12 @@ def read_counts():
     from scheduler_tpu_torch.actions import allocate
     from scheduler_tpu_torch.ops import megakernel as mk
     from scheduler_tpu_torch.ops import predicate_kernel as pk
+    from scheduler_tpu_torch.ops import qfair as qf
     from scheduler_tpu_torch.ops import step_kernel as sk
 
     return ({"mega_allocate": mk.launches, "static_predicate_mask": pk.launches,
-             "placement_step": sk.launches}, dict(allocate.routes))
+             "placement_step": sk.launches, "qfair_solve": qf.launches},
+            dict(allocate.routes))
 
 
 def run_cycle(cache, conf_path, engine="mega"):
@@ -1478,6 +1762,52 @@ def phase_main_path_mq_flagship(cache, conf_path, n_nodes, n_pods, tasks_per_job
                          f"not {n_pods} in {n_gangs}")
     if chain.get("queues") != len(MQ_QUEUES) or not chain.get("delta_updates"):
         raise SystemExit(f"the multi-queue flagship did not run the queue chain: {chain}")
+    check_declined_qfair(rec["cohort"].get("qfair"), launches, "the multi-queue flagship")
+    return launches
+
+
+# The JAX engine's reasons for not building the qfair ladder on a session.
+QFAIR_DECLINES = ("run batching (multi-copy placements)", "mixed request classes within a queue")
+
+
+def check_declined_qfair(qf, launches, path):
+    """A multi-queue main path that the ladder does not admit: proportion
+    solved on the card (one qfair_solve launch), and the engine says why
+    the ladder declined, in the JAX engine's words."""
+    qf = qf or {}
+    if (qf.get("flavor") != "device" or qf.get("engaged") is not False
+            or qf.get("reason") not in QFAIR_DECLINES or launches["qfair_solve"] != 1):
+        raise SystemExit(f"{path}: unexpected qfair evidence {qf}, launches {launches}")
+
+
+def phase_main_path_ladder(cache, conf_path):
+    """The qfair ladder flagship: proportion's device water-fill, then the
+    mega kernel in multi-queue mode with the ladder.  Checks: the ladder
+    engaged with 1,001 rungs and 100 classes after a converged solve, one
+    rung lookup a placement, no node overcommitted in any of its 8 dims or
+    past 110 pods."""
+    rec, launches = run_cycle(cache, conf_path)
+    binds, most = check_config2_binds(cache)
+    evidence = rec["cohort"]
+    qf = evidence.get("qfair") or {}
+    chain = evidence.get("queue_chain") or {}
+    emit({"phase": "main_path", "config": "mq_ladder", "nodes": LADDER_NODES,
+          "pods": LADDER_PODS, "queues": LADDER_QUEUES, "binds": binds,
+          "most_pods_on_a_node": most, "queue_chain": chain, "qfair": qf, **rec})
+    rungs = LADDER_PODS // LADDER_QUEUES + 1
+    wrong = []
+    if qf.get("flavor") != "device" or qf.get("engaged") is not True:
+        wrong.append("the ladder did not engage on the device flavor")
+    if qf.get("converged_at", -1) < 0:
+        wrong.append("the water-fill did not converge")
+    if qf.get("rungs") != rungs or qf.get("classes") != LADDER_QUEUES:
+        wrong.append(f"not {rungs} rungs and {LADDER_QUEUES} classes")
+    if not 0 < binds == qf.get("ladder_lookups") == evidence.get("placed"):
+        wrong.append("the lookups are not the placements")
+    if launches["qfair_solve"] != 1:
+        wrong.append("qfair_solve did not run once")
+    if wrong:
+        raise SystemExit(f"the ladder flagship: {'; '.join(wrong)}: {qf}, {launches}")
     return launches
 
 
@@ -1500,20 +1830,21 @@ def phase_main_path_default_tiers(cache, conf_path, n_nodes, n_pods):
     """BASELINE config 2 under the JAX default conf's plugin tiers
     (conformance and proportion join): one queue, but the mega kernel runs
     in multi-queue mode with static rows.  Checks as config 2's; the binds
-    are held to the host loop's later (``HostLoopTwin``).  Returns (launches,
+    are held to the host loop's later (``check_host_loop``).  Returns (launches,
     binds)."""
     rec, launches = run_cycle(cache, conf_path)
     binds, most = check_config2_binds(cache)
     chain = rec["cohort"].get("queue_chain") or {}
     emit({"phase": "main_path", "config": "config2_default_tiers", "nodes": n_nodes,
           "pods": n_pods, "binds": binds, "most_pods_on_a_node": most,
-          "queue_chain": chain, **rec})
+          "queue_chain": chain, "qfair": rec["cohort"].get("qfair"), **rec})
     if launches["static_predicate_mask"] < 1:
         raise SystemExit("the default-tiers main path did not launch static_predicate_mask")
     if binds < 1:
         raise SystemExit("config 2 under the default tiers bound nothing")
     if chain.get("queues") != 1 or not chain.get("delta_updates"):
         raise SystemExit(f"the default-tiers main path did not run the queue chain: {chain}")
+    check_declined_qfair(rec["cohort"].get("qfair"), launches, "the default tiers")
     return launches, dict(cache.binder.binds)
 
 
@@ -1537,17 +1868,16 @@ def run_child(out_dir, child, opts):
         return json.load(f)
 
 
-class HostLoopTwin:
-    """The port's host loop on a twin of a config-2 cluster under the
-    default tiers, in a child process of this script on the CPU (at full
-    size it takes minutes of one core, so it runs beside the kernel phases
-    that follow the main paths); ``check`` waits for it and holds the main
-    path's binds to its own."""
+class BackgroundChild:
+    """Child process ``child`` of this script (see ``--child``), started now
+    and running beside the phases that follow; ``result`` waits for it and
+    returns what it wrote."""
 
-    def __init__(self, out_dir, opts):
-        self.path = os.path.join(out_dir, "host_loop_binds.json")
+    def __init__(self, out_dir, child, opts):
+        self.child = child
+        self.path = os.path.join(out_dir, f"{child}.json")
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(child_argv("host_loop", self.path, opts))
+        self.proc = subprocess.Popen(child_argv(child, self.path, opts))
 
     def stop(self):
         """End the child process if it still runs (a phase failed first)."""
@@ -1555,34 +1885,42 @@ class HostLoopTwin:
             self.proc.kill()
             self.proc.wait()
 
-    def check(self, binds):
+    def result(self):
         rc = self.proc.wait()
         if rc != 0:
-            raise SystemExit(f"the host loop's process failed: rc {rc}")
+            raise SystemExit(f"the {self.child} process failed: rc {rc}")
         with open(self.path) as f:
-            host = json.load(f)
-        equal = binds == host
-        emit({"phase": "host_loop_parity", "config": "config2_default_tiers",
-              "binds": len(binds), "host_loop_binds": len(host), "equal_to_host_loop": equal,
-              "wall_s": time.perf_counter() - self.t0})
-        if not equal:
-            raise SystemExit("config 2 under the default tiers: binds differ from the host loop's")
+            return json.load(f)
+
+
+def check_host_loop(twin, binds):
+    """The port's host loop on a twin of a config-2 cluster under the
+    default tiers (``twin``: the ``host_loop`` child, on the CPU; at full
+    size it takes minutes of one core, so it runs beside the kernel phases
+    that follow the main paths): the main path's binds must be its own."""
+    host = twin.result()
+    equal = binds == host
+    emit({"phase": "host_loop_parity", "config": "config2_default_tiers",
+          "binds": len(binds), "host_loop_binds": len(host), "equal_to_host_loop": equal,
+          "wall_s": time.perf_counter() - twin.t0})
+    if not equal:
+        raise SystemExit("config 2 under the default tiers: binds differ from the host loop's")
 
 
 def child_main(child, path, opts) -> int:
     """``--child``: ``host_loop`` writes the host loop's binds on a config-2
-    cluster under the default tiers (for ``HostLoopTwin``); each other child
-    is one main path's cold cycle in a process of its own, after one
+    cluster under the default tiers (for ``check_host_loop``);
+    ``mq_ladder_plain`` writes ``phase_ladder_plain``'s record; each other
+    child is one main path's cold cycle in a process of its own, after one
     config-1 cycle that warms the card, the kernel library and PyTorch up.
-    ``Scheduler.run_once`` collects garbage at the head of every cycle, and
-    a cluster this script drops is never freed (a job's task rows and its
-    tasks refer to each other through a numpy object array, which the
-    cycle collector does not walk): in a process of its own the phase walks
-    the path's cluster alone.  It writes the path's launch counts (and the
-    default tiers' binds)."""
+    ``Scheduler.run_once`` collects garbage at the head of every cycle: in
+    a process of its own the phase walks the path's cluster alone, whatever
+    the script built before.  It writes the path's launch counts (and the
+    default tiers' binds, or the ladder flagship's water-fill check)."""
     from scheduler_tpu_torch.harness import (
         make_gpu_topology_cluster,
         make_kubemark_density_cluster,
+        make_mq_ladder_cluster,
         make_synthetic_cluster,
     )
 
@@ -1593,13 +1931,22 @@ def child_main(child, path, opts) -> int:
         with open(path, "w") as f:
             json.dump(binds, f)
         return 0
+    if child == "mq_ladder_plain":
+        import torch
+
+        cache = make_mq_ladder_cluster(LADDER_NODES, LADDER_PODS, LADDER_QUEUES,
+                                       LADDER_VOCAB).cache
+        rec = phase_ladder_plain(cache, torch.device("cuda"))
+        with open(path, "w") as f:
+            json.dump(rec, f)
+        return 0
     conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
     with open(conf_path, "w") as f:
         f.write(CONFIG1_CONF)
     run_cycle(config1_cluster(), conf_path)
     gc.collect()
     conf = {"config3_multi_queue": MULTIQ_CONF, "config5": CONFIG2_CONF,
-            "config2_default_tiers": DEFAULT_TIERS_CONF}[child]
+            "config2_default_tiers": DEFAULT_TIERS_CONF, "mq_ladder": MULTIQ_CONF}[child]
     with open(conf_path, "w") as f:
         f.write(conf)  # config 5's plugins are config 2's
     t0 = time.perf_counter()
@@ -1610,6 +1957,10 @@ def child_main(child, path, opts) -> int:
     elif child == "config5":
         cache = make_gpu_topology_cluster(CONFIG5_NODES, CONFIG5_GANGS).cache
         nodes, pods = CONFIG5_NODES, 8 * CONFIG5_GANGS
+    elif child == "mq_ladder":
+        cache = make_mq_ladder_cluster(LADDER_NODES, LADDER_PODS, LADDER_QUEUES,
+                                       LADDER_VOCAB).cache
+        nodes, pods = LADDER_NODES, LADDER_PODS
     else:
         cache = make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache
         nodes, pods = opts.config2_nodes, opts.config2_pods
@@ -1621,6 +1972,17 @@ def child_main(child, path, opts) -> int:
                                                       opts.tasks_per_job)
     elif child == "config5":
         out["launches"] = phase_main_path_config5(cache, conf_path, nodes, CONFIG5_GANGS)
+    elif child == "mq_ladder":
+        out["launches"] = phase_main_path_ladder(cache, conf_path)
+        # The main path's cluster after its cycle: proportion's device
+        # water-fill against the host's, on a session of its own (on the
+        # card: the device None).
+        from scheduler_tpu_torch.conf import parse_scheduler_conf
+        from scheduler_tpu_torch.framework import close_session, open_session
+
+        ssn = open_session(cache, parse_scheduler_conf(MULTIQ_CONF).tiers)
+        out["solve"] = device_vs_host_solve(ssn)
+        close_session(ssn)
     else:
         out["launches"], out["binds"] = phase_main_path_default_tiers(cache, conf_path, nodes,
                                                                       pods)
@@ -1630,7 +1992,12 @@ def child_main(child, path, opts) -> int:
 
 
 def phase_kernel_cases(device):
-    from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
+    """mega_allocate against its plain version on every small case."""
+    from scheduler_tpu_torch.harness import (
+        make_kubemark_density_cluster,
+        make_mq_ladder_cluster,
+        make_synthetic_cluster,
+    )
     from scheduler_tpu_torch.interop import mega_operands_from_numpy
     from scheduler_tpu_torch.ops import megakernel as mk
 
@@ -1674,6 +2041,23 @@ def phase_kernel_cases(device):
     for cohort in (1, 4):
         compare(f"mq_starvation_cohort_{cohort}", eng._mega_args,
                 dict(eng._mega_kw, cohort=cohort), eng.st.nodes.count, len(eng.queue_uids))
+    # The full-recompute queue chain on the same session.
+    compare("mq_starvation_full_recompute", eng._mega_args,
+            dict(eng._mega_kw, queue_delta=False), eng.st.nodes.count, len(eng.queue_uids))
+    # The qfair ladder: synthetic operands in both instantiations, and the
+    # ladder flagship's shape at the size its plain version runs in seconds
+    # (also on the full-recompute chain).
+    for case, spec in MEGA_SYNTHETIC_LADDER.items():
+        args, kw = mega_operands_from_numpy(*ladder_operands(**spec), device)
+        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"], spec["queues"])
+    _, eng = engine_for(make_mq_ladder_cluster(*LADDER_SMALL).cache, MULTIQ_CONF, device)
+    if not eng._mega_kw["qfair_ladder"]:
+        raise SystemExit(f"the small ladder session declined the ladder: {eng.qfair_reason}")
+    case = "ladder_{}_x_{}_{}q".format(*LADDER_SMALL)
+    compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count, len(eng.queue_uids))
+    compare(case + "_full_recompute", eng._mega_args, dict(eng._mega_kw, qfair_ladder=False,
+                                                           queue_delta=False),
+            eng.st.nodes.count, len(eng.queue_uids))
 
     # Static-row mode on small sessions, at one and four cohort chunks.
     for case, cache_fn, conf in (
@@ -1689,6 +2073,43 @@ def phase_kernel_cases(device):
         for cohort in (1, 4):
             compare(f"{case}_cohort_{cohort}", eng._mega_args,
                     dict(eng._mega_kw, cohort=cohort), eng.st.nodes.count)
+
+
+def phase_ladder_full_size(cache, device):
+    """The ladder flagship's operands, from a second cluster built as the
+    main path's: K2 in ladder mode against the delta chain (equal codes;
+    each timed), then proportion's water-fill of that session on the card
+    against its plain version (timed) and against the host water-fill
+    (bitwise, and the host's time)."""
+    t0 = time.perf_counter()
+    ssn, eng = engine_for(cache, MULTIQ_CONF, device)
+    init_s = time.perf_counter() - t0
+    if not eng._mega_kw["qfair_ladder"]:
+        raise SystemExit(f"the ladder flagship declined the ladder: {eng.qfair_reason}")
+    case = "mq_ladder_main_path_operands"
+    recs = compare_chains(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count,
+                          len(eng.queue_uids))
+    ops = proportion_solve_operands(ssn, device)
+    solve = compare_qfair(case, ops, int(ops[1].shape[0]) + 4, timed=True)
+    host = device_vs_host_solve(ssn)
+    solve["host_solve_ms"] = host["host_solve_ms"]
+    solve["device_solve_ms"] = host["device_solve_ms"]
+    emit({"phase": "full_size", "case": case, "engine_init_s": init_s,
+          "plan": recs["ladder"]["plan"], "qfair": eng.run_stats()["qfair"]})
+    return recs, solve
+
+
+def phase_ladder_plain(cache, device):
+    """K2 in ladder mode against its plain version on the ladder flagship's
+    operands (``cache``: a cluster built as the main path's): codes and
+    stats bitwise, and the plain version's time.  Its 100,001 steps take
+    the plain version minutes of the host, so the script runs this in a
+    child process beside its untimed phases."""
+    _, eng = engine_for(cache, MULTIQ_CONF, device)
+    if not eng._mega_kw["qfair_ladder"]:
+        raise SystemExit(f"the ladder flagship declined the ladder: {eng.qfair_reason}")
+    return compare("mq_ladder_main_path_operands", eng._mega_args, eng._mega_kw,
+                   eng.st.nodes.count, len(eng.queue_uids))
 
 
 def phase_full_size(cache, conf_text, device, case):
@@ -1730,6 +2151,7 @@ def phase_e2e_small(conf_path):
     from scheduler_tpu_torch.harness import (
         make_gpu_topology_cluster,
         make_kubemark_density_cluster,
+        make_mq_ladder_cluster,
         make_synthetic_cluster,
     )
     from scheduler_tpu_torch.scheduler import Scheduler
@@ -1757,6 +2179,9 @@ def phase_e2e_small(conf_path):
          DEFAULT_TIERS_CONF, "mega"),
         ("config5_75_x_50", lambda: make_gpu_topology_cluster(75, 50).cache, CONFIG2_CONF,
          "mega"),
+        # The ladder flagship's shape: 12 queues of 100 single-pod jobs.
+        ("mq_ladder_64_x_1200", lambda: make_mq_ladder_cluster(64, 1200, 12, 6).cache,
+         MULTIQ_CONF, "mega"),
     )
     for name, build, conf_text, engine in cases:
         with open(conf_path, "w") as f:
@@ -1817,6 +2242,39 @@ def mega_entry(mode, launches, rec, path=None):
             "bound_by": rec["bound_by"], "library_ms": None}
 
 
+def ladder_entry(launches, recs, plain):
+    """K2's entry of the kernels line for the qfair ladder on the ladder
+    flagship: its time on the main path's operands (and the delta chain's
+    on the same operands), and its plain version's error and time on those
+    operands (``plain``: ``compare``'s record)."""
+    lad, delta = recs["ladder"], recs["delta"]
+    if plain["mode"] != lad["mode"] or plain["stats"] != lad["stats"]:
+        raise SystemExit(f"the ladder's records differ: {lad['mode']} {lad['stats']}, "
+                         f"{plain['mode']} {plain['stats']}")
+    entry = mega_entry("multi_queue_ladder", launches,
+                       dict(lad, max_abs_err=plain["max_abs_err"], plain_ms=plain["plain_ms"]),
+                       "mq_ladder")
+    entry.update(delta_chain_ms=delta["ms"], delta_chain_us_per_step=delta["us_per_step"])
+    return entry
+
+
+def qfair_entry(launches_by_path, solve, worst):
+    """qfair_solve's entry of the kernels line: timed on the ladder
+    flagship's water-fill (100 queues), beside the host water-fill's time
+    on the same queue attributes."""
+    return {"name": "qfair_solve", "route": "cuda",
+            "source": "scheduler_tpu_torch/csrc/qfair_solve.cu",
+            "replaces": "scheduler_tpu/ops/qfair.py:93",
+            "launches": launches_by_path["mq_ladder"],
+            "launches_by_path": launches_by_path,
+            "max_abs_err": max(worst, solve["max_abs_err"]), "queues": solve["queues"],
+            "dims": solve["dims"], "ms": solve["ms"], "device_ms": solve["device_ms"],
+            "event_ms": solve["event_ms"], "plain_ms": solve["plain_ms"],
+            "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"], "library_ms": None,
+            "host_solve_ms": solve["host_solve_ms"],
+            "device_solve_ms": solve["device_solve_ms"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--nodes", type=int, default=10_000)
@@ -1827,7 +2285,8 @@ def main() -> int:
     parser.add_argument("--template-jobs", type=int, default=5000)
     parser.add_argument("--template-tasks", type=int, default=20)
     parser.add_argument("--child", choices=("host_loop", "config3_multi_queue", "config5",
-                                            "config2_default_tiers"),
+                                            "config2_default_tiers", "mq_ladder",
+                                            "mq_ladder_plain"),
                         help="run only this child process of the script (child_main) and "
                              "write its result to --out")
     parser.add_argument("--out", metavar="PATH")
@@ -1853,6 +2312,7 @@ def main() -> int:
     from scheduler_tpu_torch.harness import (
         make_gpu_topology_cluster,
         make_kubemark_density_cluster,
+        make_mq_ladder_cluster,
         make_synthetic_cluster,
     )
 
@@ -1906,6 +2366,13 @@ def main() -> int:
             lambda: make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache,
             opts.config2_nodes, opts.config2_pods)
 
+    def ladder_cluster():
+        return timed_build(
+            "mq_ladder",
+            lambda: make_mq_ladder_cluster(LADDER_NODES, LADDER_PODS, LADDER_QUEUES,
+                                           LADDER_VOCAB).cache,
+            LADDER_NODES, LADDER_PODS)
+
     def templates_cluster():
         return timed_build(
             "config3_templates",
@@ -1933,8 +2400,10 @@ def main() -> int:
     config5_launches = run_child(out_dir, "config5", opts)["launches"]
     tiers = run_child(out_dir, "config2_default_tiers", opts)
     tiers_launches, tiers_binds = tiers["launches"], tiers["binds"]
+    ladder_launches = run_child(out_dir, "mq_ladder", opts)["launches"]
     # After the timed cycles: the host loop's twin, beside the kernel phases.
-    host_twin = HostLoopTwin(out_dir, opts)
+    host_twin = BackgroundChild(out_dir, "host_loop", opts)
+    ladder_plain = None
 
     try:
         # The same operands again, from second clusters built the same way (K2
@@ -1952,17 +2421,26 @@ def main() -> int:
         tiers_full, _ = phase_full_size(default_tiers_cluster(), DEFAULT_TIERS_CONF, device,
                                         "config2_default_tiers_main_path_operands")
         gc.collect()
+        ladder_recs, ladder_solve = phase_ladder_full_size(ladder_cluster(), device)
+        gc.collect()
+        qfair_err = phase_qfair_cases(device)
         pred_main, pred_wide, pred_err = phase_predicate_cases(eng2.st, device)
         eng3, parity = phase_loop_parity(templates_cluster(), device, check_every=200)
         step_recs = phase_step_kernel_cases(eng3, eng2, device)
         del eng2, eng3
         gc.collect()
+        # After the last timed phase: K2's plain version on the ladder
+        # flagship's operands, beside the untimed phases.
+        ladder_plain = BackgroundChild(out_dir, "mq_ladder_plain", opts)
         phase_kernel_cases(device)
         gc.collect()
         phase_e2e_small(conf_path)
-        host_twin.check(tiers_binds)
+        check_host_loop(host_twin, tiers_binds)
+        ladder_plain_rec = ladder_plain.result()
     finally:
         host_twin.stop()
+        if ladder_plain is not None:
+            ladder_plain.stop()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     emit({"kernels": [
@@ -1973,6 +2451,11 @@ def main() -> int:
                    "config3_multi_queue"),
         mega_entry("multi_queue_static", tiers_launches["mega_allocate"], tiers_full,
                    "config2_default_tiers"),
+        ladder_entry(ladder_launches["mega_allocate"], ladder_recs, ladder_plain_rec),
+        qfair_entry({"mq_ladder": ladder_launches["qfair_solve"],
+                     "config3_multi_queue": mq_launches["qfair_solve"],
+                     "config2_default_tiers": tiers_launches["qfair_solve"]},
+                    ladder_solve, qfair_err),
         {"name": "static_predicate_mask", "route": "cuda",
          "source": "scheduler_tpu_torch/csrc/static_predicate_mask.cu",
          "replaces": "scheduler_tpu/ops/pallas_kernels.py:292",

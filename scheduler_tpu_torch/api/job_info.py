@@ -24,6 +24,7 @@ eager object implementation would hold.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -109,6 +110,7 @@ class TaskInfo:
         "_status",
         "_node_name",
         "_volume_ready",
+        "__weakref__",
     )
 
     def __init__(self, pod: PodSpec, vocab: ResourceVocabulary) -> None:
@@ -330,6 +332,7 @@ class _TaskRows:
         "status_gen",
         "dead",
         "r_dim",
+        "owner",
     )
 
     def __init__(self, r_dim: int) -> None:
@@ -378,6 +381,16 @@ class _TaskRows:
         self.status_gen = 0
         self.dead = 0
         self.r_dim = r_dim
+        self.owner = None
+
+    def release(self, _owner=None) -> None:
+        """Let go of the tasks once the owning job is freed.  The tasks
+        bound to this block refer back to it (``TaskInfo._blk``) and the
+        object array that holds them is invisible to the cycle collector,
+        so without this the cycle would never be freed.  The other columns
+        stay: a task still held elsewhere keeps reading its final state."""
+        self.cores = None
+        self.owner = None
 
     # -- growth ---------------------------------------------------------------
 
@@ -483,6 +496,7 @@ class _TaskRows:
         blk.status_gen = self.status_gen
         blk.dead = self.dead
         blk.r_dim = self.r_dim
+        blk.owner = None
         return blk
 
     # -- request signatures ----------------------------------------------------
@@ -623,6 +637,9 @@ class JobInfo:
         self.pod_group: Optional[PodGroup] = None
 
         self._store = _TaskRows(vocab.size)
+        # The job's teardown: when it is freed, its block releases its tasks
+        # (``_TaskRows.release``; clones share the tasks but own nothing).
+        self._store.owner = weakref.ref(self, self._store.release)
         self._views: Optional[Dict[str, TaskInfo]] = None
         self._index: Optional[Dict[TaskStatus, Dict[str, TaskInfo]]] = None
         self._counts: Dict[int, int] = {}

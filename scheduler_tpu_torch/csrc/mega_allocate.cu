@@ -6,10 +6,15 @@
 // MQ>.  USE_STATIC: a task's static-signature mask row is ANDed into the fit
 // and its score row added after the dynamic score terms.  MQ = false is
 // CURSOR MODE (one queue, jobs in init-key order, a job taken by the cursor
-// while none is dirty); MQ = true is MULTI-QUEUE MODE with the delta chain
-// (proportion's queue order and overused gate: at each pop the least-share
-// queue not overused, then the job chain within it; each placement grows
-// its queue's allocated and re-derives that queue's share and flag).  The
+// while none is dirty); MQ = true is MULTI-QUEUE MODE (proportion's queue
+// order and overused gate: at each pop the least-share queue not overused,
+// then the job chain within it), in one of three queue chains chosen at run
+// time: the delta chain (each placement grows its queue's allocated and
+// re-derives that queue's share and flag), the full-recompute chain
+// (queue_delta = 0: every queue's share and flag re-derived at each pop)
+// and the qfair ladder (qfair_ladder: each placement counts one more for its
+// queue and reads the queue's share and flag from the rung tables at that
+// count).  All three give the same values bit for bit.  The
 // plain PyTorch version of the same function is
 // scheduler_tpu_torch/ops/megakernel.py::mega_allocate_reference; the two
 // must agree bit for bit on codes and stats.
@@ -77,11 +82,21 @@
 //   static rows.  What does not fit is read from global memory; a job
 //   ledger that does not fit is one copy a CTA in global scratch
 //   ([C, 3 + r_dim, j_pad]).
-// * A job pop is one pass over the job lanes and one block reduction: each
-//   lane's key packs the reference's selection order (in multi-queue mode
-//   the queue's share and index, then every comparator's key, the
-//   creation/uid rank and the lane) into four 64-bit words, and the least
-//   key wins.  The reference's filters, field by field, keep that minimum.
+// * A job pop selects the least key: each lane's key packs the reference's
+//   selection order (in multi-queue mode the queue's share and index, then
+//   every comparator's key, the creation/uid rank and the lane) into four
+//   64-bit words.  The reference's filters, field by field, keep that
+//   minimum.  In cursor mode a pop is one pass over the lanes up to the
+//   cursor and one block reduction.  In multi-queue mode the queue index
+//   in the key is unique to a queue, so the least key is the best job of
+//   the queue of least (share, index): every queue's best job (the key
+//   below the queue pop) sits in the queue ledger, a pop rescans only the
+//   queue whose job was placed since the last pop (a lane's key changes
+//   only when its job is placed; rank 0 sorts the lanes by queue at the
+//   start, into global scratch), and one warp takes the minimum over the
+//   queues.  On an H100 a pass over every job lane a pop took 577 us of a
+//   589 us step at the qfair ladder flagship (131,200 lanes, the job
+//   ledger in global memory; scripts/k2_phases.py), the rescan 9.6 of 14.1.
 // * Multi-queue mode keeps its queue ledger per queue, not per job lane as
 //   the JAX kernel does (Mosaic cannot gather by a dynamic lane): every CTA
 //   holds each queue's deserved and allocated rows, share and overused flag
@@ -89,6 +104,14 @@
 //   a lane's queue through its index.  The reference's masked add x +
 //   (req m) 1.0 on the queue's lanes is the per-queue add, and the refresh
 //   folds the same values in the same order, so the bits are the same.
+// * The qfair ladder (the ops/qfair.py rung tables qf_share / qf_over,
+//   [qf_rows][128], rung on the rows and queue index on the columns, up to
+//   1 MB: global memory) keeps a placement count a queue beside the ledger.
+//   A placement reads its queue's share and flag at the new count straight
+//   from the tables (two 4-byte loads by warp 3, in the ledger updates).
+//   A failed placement leaves the count, so the reference's rewrite of the
+//   same rung changes nothing, and rung 0 is the value derived at open, as
+//   in the reference.
 //
 // Bitwise parity with the float32 reference rests on: no FMA contraction
 // (built with --fmad=false), IEEE division (-prec-div=true, the default),
@@ -101,8 +124,8 @@
 // virtual entry for the first uncovered node and min(second, best).
 //
 // Registers (-Xptxas -v, sm_90a, __launch_bounds__(THREADS, 1)): cursor
-// mode 114 a thread, static-row mode 118, multi-queue 110, multi-queue with
-// static rows 110; no stack, no spills; 3,504 bytes of static shared memory.
+// mode 114 a thread, static-row mode 118, multi-queue 114, multi-queue with
+// static rows 118; no stack, no spills; 3,504 bytes of static shared memory.
 // scripts/k2_phases.py builds it with -DMEGA_PHASE_CLOCKS to time each
 // phase of the loop.
 //
@@ -207,6 +230,9 @@ struct MegaArgs {
   const int* jqueue;      // [j_pad] queue index (= queue rank) of each job (multi_queue)
   const float* jq_des;    // [8, j_pad] deserved of each job's queue (multi_queue)
   const float* jq_alloc0; // [8, j_pad] allocated of each job's queue at open (multi_queue)
+  const float* qf_share;  // [qf_rows, 128] share at each placement count (qfair_ladder)
+  const float* qf_over;   // [qf_rows, 128] overused at each count, 1.0 / 0.0 (qfair_ladder)
+  int* qlanes;            // [j_pad] scratch: the job lanes by queue (multi_queue)
   int* out;               // [(t_rows + 1) * 128] result codes
   int* stats;             // [8] evidence counters
   float* js_global;       // [C, 3 + r_dim, j_pad] job ledgers where the plan keeps them off chip
@@ -215,6 +241,7 @@ struct MegaArgs {
   int enforce_pod_count, cross_batch, batch_runs, score_bound, cohort, n_comp;
   int use_static, static_rows;
   int multi_queue, queue_proportion, overused_gate, n_queues;
+  int queue_delta, qfair_ladder, qf_rows;
   // The launch plan (ops/megakernel.py::mega_plan): CTAs, node capacity of
   // a CTA's slice, dynamic shared memory, and each region's byte offset in
   // it (-1: the region stays in global memory).
@@ -400,12 +427,20 @@ __device__ __forceinline__ bool job_eligible(const Jobs& jo, const float* js, in
 }
 
 // A CTA's queue ledger in shared memory (multi-queue mode): per queue its
-// deserved and live allocated (r_dim floats each), share and overused flag.
+// deserved and live allocated (r_dim floats each), share and overused flag,
+// and its placement count (qfair_ladder).
 struct Queues {
-  float* des;    // [n_queues][r_dim]
-  float* alloc;  // [n_queues][r_dim]
-  float* share;  // [n_queues]
-  float* over;   // [n_queues], 1.0 = overused
+  unsigned long long* best1;  // [n_queues] the queue's best job's key words 1..3
+  unsigned long long* best2;  // (lane_key; best3 ~0: the queue has no job left)
+  unsigned long long* best3;
+  float* des;     // [n_queues][r_dim]
+  float* alloc;   // [n_queues][r_dim]
+  float* share;   // [n_queues]
+  float* over;    // [n_queues], 1.0 = overused
+  int* count;     // [n_queues] placements so far (qfair_ladder)
+  int* qoff;      // [n_queues + 1] queue q's lanes: lanes[qoff[q] .. qoff[q + 1])
+  int* qcur;      // [n_queues] scratch of the lanes' sort
+  int* lanes;     // [j_pad] (global) the real job lanes, grouped by queue
 };
 
 // Proportion's share and overused flag of one queue, in the reference's
@@ -488,41 +523,85 @@ __device__ JobKey block_min_key(JobKey k, KeyReduce* kr) {
   return kr->out;
 }
 
-// The job to pop: over the eligible lanes at or before the cursor, or, in
-// multi-queue mode, the eligible lanes of the queues that are not overused,
-// the least key.  HALT when none is left.  Every CTA runs it on its own
-// copy of the job ledger, with CTA barriers only.
-template <bool MQ>
-__device__ int job_select(const MegaArgs& a, const Jobs& jo, const float* js, const Queues& qs,
-                          int cursor, KeyReduce* kr) {
+// Lane l's selection key below the queue pop: every comparator's key in the
+// conf's order, the creation/uid rank and the lane (words 1 to 3 of the
+// JobKey; word 0, the queue pop's, is left 0).
+__device__ __forceinline__ JobKey lane_key(const MegaArgs& a, const Jobs& jo, const float* js,
+                                           int l) {
   const int jp = a.j_pad;
-  const int last = MQ ? jp - 1 : min(cursor, jp - 1);
+  uint32_t c[3] = {0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (i >= a.n_comp) break;
+    const int comp = a.comp[i];
+    c[i] = comp == COMP_PRIORITY ? ord_i(key_priority(jo, l))
+           : comp == COMP_GANG   ? ord_i(key_gang(jo, js, jp, l))
+                                 : ord_f(key_drf(a, js, l));
+  }
+  return {{0ull, ((unsigned long long)c[0] << 32) | c[1],
+           ((unsigned long long)c[2] << 32) | ord_i(jo.tb[l]), (unsigned long long)l}};
+}
+
+// Cursor mode's job to pop: over the eligible lanes at or before the
+// cursor, the least key.  HALT when none is left.  Every CTA runs it on its
+// own copy of the job ledger, with CTA barriers only.
+__device__ int job_select(const MegaArgs& a, const Jobs& jo, const float* js, int cursor,
+                          KeyReduce* kr) {
+  const int jp = a.j_pad;
+  const int last = min(cursor, jp - 1);
   JobKey best = key_none();
   for (int l = threadIdx.x; l <= last; l += THREADS) {
     if (!job_eligible(jo, js, jp, l)) continue;
-    unsigned long long head = 0;
-    if (MQ) {
-      const int q = jo.q[l];
-      if (a.overused_gate && qs.over[q] >= 0.5f) continue;
-      head = ((unsigned long long)(a.queue_proportion ? ord_f(qs.share[q]) : 0u) << 32) |
-             (uint32_t)q;
-    }
-    uint32_t c[3] = {0u, 0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      if (i >= a.n_comp) break;
-      const int comp = a.comp[i];
-      c[i] = comp == COMP_PRIORITY ? ord_i(key_priority(jo, l))
-             : comp == COMP_GANG   ? ord_i(key_gang(jo, js, jp, l))
-                                   : ord_f(key_drf(a, js, l));
-    }
-    const JobKey k = {{head, ((unsigned long long)c[0] << 32) | c[1],
-                       ((unsigned long long)c[2] << 32) | ord_i(jo.tb[l]),
-                       (unsigned long long)l}};
+    const JobKey k = lane_key(a, jo, js, l);
     if (key_less(k, best)) best = k;
   }
   best = block_min_key(best, kr);
   return best.w[3] == ~0ull ? HALT : (int)best.w[3];
+}
+
+// Multi-queue mode, queue q's best job: over the queue's eligible lanes
+// (lanes[qoff[q] .. qoff[q + 1])), the least key below the queue pop, into
+// the queue ledger (~0: none).  A lane's key and eligibility change only
+// when its job is placed, so a pop rescans the queue of the job placed
+// since the one before (all queues before the first pop).
+__device__ void queue_rescan(const MegaArgs& a, const Jobs& jo, const float* js,
+                             const Queues& qs, int q, KeyReduce* kr) {
+  JobKey best = key_none();
+  for (int i = qs.qoff[q] + threadIdx.x; i < qs.qoff[q + 1]; i += THREADS) {
+    const int l = qs.lanes[i];
+    if (!job_eligible(jo, js, a.j_pad, l)) continue;
+    const JobKey k = lane_key(a, jo, js, l);
+    if (key_less(k, best)) best = k;
+  }
+  best = block_min_key(best, kr);
+  if (threadIdx.x == 0) {
+    qs.best1[q] = best.w[1];
+    qs.best2[q] = best.w[2];
+    qs.best3[q] = best.w[3];
+  }
+}
+
+// Multi-queue mode's pop: the reference selects the least key over the
+// eligible lanes of the queues that are not overused, the queue's share and
+// index leading.  That index is unique to a queue, so the least key is the
+// best job of the queue with the least (share, index) among those that
+// have one: warp 0 takes that minimum over the queues.  HALT when no queue
+// has a job left.
+__device__ int queue_select(const MegaArgs& a, const Queues& qs, int* sh_sel) {
+  if (threadIdx.x < 32) {
+    unsigned long long best = ~0ull;
+    for (int q = threadIdx.x; q < a.n_queues; q += 32) {
+      if (qs.best3[q] == ~0ull || (a.overused_gate && qs.over[q] >= 0.5f)) continue;
+      const uint32_t share = a.queue_proportion ? ord_f(qs.share[q]) : 0u;
+      const unsigned long long head = ((unsigned long long)share << 32) | (uint32_t)q;
+      best = min(best, head);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      best = min(best, __shfl_xor_sync(0xffffffffu, best, off));
+    if (threadIdx.x == 0) *sh_sel = best == ~0ull ? HALT : (int)qs.best3[(uint32_t)best];
+  }
+  __syncthreads();
+  return *sh_sel;
 }
 
 // A CTA's node slice in shared memory.
@@ -602,6 +681,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   __shared__ Reduce red;
   __shared__ KeyReduce kred;
   __shared__ int sh_res[3];  // the chunk's winner, whether it placed, batch size
+  __shared__ int sh_sel;     // multi-queue mode's pop
   __shared__ int grid_bad[GRID_WARPS];  // first k the score bound refuses, a warp
   __shared__ unsigned grid_ok[GRID_WARPS];  // k that fit and are <= hi0, a bit each
 
@@ -688,10 +768,16 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   // ledger is sized by the caller's queue count, and nothing else bounds it.
   Queues qs = {};
   if (MQ) {
-    float* t = reinterpret_cast<float*>(smem + a.off_queue);
     const int nq = a.n_queues;
-    qs = {t, t + nq * r_dim, t + 2 * nq * r_dim, t + 2 * nq * r_dim + nq};
-    for (int x = tid; x < (2 * r_dim + 2) * nq; x += THREADS) t[x] = 0.0f;
+    unsigned long long* best = reinterpret_cast<unsigned long long*>(smem + a.off_queue);
+    float* t = reinterpret_cast<float*>(best + 3 * nq);
+    float* tail = t + (2 * r_dim + 2) * nq;
+    int* qoff = reinterpret_cast<int*>(tail + nq);
+    qs = {best, best + nq, best + 2 * nq, t, t + nq * r_dim, t + 2 * nq * r_dim,
+          t + 2 * nq * r_dim + nq, reinterpret_cast<int*>(tail), qoff, qoff + nq + 1, a.qlanes};
+    // Zeroes the rows, the overused flags and the placement counts.
+    for (int x = tid; x < (2 * r_dim + 3) * nq; x += THREADS) t[x] = 0.0f;
+    for (int q = tid; q <= nq; q += THREADS) qs.qoff[q] = 0;
     __syncthreads();
     for (int l = tid; l < jp; l += THREADS) {
       if (a.job_num[l] <= 0) continue;
@@ -701,12 +787,42 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
         qs.des[q * r_dim + r] = a.jq_des[r * jp + l];
         qs.alloc[q * r_dim + r] = a.jq_alloc0[r * jp + l];
       }
+      atomicAdd(qs.qoff + q + 1, 1);
     }
     __syncthreads();
+    // The lanes by queue: every CTA sums the counts (each queue's offset),
+    // and warp 0 of rank 0 writes the real lanes in ascending order into
+    // their queues' slots of the one list that all CTAs read after the
+    // cluster barrier below, 32 lanes a round (the lanes of a round that
+    // share a queue take consecutive slots, by their rank among them).
+    if (tid == 0)
+      for (int q = 0; q < nq; ++q) qs.qoff[q + 1] += qs.qoff[q];
+    __syncthreads();
+    if (rank == 0 && warp == 0) {
+      for (int q = lane; q < nq; q += 32) qs.qcur[q] = qs.qoff[q];
+      __syncwarp();
+      for (int base = 0; base < jp; base += 32) {
+        const int l = base + lane;
+        const int q = (l < jp && a.job_num[l] > 0) ? a.jqueue[l] : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, q);
+        const int slot = q >= 0 ? qs.qcur[q] + __popc(peers & ((1u << lane) - 1u)) : 0;
+        __syncwarp();
+        if (q >= 0) {
+          qs.lanes[slot] = l;
+          if (lane == 31 - __clz(peers)) qs.qcur[q] += __popc(peers);
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    // Rung 0 of the ladder is the value derived here.
     for (int q = tid; q < nq; q += THREADS)
       share_overused(qs.des + q * r_dim, qs.alloc + q * r_dim, r_dim, a.mins, qs.share + q,
                      qs.over + q);
   }
+  // The full-recompute queue chain re-derives every queue's share and flag
+  // at each pop.
+  const bool full_chain = MQ && !a.queue_delta && (a.queue_proportion || a.overused_gate);
   // Static rows, indexed by the CTA's local node index.
   const float* smask_tab = nullptr;
   const float* sscore_tab = nullptr;
@@ -749,8 +865,11 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   }
   __syncthreads();
   cluster.sync();  // every CTA's mbarriers are set before any push
+  if (MQ)  // every queue's best job before the first pop (rank 0's list is in)
+    for (int q = 0; q < a.n_queues; ++q) queue_rescan(a, jo, js, qs, q, &kred);
 
   int cur = -1, cursor = 0, n_dirty = 0, steps = 0, coh_steps = 0, chunk_pl = 0, qd_evt = 0;
+  int dirty_q = -1;  // multi-queue mode: the queue of the job placed since the last pop
   int parity = 0;
   unsigned chunk_no = 0;  // chunks so far: parity = chunk_no & 1
 #ifdef MEGA_PHASE_CLOCKS
@@ -768,9 +887,15 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
     // with every placement), else the cursor ----
     int sel;
     if (cur == -1 && MQ) {
-      sel = job_select<true>(a, jo, js, qs, 0, &kred);
+      if (full_chain)
+        for (int q = tid; q < a.n_queues; q += THREADS)
+          share_overused(qs.des + q * r_dim, qs.alloc + q * r_dim, r_dim, a.mins, qs.share + q,
+                         qs.over + q);
+      if (dirty_q >= 0) queue_rescan(a, jo, js, qs, dirty_q, &kred);
+      __syncthreads();
+      sel = queue_select(a, qs, &sh_sel);
     } else if (cur == -1) {
-      if (n_dirty > 0) sel = job_select<false>(a, jo, js, qs, cursor, &kred);
+      if (n_dirty > 0) sel = job_select(a, jo, js, cursor, &kred);
       else sel = cursor < n_real ? cursor : HALT;
     } else {
       sel = cur;
@@ -1037,15 +1162,28 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
               if (r < r_dim) js[(JS_DRF + r) * jp + l] = js[(JS_DRF + r) * jp + l] + reqs[r] * drf_scale;
           }
         } else if (MQ && warp == 3 && lane == 0 && alloc_here) {
-          // proportion's allocate handler: the job's queue grows by the
-          // placement, then its share and overused flag are re-derived from
-          // the values just written (this CTA's copy of the queue ledger).
-          float* qa = qs.alloc + q_job * r_dim;
+          if (a.qfair_ladder) {
+            // The ladder: the queue's count grows by the placement, and its
+            // share and flag are the rung tables' at the new count.  A count
+            // past the tables traps, as the reference's index raises.
+            const int k = qs.count[q_job] + m;
+            if (k >= a.qf_rows) __trap();
+            qs.count[q_job] = k;
+            qs.share[q_job] = a.qf_share[(size_t)k * 128 + q_job];
+            qs.over[q_job] = a.qf_over[(size_t)k * 128 + q_job];
+          } else {
+            // proportion's allocate handler: the job's queue grows by the
+            // placement, then (delta chain) its share and overused flag are
+            // re-derived from the values just written (this CTA's copy of
+            // the queue ledger); the full-recompute chain waits for the pop.
+            float* qa = qs.alloc + q_job * r_dim;
 #pragma unroll
-          for (int r = 0; r < 8; ++r)
-            if (r < r_dim) qa[r] = qa[r] + reqs[r] * m_alloc;
-          share_overused(qs.des + q_job * r_dim, qa, r_dim, a.mins, qs.share + q_job,
-                         qs.over + q_job);
+            for (int r = 0; r < 8; ++r)
+              if (r < r_dim) qa[r] = qa[r] + reqs[r] * m_alloc;
+            if (!full_chain)
+              share_overused(qs.des + q_job * r_dim, qa, r_dim, a.mins, qs.share + q_job,
+                             qs.over + q_job);
+          }
         }
       }
       TICK(7);  // the ledger updates
@@ -1094,6 +1232,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
       }
     }
     TICK(9);  // the scalars after the last chunk
+    if (MQ && sel >= 0) dirty_q = q_job;
     cur = cur_r;
     cursor = cursor_r;
     n_dirty = dirty_r;
@@ -1109,11 +1248,16 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   }
 #endif
   if (rank == 0 && tid == 0) {
+    // qd_evt counts placements: delta refreshes, or rung lookups with the
+    // ladder.
+    const bool chain = MQ && (a.queue_proportion || a.overused_gate);
     a.stats[0] = steps;
     a.stats[1] = coh_steps;
     a.stats[2] = chunk_pl;
-    a.stats[3] = MQ && (a.queue_proportion || a.overused_gate) ? qd_evt : 0;
-    for (int x = 4; x < STATS_WIDTH; ++x) a.stats[x] = 0;
+    a.stats[3] = chain && a.queue_delta && !a.qfair_ladder ? qd_evt : 0;
+    a.stats[4] = full_chain ? steps : 0;
+    a.stats[5] = chain && a.qfair_ladder ? qd_evt : 0;
+    for (int x = 6; x < STATS_WIDTH; ++x) a.stats[x] = 0;
   }
   cluster.sync();  // no CTA exits while a peer may still push into it
 }

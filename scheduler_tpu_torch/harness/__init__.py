@@ -2,8 +2,9 @@ from scheduler_tpu_torch.harness.synthetic import (
     SyntheticCluster,
     make_gpu_topology_cluster,
     make_kubemark_density_cluster,
+    make_mq_ladder_cluster,
     make_synthetic_cluster,
 )
 
 __all__ = ["SyntheticCluster", "make_gpu_topology_cluster", "make_kubemark_density_cluster",
-           "make_synthetic_cluster"]
+           "make_mq_ladder_cluster", "make_synthetic_cluster"]

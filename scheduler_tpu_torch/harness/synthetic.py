@@ -143,6 +143,34 @@ def make_synthetic_cluster(
     )
 
 
+def make_mq_ladder_cluster(n_nodes: int, n_pods: int, n_queues: int,
+                           vocab_w: int) -> SyntheticCluster:
+    """The qfair class ladder's shape, ``bench.py``'s multi-queue family
+    (``one_mq_cycle``): queues q0, q1, ... of weights 1, 2, ...; ``n_pods``
+    single-pod jobs, job j in queue j % n_queues, each pod of queue q asking
+    250 (q + 1) m cpu, 256 (q + 1) MiB and one unit of the scalar
+    ``bench.widevocab/r{q % vocab_w}`` (one request class a queue); nodes of
+    64 cpu, 256 GiB and 110 pods, plus ``n_pods`` units of each of the
+    ``vocab_w`` scalars.  Timestamps are fixed (``make_synthetic_cluster``),
+    so every build orders its jobs alike."""
+    queues = tuple(f"q{i}" for i in range(n_queues))
+    wide = tuple(f"bench.widevocab/r{i}" for i in range(vocab_w))
+
+    def uniform_request(j: int, t: int) -> Dict[str, float]:
+        qi = j % n_queues  # make_synthetic_cluster deals job j to queue j % Q
+        req = {"cpu": 250.0 * (qi + 1), "memory": 256.0 * (qi + 1) * MIB}
+        if wide:
+            req[wide[qi % len(wide)]] = 1.0
+        return req
+
+    return make_synthetic_cluster(
+        n_nodes, n_pods, tasks_per_job=1, queues=queues,
+        queue_weights={q: i + 1 for i, q in enumerate(queues)},
+        vocab=ResourceVocabulary(wide), request_fn=uniform_request,
+        node_extra={name: float(n_pods) for name in wide},
+    )
+
+
 KUBEMARK_TS0 = 1_700_000_000.0
 
 

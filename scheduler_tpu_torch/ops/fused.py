@@ -25,10 +25,13 @@ engines:
 The engine is chosen by the JAX engine's gates before anything runs.
 Sessions that the JAX engine would run in a mode this package lacks raise
 ``NotImplementedError`` naming it: releasing capacity, the loop's
-multi-queue arm (a multi-queue session the mega gate closes), the qfair
-ladder's device water-fill (never chosen here: proportion runs the host
-water-fill), and the XLA step arm of the loop (no step kernel: the top-2
-score bound is live, or the node bucket is past 65,536).  The LP flavor,
+multi-queue arm (a multi-queue session the mega gate closes), and the XLA
+step arm of the loop (no step kernel: the top-2 score bound is live, or the
+node bucket is past 65,536).  A multi-queue session keeps its queue shares
+by the delta chain, by the full-recompute chain
+(``SCHEDULER_TORCH_QUEUE_DELTA=0``) or, where the JAX engine admits it, by
+the qfair class ladder (``ops/qfair.py``; ``SCHEDULER_TORCH_QFAIR=host``
+turns off both the ladder and proportion's device water-fill).  The LP flavor,
 the mesh and signature-class compression have no switch in this package
 (the last changes only which buffer the same static rows are gathered
 from).
@@ -107,6 +110,16 @@ HOST_OPERANDS = frozenset((
 
 # Comparators the fused job-selection chain understands, keyed by plugin name.
 _KNOWN_JOB_ORDER = ("priority", "gang", "drf")
+
+
+def _queue_delta_enabled() -> bool:
+    """``SCHEDULER_TORCH_QUEUE_DELTA`` (default on): the delta-maintained
+    multi-queue chain; ``0`` makes the mega kernel re-derive every queue's
+    share at each pop (the full-recompute chain, the same results), and
+    declines the qfair ladder."""
+    from scheduler_tpu_torch.utils.envflags import env_bool
+
+    return env_bool("SCHEDULER_TORCH_QUEUE_DELTA", True)
 
 
 def _cohort_chunks(device: torch.device) -> int:
@@ -688,18 +701,25 @@ class FusedAllocator:
 
         # --- the queue chain: proportion's deserved / allocated rows --------
         # (scheduler_tpu/ops/fused.py:1551-1571), in queue-rank order, scaled
-        # to device units.  The qfair ladder needs the device water-fill,
-        # which this package does not carry.
+        # to device units, and the qfair class ladder where it is exact.
+        from scheduler_tpu_torch.ops import qfair as _qf
+
+        self.queue_delta = _queue_delta_enabled()
+        self.qfair_flavor = _qf.qfair_flavor()
+        self.qfair_ladder = False   # the ladder is built (the session admits it)
+        self.qfair_reason = None    # why it was not
+        self._qfair = {}            # proportion's evidence block
+        self._ladder_host = None    # (share f32 [qb, K], overused bool [qb, K])
+        self._req_sigs = None       # (scaled requests, signature ids, unique rows)
         queue_deserved = np.zeros((len(queue_names), r), dtype=np.float64)
         queue_alloc = np.zeros((len(queue_names), r), dtype=np.float64)
-        self.qfair_reason = None
-        self._qfair = {}
         if self.queue_comparators or self.overused_gate:
             fair = ssn.device_queue_fair["proportion"](queue_names)
             queue_deserved[:] = scale_columns(fair["deserved"], scale)
             queue_alloc[:] = scale_columns(fair["allocated"], scale)
             self._qfair = dict(fair.get("qfair", {}))
-            self.qfair_reason = "the device water-fill and its ladder are not ported"
+            self._build_qfair_ladder(policy, queue_deserved, queue_alloc, queues_idx,
+                                     bucket(len(queue_names)), r, scale)
 
         # --- engines: the mega kernel and the loop with K1 --------------------
         if self.has_releasing:
@@ -779,6 +799,83 @@ class FusedAllocator:
                 "live, or node bucket past 65,536)"
             )
 
+    def _request_signatures(self, scale):
+        """``(req_s, inverse, uniq_rows)``: the tasks' scaled request rows
+        and their request-signature ids over (request, init request), built
+        once for the ladder's admission and the mega kernel's table."""
+        if self._req_sigs is None:
+            t = self.flat_count
+            req_s = np.asarray(scale_columns(self.st.tasks.resreq[:t], scale), dtype=np.float32)
+            init_s = np.asarray(
+                scale_columns(self.st.tasks.init_resreq[:t], scale), dtype=np.float32)
+            inverse, uniq_rows = _mk.request_signature_ids(req_s, init_s)
+            self._req_sigs = (req_s, inverse, uniq_rows)
+        return self._req_sigs
+
+    def _build_qfair_ladder(self, policy, queue_deserved, queue_alloc, queues_idx, qb, r,
+                            scale) -> None:
+        """The qfair ladder's admission and tables, as the JAX engine builds
+        them (``scheduler_tpu/ops/fused.py:1814-1887``; its decline reasons
+        word for word).  The ladder is exact where every queue's candidates
+        share one request signature and a step places one copy: a queue's
+        allocated row after k placements is then the delta chain's float32
+        fold as a function of k alone.  ``qb`` is the queue count's bucket,
+        the tables' queue axis."""
+        from scheduler_tpu_torch.ops import qfair as _qf
+
+        t_total = self.flat_count
+        reason = None
+        if not self.queue_delta:
+            reason = "queue delta chain disabled"
+        elif self.qfair_flavor != "device":
+            # The JAX engine's words, kept for parity: in the port the
+            # kill-switch is SCHEDULER_TORCH_QFAIR=host.
+            reason = "SCHEDULER_TPU_QFAIR=host (kill-switch)"
+        elif t_total == 0:
+            reason = "no pending tasks"
+        elif self.has_releasing:
+            reason = "releasing capacity (pipeline arm)"
+        elif self.batch_runs:
+            reason = "run batching (multi-copy placements)"
+        if reason is not None:
+            self.qfair_reason = reason
+            return
+        req_s, inverse, _ = self._request_signatures(scale)
+        q_of_task = np.asarray(queues_idx[self.st.tasks.job_idx[:t_total]], dtype=np.int64)
+        ok, counts, _ = _qf.single_class_queues(inverse, q_of_task, qb)
+        if not ok:
+            self.qfair_reason = "mixed request classes within a queue"
+            return
+        k_n = int(counts.max(initial=0)) + 1
+        if k_n > _qf.LADDER_CAP:
+            self.qfair_reason = f"ladder depth {k_n} past cap {_qf.LADDER_CAP}"
+            return
+        req_rows = np.zeros((qb, r), dtype=np.float32)
+        uq, first = np.unique(q_of_task, return_index=True)
+        req_rows[uq] = req_s[first]
+        q_n = queue_deserved.shape[0]
+        des = np.zeros((qb, r), dtype=np.float32)
+        des[:q_n] = queue_deserved
+        held = np.zeros((qb, r), dtype=np.float32)
+        held[:q_n] = queue_alloc
+        self._ladder_host = _qf.build_ladder(
+            des, held, req_rows, counts, np.asarray(policy.scaled_mins(r), dtype=np.float32),
+            r)
+        self.qfair_ladder = True
+
+    def _pack_mega_ladder(self):
+        """The ladder in the mega kernel's table layout: rung on the rows
+        (padded to 8), queue index on the 128 columns, overused as float32
+        1.0 / 0.0."""
+        l_share, l_over = self._ladder_host
+        q_n, k_n = l_share.shape
+        k_pad = -(-k_n // 8) * 8
+        qf_share = np.zeros((k_pad, 128), dtype=np.float32)
+        qf_share[:k_n, :q_n] = l_share.T
+        qf_over = np.zeros((k_pad, 128), dtype=np.float32)
+        qf_over[:k_n, :q_n] = l_over.T.astype(np.float32)
+        return qf_share, qf_over
+
     def _node_state(self, scale) -> Dict[str, np.ndarray]:
         """Padded, unit-scaled host node columns (device units)."""
         st, nb = self.st, self.n_bucket
@@ -854,11 +951,7 @@ class FusedAllocator:
         t = self.flat_count
         if t == 0:
             return  # nothing pending: no launch
-        req_s = np.asarray(scale_columns(self.st.tasks.resreq[:t], scale), dtype=np.float32)
-        init_s = np.asarray(
-            scale_columns(self.st.tasks.init_resreq[:t], scale), dtype=np.float32
-        )
-        inverse, uniq_rows = _mk.request_signature_ids(req_s, init_s)
+        _, inverse, uniq_rows = self._request_signatures(scale)
         s_count = uniq_rows.shape[0]
         if s_count > 4096:
             return  # the mega gate closes (scheduler_tpu/ops/fused.py:1935-1936)
@@ -923,9 +1016,13 @@ class FusedAllocator:
             msig = _mk.pack_task_table_i32(np.zeros(0, np.int32), tb)
         # Multi-queue mode (scheduler_tpu/ops/fused.py:2001-2040): each job
         # lane carries its queue's index (which is also the queue's rank)
-        # and that queue's deserved and allocated-at-open rows.  Otherwise,
-        # and for the qfair ladder's tables, minimum-size dummies.
+        # and that queue's deserved and allocated-at-open rows; the qfair
+        # ladder's rung tables, where it is built and the queue count's
+        # bucket fits their 128 columns.  Otherwise minimum-size dummies.
         zeros8 = np.zeros((8, 128), dtype=np.float32)
+        mega_ladder = (not single_queue and self.qfair_ladder
+                       and bucket(len(self.queue_uids)) <= 128)
+        qf_share, qf_over = self._pack_mega_ladder() if mega_ladder else (zeros8, zeros8)
         if single_queue:
             jqueue = np.zeros((1, 128), dtype=np.int32)
             jq_des = jq_alloc0 = zeros8
@@ -960,8 +1057,8 @@ class FusedAllocator:
             to_dev(jqueue),
             to_dev(jq_des),
             to_dev(jq_alloc0),
-            to_dev(zeros8),                                          # qf_share
-            to_dev(zeros8),                                          # qf_over
+            to_dev(qf_share),
+            to_dev(qf_over),
             to_dev(misc),
         )
         mins_f32 = np.asarray(policy.scaled_mins(r), dtype=np.float32)
@@ -987,8 +1084,8 @@ class FusedAllocator:
             multi_queue=not single_queue,
             queue_proportion="proportion" in self.queue_comparators,
             overused_gate=self.overused_gate,
-            queue_delta=True,
-            qfair_ladder=False,
+            queue_delta=self.queue_delta,
+            qfair_ladder=mega_ladder,
             cohort=cohort_eff,
             t_cap=tb,
             mesh=None,
@@ -1144,6 +1241,9 @@ class FusedAllocator:
         if self._events is not None:
             start, stop = self._events
             self._events = None
+            # The codes' copy need not wait for the stream (the step loop's
+            # results come through host memory): wait for the event itself.
+            stop.synchronize()
             if self.use_mega:
                 self.kernel_ms = start.elapsed_time(stop)
             else:
@@ -1170,11 +1270,21 @@ class FusedAllocator:
             "cohort_chunks": self.cohort_effective if self.use_mega else 1,
         }
         if self.queue_comparators or self.overused_gate:
-            # Queue-chain evidence: the delta chain (the one this package
-            # carries) with the kernel's counters below, and proportion's
-            # water-fill block with why the qfair ladder did not engage.
-            out["queue_chain"] = {"queues": len(self.queue_uids), "mode": "delta"}
-            out["qfair"] = dict(self._qfair, engaged=False, reason=self.qfair_reason)
+            # Queue-chain evidence (the kernel's counters below): the delta or
+            # the full-recompute chain, and proportion's water-fill block with
+            # the ladder's engagement (its size and lookups) or why it did
+            # not engage.
+            out["queue_chain"] = {"queues": len(self.queue_uids),
+                                  "mode": "delta" if self.queue_delta else "full"}
+            qf = dict(self._qfair)
+            qf["engaged"] = self.qfair_ladder
+            if self.qfair_ladder:
+                qf["rungs"] = int(self._ladder_host[0].shape[1])
+                qf["classes"] = len(self.queue_uids)
+                qf["ladder_lookups"] = 0
+            elif self.qfair_reason:
+                qf["reason"] = self.qfair_reason
+            out["qfair"] = qf
         enc = self._encoded
         if enc is not None:
             codes = enc[: self.flat_count]
@@ -1193,6 +1303,8 @@ class FusedAllocator:
             if "queue_chain" in out:
                 out["queue_chain"]["delta_updates"] = int(raw[STATS.QDELTA_UPDATES])
                 out["queue_chain"]["full_recomputes"] = int(raw[STATS.QFULL_RECOMPUTES])
+                if self.qfair_ladder:
+                    out["qfair"]["ladder_lookups"] = int(raw[STATS.QFAIR_LOOKUPS])
         if out.get("steps") and "placed" in out:
             out["tasks_per_step"] = round(out["placed"] / out["steps"], 2)
         if self.kernel_ms is not None:

@@ -3,8 +3,8 @@
 The rows this package's kernels and loop read and write, copied from
 ``scheduler_tpu/ops/layout.py`` with the same names and indices so that a
 reader can match the CUDA source, the plain PyTorch version and the JAX
-kernel row for row.  Rows of modes this package does not carry (the
-releasing ledger, the qfair ladder's rung counter) are left out.
+kernel row for row.  The rows of the mode this package does not carry
+(the releasing ledger) are left out.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ class JOB_SCRATCH:
     QUEUE_ALLOC = 16  # span 8: live allocated of the job's QUEUE, per lane
     SHARE = 24       # maintained share of the lane's queue (delta chain)
     OVERUSED = 25    # maintained overused flag of the lane's queue
+    QCOUNT = 26      # cumulative placements of the lane's queue (qfair ladder)
 
 
 class STATS:
@@ -37,12 +38,21 @@ class STATS:
     COHORT_STEPS = 1      # steps where the cohort chunk path engaged
     CHUNK_PLACED = 2      # placements made by chunks >= 1 (multi-node wins)
     QDELTA_UPDATES = 3    # queue-share delta updates applied (delta chain)
-    QFULL_RECOMPUTES = 4  # full queue-chain recomputes (0: not ported)
-    QFAIR_LOOKUPS = 5     # class-ladder lookups (0: not ported)
+    QFULL_RECOMPUTES = 4  # full queue-chain recomputes (the full-recompute chain)
+    QFAIR_LOOKUPS = 5     # class-ladder share/overused lookups (qfair ladder)
     UNUSED = 6            # span 2: zeroed tail, reserved
 
 
 STATS_WIDTH = 8
+
+
+class QFAIR_STATS:
+    """The queue-fair water-fill's evidence row (``ops/qfair.py``, i32[2]),
+    decoded by ``qfair.qfair_stats_dict`` into proportion's evidence block."""
+
+    ITERATIONS = 0    # water-fill rounds of the fixed budget
+    CONVERGED_AT = 1  # round the host loop would have broken on (-1: the
+                      # budget ran out, and proportion falls back to the host)
 
 
 class JOB_STATE:

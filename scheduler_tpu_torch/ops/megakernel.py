@@ -8,16 +8,21 @@ staged when the predicates or nodeorder plugin is on):
 
 * CURSOR MODE — one queue, jobs laid out in init-key order, a job selected
   by the cursor while no job is dirty;
-* MULTI-QUEUE MODE (``multi_queue``) with the delta chain — at every pop
-  the queue of least proportion share among those not overused
-  (``queue_proportion``, ``overused_gate``), then the job chain within it;
-  each placement grows its queue's allocated and re-derives that queue's
-  share and overused flag.
+* MULTI-QUEUE MODE (``multi_queue``) — at every pop the queue of least
+  proportion share among those not overused (``queue_proportion``,
+  ``overused_gate``), then the job chain within it.  Each placement grows
+  its queue's allocated; the queue's share and overused flag then follow
+  one of three chains, all bit for bit the same values: the DELTA chain
+  (``queue_delta``, the default) re-derives that queue's share and flag per
+  placement; the FULL-RECOMPUTE chain (``queue_delta=False``) re-derives
+  every queue's at each pop; the QFAIR LADDER (``qfair_ladder``, with the
+  delta chain) reads them from the rung tables ``qf_share`` / ``qf_over``
+  at the queue's placement count (``ops/qfair.py::build_ladder``).
 
-The qfair ladder, the full-recompute queue chain, releasing capacity and
-the mesh raise.  The kernel source is ``csrc/mega_allocate.cu``; it is built
-with the port's other kernels at first use (``ops/cuda_build.py``) and bound
-through a plain C entry point with ``ctypes``.
+Releasing capacity and the mesh raise.  The kernel source is
+``csrc/mega_allocate.cu``; it is built with the port's other kernels at
+first use (``ops/cuda_build.py``) and bound through a plain C entry point
+with ``ctypes``.
 
 Three functions carry the port:
 
@@ -33,7 +38,7 @@ Three functions carry the port:
   ``pack_task_table_i32``, ``build_node_ledgers``) that stage the operands.
 
 Operands and result encoding follow the JAX kernel exactly (26 operands,
-the unused releasing and ladder ones, and the queue and static ones outside
+the unused releasing ones, and the queue, ladder and static ones outside
 their modes, as dummies): codes are
 >= 0 node, -1 unplaced, -2 failed (first infeasible task of its pop); the
 second output holds the 8 ``STATS`` counters.
@@ -138,17 +143,17 @@ def mega_supported(
 
 def _check_mode(has_releasing, multi_queue, qfair_ladder, mesh, queue_delta=True,
                 queue_proportion=False, overused_gate=False) -> None:
-    """Cursor mode and multi-queue mode with the delta chain (each with or
-    without static rows) are ported; every other kernel mode raises."""
-    for flag, name in (
-        (has_releasing, "releasing capacity"),
-        (multi_queue and not queue_delta and (queue_proportion or overused_gate),
-         "full-recompute queue chain"),
-        (qfair_ladder, "qfair ladder"),
-        (mesh is not None, "mesh"),
-    ):
+    """Cursor mode and multi-queue mode in its three queue chains (each with
+    or without static rows) are ported; releasing capacity and the mesh
+    raise.  The qfair ladder refines the delta chain: it needs multi-queue
+    mode with ``queue_delta`` and a queue chain to maintain."""
+    for flag, name in ((has_releasing, "releasing capacity"), (mesh is not None, "mesh")):
         if flag:
             raise NotImplementedError(f"mega_allocate mode not ported: {name}")
+    if qfair_ladder and not (multi_queue and queue_delta
+                             and (queue_proportion or overused_gate)):
+        raise ValueError("mega_allocate: the qfair ladder needs multi-queue mode with the "
+                         "delta chain (queue_delta and a queue chain)")
 
 
 def queue_share_overused(deserved, allocated, mins, r_dim: int):
@@ -185,7 +190,8 @@ class _MegaArgs(ctypes.Structure):
             "ns0", "alloc_t", "gate", "plim", "sig_req", "task_sig", "run_len",
             "job_off", "job_num", "job_def", "job_gang", "job_prio", "job_tb",
             "js_drf0", "drf_safe", "drf_mask", "misc", "msig", "smask", "sscore",
-            "jqueue", "jq_des", "jq_alloc0", "out", "stats", "js_global", "phase_clocks",
+            "jqueue", "jq_des", "jq_alloc0", "qf_share", "qf_over", "qlanes", "out",
+            "stats", "js_global", "phase_clocks",
         )
     ] + [
         (name, ctypes.c_int)
@@ -194,7 +200,8 @@ class _MegaArgs(ctypes.Structure):
             "cpu_idx", "mem_idx", "enforce_pod_count", "cross_batch",
             "batch_runs", "score_bound", "cohort", "n_comp",
             "use_static", "static_rows", "multi_queue", "queue_proportion",
-            "overused_gate", "n_queues", "ctas", "slice", "smem_bytes",
+            "overused_gate", "n_queues", "queue_delta", "qfair_ladder", "qf_rows",
+            "ctas", "slice", "smem_bytes",
             "off_queue", "off_js", "off_sig", "off_job", "off_static",
         )
     ] + [
@@ -274,9 +281,15 @@ def job_ledger_bytes(j_pad: int, r_dim: int) -> int:
 
 
 def queue_ledger_bytes(n_queues: int, r_dim: int) -> int:
-    """Multi-queue mode's queue ledger: each queue's deserved and live
-    allocated (r_dim floats each), share and overused flag."""
-    return _align((2 * r_dim + 2) * n_queues * 4)
+    """Multi-queue mode's queue ledger: each queue's best job (a selection
+    key of three 64-bit words), deserved and live allocated (r_dim floats
+    each), share and overused flag, placement count (the qfair ladder's),
+    and the offset and a cursor of its job lanes (two ints, one more
+    offset)."""
+    if not n_queues:
+        return 0
+    words = 2 * r_dim + 3 + 2
+    return _align(24 * n_queues + words * n_queues * 4 + 4)
 
 
 def job_operand_lanes(n_queues: int) -> int:
@@ -288,10 +301,12 @@ def job_operand_lanes(n_queues: int) -> int:
 def mega_plan(nb: int, r_dim: int, j_pad: int, s_pad: int, static_rows: int,
               use_static: bool, n_queues: int = 0) -> MegaPlan:
     """The kernel's launch plan for a shape (``n_queues`` > 0: multi-queue
-    mode).  C = 8 CTAs (the portable cluster size) where the node slice, the
-    queue ledger and the compact job ledger fit a CTA's shared memory, else
-    16 where that brings the node slice or the job ledger on chip.  The
-    queue ledger sits on chip after the node slice.  Then each region goes
+    mode; the qfair ladder's two rung tables, up to 2 x 1,024 x 128 floats,
+    stay in global memory).  C = 8 CTAs (the portable cluster size) where
+    the node slice, the queue ledger and the compact job ledger fit a CTA's
+    shared memory, else 16 where that brings the node slice or the job
+    ledger on chip.  The queue ledger sits on chip after the node slice.
+    Then each region goes
     into shared memory if it still fits, in this order: job ledger, request
     table (2 x r_dim rows), job operands (``job_operand_lanes`` words a
     lane), static rows (mask and score of the CTA's slice)."""
@@ -395,6 +410,10 @@ def mega_allocate(*operands: torch.Tensor, n_queues: Optional[int] = None, **kw)
                 kw.get("mesh"), kw.get("queue_delta", True), kw.get("queue_proportion", False),
                 kw.get("overused_gate", False))
     n_queues = _queues_for(kw, n_queues)
+    if kw.get("qfair_ladder"):
+        ops = dict(zip(OPERAND_NAMES, operands))
+        if n_queues > 128 or ops["qf_share"].shape[1] != 128:
+            raise ValueError("mega_allocate: the qfair ladder's tables hold 128 queues a rung")
     if operands[0].device.type == "cpu":
         if n_queues:
             ops = dict(zip(OPERAND_NAMES, operands))
@@ -416,7 +435,7 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
             queue_delta=True, qfair_ladder=False, cohort=1, t_cap=0,
             mesh=None, n_queues=0):
     global launches
-    del rel0, qf_share, qf_over, has_releasing, queue_delta, qfair_ladder, mesh
+    del rel0, has_releasing, mesh
     nb = ns0.shape[1]
     s_pad = sig_req.shape[1]
     t_rows = task_sig.shape[0]
@@ -452,6 +471,10 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
         _expect(jqueue, "jqueue", i32, (1, j_pad))
         _expect(jq_des, "jq_des", f32, (8, j_pad))
         _expect(jq_alloc0, "jq_alloc0", f32, (8, j_pad))
+    qf_rows = qf_share.shape[0]
+    if qfair_ladder:
+        _expect(qf_share, "qf_share", f32, (qf_rows, 128))
+        _expect(qf_over, "qf_over", f32, (qf_rows, 128))
     t_pad = t_rows * 128
     if t_cap <= 0:
         t_cap = t_pad
@@ -464,6 +487,9 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     dev = ns0.device
     out = torch.empty((t_rows + 1) * 128, dtype=i32, device=dev)
     stats = torch.empty(STATS_WIDTH, dtype=i32, device=dev)
+    qlanes = None
+    if multi_queue:  # the job lanes by queue (scratch)
+        qlanes = torch.empty(j_pad, dtype=i32, device=dev)
     js_global = None
     if plan.job_ledger_in_global:
         js_global = torch.empty((plan.ctas, JOB_STATE.DRF + r_dim, j_pad), dtype=f32,
@@ -487,12 +513,17 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     args.use_static = int(bool(use_static))
     args.static_rows = static_rows
     if multi_queue:
-        args.jqueue, args.jq_des, args.jq_alloc0 = (
-            jqueue.data_ptr(), jq_des.data_ptr(), jq_alloc0.data_ptr())
+        args.jqueue, args.jq_des, args.jq_alloc0, args.qlanes = (
+            jqueue.data_ptr(), jq_des.data_ptr(), jq_alloc0.data_ptr(), qlanes.data_ptr())
+    if qfair_ladder:
+        args.qf_share, args.qf_over = qf_share.data_ptr(), qf_over.data_ptr()
     args.multi_queue = int(bool(multi_queue))
     args.queue_proportion = int(bool(queue_proportion))
     args.overused_gate = int(bool(overused_gate))
     args.n_queues = n_queues
+    args.queue_delta = int(bool(queue_delta))
+    args.qfair_ladder = int(bool(qfair_ladder))
+    args.qf_rows = qf_rows
     args.nb, args.s_pad, args.t_rows, args.t_cap = nb, s_pad, t_rows, t_cap
     args.j_pad, args.r_dim = j_pad, r_dim
     args.cpu_idx, args.mem_idx = cpu_idx, mem_idx
@@ -536,7 +567,7 @@ def mega_allocate_reference(
     """The kernel's function as a Python loop over steps on tensors, on
     whatever device the operands lie on.  Same operands, same
     ``(codes, stats)``, bit for bit."""
-    del rel0, qf_share, qf_over, interpret
+    del rel0, interpret
     _check_mode(has_releasing, multi_queue, qfair_ladder, mesh, queue_delta,
                 queue_proportion, overused_gate)
     dev = ns0.device
@@ -558,8 +589,13 @@ def mega_allocate_reference(
     # In multi-queue mode the job ledger carries the queue rows as the JAX
     # kernel lays them out, replicated on the lanes of each queue's jobs:
     # the queue's live allocated, and (delta chain) its share and overused
-    # flag, seeded here and refreshed for the winning queue per placement.
-    use_qdelta = multi_queue and (queue_proportion or overused_gate)
+    # flag, seeded here and refreshed for the winning queue per placement
+    # (from the rung tables at the queue's placement count, QCOUNT, with the
+    # ladder).  The full-recompute chain re-derives every share at each pop.
+    queue_chain = multi_queue and (queue_proportion or overused_gate)
+    use_qdelta = queue_chain and queue_delta
+    use_full = queue_chain and not queue_delta
+    use_ladder = use_qdelta and qfair_ladder
     ns = ns0.clone()
     js = torch.zeros((job_scratch_rows(multi_queue, use_qdelta), j_pad), dtype=f32, device=dev)
     js[JROW.DRF : JROW.QUEUE_ALLOC] = js_drf0
@@ -572,6 +608,8 @@ def mega_allocate_reference(
             js[JROW.SHARE] = share0
         if overused_gate:
             js[JROW.OVERUSED] = over0.to(f32)
+    if use_ladder:
+        js[JROW.QCOUNT] = 0.0
     out = torch.full(((t_rows + 1) * 128,), UNPLACED, dtype=i32, device=dev)
 
     # Read-only tables the scalar control flow indexes.
@@ -630,10 +668,18 @@ def mega_allocate_reference(
         HALT when none is left."""
         cand = (js[JROW.LEFT] == 0.0) & (js[JROW.CONSUMED] < jnum_f) & (jnum > 0)
         if multi_queue:
+            if use_full:
+                # The full-recompute chain: every lane's queue share and
+                # overused flag from the live allocated rows.
+                share_l, over_l = queue_share_overused(
+                    jq_des[:r_dim], js[JROW.QUEUE_ALLOC : JROW.QUEUE_ALLOC + r_dim], mins,
+                    r_dim)
+            else:
+                share_l, over_l = js[JROW.SHARE], js[JROW.OVERUSED] >= 0.5
             if overused_gate:
-                cand = cand & (js[JROW.OVERUSED] < 0.5)
+                cand = cand & ~over_l
             if queue_proportion:
-                maskedq = torch.where(cand, js[JROW.SHARE], pos_inf)
+                maskedq = torch.where(cand, share_l, pos_inf)
                 cand = cand & (maskedq == maskedq.min())
             qrank = torch.where(cand, jq_v, _BIG_I32)
             cand = cand & (qrank == qrank.min())
@@ -664,7 +710,7 @@ def mega_allocate_reference(
         return cur >= 0 or (cur != HALT and (cursor < n_real or n_dirty > 0))
 
     cur, cursor, n_dirty = -1, 0, 0
-    steps = coh_steps = chunk_pl = qd_evt = 0
+    steps = coh_steps = chunk_pl = qd_evt = qf_evt = 0
     while steps < max_steps and alive(cur, cursor, n_dirty):
         # ---- selection: the full chain in multi-queue mode (live shares
         # move with every placement), else the cursor ----
@@ -786,11 +832,24 @@ def mega_allocate_reference(
                 # proportion's allocate handler: the placement grows its
                 # queue's allocated, on every lane of that queue; the delta
                 # chain then re-derives the queue's share and overused flag
-                # from the values just written.
+                # from the values just written.  With the ladder the queue's
+                # placement count grows instead, and the share and flag are
+                # the rung tables' at that count (queues on the columns).
                 qwin = jq_v == jq_v[jb]
-                qa = js[JROW.QUEUE_ALLOC : JROW.QUEUE_ALLOC + r_dim]
-                qa += (reqs * drf_scale)[:, None] * qwin.to(f32)
-                if use_qdelta:
+                if use_ladder:
+                    js[JROW.QCOUNT] += drf_scale * qwin.to(f32)
+                    rung, q_sel = int(js[JROW.QCOUNT, jb]), int(jq_v[jb])
+                    if queue_proportion:
+                        js[JROW.SHARE] = torch.where(qwin, qf_share[rung, q_sel],
+                                                     js[JROW.SHARE])
+                    if overused_gate:
+                        js[JROW.OVERUSED] = torch.where(qwin, qf_over[rung, q_sel],
+                                                        js[JROW.OVERUSED])
+                    qf_evt += int(alloc_here)
+                else:
+                    qa = js[JROW.QUEUE_ALLOC : JROW.QUEUE_ALLOC + r_dim]
+                    qa += (reqs * drf_scale)[:, None] * qwin.to(f32)
+                if use_qdelta and not use_ladder:
                     share_new, over_new = queue_share_overused(
                         jq_des[:r_dim, jb], qa[:, jb], mins, r_dim)
                     if queue_proportion:
@@ -839,6 +898,8 @@ def mega_allocate_reference(
     stats[STATS.COHORT_STEPS] = coh_steps
     stats[STATS.CHUNK_PLACED] = chunk_pl
     stats[STATS.QDELTA_UPDATES] = qd_evt
+    stats[STATS.QFULL_RECOMPUTES] = steps if use_full else 0
+    stats[STATS.QFAIR_LOOKUPS] = qf_evt
     return out[:t_cap], stats
 
 

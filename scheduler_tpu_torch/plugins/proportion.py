@@ -57,10 +57,69 @@ class ProportionPlugin(Plugin):
                 res = s
         attr.share = res
 
+    def solve_inputs(self, vocab):
+        """The water-fill's operands in the queue attributes' order, as
+        ``ops/qfair.solve_deserved`` takes them: weights, requests, the
+        pool, the requests' and the pool's scalar-map presence, epsilons."""
+        attrs = list(self.queue_attrs.values())
+        return (
+            np.asarray([a.weight for a in attrs], dtype=np.float64),
+            np.stack([a.request.array.copy() for a in attrs]),
+            self.total_resource.array.copy(),
+            np.asarray([a.request.has_scalars for a in attrs], dtype=bool),
+            self.total_resource.has_scalars,
+            vocab.min_thresholds().astype(np.float64),
+        )
+
+    def _solve_device(self, vocab, device) -> Dict[str, object]:
+        """Run the deserved water-fill on ``device`` (the session's: None is
+        the card; ``ops/qfair.py``: one
+        launch of the ``qfair_solve`` kernel on the card) and apply the
+        solved rows and shares to the queue attributes.  Returns the evidence
+        block; ``flavor`` stays ``host`` when the kill-switch is set or the
+        round budget ran out (the caller then runs the host loop: host cost,
+        the same shares either way)."""
+        import time as _time
+
+        from scheduler_tpu_torch.ops import qfair as _qfair
+
+        if _qfair.qfair_flavor() != "device":
+            return {"flavor": "host"}
+        attrs = list(self.queue_attrs.values())
+        if not attrs:
+            return {"flavor": "device", "iterations": 0, "converged_at": 0,
+                    "solve_ms": 0.0}
+        t0 = _time.perf_counter()
+        solved = _qfair.solve_deserved(*self.solve_inputs(vocab), device=device)
+        wall = (_time.perf_counter() - t0) * 1000.0
+        if not solved["converged"]:
+            logger.warning(
+                "qfair device solve did not converge in %d rounds; "
+                "falling back to the host water-fill",
+                solved["iterations"],
+            )
+            return {"flavor": "host", "fallback": "not converged",
+                    "iterations": solved["iterations"],
+                    "device_solve_ms": round(wall, 3)}
+        shares = _qfair.shares_host(
+            solved["deserved"],
+            np.stack([a.allocated.array.copy() for a in attrs]),
+        )
+        for i, attr in enumerate(attrs):
+            attr.deserved = ResourceVec(vocab, solved["deserved"][i].copy())
+            attr.share = float(shares[i])
+        return {
+            "flavor": "device",
+            "iterations": solved["iterations"],
+            "converged_at": solved["converged_at"],
+            "solve_ms": round(wall, 3),
+        }
+
     def _solve_host(self, vocab) -> None:
         """The reference water-filling loop (proportion.go:101-154): the
-        JAX package's host flavor (``SCHEDULER_TPU_QFAIR=host`` there), this
-        package's only one."""
+        ``SCHEDULER_TORCH_QFAIR=host`` kill-switch, the fallback of a device
+        solve whose round budget ran out, and the oracle the device solve is
+        held to."""
         import time as _time
 
         t0 = _time.perf_counter()
@@ -91,6 +150,7 @@ class ProportionPlugin(Plugin):
             remaining.sub(increased).add(decreased)
             if remaining.is_empty():
                 break
+        self._qfair_evidence.setdefault("flavor", "host")
         self._qfair_evidence["solve_ms"] = round(
             (_time.perf_counter() - t0) * 1000.0, 3
         )
@@ -129,12 +189,14 @@ class ProportionPlugin(Plugin):
             if job.status_count(TaskStatus.PENDING):
                 attr.request.add_array(*job.status_sum((TaskStatus.PENDING,)))
 
-        # Deserved fixed point: the host water-fill (the JAX package's
-        # device water-fill, ops/qfair.py there, is not ported).  The
-        # evidence block rides the device_queue_fair seam into
-        # FusedAllocator.run_stats()["qfair"].
-        self._qfair_evidence = {"flavor": "host"}
-        self._solve_host(vocab)
+        # Deserved fixed point: the device water-fill (ops/qfair.py: one
+        # kernel launch, bit for bit the host loop's result) or the host loop
+        # (``SCHEDULER_TORCH_QFAIR=host``, the kill-switch; also the fallback
+        # when the round budget ran out).  The evidence block rides the
+        # device_queue_fair seam into FusedAllocator.run_stats()["qfair"].
+        self._qfair_evidence = self._solve_device(vocab, ssn.device)
+        if self._qfair_evidence.get("flavor") != "device":
+            self._solve_host(vocab)
 
         def queue_order_fn(l: QueueInfo, r: QueueInfo) -> int:
             ls = self.queue_attrs[l.uid].share

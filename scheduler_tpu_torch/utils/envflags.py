@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import logging
 import os
+from typing import Optional
 
 logger = logging.getLogger("scheduler_tpu_torch.utils.envflags")
 
@@ -49,3 +50,42 @@ def env_bool(name: str, default: bool = True) -> bool:
         return True
     _warn_once(name, raw, default)
     return default
+
+
+def env_int(
+    name: str,
+    default: int,
+    *,
+    minimum: Optional[int] = None,
+    maximum: Optional[int] = None,
+) -> int:
+    """Integer env flag: malformed values warn and yield ``default``;
+    ``minimum``/``maximum`` clamp (out-of-range is a config choice, not a
+    typo, so clamping is silent)."""
+    raw = os.environ.get(name)
+    if raw is None:
+        val = default
+    else:
+        try:
+            val = int(raw.strip())
+        except (ValueError, AttributeError):
+            _warn_once(name, raw, default)
+            val = default
+    if minimum is not None and val < minimum:
+        val = minimum
+    if maximum is not None and val > maximum:
+        val = maximum
+    return val
+
+
+def env_str(name: str, default: str, choices: Optional[tuple] = None) -> str:
+    """String env flag with an optional closed choice set (warn + default on
+    anything outside it)."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    v = raw.strip().lower()
+    if choices is not None and v not in choices:
+        _warn_once(name, raw, default)
+        return default
+    return v

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time K2 (``mega_allocate``) of one checkout of the port on the card.
 
-    python3 scripts/k2_ab.py --tree DIR [--label NAME]
+    python3 scripts/k2_ab.py --tree DIR [--label NAME] [--configs A,B,...]
 
 imports ``scheduler_tpu_torch`` and ``chip_smoke.py`` from ``DIR`` (the
 root of a checkout: this one by default, or an unpacked earlier commit),
-builds that tree's kernels, and prints one JSON line:
+builds that tree's kernels, and prints one JSON summary line, last:
 
 * one cold cycle through ``Scheduler.run_once`` (cycle seconds, K2's
   events in the cycle, steps) of each of BASELINE config 2 (static-row
@@ -16,10 +16,19 @@ builds that tree's kernels, and prints one JSON line:
   the same way: device time a launch from a profiler trace, CUDA events
   around ``--repeats`` launches, µs a step, and whether codes and stats
   equal the first launch's (the kernel's bits against the plain version
-  are ``chip_smoke.py``'s to check).
+  are ``chip_smoke.py``'s to check);
+* on a tree that has the qfair ladder, the ladder flagship (``mq_ladder``:
+  ``harness.make_mq_ladder_cluster(10_000, 100_000, 100, 6)``, the
+  multi-queue conf): its cold cycle, K2 alone in ladder mode and on the
+  delta chain on the same operands (events around one launch, the two
+  chains in turns, ``--repeats`` each), and proportion's water-fill at its
+  100 queues: ``qfair_solve``'s time against the host water-fill's
+  ``solve_ms`` on the same queue attributes (``chip_smoke.py``'s records of
+  these comparisons print before the summary line).
 
-To compare two commits on one card, run both trees in one call in the
-order base, new, new, base.  Needs a CUDA device; exits 2 without one.
+``--configs`` picks a subset (default: every one the tree has).  To compare
+two commits on one card, run both trees in one call in the order base,
+new, new, base.  Needs a CUDA device; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -34,11 +43,37 @@ import tempfile
 import time
 
 
+def ladder_alone(smoke, ssn, eng, device, repeats):
+    """K2 on the ladder flagship's operands in ladder mode and on the delta
+    chain (``chip_smoke.compare_chains``: equal codes, events around one
+    launch in turns, ``repeats`` each), and its session's water-fill
+    (``chip_smoke.compare_qfair``: ``qfair_solve`` against its plain
+    version, timed) beside the host water-fill's ``solve_ms`` on the same
+    queue attributes (``chip_smoke.device_vs_host_solve``)."""
+    recs = smoke.compare_chains("mq_ladder", eng._mega_args, eng._mega_kw,
+                                eng.st.nodes.count, len(eng.queue_uids), repeats)
+    ops = smoke.proportion_solve_operands(ssn, device)
+    solve = smoke.compare_qfair("mq_ladder", ops, int(ops[1].shape[0]) + 4, timed=True)
+    host = smoke.device_vs_host_solve(ssn)
+    rec = {"qfair_ladder": bool(eng._mega_kw["qfair_ladder"]),
+           "steps": recs["ladder"]["stats"][0], "placed": recs["ladder"]["placed"],
+           "same_codes": recs["ladder"]["equal_codes"],
+           "qfair_solve_ms": solve["ms"], "host_solve_ms": host["host_solve_ms"],
+           "device_solve_ms": host["device_solve_ms"]}
+    for chain, chain_rec in recs.items():
+        rec[chain + "_ms"] = chain_rec["event_ms"]
+        rec[chain + "_us_per_step"] = chain_rec["us_per_step_events"]
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--label", default=None)
     parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--configs", default=None,
+                        help="comma-separated subset of config2, config3, config3_multi_queue, "
+                             "config2_default_tiers, mq_ladder")
     opts = parser.parse_args()
     tree = os.path.abspath(opts.tree)
     sys.path.insert(0, tree)
@@ -70,6 +105,16 @@ def main() -> int:
         "config2_default_tiers": (lambda: make_kubemark_density_cluster(1000, 5000).cache,
                                   smoke.DEFAULT_TIERS_CONF),
     }
+    has_ladder = hasattr(smoke, "compare_chains")
+    if has_ladder:
+        from scheduler_tpu_torch.harness import make_mq_ladder_cluster
+
+        configs["mq_ladder"] = (
+            lambda: make_mq_ladder_cluster(smoke.LADDER_NODES, smoke.LADDER_PODS,
+                                           smoke.LADDER_QUEUES, smoke.LADDER_VOCAB).cache,
+            smoke.MULTIQ_CONF)
+    if opts.configs:
+        configs = {k: v for k, v in configs.items() if k in opts.configs.split(",")}
     out = {"tree": opts.label or tree, "gpu": smi, "build_s": cuda_build.build_info["seconds"]}
     with tempfile.TemporaryDirectory() as tmp:
         conf_path = os.path.join(tmp, "conf.yaml")
@@ -81,7 +126,12 @@ def main() -> int:
                                     "steps": rec["steps"], "launches": launches["mega_allocate"]}
             gc.collect()
     for name, (build, conf) in configs.items():
-        _, eng = smoke.engine_for(build(), conf, device)
+        ssn, eng = smoke.engine_for(build(), conf, device)
+        if name == "mq_ladder":
+            out[name + "_alone"] = ladder_alone(smoke, ssn, eng, device, opts.repeats)
+            del ssn, eng
+            gc.collect()
+            continue
         args, kw = eng._mega_args, dict(eng._mega_kw, n_queues=len(eng.queue_uids))
         codes0, stats0 = mk.mega_allocate(*args, **kw)
         start, stop = smoke.events()

@@ -11,7 +11,9 @@ checkout (``--noconftest``: the suite's conftest imports JAX):
 Each case builds a session with the port's harness on the card, launches
 a kernel and holds it against its plain version on the same CUDA operands,
 bitwise (tolerance: none): ``mega_allocate`` (codes and stats; sessions
-and synthetic operands across its launch plans),
+and synthetic operands across its launch plans, its qfair-ladder mode and
+full-recompute queue chain), ``qfair_solve`` (deserved rows bit for bit,
+met flags, evidence),
 ``static_predicate_mask`` (the mask; vocabulary widths around its packed
 word), ``placement_step`` (all four outputs; node counts across its
 cluster, ties across CTAs, a pushed column) and the ``fused_allocate``
@@ -29,12 +31,14 @@ import scheduler_tpu_torch.plugins  # noqa: F401
 from scheduler_tpu_torch.harness import (
     make_gpu_topology_cluster,
     make_kubemark_density_cluster,
+    make_mq_ladder_cluster,
     make_synthetic_cluster,
 )
 from scheduler_tpu_torch.interop import mega_operands_from_numpy
 from scheduler_tpu_torch.ops import fused as fused_mod
 from scheduler_tpu_torch.ops import megakernel as mk
 from scheduler_tpu_torch.ops import predicate_kernel as pk
+from scheduler_tpu_torch.ops import qfair
 from scheduler_tpu_torch.ops import step_kernel as sk
 
 
@@ -140,6 +144,76 @@ def test_cuda_kernel_multi_queue_synthetic_operands(case):
     assert torch.equal(codes, ref_codes)
     assert torch.equal(stats, ref_stats)
     assert int((codes >= 0).sum()) > 0 and int(stats[mk.STATS.QDELTA_UPDATES]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(smoke.MEGA_SYNTHETIC_LADDER))
+def test_cuda_kernel_ladder_synthetic_operands(case):
+    """``mega_allocate`` in qfair-ladder mode on synthetic operands
+    (``chip_smoke.MEGA_SYNTHETIC_LADDER``; both instantiations) against its
+    plain version, bitwise (tolerance: none); then the same operands on the
+    full-recompute chain, which places the same."""
+    device = _card()
+    spec = smoke.MEGA_SYNTHETIC_LADDER[case]
+    ops, kw = smoke.ladder_operands(**spec)
+    args, kw = mega_operands_from_numpy(ops, kw, device)
+    for mode in ({}, {"qfair_ladder": False, "queue_delta": False}):
+        mkw = dict(kw, **mode)
+        before = mk.launches
+        codes, stats = mk.mega_allocate(*args, n_queues=spec["queues"], **mkw)
+        torch.cuda.synchronize()
+        assert mk.launches == before + 1
+        ref_codes, ref_stats = mk.mega_allocate_reference(*args, **mkw)
+        assert torch.equal(codes, ref_codes)
+        assert torch.equal(stats, ref_stats)
+        placed = int((codes >= 0).sum())
+        assert placed > 0
+        if mode:
+            assert int(stats[mk.STATS.QFULL_RECOMPUTES]) == int(stats[mk.STATS.STEPS])
+        else:
+            assert int(stats[mk.STATS.QFAIR_LOOKUPS]) == placed
+            ladder_codes = codes
+    assert torch.equal(codes, ladder_codes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conf", ["multiq", "default-tiers"])
+def test_cuda_kernel_ladder_session(conf):
+    """The ladder flagship's shape at small size (``make_mq_ladder_cluster``;
+    the multi-queue conf, and the default tiers for static rows): the
+    engine stages the ladder, and the kernel equals its plain version and
+    the same launch on the delta chain."""
+    device = _card()
+    text = {"multiq": smoke.MULTIQ_CONF, "default-tiers": smoke.DEFAULT_TIERS_CONF}[conf]
+    _, engine = smoke.engine_for(make_mq_ladder_cluster(64, 1200, 12, 6).cache, text, device)
+    kw = engine._mega_kw
+    assert kw["qfair_ladder"] and kw["use_static"] == (conf == "default-tiers")
+    n_queues = len(engine.queue_uids)
+    codes, stats = mk.mega_allocate(*engine._mega_args, n_queues=n_queues, **kw)
+    ref_codes, ref_stats = mk.mega_allocate_reference(*engine._mega_args, **kw)
+    assert torch.equal(codes, ref_codes) and torch.equal(stats, ref_stats)
+    delta_codes, _ = mk.mega_allocate(*engine._mega_args, n_queues=n_queues,
+                                      **dict(kw, qfair_ladder=False))
+    assert torch.equal(codes, delta_codes)
+    assert int(stats[mk.STATS.QFAIR_LOOKUPS]) == int((codes >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_n,r_n,seed", [(1, 2, 0), (3, 4, 1), (8, 8, 2), (40, 18, 3),
+                                          (100, 8, 4), (128, 18, 5), (128, 2, 6)])
+def test_qfair_solve_matches_plain_version(q_n, r_n, seed):
+    """``qfair_solve`` on the card against its plain version on random
+    fleets (``chip_smoke.qfair_fleet``), capped and uncapped (tolerance:
+    none, float64 bit for bit)."""
+    ops = smoke.qfair_fleet(q_n, r_n, seed, _card())
+    before = qfair.launches
+    got = qfair.qfair_solve(*ops, iters=q_n + 4)
+    torch.cuda.synchronize()
+    assert qfair.launches == before + 1
+    ref = qfair.qfair_solve_reference(*ops, iters=q_n + 4)
+    assert torch.equal(got[0].view(torch.int64), ref[0].view(torch.int64))
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    assert int(got[2][1]) >= 1
 
 
 @pytest.mark.cuda

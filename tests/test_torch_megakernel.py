@@ -348,12 +348,13 @@ def test_wrapper_runs_plain_version_on_cpu_and_rejects_unported_modes(monkeypatc
     ref_codes, ref_stats = mk.mega_allocate_reference(*args, **kw)
     assert torch.equal(codes, ref_codes) and torch.equal(stats, ref_stats)
     assert mk.launches == before, "the CPU path launches no kernel"
-    for mode in ({"has_releasing": True}, {"qfair_ladder": True},
-                 {"multi_queue": True, "queue_proportion": True, "queue_delta": False}):
-        with pytest.raises(NotImplementedError):
-            mk.mega_allocate(*args, **dict(kw, **mode))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="releasing"):
+        mk.mega_allocate(*args, **dict(kw, has_releasing=True))
+    with pytest.raises(NotImplementedError, match="mesh"):
         mk.mega_allocate(*args, **dict(kw, mesh=object()))
+    # The qfair ladder refines multi-queue mode's delta chain: not cursor mode.
+    with pytest.raises(ValueError, match="qfair ladder"):
+        mk.mega_allocate(*args, **dict(kw, qfair_ladder=True))
 
 
 # -- synthetic operands and the launch plan -----------------------------------------

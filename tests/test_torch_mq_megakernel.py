@@ -116,4 +116,8 @@ def test_port_stages_the_jax_multi_queue_operands(monkeypatch, fixture):
     chain = stats["queue_chain"]
     assert chain["queues"] == len(ssn.queues) and chain["mode"] == "delta"
     assert chain["delta_updates"] > 0 and chain["full_recomputes"] == 0
-    assert stats["qfair"]["flavor"] == "host" and not stats["qfair"]["engaged"]
+    # The port on its default flavor (the JAX engine here on its host one):
+    # the device water-fill, and no ladder on these shapes.
+    assert stats["qfair"]["flavor"] == "device" and not stats["qfair"]["engaged"]
+    assert stats["qfair"]["reason"] in ("run batching (multi-copy placements)",
+                                        "mixed request classes within a queue")

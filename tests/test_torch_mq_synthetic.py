@@ -64,7 +64,7 @@ def test_reference_matches_jax_on_multi_queue_operands(case, cohort):
 def test_multi_queue_wrapper_checks_the_queue_operands():
     """In multi-queue mode the wrapper's checks cover the queue operands:
     the queue count is required and must cover every queue a job names;
-    the full-recompute queue chain raises."""
+    the qfair ladder needs the delta chain."""
     ops, kw = smoke.mega_operands(**SYNTHETIC_MQ_CPU["q3-starved"])
     args, kw = mega_operands_from_numpy(ops, kw, "cpu")
     assert int(args[mk.OPERAND_NAMES.index("jqueue")].max()) == 2
@@ -75,8 +75,8 @@ def test_multi_queue_wrapper_checks_the_queue_operands():
             mk.mega_allocate(*args, n_queues=n_queues, **kw)
     with pytest.raises(ValueError, match="n_queues"):
         mk.plan_for(args, kw)
-    with pytest.raises(NotImplementedError, match="full-recompute"):
-        mk.mega_allocate(*args, **dict(kw, queue_delta=False))
+    with pytest.raises(ValueError, match="qfair ladder"):
+        mk.mega_allocate(*args, n_queues=3, **dict(kw, queue_delta=False, qfair_ladder=True))
 
 
 PLAN_NB = (128, 1024, 10_112, 16_384, 32_768)
