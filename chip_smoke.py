@@ -10,7 +10,7 @@ What it does, one JSON line per phase:
 
 1. device: the card, the CUDA version, and the one build of every kernel of
    the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path, seven times, each on a freshly built cluster that no other
+2. main_path, eight times, each on a freshly built cluster that no other
    session has touched (a cold cycle, as a scheduler's first cycle after
    start-up), through ``Scheduler.run_once`` on the card, with every
    kernel's launch count set to 0 just before and read just after:
@@ -54,9 +54,21 @@ What it does, one JSON line per phase:
       overcommitted in any of its 8 dims or past 110 pods; then, on a
       session of the same cluster, the device water-fill's deserved rows
       bit for bit the host water-fill's.
+   h. BASELINE config 4 after its reclaim
+      (``harness.make_reclaim_aftermath_cluster``: queues fat and thin of
+      weight 1, 1,000 nodes of 26 x (2 cpu, 4 GiB), 25,000 running fat pods
+      of which the 12,500 of every odd-numbered gang are evicted and still
+      releasing, 50,000 pending thin pods in gangs of 50; allocate over
+      priority, gang and proportion): ``mega_allocate`` in multi-queue mode
+      with releasing capacity.  Checks: one launch, the ladder declined
+      for releasing capacity, tasks both allocated and pipelined, on every
+      node the allocated requests within its idle and the pipelined ones
+      within its releasing capacity in every dim and at most 110 pods;
+      later, the binds, pipelined tasks and statuses equal to the port's
+      host loop on a twin cluster (a child beside the kernel phases).
    Each prints the phase seconds and the kernel's time from CUDA events;
    d and f also the water-fill's evidence and why the ladder declined.
-   d, e, f and g each run in a child process of the script, after one
+   d, e, f, g and h each run in a child process of the script, after one
    config-1 cycle there (``--child``, ``child_main``), so that the garbage
    collection at the head of the cycle walks that path's cluster alone.
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
@@ -66,12 +78,16 @@ What it does, one JSON line per phase:
    ledger lives in global scratch, four small static-row sessions, seven
    synthetic cases across the launch plans (``MEGA_SYNTHETIC``), four in
    multi-queue mode (``MEGA_SYNTHETIC_MQ``), the 1:9 starvation session
-   (also on the full-recompute queue chain), two with the qfair ladder
-   (``MEGA_SYNTHETIC_LADDER``, both instantiations), the ladder flagship's
-   shape at 1,000 nodes x 20 queues x 200 jobs a queue (also on the
-   full-recompute chain), and the operands of the five main paths a to f
-   that run it at full size from second clusters built the same way
-   (timed: profiler device time and events, µs a step, the launch plan).
+   (also on the full-recompute queue chain, timed), three with the qfair
+   ladder (``MEGA_SYNTHETIC_LADDER``, both instantiations), the ladder
+   flagship's shape at 1,000 nodes x 20 queues x 200 jobs a queue (also on
+   the full-recompute chain, timed), sixteen with releasing capacity
+   (``MEGA_SYNTHETIC_REL``: the four releasing instantiations up to the
+   16-CTA plan, ties across CTAs, releasing-only winners, the pod-count
+   gate), the one-queue mid-evict session and config 4's aftermath at 2 %,
+   and the operands of the main paths a to f and h that run it at full
+   size from second clusters built the same way (timed: profiler device
+   time and events, µs a step, the launch plan).
    The ladder flagship's operands (100 queues of 1,000 job lanes): the
    ladder against the delta chain on the same operands, equal codes, each
    timed three times in turns; and against its plain version (timed; its
@@ -92,7 +108,7 @@ What it does, one JSON line per phase:
    and once with the plain version on the card, equal codes.
 4. e2e_small: the fused route on the card against the host loop on small
    clusters, bind for bind (one of them, 4,200 single-pod jobs of distinct
-   requests, on the loop route).
+   requests, on the loop route; one with releasing capacity).
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 prints them, and as the last line ``{"ok": true, "device": {...}}``.  Any
@@ -176,6 +192,17 @@ LADDER_QUEUES = 100
 LADDER_VOCAB = 6
 # The ladder session at the size its plain version runs in seconds.
 LADDER_SMALL = (1000, 4000, 20, 6)
+
+# BASELINE config 4 after its reclaim (``harness.make_reclaim_aftermath_cluster``):
+# the next cycle's allocate over config 4's plugins.
+RECLAIM_CONF = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: proportion
+"""
 
 # The plugin tiers of the JAX package's default conf (scheduler_tpu/conf.py),
 # allocate only: one queue, but proportion makes the session multi-queue.
@@ -351,7 +378,7 @@ def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=Fa
                   infeasible_job=False, use_static=False, exact=False,
                   weights=(0.0, 0.0, 1.0), score_bound=False, enforce_pod_count=False,
                   cohort=1, max_tasks=6, comparators=("priority", "gang", "drf"),
-                  queues=0, starved=False, tied=False):
+                  queues=0, starved=False, tied=False, releasing=False, rel_only=()):
     """``mega_allocate`` operands (numpy, by ``OPERAND_NAMES``) and static
     arguments for a synthetic session drawn from
     ``numpy.random.default_rng(seed)``: ``nb`` node lanes of which the first
@@ -372,6 +399,10 @@ def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=Fa
     allocated; ``starved`` makes queue 0 deserve almost nothing (overused
     after its first placements) and ``tied`` gives queues 1 and 2 the same
     deserved and allocated (equal shares: the lower queue index wins).
+    ``releasing`` gives every real node releasing capacity (the kernel's
+    releasing mode): none, half or all of what its idle leaves of
+    allocatable; the nodes of ``rel_only`` have no idle and all of
+    allocatable releasing (a task fits them by pipelining only).
     With ``exact`` capacities, idle
     shares and requests are powers of two or multiples of them, so every
     score term is exact in float32 (the CPU tests need that: XLA's CPU
@@ -399,6 +430,13 @@ def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=Fa
             share = rng.random((r_dim, n_nodes))
         ns0[:r_dim, :n_nodes] = alloc[:r_dim, :n_nodes] * share
         ns0[8, :n_nodes] = rng.integers(0, 6, n_nodes)
+    rel0 = np.zeros((8, nb), f32)
+    if releasing:
+        rel0[:r_dim, :n_nodes] = ((alloc[:r_dim, :n_nodes] - ns0[:r_dim, :n_nodes])
+                                  * rng.choice([0.0, 0.5, 1.0], (1, n_nodes)))
+        for i in rel_only:
+            ns0[:r_dim, i] = 0.0
+            rel0[:r_dim, i] = alloc[:r_dim, i]
     plim = np.zeros((1, nb), f32)
     plim[0, :n_nodes] = 110.0 if alike else rng.integers(6, 30, n_nodes)
     gate = np.zeros((1, nb), bool)
@@ -487,7 +525,7 @@ def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=Fa
         jq_alloc0 = np.zeros((8, j_pad), f32)
         jq_alloc0[:r_dim, :n_jobs] = held[jq].T
     ops = {
-        "ns0": ns0, "alloc_t": alloc, "rel0": np.zeros((8, nb), f32), "gate": gate,
+        "ns0": ns0, "alloc_t": alloc, "rel0": rel0, "gate": gate,
         "plim": plim, "sig_req": sig_req,
         "task_sig": pack_task_table_i32(np.array(task_sig, np.int32), n_tasks),
         "run_len": pack_task_table_i32(np.array(run_len, np.int32), n_tasks, fill=1),
@@ -506,7 +544,7 @@ def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=Fa
     kw = dict(
         r_dim=r_dim, weights=tuple(float(w) for w in weights),
         enforce_pod_count=enforce_pod_count, comparators=tuple(comparators),
-        cross_batch=not queues, batch_runs=True, has_releasing=False, use_static=use_static,
+        cross_batch=not queues, batch_runs=True, has_releasing=releasing, use_static=use_static,
         score_bound=score_bound, mins=tuple([0.01] * r_dim), cpu_idx=0, mem_idx=1,
         multi_queue=bool(queues), queue_proportion=bool(queues), overused_gate=bool(queues),
         queue_delta=True,
@@ -557,6 +595,40 @@ MEGA_SYNTHETIC_MQ = {
                             weights=(0.0, 1.0, 1.0), score_bound=True,
                             enforce_pod_count=True, use_static=True, cohort=4),
 }
+
+
+# Synthetic K2 cases with releasing capacity (``mega_operands(releasing=
+# True)``), the kernel's four REL instantiations at r_dim 8 and nb 1,024,
+# 16,384 and 32,768 (there the node slice with its releasing rows takes the
+# 16-CTA plan); an idle-fit node and a releasing-only node on equal scores
+# in different CTAs, either of them first (the lowest index wins, and the
+# winner's idle fit decides alloc or pipe); releasing-only nodes that
+# binpack scores best; and eight nodes filled to their pod limits (a
+# pipelined copy counts against it).
+REL_MODES = {"cursor": {}, "static": dict(use_static=True),
+             "mq": dict(queues=3, starved=True), "mq-static": dict(queues=2, use_static=True)}
+REL_SIZES = {1024: (1000, 150), 16384: (10000, 200), 32768: (30000, 300)}
+MEGA_SYNTHETIC_REL = {
+    f"rel-{mode}-nb{nb}-r8": dict(
+        seed=41 + 4 * i + j, nb=nb, r_dim=8, n_jobs=jobs, n_nodes=nodes, releasing=True,
+        **(dict(weights=(1.0, 1.0, 1.0), score_bound=True, enforce_pod_count=True, cohort=4)
+           if (i + j) % 2 == 0 else dict(weights=(0.0, 0.0, 1.0))),
+        **extra)
+    for j, (mode, extra) in enumerate(REL_MODES.items())
+    for i, (nb, (nodes, jobs)) in enumerate(REL_SIZES.items())
+}
+MEGA_SYNTHETIC_REL.update({
+    "rel-tie-releasing-first": dict(seed=61, nb=16384, r_dim=2, n_jobs=200, alike=True,
+                                    gated=(12000, 3000), rel_only=(3000,), releasing=True,
+                                    weights=(0.0, 0.0, 0.0), cohort=4),
+    "rel-tie-idle-first": dict(seed=62, nb=16384, r_dim=2, n_jobs=200, alike=True,
+                               gated=(12000, 3000), rel_only=(12000,), releasing=True,
+                               weights=(0.0, 0.0, 0.0)),
+    "rel-best-releasing-only": dict(seed=63, nb=16384, r_dim=3, n_jobs=300, n_nodes=10000,
+                                    rel_only=(70, 5000, 9999), releasing=True),
+    "rel-pods-gate": dict(seed=64, nb=1024, r_dim=2, n_jobs=300, n_nodes=8, releasing=True,
+                          enforce_pod_count=True, weights=(0.0, 1.0, 0.0), score_bound=True),
+})
 
 
 def ladder_operands(seed, nb, r_dim, n_jobs, queues, **flags):
@@ -617,6 +689,43 @@ def many_jobs_cluster():
     from scheduler_tpu_torch.harness import make_synthetic_cluster
 
     return make_synthetic_cluster(64, 12_000, tasks_per_job=1).cache
+
+
+def mid_evict_cluster(pkg: str = "scheduler_tpu_torch"):
+    """``tests/test_megakernel.py``'s session with releasing capacity (the
+    JAX engine takes its mega kernel on it) as a cache of package ``pkg``:
+    one queue, 6 nodes of 4 cpu and 8 GiB, each running a 3-cpu pod, four
+    pending 2.5-cpu pods; the running pods on n0, n1 and n2 are evicted
+    (their capacity is releasing), so the pending pods pipeline onto it."""
+    objects = importlib.import_module(f"{pkg}.apis.objects")
+    vocab = importlib.import_module(f"{pkg}.api.vocab")
+    cache_mod = importlib.import_module(f"{pkg}.cache.cache")
+    ts0 = 1_700_000_000.0
+    cache = cache_mod.SchedulerCache(vocab=vocab.ResourceVocabulary(), async_io=False)
+    cache.run()
+    queue = objects.Queue(name="default", weight=1)
+    queue.creation_timestamp = ts0
+    cache.add_queue(queue)
+    for i in range(6):
+        cache.add_node(objects.NodeSpec(name=f"n{i}", allocatable={
+            "cpu": 4000.0, "memory": 8 * GIB, "pods": 110}))
+    for k, (name, cpu, mem, node) in enumerate(
+            [(f"run{j}", 3000.0, 6 * GIB, f"n{j}") for j in range(6)]
+            + [(f"want{j}", 2500.0, 5 * GIB, "") for j in range(4)]):
+        pg = objects.PodGroup(name=name, namespace="default", queue="default", min_member=1)
+        pg.status.phase = "Running" if node else "Inqueue"
+        pg.creation_timestamp = ts0 + (2 * k + 1) * 1e-6
+        cache.add_pod_group(pg)
+        pod = objects.PodSpec(name=f"{name}-0", namespace="default",
+                              containers=[{"cpu": cpu, "memory": mem}],
+                              annotations={objects.GROUP_NAME_ANNOTATION: name}, node_name=node,
+                              phase="Running" if node else "Pending")
+        pod.creation_timestamp = ts0 + (2 * k + 2) * 1e-6
+        cache.add_pod(pod)
+    for j in range(3):
+        for task in list(cache.jobs[f"default/run{j}"].tasks.values()):
+            cache.evict(task, "reclaim")
+    return cache
 
 
 def static_spec():
@@ -846,7 +955,7 @@ def read_inputs(args, kw):
     """The operands the kernel reads in its mode (the others are dummies)."""
     from scheduler_tpu_torch.ops.megakernel import OPERAND_NAMES
 
-    unread = {"rel0"}
+    unread = set() if kw.get("has_releasing") else {"rel0"}
     if not kw.get("qfair_ladder"):
         unread |= {"qf_share", "qf_over"}
     if not kw["multi_queue"]:
@@ -858,10 +967,13 @@ def read_inputs(args, kw):
 
 def node_step_ops(kw) -> int:
     """Float32 operations per node per placement step of the kernel's node
-    loop, counted from its source: the epsilon fit (6 a dimension), the
-    pod-count gate, the static mask and score, the score terms and the
-    masked argmax."""
+    loop, counted from its source: the epsilon fit (6 a dimension; with
+    releasing capacity once more on the releasing rows, and the or of the
+    two), the pod-count gate, the static mask and score, the score terms
+    and the masked argmax."""
     ops = 6 * kw["r_dim"] + 1 + 3
+    if kw.get("has_releasing"):
+        ops += 6 * kw["r_dim"] + 1
     if kw["enforce_pod_count"]:
         ops += 1
     if kw["use_static"]:
@@ -882,7 +994,7 @@ def queue_chain_ops(args, kw, codes, stats, n_queues=0) -> int:
     and share, their compares, the index: 6).  Per placement: the delta
     chain's refresh of the queue (r_dim adds; a dim's division, selects,
     maximum, difference and compare: 7 each), or the ladder's count add and
-    two reads (3); per step of the full-recompute chain, every queue's
+    two reads (3); at each pop of the full-recompute chain, every queue's
     derive (7 a dim).  Pops are counted from below, as the jobs that
     consumed a task (each took at least one pop)."""
     import torch
@@ -903,19 +1015,23 @@ def queue_chain_ops(args, kw, codes, stats, n_queues=0) -> int:
     lane_ops = 5 + sum(2 * r if name == "drf" else 2 for name in kw["comparators"]) + 2
     return (rescanned * lane_ops + popped.numel() * max(1, n_queues) * 6
             + int(stats[STATS.QDELTA_UPDATES]) * 8 * r + int(stats[STATS.QFAIR_LOOKUPS]) * 3
-            + int(stats[STATS.QFULL_RECOMPUTES]) * n_queues * 7 * r)
+            + bool(int(stats[STATS.QFULL_RECOMPUTES])) * popped.numel() * n_queues * 7 * r)
 
 
 def mega_bound_ms(args, kw, codes, stats, n_real: int, n_queues: int = 0):
     """The least time the card could take for this run: each input read
     once and each output written once at the memory rate, against the node
-    loop's float32 operations (steps x real nodes x ops), and in multi-queue
-    mode the queue chain's (``queue_chain_ops``), at the peak rate."""
+    loop's float32 operations (steps x real nodes x ops), with releasing
+    capacity each pipelined copy's update of its node's releasing rows and
+    task count (r_dim + 1), and in multi-queue mode the queue chain's
+    (``queue_chain_ops``), at the peak rate."""
     from scheduler_tpu_torch.ops.layout import STATS
 
     nbytes = sum(a.numel() * a.element_size() for a in read_inputs(args, kw))
     nbytes += codes.numel() * codes.element_size() + stats.numel() * stats.element_size()
     ops = int(stats[STATS.STEPS]) * n_real * node_step_ops(kw)
+    if kw.get("has_releasing"):
+        ops += int((codes <= -3).sum()) * (kw["r_dim"] + 1)
     if kw["multi_queue"]:
         ops += queue_chain_ops(args, kw, codes, stats, n_queues)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -923,14 +1039,16 @@ def mega_bound_ms(args, kw, codes, stats, n_real: int, n_queues: int = 0):
 
 
 def mega_mode(kw) -> str:
-    """The kernel instantiation a call runs, and in multi-queue mode the
-    queue chain where it is not the delta chain (``_ladder``, ``_full``)."""
+    """The kernel instantiation a call runs (``_releasing`` with releasing
+    capacity), and in multi-queue mode the queue chain where it is not the
+    delta chain (``_ladder``, ``_full``)."""
+    rel = "_releasing" if kw.get("has_releasing") else ""
     if kw["multi_queue"]:
-        mode = "multi_queue_static" if kw["use_static"] else "multi_queue"
+        mode = ("multi_queue_static" if kw["use_static"] else "multi_queue") + rel
         if kw.get("qfair_ladder"):
             return mode + "_ladder"
         return mode if kw.get("queue_delta", True) else mode + "_full"
-    return "static" if kw["use_static"] else "cursor"
+    return ("static" if kw["use_static"] else "cursor") + rel
 
 
 def events():
@@ -946,7 +1064,8 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
     mode).  With ``timed`` the kernel's device time a launch comes from a
     profiler trace (``device_ms``, also ``ms``) beside CUDA events around
     ``repeats`` launches (``event_ms``), with ``us_per_step`` = ms /
-    STATS.STEPS.  The plain version is timed with events (``plain_ms``)."""
+    STATS.STEPS.  The plain version is timed with events (``plain_ms``),
+    and the record carries the run's bound (``mega_bound_ms``)."""
     import torch
 
     from scheduler_tpu_torch.ops import megakernel as mk
@@ -965,7 +1084,7 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
         "phase": "kernel_vs_plain", "kernel": "mega_allocate", "case": case,
         "mode": mega_mode(kw), "equal": equal,
         "max_abs_err": max_abs_err, "plain_ms": plain_ms,
-        "placed": int((codes_k >= 0).sum()),
+        "placed": int((codes_k >= 0).sum()), "pipelined": int((codes_k <= -3).sum()),
         "stats": stats_k.tolist(), "plain_stats": stats_r.tolist(),
         "nb": int(args[0].shape[1]), "t_pad": int(codes_k.numel()),
         "static_rows": int(args[18].shape[0]) if kw["use_static"] else 0,
@@ -973,6 +1092,7 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
         "enforce_pod_count": kw["enforce_pod_count"],
         "plan": mk.plan_for(args, kw, n_queues).summary(),
     }
+    rec["bound_ms"], rec["bound_by"] = mega_bound_ms(args, kw, codes_k, stats_k, n_real, n_queues)
     if timed:
         start.record()
         for _ in range(repeats):
@@ -985,8 +1105,6 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
             match="mega_allocate_kernel")
         rec["ms"] = rec["device_ms"] if rec["device_ms"] is not None else rec["event_ms"]
         rec["us_per_step"] = 1e3 * rec["ms"] / max(1, int(stats_k[0]))
-        rec["bound_ms"], rec["bound_by"] = mega_bound_ms(args, kw, codes_k, stats_k, n_real,
-                                                         n_queues)
     emit(rec)
     if not equal:
         raise SystemExit(f"kernel and plain version disagree: {case}")
@@ -1638,10 +1756,20 @@ def phase_device():
     info = cuda_build.build_info
     regs = [ln.strip() for ln in info["log"].splitlines()
             if "registers" in ln or "stack frame" in ln or ln.endswith(".cu:")]
+    # Registers a thread of each kernel entry (its mangled name: the
+    # template arguments of mega_allocate_kernel<USE_STATIC, MQ, REL> read
+    # as Lb0 / Lb1 in order).
+    by_entry, entry = {}, None
+    for ln in info["log"].splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "registers" in ln and entry is not None:
+            by_entry[entry] = int(ln.split("Used")[1].split()[0])
+            entry = None
     emit({"phase": "device", "gpu": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "sources": info["sources"],
-          "build_s": info["seconds"], "ptxas": regs})
+          "build_s": info["seconds"], "ptxas": regs, "registers": by_entry})
 
 
 def reset_counts():
@@ -1670,17 +1798,27 @@ def read_counts():
             dict(allocate.routes))
 
 
-def run_cycle(cache, conf_path, engine="mega"):
+def run_cycle(cache, conf_path, engine="mega", after_action=None):
     """One ``Scheduler.run_once`` on the card with the launch counts set to
     0 just before and read just after; the fused route must run ``engine``:
     one ``mega_allocate`` launch, or one ``placement_step`` launch a loop
-    step and none of ``mega_allocate``.  Returns (record, launches)."""
+    step and none of ``mega_allocate``.  ``after_action(ssn)``, where given,
+    reads the open session after each action.  Returns (record,
+    launches)."""
     import torch
 
     from scheduler_tpu_torch.scheduler import Scheduler
     from scheduler_tpu_torch.utils import phases
 
     sched = Scheduler(cache, scheduler_conf=conf_path)  # device None: the card
+    if after_action is not None:
+        sched._load_conf()  # the action list, as run_once would resolve it
+        for action in sched.actions:
+            def execute(ssn, run=action.execute):
+                run(ssn)
+                after_action(ssn)
+
+            action.execute = execute
     reset_counts()
     phases.begin()
     t0 = time.perf_counter()
@@ -1848,6 +1986,116 @@ def phase_main_path_default_tiers(cache, conf_path, n_nodes, n_pods):
     return launches, dict(cache.binder.binds)
 
 
+def pending_outcome(ssn, pending):
+    """name -> [status, node] of the session's tasks named in ``pending``."""
+    return {t.name: [t.status.name, t.node_name]
+            for job in ssn.jobs.values() for t in job.tasks.values() if t.name in pending}
+
+
+def reclaim_host_loop():
+    """The port's host loop (``AllocateAction._heap_loop``) on the CPU on
+    config 4's aftermath (``harness.make_reclaim_aftermath_cluster()``): the
+    pending tasks' statuses and nodes after the action, and the binds."""
+    from scheduler_tpu_torch.actions.allocate import AllocateAction, collect_candidates
+    from scheduler_tpu_torch.conf import parse_scheduler_conf
+    from scheduler_tpu_torch.framework import close_session, open_session
+    from scheduler_tpu_torch.harness import make_reclaim_aftermath_cluster
+
+    cache = make_reclaim_aftermath_cluster().cache
+    pending = {t.name for job in cache.jobs.values() for t in job.tasks.values()
+               if t.status.name == "PENDING"}
+    ssn = open_session(cache, parse_scheduler_conf(RECLAIM_CONF).tiers, device="cpu")
+    AllocateAction()._heap_loop(ssn, collect_candidates(ssn))
+    outcome = pending_outcome(ssn, pending)
+    close_session(ssn)
+    return {"statuses": outcome, "binds": dict(cache.binder.binds)}
+
+
+def phase_main_path_reclaim(cache, conf_path):
+    """BASELINE config 4 after its reclaim (``harness.make_reclaim_aftermath_cluster``):
+    the mega kernel in multi-queue mode with releasing capacity.  Checks:
+    one launch; the ladder declined for releasing capacity; tasks both
+    allocated and pipelined, as many as the kernel placed; on every node the
+    allocated requests within its idle, the pipelined ones within its
+    releasing capacity (every dim, to the vocabulary's epsilon) and no more
+    than its pod limit; binds and pipelines equal to the host loop's on a
+    twin (``check_reclaim_host_loop``).  Returns (launches, outcome)."""
+    import numpy as np
+
+    mins = cache.vocab.min_thresholds()
+    before = {name: (n.idle.array.copy(), n.releasing.array.copy(), len(n.tasks),
+                     n.allocatable.array.copy())
+              for name, n in cache.nodes.items()}
+    pending = {t.name for job in cache.jobs.values() for t in job.tasks.values()
+               if t.status.name == "PENDING"}
+    seen = {}
+
+    def after_allocate(ssn):
+        seen["statuses"] = pending_outcome(ssn, pending)
+        seen["requests"] = {t.name: t.resreq.array.copy() for job in ssn.jobs.values()
+                            for t in job.tasks.values() if t.name in pending}
+
+    rec, launches = run_cycle(cache, conf_path, after_action=after_allocate)
+    statuses, requests = seen["statuses"], seen["requests"]
+    on_node = {name: [np.zeros_like(b[0]), np.zeros_like(b[0]), 0]
+               for name, b in before.items()}
+    split = {}
+    for name, (status, node) in statuses.items():
+        split[status] = split.get(status, 0) + 1
+        if status in ("BINDING", "ALLOCATED", "PIPELINED"):
+            acc = on_node[node]
+            req = requests[name]
+            acc[1 if status == "PIPELINED" else 0][: req.shape[0]] += req
+            acc[2] += 1
+    wrong = []
+    for name, (alloc, pipe, count) in on_node.items():
+        idle0, rel0, tasks0, allocatable = before[name]
+        if (alloc - idle0 > mins[: alloc.shape[0]]).any():
+            wrong.append(f"{name}: allocated {alloc.tolist()} past idle {idle0.tolist()}")
+        if (pipe - rel0 > mins[: pipe.shape[0]]).any():
+            wrong.append(f"{name}: pipelined {pipe.tolist()} past releasing {rel0.tolist()}")
+        if tasks0 + count > 110:
+            wrong.append(f"{name}: {tasks0 + count} pods")
+    evidence = rec["cohort"]
+    qf = evidence.get("qfair") or {}
+    allocated = split.get("BINDING", 0) + split.get("ALLOCATED", 0)
+    pipelined = split.get("PIPELINED", 0)
+    binds = len(cache.binder.binds)
+    emit({"phase": "main_path", "config": "config4_reclaim_aftermath",
+          "nodes": len(cache.nodes), "running": sum(b[2] for b in before.values()),
+          "releasing": sum(1 for job in cache.jobs.values() for t in job.tasks.values()
+                           if t.status.name == "RELEASING"),
+          "pending": len(pending), "allocated": allocated, "pipelined": pipelined,
+          "binds": binds, "statuses": split, "queue_chain": evidence.get("queue_chain"),
+          "qfair": qf, **rec})
+    if qf.get("reason") != "releasing capacity (pipeline arm)" or qf.get("engaged") is not False:
+        wrong.append(f"the ladder did not decline for releasing capacity: {qf}")
+    if not (allocated > 0 and pipelined > 0 and allocated + pipelined == evidence.get("placed")):
+        wrong.append(f"{allocated} allocated and {pipelined} pipelined, the kernel placed "
+                     f"{evidence.get('placed')}")
+    if binds != allocated:
+        wrong.append(f"{binds} binds for {allocated} allocated tasks")
+    if wrong:
+        raise SystemExit(f"the config 4 aftermath: {'; '.join(wrong[:5])}")
+    return launches, {"statuses": statuses, "binds": dict(cache.binder.binds)}
+
+
+def check_reclaim_host_loop(twin, outcome):
+    """Path h's binds, pipelined tasks and statuses against the port's host
+    loop on a twin cluster (``twin``: the ``reclaim_host_loop`` child, on
+    the CPU beside the kernel phases)."""
+    host = twin.result()
+    equal = host == outcome
+    pipe = sum(1 for status, _ in outcome["statuses"].values() if status == "PIPELINED")
+    host_pipe = sum(1 for status, _ in host["statuses"].values() if status == "PIPELINED")
+    emit({"phase": "host_loop_parity", "config": "config4_reclaim_aftermath",
+          "binds": len(outcome["binds"]), "host_loop_binds": len(host["binds"]),
+          "pipelined": pipe, "host_loop_pipelined": host_pipe, "equal_to_host_loop": equal,
+          "wall_s": time.perf_counter() - twin.t0})
+    if not equal:
+        raise SystemExit("the config 4 aftermath: binds or pipelines differ from the host loop's")
+
+
 def child_argv(child, path, opts):
     """The command line of this script's child process ``child`` (see
     ``--child``), writing its result to ``path``."""
@@ -1921,6 +2169,7 @@ def child_main(child, path, opts) -> int:
         make_gpu_topology_cluster,
         make_kubemark_density_cluster,
         make_mq_ladder_cluster,
+        make_reclaim_aftermath_cluster,
         make_synthetic_cluster,
     )
 
@@ -1930,6 +2179,10 @@ def child_main(child, path, opts) -> int:
             DEFAULT_TIERS_CONF)
         with open(path, "w") as f:
             json.dump(binds, f)
+        return 0
+    if child == "reclaim_host_loop":
+        with open(path, "w") as f:
+            json.dump(reclaim_host_loop(), f)
         return 0
     if child == "mq_ladder_plain":
         import torch
@@ -1946,7 +2199,8 @@ def child_main(child, path, opts) -> int:
     run_cycle(config1_cluster(), conf_path)
     gc.collect()
     conf = {"config3_multi_queue": MULTIQ_CONF, "config5": CONFIG2_CONF,
-            "config2_default_tiers": DEFAULT_TIERS_CONF, "mq_ladder": MULTIQ_CONF}[child]
+            "config2_default_tiers": DEFAULT_TIERS_CONF, "mq_ladder": MULTIQ_CONF,
+            "reclaim_aftermath": RECLAIM_CONF}[child]
     with open(conf_path, "w") as f:
         f.write(conf)  # config 5's plugins are config 2's
     t0 = time.perf_counter()
@@ -1961,6 +2215,9 @@ def child_main(child, path, opts) -> int:
         cache = make_mq_ladder_cluster(LADDER_NODES, LADDER_PODS, LADDER_QUEUES,
                                        LADDER_VOCAB).cache
         nodes, pods = LADDER_NODES, LADDER_PODS
+    elif child == "reclaim_aftermath":
+        built = make_reclaim_aftermath_cluster()
+        cache, nodes, pods = built.cache, built.n_nodes, built.n_pods
     else:
         cache = make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache
         nodes, pods = opts.config2_nodes, opts.config2_pods
@@ -1983,6 +2240,8 @@ def child_main(child, path, opts) -> int:
         ssn = open_session(cache, parse_scheduler_conf(MULTIQ_CONF).tiers)
         out["solve"] = device_vs_host_solve(ssn)
         close_session(ssn)
+    elif child == "reclaim_aftermath":
+        out["launches"], out["outcome"] = phase_main_path_reclaim(cache, conf_path)
     else:
         out["launches"], out["binds"] = phase_main_path_default_tiers(cache, conf_path, nodes,
                                                                       pods)
@@ -1992,10 +2251,13 @@ def child_main(child, path, opts) -> int:
 
 
 def phase_kernel_cases(device):
-    """mega_allocate against its plain version on every small case."""
+    """mega_allocate against its plain version on every small case.
+    Returns the timed records of the full-recompute queue chain (no main
+    path runs it)."""
     from scheduler_tpu_torch.harness import (
         make_kubemark_density_cluster,
         make_mq_ladder_cluster,
+        make_reclaim_aftermath_cluster,
         make_synthetic_cluster,
     )
     from scheduler_tpu_torch.interop import mega_operands_from_numpy
@@ -2041,9 +2303,11 @@ def phase_kernel_cases(device):
     for cohort in (1, 4):
         compare(f"mq_starvation_cohort_{cohort}", eng._mega_args,
                 dict(eng._mega_kw, cohort=cohort), eng.st.nodes.count, len(eng.queue_uids))
-    # The full-recompute queue chain on the same session.
-    compare("mq_starvation_full_recompute", eng._mega_args,
-            dict(eng._mega_kw, queue_delta=False), eng.st.nodes.count, len(eng.queue_uids))
+    # The full-recompute queue chain on the same session (timed: the
+    # kernels line's full-recompute entry).
+    full = {"starvation": compare("mq_starvation_full_recompute", eng._mega_args,
+                                  dict(eng._mega_kw, queue_delta=False), eng.st.nodes.count,
+                                  len(eng.queue_uids), timed=True)}
     # The qfair ladder: synthetic operands in both instantiations, and the
     # ladder flagship's shape at the size its plain version runs in seconds
     # (also on the full-recompute chain).
@@ -2055,9 +2319,25 @@ def phase_kernel_cases(device):
         raise SystemExit(f"the small ladder session declined the ladder: {eng.qfair_reason}")
     case = "ladder_{}_x_{}_{}q".format(*LADDER_SMALL)
     compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count, len(eng.queue_uids))
-    compare(case + "_full_recompute", eng._mega_args, dict(eng._mega_kw, qfair_ladder=False,
-                                                           queue_delta=False),
-            eng.st.nodes.count, len(eng.queue_uids))
+    full["ladder_small"] = compare(
+        case + "_full_recompute", eng._mega_args,
+        dict(eng._mega_kw, qfair_ladder=False, queue_delta=False), eng.st.nodes.count,
+        len(eng.queue_uids), timed=True)
+    # Releasing mode: synthetic operands in the four instantiations up to
+    # the 16-CTA plan, ties, releasing-only winners and the pod-count gate;
+    # the one-queue mid-evict session and config 4's aftermath at 2 %.
+    for case, spec in MEGA_SYNTHETIC_REL.items():
+        args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
+        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"],
+                spec.get("queues", 0))
+    for case, cache, conf in (
+            ("mid_evict", mid_evict_cluster(), FLAGSHIP_CONF),
+            ("reclaim_aftermath_20_x_1000", make_reclaim_aftermath_cluster(0.02).cache,
+             RECLAIM_CONF)):
+        _, eng = engine_for(cache, conf, device)
+        if not eng._mega_kw["has_releasing"]:
+            raise SystemExit(f"{case}: the engine did not stage releasing capacity")
+        compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count, len(eng.queue_uids))
 
     # Static-row mode on small sessions, at one and four cohort chunks.
     for case, cache_fn, conf in (
@@ -2073,6 +2353,7 @@ def phase_kernel_cases(device):
         for cohort in (1, 4):
             compare(f"{case}_cohort_{cohort}", eng._mega_args,
                     dict(eng._mega_kw, cohort=cohort), eng.st.nodes.count)
+    return full
 
 
 def phase_ladder_full_size(cache, device):
@@ -2152,6 +2433,7 @@ def phase_e2e_small(conf_path):
         make_gpu_topology_cluster,
         make_kubemark_density_cluster,
         make_mq_ladder_cluster,
+        make_reclaim_aftermath_cluster,
         make_synthetic_cluster,
     )
     from scheduler_tpu_torch.scheduler import Scheduler
@@ -2182,6 +2464,10 @@ def phase_e2e_small(conf_path):
         # The ladder flagship's shape: 12 queues of 100 single-pod jobs.
         ("mq_ladder_64_x_1200", lambda: make_mq_ladder_cluster(64, 1200, 12, 6).cache,
          MULTIQ_CONF, "mega"),
+        # Releasing capacity: config 4's aftermath (idle slots bind, the rest
+        # pipelines).
+        ("reclaim_aftermath_20_x_1000", lambda: make_reclaim_aftermath_cluster(0.02).cache,
+         RECLAIM_CONF, "mega"),
     )
     for name, build, conf_text, engine in cases:
         with open(conf_path, "w") as f:
@@ -2286,7 +2572,8 @@ def main() -> int:
     parser.add_argument("--template-tasks", type=int, default=20)
     parser.add_argument("--child", choices=("host_loop", "config3_multi_queue", "config5",
                                             "config2_default_tiers", "mq_ladder",
-                                            "mq_ladder_plain"),
+                                            "mq_ladder_plain", "reclaim_aftermath",
+                                            "reclaim_host_loop"),
                         help="run only this child process of the script (child_main) and "
                              "write its result to --out")
     parser.add_argument("--out", metavar="PATH")
@@ -2313,6 +2600,7 @@ def main() -> int:
         make_gpu_topology_cluster,
         make_kubemark_density_cluster,
         make_mq_ladder_cluster,
+        make_reclaim_aftermath_cluster,
         make_synthetic_cluster,
     )
 
@@ -2373,6 +2661,10 @@ def main() -> int:
                                            LADDER_VOCAB).cache,
             LADDER_NODES, LADDER_PODS)
 
+    def reclaim_cluster():
+        return timed_build("config4_reclaim_aftermath",
+                           lambda: make_reclaim_aftermath_cluster().cache, 1000, 75_000)
+
     def templates_cluster():
         return timed_build(
             "config3_templates",
@@ -2401,8 +2693,10 @@ def main() -> int:
     tiers = run_child(out_dir, "config2_default_tiers", opts)
     tiers_launches, tiers_binds = tiers["launches"], tiers["binds"]
     ladder_launches = run_child(out_dir, "mq_ladder", opts)["launches"]
-    # After the timed cycles: the host loop's twin, beside the kernel phases.
+    reclaim = run_child(out_dir, "reclaim_aftermath", opts)
+    # After the timed cycles: the host loops' twins, beside the kernel phases.
     host_twin = BackgroundChild(out_dir, "host_loop", opts)
+    reclaim_twin = BackgroundChild(out_dir, "reclaim_host_loop", opts)
     ladder_plain = None
 
     try:
@@ -2423,6 +2717,9 @@ def main() -> int:
         gc.collect()
         ladder_recs, ladder_solve = phase_ladder_full_size(ladder_cluster(), device)
         gc.collect()
+        reclaim_full, _ = phase_full_size(reclaim_cluster(), RECLAIM_CONF, device,
+                                          "reclaim_aftermath_main_path_operands")
+        gc.collect()
         qfair_err = phase_qfair_cases(device)
         pred_main, pred_wide, pred_err = phase_predicate_cases(eng2.st, device)
         eng3, parity = phase_loop_parity(templates_cluster(), device, check_every=200)
@@ -2432,13 +2729,15 @@ def main() -> int:
         # After the last timed phase: K2's plain version on the ladder
         # flagship's operands, beside the untimed phases.
         ladder_plain = BackgroundChild(out_dir, "mq_ladder_plain", opts)
-        phase_kernel_cases(device)
+        full_chain = phase_kernel_cases(device)
         gc.collect()
         phase_e2e_small(conf_path)
         check_host_loop(host_twin, tiers_binds)
+        check_reclaim_host_loop(reclaim_twin, reclaim["outcome"])
         ladder_plain_rec = ladder_plain.result()
     finally:
         host_twin.stop()
+        reclaim_twin.stop()
         if ladder_plain is not None:
             ladder_plain.stop()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -2452,6 +2751,11 @@ def main() -> int:
         mega_entry("multi_queue_static", tiers_launches["mega_allocate"], tiers_full,
                    "config2_default_tiers"),
         ladder_entry(ladder_launches["mega_allocate"], ladder_recs, ladder_plain_rec),
+        mega_entry("multi_queue_releasing", reclaim["launches"]["mega_allocate"], reclaim_full,
+                   "config4_reclaim_aftermath"),
+        # The full-recompute chain is the kill-switch: no main path runs it.
+        mega_entry("multi_queue_full", 0, full_chain["ladder_small"],
+                   "ladder_{}_x_{}_{}q kernel case".format(*LADDER_SMALL)),
         qfair_entry({"mq_ladder": ladder_launches["qfair_solve"],
                      "config3_multi_queue": mq_launches["qfair_solve"],
                      "config2_default_tiers": tiers_launches["qfair_solve"]},

@@ -1,10 +1,10 @@
 // mega_allocate (K2): the whole greedy allocate action in one kernel launch.
 //
 // Replaces scheduler_tpu/ops/megakernel.py:181 mega_allocate (a Pallas TPU
-// kernel; kernel body :259-957, pallas_call :959-987) without releasing
-// capacity, as four template instantiations mega_allocate_kernel<USE_STATIC,
-// MQ>.  USE_STATIC: a task's static-signature mask row is ANDed into the fit
-// and its score row added after the dynamic score terms.  MQ = false is
+// kernel; kernel body :259-957, pallas_call :959-987) as eight template
+// instantiations mega_allocate_kernel<USE_STATIC, MQ, REL>.  USE_STATIC: a
+// task's static-signature mask row is ANDed into the fit and its score row
+// added after the dynamic score terms.  MQ = false is
 // CURSOR MODE (one queue, jobs in init-key order, a job taken by the cursor
 // while none is dirty); MQ = true is MULTI-QUEUE MODE (proportion's queue
 // order and overused gate: at each pop the least-share queue not overused,
@@ -14,7 +14,14 @@
 // (queue_delta = 0: every queue's share and flag re-derived at each pop)
 // and the qfair ladder (qfair_ladder: each placement counts one more for its
 // queue and reads the queue's share and flag from the rung tables at that
-// count).  All three give the same values bit for bit.  The
+// count).  All three give the same values bit for bit.  REL: the session
+// has releasing capacity (evicted pods that have not terminated), a second
+// node ledger of r_dim rows: a task fits a node on its idle OR its releasing
+// capacity (:510-521), the score reads idle alone, and the winner's idle fit
+// decides (:572-583): allocate on idle, or pipeline one copy onto releasing
+// (code -3 - node, :829-837), debiting the releasing rows; both raise the
+// node's task count, the job's drf row and (multi-queue) its queue's
+// allocated (:683-731).  One chunk a step (no cohorts, :244-248).  The
 // plain PyTorch version of the same function is
 // scheduler_tpu_torch/ops/megakernel.py::mega_allocate_reference; the two
 // must agree bit for bit on codes and stats.
@@ -39,7 +46,8 @@
 //   never win) and takes an equal contiguous share of [0, last + 1).  It
 //   loads its slice once into shared memory: the r_dim idle rows, the task
 //   count, the pod limit, the allocatable cpu and memory rows and the gate
-//   (and its slice of the static rows where they fit).  Only the thread
+//   (and its slice of the static rows where they fit; with REL the r_dim
+//   releasing rows too).  Only the thread
 //   that scores a node reads it, and only warp 0 of the CTA that owns the
 //   winner writes it; nothing goes back to global memory.
 // * One pass per chunk: every thread keeps a running (score, lowest index)
@@ -55,6 +63,10 @@
 //   mbarrier; four warps of every CTA wait on their own mbarrier for the C
 //   slots.  (cluster.sync() compiles to a fence of the whole card and an
 //   invalidation of L1: about 0.5 us a chunk by scripts/k2_phases.py.)
+//   With REL no word is added: the slot already carries the winner's idle
+//   rows, so every CTA re-evaluates the winner's idle fit from them (the
+//   same compares on the same floats as the node pass) and knows whether
+//   the chunk allocated or pipelined.
 //   Every lane of the four warps then merges the C
 //   slots from its own shared memory with the same rule (a tree in
 //   registers), reads the winner's column from its owner's slot, and the
@@ -123,9 +135,13 @@
 // index is the lowest -inf index, which the merge reproduces with one
 // virtual entry for the first uncovered node and min(second, best).
 //
-// Registers (-Xptxas -v, sm_90a, __launch_bounds__(THREADS, 1)): cursor
-// mode 114 a thread, static-row mode 118, multi-queue 114, multi-queue with
-// static rows 118; no stack, no spills; 3,504 bytes of static shared memory.
+// Registers (-Xptxas -v, sm_90a, __launch_bounds__(THREADS, 1)), a thread:
+// cursor mode 114, static-row mode 118, multi-queue 114, multi-queue with
+// static rows 116; with REL 107, 114, 115 and 110; no stack, no spills;
+// 3,504 bytes of static shared memory.  The four instantiations without
+// REL compile to the same machine code as before REL existed
+// (scripts/sass_diff.py): the fields REL reads sit at the end of MegaArgs,
+// so the others keep their parameter offsets.
 // scripts/k2_phases.py builds it with -DMEGA_PHASE_CLOCKS to time each
 // phase of the loop.
 //
@@ -147,6 +163,7 @@ namespace cg = cooperative_groups;
 #define BIG_I32 2147483647
 #define UNPLACED (-1)
 #define FAILED (-2)
+#define PIPE_BASE (-3)  // pipelined code = PIPE_BASE - node
 #define HALT (-100)
 #define ERR_NO_CLUSTER 10001  // the plan's cluster cannot be scheduled
 
@@ -249,6 +266,9 @@ struct MegaArgs {
   int comp[4];
   float w_lr, w_bal, w_bp;
   float mins[8];
+  // Releasing capacity, last so that the fields above keep their offsets.
+  const float* rel0;      // [8, nb] releasing rows 0..r_dim-1 (has_releasing)
+  int has_releasing;
 };
 
 __device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
@@ -611,6 +631,7 @@ struct NodeSlice {
   float* plim;
   float* acpu;
   float* amem;
+  float* rel;   // [r_dim][S] (REL)
   uint8_t* gate;
   int S;
 };
@@ -618,8 +639,9 @@ struct NodeSlice {
 // One chunk's fit + score over the CTA's nodes, with r_dim = R known at
 // compile time: every load of a node is issued before any is used, the fit
 // is branch-free, and each thread keeps a running top-2 (top-1 unless
-// `top2`) of (masked score, node index) in increasing node order.
-template <bool USE_STATIC, int R>
+// `top2`) of (masked score, node index) in increasing node order.  With REL
+// a node fits on its idle or its releasing rows; the score reads idle.
+template <bool USE_STATIC, bool REL, int R>
 __device__ __forceinline__ Top2 node_pass(const MegaArgs& a, const NodeSlice& ns, int base, int count,
                                           const float (&initqs)[8], const float (&mins)[8],
                                           float req_cpu, float req_mem, const float* mrow,
@@ -627,9 +649,12 @@ __device__ __forceinline__ Top2 node_pass(const MegaArgs& a, const NodeSlice& ns
   const int S = ns.S;
   Top2 t = top2_empty();
   for (int l = threadIdx.x; l < count; l += THREADS) {
-    float id[R];
+    float id[R], rl[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) id[r] = ns.idle[r * S + l];
+    if (REL)
+#pragma unroll
+      for (int r = 0; r < R; ++r) rl[r] = ns.rel[r * S + l];
     const bool g = ns.gate[l] != 0;
     const float tc = a.enforce_pod_count ? ns.tcount[l] : 0.0f;
     const float pl = a.enforce_pod_count ? ns.plim[l] : 0.0f;
@@ -642,6 +667,13 @@ __device__ __forceinline__ Top2 node_pass(const MegaArgs& a, const NodeSlice& ns
 #pragma unroll
     for (int r = 0; r < R; ++r)
       feas = feas & ((initqs[r] < id[r]) | (fabsf(id[r] - initqs[r]) < mins[r]));
+    if (REL) {
+      bool feas_rel = g;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        feas_rel = feas_rel & ((initqs[r] < rl[r]) | (fabsf(rl[r] - initqs[r]) < mins[r]));
+      feas = feas | feas_rel;
+    }
     if (USE_STATIC) feas = feas & (mk > 0.0f);
     if (a.enforce_pod_count) feas = feas & (tc < pl);
     float score = 0.0f;
@@ -668,9 +700,10 @@ __device__ __forceinline__ Top2 node_pass(const MegaArgs& a, const NodeSlice& ns
   return t;
 }
 
-// USE_STATIC selects static-row mode and MQ multi-queue mode at compile
-// time: cursor mode keeps the register budget it has without either.
-template <bool USE_STATIC, bool MQ>
+// USE_STATIC selects static-row mode, MQ multi-queue mode and REL the
+// releasing ledger at compile time: cursor mode keeps the register budget
+// it has without them.
+template <bool USE_STATIC, bool MQ, bool REL>
 __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_constant__ MegaArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   // Every CTA's slot of the chunk, pushed here by its owner: [parity][rank][word],
@@ -692,7 +725,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   const int nb = a.nb, jp = a.j_pad, r_dim = a.r_dim, S = a.slice;
   const int t_pad = a.t_rows * 128;
   const int out_len = (a.t_rows + 1) * 128;
-  const int cohort = a.batch_runs ? max(1, a.cohort) : 1;
+  const int cohort = (a.batch_runs && !REL) ? max(1, a.cohort) : 1;
   const int max_steps = a.t_cap + 8;
   const int n_real = a.misc[0];
   const float neg_inf = -INFINITY;
@@ -717,11 +750,15 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   float* plim = idle + (r_dim + NS_PLIM) * S;
   float* acpu = idle + (r_dim + NS_AC) * S;
   float* amem = idle + (r_dim + NS_AM) * S;
-  uint8_t* gate = reinterpret_cast<uint8_t*>(idle + (r_dim + NS_FLOAT_ROWS) * S);
-  const NodeSlice nsl = {idle, tcount, plim, acpu, amem, gate, S};
+  float* rel = idle + (r_dim + NS_FLOAT_ROWS) * S;  // [r_dim][S] (REL)
+  uint8_t* gate =
+      reinterpret_cast<uint8_t*>(idle + (r_dim + NS_FLOAT_ROWS + (REL ? r_dim : 0)) * S);
+  const NodeSlice nsl = {idle, tcount, plim, acpu, amem, rel, gate, S};
   for (int l = tid; l < count; l += THREADS) {
     const int n = base + l;
     for (int r = 0; r < r_dim; ++r) idle[r * S + l] = a.ns0[r * nb + n];
+    if (REL)
+      for (int r = 0; r < r_dim; ++r) rel[r * S + l] = a.rel0[r * nb + n];
     tcount[l] = a.ns0[NROW_TASK_COUNT * nb + n];
     plim[l] = a.plim[n];
     acpu[l] = a.alloc_t[a.cpu_idx * nb + n];
@@ -947,14 +984,14 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
       // before any is used, and the fit is branch-free.
       Top2 t;
       switch (r_dim) {
-        case 1: t = node_pass<USE_STATIC, 1>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
-        case 2: t = node_pass<USE_STATIC, 2>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
-        case 3: t = node_pass<USE_STATIC, 3>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
-        case 4: t = node_pass<USE_STATIC, 4>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
-        case 5: t = node_pass<USE_STATIC, 5>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
-        case 6: t = node_pass<USE_STATIC, 6>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
-        case 7: t = node_pass<USE_STATIC, 7>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
-        default: t = node_pass<USE_STATIC, 8>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 1: t = node_pass<USE_STATIC, REL, 1>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 2: t = node_pass<USE_STATIC, REL, 2>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 3: t = node_pass<USE_STATIC, REL, 3>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 4: t = node_pass<USE_STATIC, REL, 4>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 5: t = node_pass<USE_STATIC, REL, 5>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 6: t = node_pass<USE_STATIC, REL, 6>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        case 7: t = node_pass<USE_STATIC, REL, 7>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
+        default: t = node_pass<USE_STATIC, REL, 8>(a, nsl, base, count, initqs, mins, req_cpu, req_mem, mrow, srow, any_w, top2); break;
       }
       if (!top2) {
         t.v2 = neg_inf;
@@ -1023,9 +1060,22 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
         if (n_cover < nb) merge2(g, Top2{neg_inf, n_cover, neg_inf, BIG_I32});
         const float bv = g.v1;
         const int best = min(g.i1, nb - 1);
-        const bool alloc_here = bv > neg_inf;
+        const bool placed = bv > neg_inf;
         const int owner = min(best / share, C - 1);
         const float* col = slots[parity][owner];  // the winner's column
+        // With REL the winner's idle fit (from the idle rows of its column)
+        // decides: allocate on idle, else pipeline onto releasing.
+        bool alloc_here = placed;
+        if (REL && placed) {
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            if (r < r_dim) {
+              const float v = col[SL_IDLE + r];
+              alloc_here = alloc_here & ((initqs[r] < v) | (fabsf(v - initqs[r]) < mins[r]));
+            }
+          }
+        }
+        const bool pipe_here = REL && placed && !alloc_here;
         TICK(5);  // the merge of the C slots
 
         // run batching on the winner (top-2 score bound unless binpack-only)
@@ -1116,11 +1166,15 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
         const bool cross_active = a.cross_batch && single0 && alloc_here;
         const int consumed = alloc_here ? m : 1;
         const float m_alloc = alloc_here ? (float)m : 0.0f;
+        const float pipe_f = pipe_here ? 1.0f : 0.0f;
+        // The job's drf row and its queue's allocated grow by the tasks
+        // placed on either ledger.
+        const float placed_f = REL ? m_alloc + pipe_f : m_alloc;
         const int kw = cross_active ? m : 1;
         if (warp == 0) {
           if (lane == 0) {
             sh_res[0] = best;
-            sh_res[1] = alloc_here ? 1 : 0;
+            sh_res[1] = alloc_here ? 1 : (pipe_here ? 2 : 0);
             sh_res[2] = m;
           }
           // The next step most often reads the task table at t_c + consumed
@@ -1146,14 +1200,24 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
             if (lane < r_dim) idle[lane * S + loc] = idle[lane * S + loc] - rq * m_alloc;
             if (lane == 31) tcount[loc] = tcount[loc] + m_alloc;
           }
+          // releasing ledger: a pipelined copy, in the winner's owner only
+          if (REL && pipe_here && owner == rank) {
+            const int loc = best - base;
+            float rq = 0.0f;
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              if (r == lane) rq = reqs[r];
+            if (lane < r_dim) rel[lane * S + loc] = rel[lane * S + loc] - rq * pipe_f;
+            if (lane == 31) tcount[loc] = tcount[loc] + pipe_f;
+          }
         } else if (warp == 2) {
           // job ledger (this CTA's copy): one lane, or the window of a
           // cross-job batch
-          const bool failed = !alloc_here;
+          const bool failed = !placed;
           for (int x = lane; x < kw; x += 32) {
             const int l = jb + x;
             if (l >= jp) break;
-            const float drf_scale = cross_active ? 1.0f : m_alloc;
+            const float drf_scale = cross_active ? 1.0f : placed_f;
             js[JS_CONSUMED * jp + l] = js[JS_CONSUMED * jp + l] + (cross_active ? 1.0f : (float)consumed);
             js[JS_ALLOCATED * jp + l] = js[JS_ALLOCATED * jp + l] + (cross_active ? 1.0f : m_alloc);
             js[JS_LEFT * jp + l] = js[JS_LEFT * jp + l] + (cross_active ? 0.0f : (failed ? 1.0f : 0.0f));
@@ -1161,7 +1225,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
             for (int r = 0; r < 8; ++r)
               if (r < r_dim) js[(JS_DRF + r) * jp + l] = js[(JS_DRF + r) * jp + l] + reqs[r] * drf_scale;
           }
-        } else if (MQ && warp == 3 && lane == 0 && alloc_here) {
+        } else if (MQ && warp == 3 && lane == 0 && placed) {
           if (a.qfair_ladder) {
             // The ladder: the queue's count grows by the placement, and its
             // share and flag are the rung tables' at the new count.  A count
@@ -1179,7 +1243,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
             float* qa = qs.alloc + q_job * r_dim;
 #pragma unroll
             for (int r = 0; r < 8; ++r)
-              if (r < r_dim) qa[r] = qa[r] + reqs[r] * m_alloc;
+              if (r < r_dim) qa[r] = qa[r] + reqs[r] * placed_f;
             if (!full_chain)
               share_overused(qs.des + q_job * r_dim, qa, r_dim, a.mins, qs.share + q_job,
                              qs.over + q_job);
@@ -1192,19 +1256,23 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
       parity ^= 1;
       ++chunk_no;
       const int best = sh_res[0];
-      const bool alloc_here = sh_res[1] != 0;
-      const bool failed = !alloc_here;
+      const bool alloc_here = REL ? sh_res[1] == 1 : sh_res[1] != 0;
+      const bool pipe_here = REL && sh_res[1] == 2;
+      const bool placed = alloc_here || pipe_here;
+      const bool failed = !placed;
       const int m = sh_res[2];
       const bool cross_active = a.cross_batch && single0 && alloc_here;
       const int consumed = alloc_here ? m : 1;
       const float m_alloc = alloc_here ? (float)m : 0.0f;
 
       // result codes of the consumed tasks
-      if (rank == 0 && tid < consumed && t_c + tid < out_len) a.out[t_c + tid] = alloc_here ? best : FAILED;
+      if (rank == 0 && tid < consumed && t_c + tid < out_len)
+        a.out[t_c + tid] = alloc_here ? best : (pipe_here ? PIPE_BASE - best : FAILED);
 
-      // pop end / running scalars
+      // pop end / running scalars (a pipelined copy counts toward
+      // readiness, as the reference's `placed` does)
       const float row_after_alloc = nalloc_c + (cross_active ? 1.0f : m_alloc);
-      const bool became_ready = alloc_here && (row_after_alloc >= (float)deficit_v);
+      const bool became_ready = placed && (row_after_alloc >= (float)deficit_v);
       const float cons_after = cons_c + (cross_active ? 1.0f : (float)consumed);
       const bool drained = cons_after >= (float)num_v;
       const bool end_pop = failed || became_ready || drained;
@@ -1212,7 +1280,7 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
       dirty_r += (became_ready && !drained) ? 1 : 0;
       if (a.cross_batch) cursor_r += (cross_active ? m - 1 : 0) + ((c > 0 && single0) ? 1 : 0);
       if (c >= 1 && alloc_here) chunk_pl += m;
-      if (MQ && alloc_here) qd_evt += 1;
+      if (MQ && placed) qd_evt += 1;
       if (c + 1 < cohort) {
         const bool cont_injob = alloc_here && !end_pop && (rl_c > consumed);
         const bool cont_cross = cross_active && (dirty_r == 0) && (rl_c > m);
@@ -1262,9 +1330,9 @@ __global__ void __launch_bounds__(THREADS, 1) mega_allocate_kernel(const __grid_
   cluster.sync();  // no CTA exits while a peer may still push into it
 }
 
-template <bool USE_STATIC, bool MQ>
+template <bool USE_STATIC, bool MQ, bool REL>
 static int launch(const MegaArgs* args, void* stream) {
-  auto kernel = mega_allocate_kernel<USE_STATIC, MQ>;
+  auto kernel = mega_allocate_kernel<USE_STATIC, MQ, REL>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          args->smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -1296,7 +1364,16 @@ static int launch(const MegaArgs* args, void* stream) {
 extern "C" int mega_allocate_launch(const MegaArgs* args, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is this launch's
   if (args->ctas < 1 || args->ctas > MAX_CTAS) return (int)cudaErrorInvalidValue;
+  if (args->has_releasing) {
+    if (args->multi_queue)
+      return args->use_static ? launch<true, true, true>(args, stream)
+                              : launch<false, true, true>(args, stream);
+    return args->use_static ? launch<true, false, true>(args, stream)
+                            : launch<false, false, true>(args, stream);
+  }
   if (args->multi_queue)
-    return args->use_static ? launch<true, true>(args, stream) : launch<false, true>(args, stream);
-  return args->use_static ? launch<true, false>(args, stream) : launch<false, false>(args, stream);
+    return args->use_static ? launch<true, true, false>(args, stream)
+                            : launch<false, true, false>(args, stream);
+  return args->use_static ? launch<true, false, false>(args, stream)
+                          : launch<false, false, false>(args, stream);
 }

@@ -3,8 +3,9 @@ from scheduler_tpu_torch.harness.synthetic import (
     make_gpu_topology_cluster,
     make_kubemark_density_cluster,
     make_mq_ladder_cluster,
+    make_reclaim_aftermath_cluster,
     make_synthetic_cluster,
 )
 
 __all__ = ["SyntheticCluster", "make_gpu_topology_cluster", "make_kubemark_density_cluster",
-           "make_mq_ladder_cluster", "make_synthetic_cluster"]
+           "make_mq_ladder_cluster", "make_reclaim_aftermath_cluster", "make_synthetic_cluster"]

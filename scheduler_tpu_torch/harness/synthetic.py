@@ -266,3 +266,68 @@ def make_gpu_topology_cluster(n_nodes: int, n_gangs: int, gang: int = 8) -> Synt
     return SyntheticCluster(
         cache=cache, n_nodes=n_nodes, n_pods=n_gangs * gang, vocab=vocab, pod_names=pod_names
     )
+
+
+def make_reclaim_aftermath_cluster(scale: float = 1.0) -> SyntheticCluster:
+    """BASELINE config 4's cluster (two queues, proportion, reclaim;
+    ``scripts/scenario_ladder.py`` scenario 4, its cluster build without the
+    churn) in the state its reclaim leaves while the victims terminate.
+
+    Queues ``fat`` and ``thin`` of weight 1; ``1000 * scale`` nodes of
+    26 x (2 cpu, 4 GiB) and 110 pods; ``25,000 * scale`` RUNNING ``fat``
+    pods of 2 cpu and 4 GiB in gangs of 50 (minMember 1), pod t of gang j on
+    node (50 j + t) mod nodes, so 25 on each node at full size; ``50,000 *
+    scale`` pending ``thin`` pods of the same request in gangs of 50
+    (minMember 1).  Then ``cache.evict(task, "reclaim")`` on every pod of
+    every odd-numbered ``fat`` gang: 12,500 pods at full size, spread over
+    all nodes, whose resources stay RELEASING until they terminate.  That is
+    what a reclaim that enforces the 1:1 shares leaves behind: the next
+    allocate fits ``thin`` on each node's idle slot and pipelines the rest
+    onto the releasing capacity, up to ``thin``'s deserved share.
+
+    Timestamps are fixed, so every build orders its queues and jobs alike;
+    the build draws no random numbers."""
+    gang = 50
+    n_nodes = int(1000 * scale)
+    n_run = int(25_000 * scale)
+    n_pend = int(50_000 * scale)
+    slots = n_run // n_nodes + 1
+    request = {"cpu": 2000.0, "memory": 4 * GIB}
+    vocab = ResourceVocabulary()
+    cache = SchedulerCache(vocab=vocab, async_io=False)
+    cache.run()
+    for k, name in enumerate(("fat", "thin")):
+        queue = Queue(name=name, weight=1)
+        queue.creation_timestamp = KUBEMARK_TS0 + k * 1e-6
+        cache.add_queue(queue)
+    for i in range(n_nodes):
+        cache.add_node(NodeSpec(name=f"n{i:05d}", allocatable={
+            "cpu": 2000.0 * slots, "memory": 4 * GIB * slots, "pods": 110}))
+    pod_names: List[str] = []
+
+    def add_gang(name: str, queue: str, ts: float, running: bool, first: int) -> None:
+        pg = PodGroup(name=name, namespace="d", queue=queue, min_member=1)
+        pg.status.phase = "Running" if running else "Inqueue"
+        pg.creation_timestamp = ts
+        cache.add_pod_group(pg)
+        for t in range(gang):
+            pod = PodSpec(
+                name=f"{name}-{t}", namespace="d", containers=[dict(request)],
+                annotations={GROUP_NAME_ANNOTATION: name},
+                node_name=f"n{(first + t) % n_nodes:05d}" if running else "",
+                phase="Running" if running else "Pending")
+            pod.creation_timestamp = ts + t * 1e-6
+            cache.add_pod(pod)
+            pod_names.append(f"d/{name}-{t}")
+
+    n_fat = n_run // gang
+    for j in range(n_fat):
+        add_gang(f"fat{j}", "fat", KUBEMARK_TS0 + 1.0 + j, True, j * gang)
+    for j in range(n_pend // gang):
+        add_gang(f"thin{j}", "thin", KUBEMARK_TS0 + 1.0 + n_fat + j, False, 0)
+    for j in range(1, n_fat, 2):
+        for task in list(cache.jobs[f"d/fat{j}"].tasks.values()):
+            cache.evict(task, "reclaim")
+    return SyntheticCluster(
+        cache=cache, n_nodes=n_nodes, n_pods=len(pod_names), vocab=vocab, pod_names=pod_names
+    )

@@ -4,10 +4,11 @@
 of the JAX ``mega_allocate`` (``FusedAllocator._mega_args`` / ``_mega_kw``
 there, converted to numpy by the caller) into this package's tensors, so
 both kernels can run on the same inputs, in cursor and in multi-queue mode
-(the queue operands ``jqueue``, ``jq_des`` and ``jq_alloc0`` travel like the
-others); ``fused_operands_from_numpy`` does the same for the JAX
-``fused_allocate`` loop (``FusedAllocator.args`` / ``_allocate_kw()``),
-whose queue arms this package does not carry.  Cluster state travels as the ``{queues, nodes,
+and with releasing capacity (the queue operands ``jqueue``, ``jq_des`` and
+``jq_alloc0`` and the releasing ledger ``rel0`` travel like the others);
+``fused_operands_from_numpy`` does the same for the JAX ``fused_allocate``
+loop (``FusedAllocator.args`` / ``_allocate_kw()``), whose queue and
+releasing arms this package does not carry.  Cluster state travels as the ``{queues, nodes,
 podGroups, pods}`` JSON that ``cli.load_cluster_state`` reads in both
 packages.
 """

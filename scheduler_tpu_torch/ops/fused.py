@@ -15,7 +15,9 @@ engines:
   (``ops/megakernel.py``), in either selection mode, with cohort chunks
   and, when the predicates or nodeorder plugin contributes session-static
   [T, N] mask/score tensors, the kernel's static-row mode (one mask and
-  score row per static signature);
+  score row per static signature), and, where evicted pods still hold
+  RELEASING capacity, the kernel's releasing mode (a task fits on idle or
+  releasing; on releasing alone it is pipelined);
 * **step** — where the mega gate closes (more than 4,096 request
   signatures, a node bucket past 32,768, static rows past 4 MiB) and the
   step-kernel gate is open: ``fused_allocate``, the JAX engine's while
@@ -24,10 +26,10 @@ engines:
 
 The engine is chosen by the JAX engine's gates before anything runs.
 Sessions that the JAX engine would run in a mode this package lacks raise
-``NotImplementedError`` naming it: releasing capacity, the loop's
-multi-queue arm (a multi-queue session the mega gate closes), and the XLA
-step arm of the loop (no step kernel: the top-2 score bound is live, or the
-node bucket is past 65,536).  A multi-queue session keeps its queue shares
+``NotImplementedError`` naming it: the loop's releasing arm (a releasing
+session the mega gate closes), the loop's multi-queue arm (a multi-queue
+session the mega gate closes), and the XLA step arm of the loop (no step
+kernel: the top-2 score bound is live, or the node bucket is past 65,536).  A multi-queue session keeps its queue shares
 by the delta chain, by the full-recompute chain
 (``SCHEDULER_TORCH_QUEUE_DELTA=0``) or, where the JAX engine admits it, by
 the qfair class ladder (``ops/qfair.py``; ``SCHEDULER_TORCH_QFAIR=host``
@@ -39,6 +41,7 @@ from).
 The result is ONE int32[T] array encoding the whole action:
   >= 0: allocated on that node   |   -1: never reached (left pending)
   -2: first infeasible task of its job (host records FitErrors)
+  <= -3: pipelined onto node -3 - code (releasing capacity)
 """
 
 from __future__ import annotations
@@ -722,20 +725,17 @@ class FusedAllocator:
                                      bucket(len(queue_names)), r, scale)
 
         # --- engines: the mega kernel and the loop with K1 --------------------
-        if self.has_releasing:
-            raise NotImplementedError(
-                "fused allocate mode not ported: releasing capacity"
-            )
         binpack_only = (
             self.weights[0] == 0.0
             and self.weights[1] == 0.0
             and self.weights[2] > 0.0
         )
         score_bound = self.batch_runs and not binpack_only
-        # The JAX engine's step-kernel gate (scheduler_tpu/ops/fused.py:1670-1691;
-        # no releasing capacity here): the loop can run its selection as the
-        # placement-step kernel unless the top-2 score bound needs the whole
-        # masked-score vector or the node state outgrows the kernel's budget.
+        # The JAX engine's step-kernel gate (scheduler_tpu/ops/fused.py:1670-1691):
+        # the loop can run its selection as the placement-step kernel unless
+        # the session has releasing capacity, the top-2 score bound needs the
+        # whole masked-score vector or the node state outgrows the kernel's
+        # budget.
         r8 = -(-r // 8) * 8
         self.step_kernel = bool(
             not self.has_releasing
@@ -755,7 +755,7 @@ class FusedAllocator:
         # is the only queue chain it knows (scheduler_tpu/ops/fused.py:1709).
         mq_ok = not single_queue and set(self.queue_comparators) <= {"proportion"}
         mega_ok = _mk.mega_supported(
-            has_releasing=False,
+            has_releasing=self.has_releasing,
             use_static=False,
             score_bound=score_bound,
             cursor_mode=single_queue,
@@ -769,7 +769,7 @@ class FusedAllocator:
         if mega_ok and self.use_static and t_total > 0:
             static_sids = self._static_signature_ids(ssn)
             mega_ok = static_sids is not None and _mk.mega_supported(
-                has_releasing=False,
+                has_releasing=self.has_releasing,
                 use_static=True,
                 score_bound=score_bound,
                 cursor_mode=single_queue,
@@ -787,6 +787,10 @@ class FusedAllocator:
                 score_bound, static_sids, static_mask_dev, static_score_dev,
                 single_queue, queues_idx, queue_deserved, queue_alloc,
             )
+        if t_total and not self.use_mega and self.has_releasing:
+            # The loop's releasing arm is not ported: a releasing session
+            # that the mega gate turns away raises (as ``_loop_arm_check``).
+            raise NotImplementedError("fused_allocate arm not ported: releasing capacity")
         if t_total and not self.use_mega and not single_queue:
             raise NotImplementedError(
                 "fused_allocate arm not ported: multi-queue / unsorted job selection "
@@ -881,6 +885,7 @@ class FusedAllocator:
         st, nb = self.st, self.n_bucket
         return {
             "idle": pad_rows(scale_columns(st.nodes.idle, scale), nb),
+            "releasing": pad_rows(scale_columns(st.nodes.releasing, scale), nb),
             "task_count": pad_rows(st.nodes.task_count.astype(np.int32), nb),
             "allocatable": pad_rows(scale_columns(st.nodes.allocatable, scale), nb),
             "pods_limit": pad_rows(st.nodes.pods_limit.astype(np.int32), nb),
@@ -992,8 +997,11 @@ class FusedAllocator:
         t_rows = _mk.task_table_rows(tb)
         run2 = np.ones(t_rows * 128, dtype=np.int32)
         run2[:tb] = run_host
-        idle = to_dev(state["idle"])
-        ns0 = _mk.build_node_ledgers(idle, to_dev(state["task_count"]), nb, r)
+        # The idle and releasing ledgers at the same column scale
+        # (scheduler_tpu/ops/fused.py:1587, :2041-2044).
+        ns0, rel0 = _mk.build_node_ledgers(
+            to_dev(state["idle"]), to_dev(state["task_count"]), to_dev(state["releasing"]), nb,
+            r, self.has_releasing)
         alloc_t = torch.zeros((8, nb), dtype=torch.float32, device=dev)
         alloc_t[:r] = to_dev(state["allocatable"]).T
         use_static = static_sids is not None
@@ -1036,7 +1044,7 @@ class FusedAllocator:
         self._mega_args = (
             ns0,
             alloc_t,
-            torch.zeros((8, nb), dtype=torch.float32, device=dev),   # rel0
+            rel0,
             to_dev(node_gate)[None, :],
             to_dev(state["pods_limit"].astype(np.float32))[None, :],
             to_dev(sig_req),
@@ -1063,9 +1071,13 @@ class FusedAllocator:
         )
         mins_f32 = np.asarray(policy.scaled_mins(r), dtype=np.float32)
         # Cohort chunks engage only where a run can continue past a node's
-        # capacity cut: run batching live AND the host spill estimate says
-        # some cohort must actually split across nodes.
-        cohort_eff = self.cohort_chunks if (self.batch_runs and self.cohort_spill) else 1
+        # capacity cut: run batching live, no releasing ledger (the kernel
+        # runs one chunk a step with it) AND the host spill estimate says
+        # some cohort must actually split across nodes
+        # (scheduler_tpu/ops/fused.py:2103-2114).
+        cohort_eff = (self.cohort_chunks
+                      if (self.batch_runs and not self.has_releasing and self.cohort_spill)
+                      else 1)
         self.cohort_effective = cohort_eff
         self._mega_kw = dict(
             r_dim=r,
@@ -1075,7 +1087,7 @@ class FusedAllocator:
             # Cross-job batching needs the cursor invariant: one queue only.
             cross_batch=self.batch_runs and single_queue,
             batch_runs=self.batch_runs,
-            has_releasing=False,
+            has_releasing=self.has_releasing,
             use_static=use_static,
             score_bound=score_bound,
             mins=tuple(float(x) for x in mins_f32),

@@ -3,19 +3,19 @@
 The rows this package's kernels and loop read and write, copied from
 ``scheduler_tpu/ops/layout.py`` with the same names and indices so that a
 reader can match the CUDA source, the plain PyTorch version and the JAX
-kernel row for row.  The rows of the mode this package does not carry
-(the releasing ledger) are left out.
+kernel row for row.
 """
 
 from __future__ import annotations
 
 
 class NODE_SCRATCH:
-    """Node scratch (f32 [16, N], nodes on the minor axis)."""
+    """Node scratch (f32 [16|24, N], nodes on the minor axis); sessions with
+    releasing capacity extend the block with the releasing ledger."""
 
     IDLE = 0         # span 8: live idle vector, rows 0..r_dim-1 (pad rows 0)
     TASK_COUNT = 8   # live per-node task count (pods-limit gate)
-    RELEASING = 16   # end of the cursor-mode block (releasing rows not ported)
+    RELEASING = 16   # span 8: live releasing ledger (pipelined placements)
 
 
 class JOB_SCRATCH:
@@ -83,11 +83,10 @@ class SIG_REQ:
 
 
 def node_scratch_rows(has_releasing: bool) -> int:
-    """Rows of the node scratch allocation.  Only the cursor-mode block is
-    ported: the releasing ledger raises."""
-    if has_releasing:
-        raise NotImplementedError("the releasing ledger rows are not ported")
-    return NODE_SCRATCH.RELEASING
+    """Rows of the node scratch allocation: the idle + task-count block, and
+    the releasing ledger's 8 rows where the session has releasing
+    capacity."""
+    return NODE_SCRATCH.RELEASING + (8 if has_releasing else 0)
 
 
 def job_scratch_rows(multi_queue: bool, use_qdelta: bool) -> int:

@@ -1,10 +1,11 @@
 """The whole greedy allocate action as ONE CUDA kernel launch.
 
 This replaces ``scheduler_tpu/ops/megakernel.py::mega_allocate`` (a Pallas
-TPU kernel) without releasing capacity, in two job-selection modes, each
-with or without its STATIC-ROW mode (``use_static``: the per-signature mask
-and score rows ``smask``/``sscore`` that a task reaches through ``msig``,
-staged when the predicates or nodeorder plugin is on):
+TPU kernel) in two job-selection modes, each with or without its STATIC-ROW
+mode (``use_static``: the per-signature mask and score rows
+``smask``/``sscore`` that a task reaches through ``msig``, staged when the
+predicates or nodeorder plugin is on) and with or without RELEASING
+CAPACITY (``has_releasing``):
 
 * CURSOR MODE — one queue, jobs laid out in init-key order, a job selected
   by the cursor while no job is dirty;
@@ -17,9 +18,18 @@ staged when the predicates or nodeorder plugin is on):
   placement; the FULL-RECOMPUTE chain (``queue_delta=False``) re-derives
   every queue's at each pop; the QFAIR LADDER (``qfair_ladder``, with the
   delta chain) reads them from the rung tables ``qf_share`` / ``qf_over``
-  at the queue's placement count (``ops/qfair.py::build_ladder``).
+  at the queue's placement count (``ops/qfair.py::build_ladder``);
+* RELEASING CAPACITY (``has_releasing``) — a second node ledger, ``rel0``,
+  holds what evicted pods free once they terminate.  A task fits a node on
+  its idle OR its releasing capacity (Volcano's allocate,
+  ``allocate.go:80-93``); the score reads idle alone; the winner's idle fit
+  decides: an ALLOCATION debits idle, else the task is PIPELINED onto the
+  releasing capacity (one copy, code ``-3 - node``, debiting the releasing
+  ledger).  Both raise the node's task count and the job's drf row, and in
+  multi-queue mode its queue's allocated (proportion's allocate handler
+  fires on pipeline too).  Cohort chunks are off (``cohort = 1``).
 
-Releasing capacity and the mesh raise.  The kernel source is
+The mesh raises.  The kernel source is
 ``csrc/mega_allocate.cu``; it is built with the port's other kernels at
 first use (``ops/cuda_build.py``) and bound through a plain C entry point
 with ``ctypes``.
@@ -38,10 +48,10 @@ Three functions carry the port:
   ``pack_task_table_i32``, ``build_node_ledgers``) that stage the operands.
 
 Operands and result encoding follow the JAX kernel exactly (26 operands,
-the unused releasing ones, and the queue, ladder and static ones outside
-their modes, as dummies): codes are
->= 0 node, -1 unplaced, -2 failed (first infeasible task of its pop); the
-second output holds the 8 ``STATS`` counters.
+the releasing, queue, ladder and static ones outside their modes as
+dummies): codes are >= 0 node, -1 unplaced, -2 failed (first infeasible
+task of its pop), <= -3 pipelined onto node ``-3 - code``; the second output
+holds the 8 ``STATS`` counters.
 
 Where the kernel's time goes on the card: the loop is a dependent chain of
 ``STATS.STEPS`` steps of one or more placement chunks, and each chunk is a
@@ -80,6 +90,7 @@ from scheduler_tpu_torch.ops.layout import (
 # Result encoding — MUST match ops/fused.py.
 UNPLACED = -1
 FAILED = -2
+PIPE_BASE = -3  # pipelined code = PIPE_BASE - node
 HALT = -100
 MAX_BATCH = 128
 
@@ -141,15 +152,14 @@ def mega_supported(
     )
 
 
-def _check_mode(has_releasing, multi_queue, qfair_ladder, mesh, queue_delta=True,
+def _check_mode(multi_queue, qfair_ladder, mesh, queue_delta=True,
                 queue_proportion=False, overused_gate=False) -> None:
     """Cursor mode and multi-queue mode in its three queue chains (each with
-    or without static rows) are ported; releasing capacity and the mesh
-    raise.  The qfair ladder refines the delta chain: it needs multi-queue
+    or without static rows and releasing capacity) are ported; the mesh
+    raises.  The qfair ladder refines the delta chain: it needs multi-queue
     mode with ``queue_delta`` and a queue chain to maintain."""
-    for flag, name in ((has_releasing, "releasing capacity"), (mesh is not None, "mesh")):
-        if flag:
-            raise NotImplementedError(f"mega_allocate mode not ported: {name}")
+    if mesh is not None:
+        raise NotImplementedError("mega_allocate mode not ported: mesh")
     if qfair_ladder and not (multi_queue and queue_delta
                              and (queue_proportion or overused_gate)):
         raise ValueError("mega_allocate: the qfair ladder needs multi-queue mode with the "
@@ -210,6 +220,8 @@ class _MegaArgs(ctypes.Structure):
         ("w_bal", ctypes.c_float),
         ("w_bp", ctypes.c_float),
         ("mins", ctypes.c_float * 8),
+        ("rel0", ctypes.c_void_p),
+        ("has_releasing", ctypes.c_int),
     ]
 
 
@@ -269,10 +281,12 @@ def _align(x: int, to: int = 16) -> int:
     return -(-x // to) * to
 
 
-def node_slice_bytes(slice_: int, r_dim: int) -> int:
+def node_slice_bytes(slice_: int, r_dim: int, has_releasing: bool = False) -> int:
     """A CTA's node slice: r_dim idle rows, task count, pod limit,
-    allocatable cpu and memory (float32) and the gate (a byte a node)."""
-    return _align((r_dim + 4) * slice_ * 4 + slice_)
+    allocatable cpu and memory, r_dim releasing rows with releasing
+    capacity (float32) and the gate (a byte a node)."""
+    rows = r_dim + 4 + (r_dim if has_releasing else 0)
+    return _align(rows * slice_ * 4 + slice_)
 
 
 def job_ledger_bytes(j_pad: int, r_dim: int) -> int:
@@ -299,10 +313,11 @@ def job_operand_lanes(n_queues: int) -> int:
 
 
 def mega_plan(nb: int, r_dim: int, j_pad: int, s_pad: int, static_rows: int,
-              use_static: bool, n_queues: int = 0) -> MegaPlan:
+              use_static: bool, n_queues: int = 0, has_releasing: bool = False) -> MegaPlan:
     """The kernel's launch plan for a shape (``n_queues`` > 0: multi-queue
     mode; the qfair ladder's two rung tables, up to 2 x 1,024 x 128 floats,
-    stay in global memory).  C = 8 CTAs (the portable cluster size) where
+    stay in global memory; ``has_releasing``: the node slice holds the
+    releasing rows too).  C = 8 CTAs (the portable cluster size) where
     the node slice, the queue ledger and the compact job ledger fit a CTA's
     shared memory, else 16 where that brings the node slice or the job
     ledger on chip.  The queue ledger sits on chip after the node slice.
@@ -317,7 +332,7 @@ def mega_plan(nb: int, r_dim: int, j_pad: int, s_pad: int, static_rows: int,
         return _align(-(-nb // ctas), 4)
 
     def node(ctas):
-        return node_slice_bytes(slice_for(ctas), r_dim) + queue
+        return node_slice_bytes(slice_for(ctas), r_dim, has_releasing) + queue
 
     job = job_ledger_bytes(j_pad, r_dim)
     if node(8) > budget:
@@ -360,7 +375,7 @@ def plan_for(operands, kw, n_queues: Optional[int] = None) -> MegaPlan:
     ops = dict(zip(OPERAND_NAMES, operands))
     return mega_plan(ops["ns0"].shape[1], kw["r_dim"], ops["job_off"].shape[1],
                      ops["sig_req"].shape[1], ops["smask"].shape[0], kw["use_static"],
-                     _queues_for(kw, n_queues))
+                     _queues_for(kw, n_queues), bool(kw.get("has_releasing")))
 
 
 def covered_nodes(gate) -> int:
@@ -402,11 +417,13 @@ def mega_allocate(*operands: torch.Tensor, n_queues: Optional[int] = None, **kw)
     launch the kernel, which raises if the launch is refused.  Multi-queue
     mode needs ``n_queues``, the session's queue count: it sizes the
     kernel's queue ledger, and every queue index of ``jqueue`` on a job
-    lane must lie below it (the plain version checks; the kernel traps)."""
+    lane must lie below it (the plain version checks; the kernel traps).
+    With ``has_releasing`` the kernel runs one chunk a step whatever
+    ``cohort`` asks, as the JAX kernel does: the gate cannot be bypassed."""
     if len(operands) != len(OPERAND_NAMES):
         raise TypeError(f"mega_allocate takes {len(OPERAND_NAMES)} operands")
     kw.pop("interpret", None)
-    _check_mode(kw.get("has_releasing"), kw.get("multi_queue"), kw.get("qfair_ladder", False),
+    _check_mode(kw.get("multi_queue"), kw.get("qfair_ladder", False),
                 kw.get("mesh"), kw.get("queue_delta", True), kw.get("queue_proportion", False),
                 kw.get("overused_gate", False))
     n_queues = _queues_for(kw, n_queues)
@@ -435,7 +452,7 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
             queue_delta=True, qfair_ladder=False, cohort=1, t_cap=0,
             mesh=None, n_queues=0):
     global launches
-    del rel0, has_releasing, mesh
+    del mesh
     nb = ns0.shape[1]
     s_pad = sig_req.shape[1]
     t_rows = task_sig.shape[0]
@@ -447,6 +464,8 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     f32, i32 = torch.float32, torch.int32
     _expect(ns0, "ns0", f32, (node_scratch_rows(False), nb))
     _expect(alloc_t, "alloc_t", f32, (8, nb))
+    if has_releasing:
+        _expect(rel0, "rel0", f32, (8, nb))
     _expect(gate, "gate", torch.bool, (1, nb))
     _expect(plim, "plim", f32, (1, nb))
     _expect(sig_req, "sig_req", f32, (16, s_pad))
@@ -478,11 +497,12 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     t_pad = t_rows * 128
     if t_cap <= 0:
         t_cap = t_pad
-    if not batch_runs:
+    if not batch_runs or has_releasing:
         cohort = 1
     cohort = max(1, int(cohort))
 
-    plan = mega_plan(nb, r_dim, j_pad, s_pad, static_rows, use_static, n_queues)
+    plan = mega_plan(nb, r_dim, j_pad, s_pad, static_rows, use_static, n_queues,
+                     bool(has_releasing))
     launch = _entry()
     dev = ns0.device
     out = torch.empty((t_rows + 1) * 128, dtype=i32, device=dev)
@@ -506,6 +526,8 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     ):
         setattr(args, field, t.data_ptr())
     args.js_global = js_global.data_ptr() if js_global is not None else None
+    args.rel0 = rel0.data_ptr() if has_releasing else None
+    args.has_releasing = int(bool(has_releasing))
     args.phase_clocks = phase_clocks.data_ptr() if phase_clocks is not None else None
     if use_static:
         args.msig, args.smask, args.sscore = (
@@ -567,9 +589,8 @@ def mega_allocate_reference(
     """The kernel's function as a Python loop over steps on tensors, on
     whatever device the operands lie on.  Same operands, same
     ``(codes, stats)``, bit for bit."""
-    del rel0, interpret
-    _check_mode(has_releasing, multi_queue, qfair_ladder, mesh, queue_delta,
-                queue_proportion, overused_gate)
+    del interpret
+    _check_mode(multi_queue, qfair_ladder, mesh, queue_delta, queue_proportion, overused_gate)
     dev = ns0.device
     f32, i32 = torch.float32, torch.int32
     n = ns0.shape[1]
@@ -578,14 +599,15 @@ def mega_allocate_reference(
     if t_cap <= 0:
         t_cap = t_pad
     j_pad = job_off.shape[1]
-    if not batch_runs:
+    if not batch_runs or has_releasing:
         cohort = 1
     cohort = max(1, int(cohort))
     lr_w, bal_w, bp_w = (float(w) for w in weights)
     max_steps = t_cap + 8
     neg_inf, pos_inf = float("-inf"), float("inf")
 
-    # Live state: node ledger (idle rows + task count), job ledger, result.
+    # Live state: node ledger (idle rows + task count, and the releasing
+    # rows with releasing capacity), job ledger, result.
     # In multi-queue mode the job ledger carries the queue rows as the JAX
     # kernel lays them out, replicated on the lanes of each queue's jobs:
     # the queue's live allocated, and (delta chain) its share and overused
@@ -639,6 +661,7 @@ def mega_allocate_reference(
     safe_m = torch.where(a_m > 0, a_m, 1.0)
     idle = ns[NROW.IDLE : NROW.IDLE + r_dim]
     tcount = ns[NROW.TASK_COUNT]
+    rel = rel0[:r_dim].clone() if has_releasing else None
 
     def clip01(x):
         return torch.clamp(x, 0.0, 1.0)
@@ -751,12 +774,21 @@ def mega_allocate_reference(
         for c in range(cohort):
             if not act:
                 break
-            # fit + score + masked argmax over every node
-            feas = gate_v
+            # fit + score + masked argmax over every node; with releasing
+            # capacity a task fits on idle OR releasing
+            feas_idle = gate_v
             for r in range(r_dim):
-                feas = feas & (
+                feas_idle = feas_idle & (
                     (initqs[r] < idle[r]) | (torch.abs(idle[r] - initqs[r]) < mins[r])
                 )
+            feas = feas_idle
+            if has_releasing:
+                feas_rel = gate_v
+                for r in range(r_dim):
+                    feas_rel = feas_rel & (
+                        (initqs[r] < rel[r]) | (torch.abs(rel[r] - initqs[r]) < mins[r])
+                    )
+                feas = feas_idle | feas_rel
             if use_static:
                 feas = feas & (mrow > 0.0)
             if enforce_pod_count:
@@ -772,8 +804,12 @@ def mega_allocate_reference(
             maxv = masked.max()
             best_t = torch.where(masked == maxv, lane_n, n).min().clamp(max=n - 1)
             feasible, best = torch.stack([(maxv > neg_inf).to(best_t.dtype), best_t]).tolist()
-            alloc_here = bool(feasible)
-            failed = not alloc_here
+            placed = bool(feasible)
+            failed = not placed
+            # The winner's idle fit decides: allocate on idle, else pipeline
+            # onto its releasing capacity.
+            alloc_here = placed and (not has_releasing or bool(feas_idle[best]))
+            pipe_here = placed and not alloc_here
 
             # run batching on the winner (top-2 score bound unless binpack-only)
             m = 1
@@ -812,13 +848,17 @@ def mega_allocate_reference(
                     ok = ok & (js_vec < first_false)
                 m = int(torch.where(ok & (js_vec <= hi0), js_vec, 1).max())
             cross_active = cross_batch and single0 and alloc_here
-            consumed = m if alloc_here else int(failed)
+            consumed = m if alloc_here else 1
             m_alloc = float(m) if alloc_here else 0.0
+            pipe_f = 1.0 if pipe_here else 0.0
 
             # node ledger: the winner's column
             if alloc_here:
                 idle[:, best] -= reqs * m_alloc
                 tcount[best] += m_alloc
+            elif pipe_here:
+                rel[:, best] -= reqs * pipe_f
+                tcount[best] += pipe_f
 
             # job ledger: one lane, or the window of a cross-job batch
             k = m if cross_active else 1
@@ -826,7 +866,7 @@ def mega_allocate_reference(
             js[JROW.CONSUMED, win] += 1.0 if cross_active else float(consumed)
             js[JROW.ALLOCATED, win] += 1.0 if cross_active else m_alloc
             js[JROW.LEFT, win] += 0.0 if cross_active else float(failed)
-            drf_scale = 1.0 if cross_active else m_alloc
+            drf_scale = 1.0 if cross_active else m_alloc + pipe_f
             js[JROW.DRF : JROW.DRF + r_dim, win] += (reqs * drf_scale)[:, None]
             if multi_queue:
                 # proportion's allocate handler: the placement grows its
@@ -845,7 +885,7 @@ def mega_allocate_reference(
                     if overused_gate:
                         js[JROW.OVERUSED] = torch.where(qwin, qf_over[rung, q_sel],
                                                         js[JROW.OVERUSED])
-                    qf_evt += int(alloc_here)
+                    qf_evt += int(placed)
                 else:
                     qa = js[JROW.QUEUE_ALLOC : JROW.QUEUE_ALLOC + r_dim]
                     qa += (reqs * drf_scale)[:, None] * qwin.to(f32)
@@ -857,15 +897,16 @@ def mega_allocate_reference(
                     if overused_gate:
                         js[JROW.OVERUSED] = torch.where(qwin, over_new.to(f32),
                                                         js[JROW.OVERUSED])
-                    qd_evt += int(alloc_here)
+                    qd_evt += int(placed)
 
             # result codes of the consumed tasks
-            code = best if alloc_here else FAILED
+            code = best if alloc_here else (PIPE_BASE - best if pipe_here else FAILED)
             out[t_c : t_c + consumed] = code
 
-            # pop end / running scalars
+            # pop end / running scalars (a pipelined placement counts
+            # toward readiness as the JAX kernel's ``placed`` does)
             row_after_alloc = nalloc_c + (1.0 if cross_active else m_alloc)
-            became_ready = alloc_here and row_after_alloc >= deficit_v
+            became_ready = placed and row_after_alloc >= deficit_v
             cons_after = cons_c + (1.0 if cross_active else float(consumed))
             drained = cons_after >= num_v
             end_pop = failed or became_ready or drained
@@ -929,10 +970,17 @@ def pack_task_table_i32(arr: np.ndarray, t_pad: int, fill: int = 0) -> np.ndarra
     return out
 
 
-def build_node_ledgers(idle: torch.Tensor, task_count: torch.Tensor, nb: int, r: int):
-    """Kernel-layout node ledger from [N, R] node state: the packed [16, N]
-    idle + task-count block (rows 0..r-1 idle, row 8 task count)."""
-    ns0 = torch.zeros((NROW.RELEASING, nb), dtype=torch.float32, device=idle.device)
+def build_node_ledgers(idle: torch.Tensor, task_count: torch.Tensor,
+                       releasing: torch.Tensor, nb: int, r: int, has_releasing: bool):
+    """Kernel-layout node ledgers from [N, R] node state: the packed [16, N]
+    idle + task-count block (rows 0..r-1 idle, row 8 task count) and the
+    [8, N] releasing block (rows 0..r-1; zeros without releasing
+    capacity)."""
+    dev = idle.device
+    ns0 = torch.zeros((NROW.RELEASING, nb), dtype=torch.float32, device=dev)
     ns0[NROW.IDLE : NROW.IDLE + r] = idle.T
     ns0[NROW.TASK_COUNT] = task_count.to(torch.float32)
-    return ns0
+    rel_t = torch.zeros((8, nb), dtype=torch.float32, device=dev)
+    if has_releasing:
+        rel_t[:r] = releasing.T
+    return ns0, rel_t

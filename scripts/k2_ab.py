@@ -24,7 +24,11 @@ builds that tree's kernels, and prints one JSON summary line, last:
   chains in turns, ``--repeats`` each), and proportion's water-fill at its
   100 queues: ``qfair_solve``'s time against the host water-fill's
   ``solve_ms`` on the same queue attributes (``chip_smoke.py``'s records of
-  these comparisons print before the summary line).
+  these comparisons print before the summary line);
+* on a tree that has releasing capacity, BASELINE config 4 after its
+  reclaim (``config4_reclaim_aftermath``:
+  ``harness.make_reclaim_aftermath_cluster()``, ``chip_smoke.RECLAIM_CONF``):
+  its cold cycle and K2 alone in multi-queue mode with releasing capacity.
 
 ``--configs`` picks a subset (default: every one the tree has).  To compare
 two commits on one card, run both trees in one call in the order base,
@@ -73,7 +77,7 @@ def main() -> int:
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--configs", default=None,
                         help="comma-separated subset of config2, config3, config3_multi_queue, "
-                             "config2_default_tiers, mq_ladder")
+                             "config2_default_tiers, mq_ladder, config4_reclaim_aftermath")
     opts = parser.parse_args()
     tree = os.path.abspath(opts.tree)
     sys.path.insert(0, tree)
@@ -113,6 +117,11 @@ def main() -> int:
             lambda: make_mq_ladder_cluster(smoke.LADDER_NODES, smoke.LADDER_PODS,
                                            smoke.LADDER_QUEUES, smoke.LADDER_VOCAB).cache,
             smoke.MULTIQ_CONF)
+    if hasattr(smoke, "RECLAIM_CONF"):
+        from scheduler_tpu_torch.harness import make_reclaim_aftermath_cluster
+
+        configs["config4_reclaim_aftermath"] = (
+            lambda: make_reclaim_aftermath_cluster().cache, smoke.RECLAIM_CONF)
     if opts.configs:
         configs = {k: v for k, v in configs.items() if k in opts.configs.split(",")}
     out = {"tree": opts.label or tree, "gpu": smi, "build_s": cuda_build.build_info["seconds"]}

@@ -12,7 +12,7 @@ Each case builds a session with the port's harness on the card, launches
 a kernel and holds it against its plain version on the same CUDA operands,
 bitwise (tolerance: none): ``mega_allocate`` (codes and stats; sessions
 and synthetic operands across its launch plans, its qfair-ladder mode and
-full-recompute queue chain), ``qfair_solve`` (deserved rows bit for bit,
+full-recompute queue chain, its releasing mode), ``qfair_solve`` (deserved rows bit for bit,
 met flags, evidence),
 ``static_predicate_mask`` (the mask; vocabulary widths around its packed
 word), ``placement_step`` (all four outputs; node counts across its
@@ -32,6 +32,7 @@ from scheduler_tpu_torch.harness import (
     make_gpu_topology_cluster,
     make_kubemark_density_cluster,
     make_mq_ladder_cluster,
+    make_reclaim_aftermath_cluster,
     make_synthetic_cluster,
 )
 from scheduler_tpu_torch.interop import mega_operands_from_numpy
@@ -92,6 +93,10 @@ CASES = {
                                  smoke.DEFAULT_TIERS_CONF, {"cohort": 4}),
     "mq-config5-default-tiers": (lambda: make_gpu_topology_cluster(75, 50).cache,
                                  smoke.DEFAULT_TIERS_CONF, {}),
+    # Releasing mode, multi-queue instantiation: BASELINE config 4 after its
+    # reclaim at scale 0.02 (idle slots allocated, the rest pipelined).
+    "mq-reclaim-aftermath": (lambda: make_reclaim_aftermath_cluster(0.02).cache,
+                             smoke.RECLAIM_CONF, {}),
 }
 
 
@@ -103,8 +108,9 @@ def test_cuda_kernel_matches_plain_version(case):
     _, engine = smoke.engine_for(build(), conf, device)
     kw = dict(engine._mega_kw, **overrides)
     assert kw["use_static"] == (conf not in (smoke.FLAGSHIP_CONF, smoke.CONFIG1_CONF,
-                                             smoke.MULTIQ_CONF))
+                                             smoke.MULTIQ_CONF, smoke.RECLAIM_CONF))
     assert kw["multi_queue"] == case.startswith("mq-")
+    assert kw["has_releasing"] == (case == "mq-reclaim-aftermath")
     n_queues = len(engine.queue_uids)
     plan = mk.plan_for(engine._mega_args, kw, n_queues)
     assert plan.job_ledger_in_global == (case == "global-job-ledger")
@@ -118,6 +124,42 @@ def test_cuda_kernel_matches_plain_version(case):
     assert int((codes >= 0).sum()) > 0
     if kw["multi_queue"]:
         assert int(stats[mk.STATS.QDELTA_UPDATES]) > 0
+    if kw["has_releasing"]:
+        assert int((codes <= mk.PIPE_BASE).sum()) == 240
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(smoke.MEGA_SYNTHETIC_REL))
+def test_cuda_kernel_releasing_synthetic_operands(case):
+    """``mega_allocate`` in releasing mode on synthetic operands
+    (``chip_smoke.MEGA_SYNTHETIC_REL``) against its plain version, bitwise
+    (tolerance: none): the four REL instantiations at r_dim 8 and nb 1,024,
+    16,384 and 32,768 (the releasing slice takes the 16-CTA plan there), an
+    idle-fit node and a releasing-only node on equal scores in different
+    CTAs (either first: the lowest index wins and its idle fit decides),
+    releasing-only nodes that score best, and nodes at their pod limits."""
+    device = _card()
+    spec = smoke.MEGA_SYNTHETIC_REL[case]
+    ops, kw = smoke.mega_operands(**spec)
+    args, kw = mega_operands_from_numpy(ops, kw, device)
+    n_queues = spec.get("queues")
+    plan = mk.plan_for(args, kw, n_queues)
+    if "nb32768" in case:
+        assert plan.ctas == 16
+    before = mk.launches
+    codes, stats = mk.mega_allocate(*args, n_queues=n_queues, **kw)
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    ref_codes, ref_stats = mk.mega_allocate_reference(*args, **kw)
+    assert torch.equal(codes, ref_codes)
+    assert torch.equal(stats, ref_stats)
+    assert int((codes <= mk.PIPE_BASE).sum()) > 0 and int(stats[mk.STATS.COHORT_STEPS]) == 0
+    if spec.get("gated"):
+        n_cover = mk.covered_nodes(ops["gate"])
+        ranks = {g // -(-n_cover // plan.ctas) for g in spec["gated"]}
+        assert len(ranks) == len(spec["gated"]), "the gated nodes lie in different CTAs"
+        first = min(spec["gated"])
+        assert int(codes[0]) == (mk.PIPE_BASE - first if first in spec["rel_only"] else first)
 
 
 @pytest.mark.cuda

@@ -348,8 +348,13 @@ def test_wrapper_runs_plain_version_on_cpu_and_rejects_unported_modes(monkeypatc
     ref_codes, ref_stats = mk.mega_allocate_reference(*args, **kw)
     assert torch.equal(codes, ref_codes) and torch.equal(stats, ref_stats)
     assert mk.launches == before, "the CPU path launches no kernel"
-    with pytest.raises(NotImplementedError, match="releasing"):
-        mk.mega_allocate(*args, **dict(kw, has_releasing=True))
+    # Releasing capacity is a ported mode: on CPU tensors the plain version
+    # runs it (tests/test_torch_releasing.py holds it to the JAX kernel).
+    rel_kw = dict(kw, has_releasing=True)
+    codes, stats = mk.mega_allocate(*args, **rel_kw)
+    ref_codes, ref_stats = mk.mega_allocate_reference(*args, **rel_kw)
+    assert torch.equal(codes, ref_codes) and torch.equal(stats, ref_stats)
+    assert mk.launches == before
     with pytest.raises(NotImplementedError, match="mesh"):
         mk.mega_allocate(*args, **dict(kw, mesh=object()))
     # The qfair ladder refines multi-queue mode's delta chain: not cursor mode.
