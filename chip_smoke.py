@@ -10,7 +10,7 @@ What it does, one JSON line per phase:
 
 1. device: the card, the CUDA version, and the one build of every kernel of
    the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path, eight times, each on a freshly built cluster that no other
+2. main_path, eleven times, each on a freshly built cluster that no other
    session has touched (a cold cycle, as a scheduler's first cycle after
    start-up), through ``Scheduler.run_once`` on the card, with every
    kernel's launch count set to 0 just before and read just after:
@@ -66,9 +66,36 @@ What it does, one JSON line per phase:
       within its releasing capacity in every dim and at most 110 pods;
       later, the binds, pipelined tasks and statuses equal to the port's
       host loop on a twin cluster (a child beside the kernel phases).
-   Each prints the phase seconds and the kernel's time from CUDA events;
-   d and f also the water-fill's evidence and why the ladder declined.
-   d, e, f, g and h each run in a child process of the script, after one
+   i. config3_templates' gangs under the default conf's tiers
+      (``TIERS_TEMPLATES``: 1,000 nodes x 5,000 gangs of 6, the largest
+      shape the fused gate admits with the predicates plugin's static
+      rows): proportion makes the one queue multi-queue, nodeorder's
+      weights with runs turn the top-2 score bound on, and the 5,000
+      templates close the mega gate, so the ``fused_allocate`` loop runs
+      its XLA step arm (``ops/xla_step.py``: tensor operations on the card
+      each step, no kernel).  Checks: no loop kernel launched, K3's rows,
+      no node overcommitted, gangs whole, proportion's overused gate; later
+      the codes bitwise those of the same loop on the CPU (a child beside
+      the kernel phases), and at 0.1 scale of the nodes the fused route's
+      binds equal to the host loop's.
+   j. config3_templates (10,000 nodes x 5,000 gangs of 20) dealt to
+      queues q0, q1, q2 of weights 1:2:3 under the multi-queue conf: the
+      loop with one ``placement_step`` launch a step and the loop's
+      multi-queue pop.  Checks as for i, one launch a step; then, in the
+      same child, the loop on a second cluster with the kernel held to its
+      plain version every 200 steps, and with the plain version on the
+      card: equal codes.  At 0.1 scale its fused route and host loop are
+      compared and the binds that differ counted (the JAX package's fused
+      route and host loop disagree on such sessions too).
+   k. config 4's aftermath whose 50,000 thin pods ask 5,000 distinct
+      requests (``RECLAIM_THIN_REQUESTS``): the mega gate closes and the
+      loop runs its releasing arm on the XLA step arm.  Checks as for h;
+      later the codes bitwise the CPU loop's, and the binds, pipelined
+      tasks and statuses the host loop's.
+   Each prints the phase seconds and the engine's time from CUDA events
+   (the kernel's; for i and k the XLA arm's steps summed, and per step);
+   d, f, i, j and k also the water-fill's evidence and why the ladder
+   declined.  d to k each run in a child process of the script, after one
    config-1 cycle there (``--child``, ``child_main``), so that the garbage
    collection at the head of the cycle walks that path's cluster alone.
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
@@ -108,10 +135,13 @@ What it does, one JSON line per phase:
    and once with the plain version on the card, equal codes.
 4. e2e_small: the fused route on the card against the host loop on small
    clusters, bind for bind (one of them, 4,200 single-pod jobs of distinct
-   requests, on the loop route; one with releasing capacity).
+   requests, on the loop route with K1; one with releasing capacity; one
+   with both, on the loop's releasing arm).
 
-Then the ``kernels`` line, the card's name and power limit as nvidia-smi
-prints them, and as the last line ``{"ok": true, "device": {...}}``.  Any
+Then the ``xla_step_arm`` line (the XLA arm on paths i and k: steps, time a
+step, its bound by bytes), the ``kernels`` line, the card's name and power
+limit as nvidia-smi prints them, and as the last line ``{"ok": true,
+"device": {...}}``.  Any
 failure exits non-zero; with no CUDA device, or without the port beside
 this file, it exits non-zero and prints no result.
 """
@@ -192,6 +222,22 @@ LADDER_QUEUES = 100
 LADDER_VOCAB = 6
 # The ladder session at the size its plain version runs in seconds.
 LADDER_SMALL = (1000, 4000, 20, 6)
+
+# Path i: config3_templates' gangs (one request template a gang, 5,000
+# templates close the mega gate) under the JAX default conf's tiers.  With
+# the predicates plugin on, both packages' fused gate
+# (``FusedAllocator.supported``) admits at most 160 MiB of [T, N] static rows
+# (5 bytes x task bucket x node bucket): at 10,000 x 100,000 the session
+# would take the host loop, so path i runs at the largest shape the gate
+# admits with the 5,000 templates, 1,000 nodes x 5,000 gangs of 6 (buckets
+# 1,024 x 32,768: exactly 160 MiB).
+TIERS_TEMPLATES = (1000, 5000, 6)
+# The host-loop twins of paths i and j at 0.1 scale of their nodes; 5,000
+# gangs of 2 keep the mega gate closed.
+TIERS_TEMPLATES_TWIN = (100, 5000, 2)
+MQ_TEMPLATES_TWIN = (1000, 5000, 2)
+# Path k: config 4's aftermath with 5,000 distinct thin requests.
+RECLAIM_THIN_REQUESTS = 5000
 
 # BASELINE config 4 after its reclaim (``harness.make_reclaim_aftermath_cluster``):
 # the next cycle's allocate over config 4's plugins.
@@ -288,31 +334,43 @@ def uniform_gang_request(j: int, t: int):
 
 
 def job_template_request(n_jobs: int, seed: int = 0):
-    """Per-job request templates: job j takes cell c_j of a 64 x 128 grid,
-    drawn without replacement by ``numpy.random.default_rng(seed).choice(8192,
-    n_jobs, replace=False)``; every pod of the job asks cpu 125m * (1 + c %
-    64) (125m-8 cpu) and memory 256 MiB * (1 + c // 64) (256 MiB-32 GiB).
-    Returns ``request(j, t)`` for ``make_synthetic_cluster(request_fn=)``."""
-    import numpy as np
+    """Per-job request templates (``harness.job_template_request`` of the
+    port): job j's pods ask cpu 125m * (1 + c % 64) and memory 256 MiB * (1
+    + c // 64) for a cell c drawn without replacement from a 64 x 128 grid."""
+    from scheduler_tpu_torch.harness import job_template_request as requests
 
-    cells = np.random.default_rng(seed).choice(8192, n_jobs, replace=False)
-
-    def request(j: int, t: int):
-        del t
-        c = int(cells[j])
-        return {"cpu": 125.0 * (1 + c % 64), "memory": 256.0 * 2.0**20 * (1 + c // 64)}
-
-    return request
+    return requests(n_jobs, seed)
 
 
-def template_cluster(n_nodes: int, n_jobs: int, tasks_per_job: int, pkg: str = "scheduler_tpu_torch"):
+def template_cluster(n_nodes: int, n_jobs: int, tasks_per_job: int,
+                     pkg: str = "scheduler_tpu_torch", **kw):
     """The flagship's nodes and gangs (``make_synthetic_cluster`` of package
     ``pkg``) with per-job request templates (``job_template_request``):
-    ``n_jobs`` gangs of ``tasks_per_job`` pods, min_member the whole gang."""
+    ``n_jobs`` gangs of ``tasks_per_job`` pods, min_member the whole gang;
+    ``kw`` goes to ``make_synthetic_cluster`` (queues, node sizes)."""
     harness = importlib.import_module(f"{pkg}.harness")
     return harness.make_synthetic_cluster(
         n_nodes, n_jobs * tasks_per_job, tasks_per_job=tasks_per_job,
-        request_fn=job_template_request(n_jobs)).cache
+        request_fn=job_template_request(n_jobs), **kw).cache
+
+
+def releasing_templates_cluster(pkg: str = "scheduler_tpu_torch"):
+    """More than 4,096 request signatures (``template_cluster(16, 4200, 1)``:
+    4,200 single-pod jobs of distinct requests) and one evicted 8-cpu pod
+    whose node still releases its capacity: a releasing session that the
+    mega gate closes, so the loop runs its releasing arm."""
+    objects = importlib.import_module(f"{pkg}.apis.objects")
+    cache = template_cluster(16, 4200, 1, pkg)
+    pg = objects.PodGroup(name="old", namespace="default", queue="default", min_member=1)
+    pg.status.phase = "Running"
+    cache.add_pod_group(pg)
+    cache.add_pod(objects.PodSpec(
+        name="old-0", namespace="default", containers=[{"cpu": 8000.0, "memory": 16 * GIB}],
+        annotations={objects.GROUP_NAME_ANNOTATION: "old"}, node_name=sorted(cache.nodes)[0],
+        phase="Running"))
+    for task in list(cache.jobs["default/old"].tasks.values()):
+        cache.evict(task, "reclaim")
+    return cache
 
 
 def step_operands(seed, n, r_dim, *, infeasible=False, ties=False, exact=False):
@@ -936,7 +994,7 @@ def spec_cluster(spec: dict, pkg: str = "scheduler_tpu_torch"):
 def engine_for(cache, conf_text, device, engine="mega"):
     """Open a session on ``cache`` and build the fused engine over its
     allocate candidates (the session is left open: nothing is committed);
-    the engine's gates must choose ``engine`` ("mega" or "step")."""
+    the engine's gates must choose ``engine`` ("mega", "step" or "xla")."""
     from scheduler_tpu_torch.actions.allocate import collect_candidates
     from scheduler_tpu_torch.conf import parse_scheduler_conf
     from scheduler_tpu_torch.framework import open_session
@@ -1593,13 +1651,15 @@ def loop_step_operands(eng, t_idx=0, **overrides):
 
     named = dict(zip(FUSED_OPERAND_NAMES, eng.args))
     lkw = eng._allocate_kw()
-    (ns_host, alloc, smask, sscore, gate, plim, task_initq, task_req, mins,
-     r8) = stage_step_operands(*(named[k] for k in FUSED_OPERAND_NAMES[:10]),
-                               use_static=lkw["use_static"])
-    srow = t_idx if lkw["use_static"] else 0
+    names = ("idle", "task_count", "allocatable", "pods_limit", "node_gate", "mins",
+             "init_resreq", "resreq", "static_mask", "static_score", "sig_of_task")
+    (ns_host, alloc, smask, sscore, gate, plim, task_initq, task_req, mins, r8,
+     k1_row) = stage_step_operands(*(named[k] for k in names), use_static=lkw["use_static"])
+    row = t_idx if k1_row is None else int(k1_row[t_idx])
+    srow = row if lkw["use_static"] else 0
     ops = (torch.from_numpy(ns_host).to(alloc.device), alloc, smask[srow:srow + 1],
-           sscore[srow:srow + 1], gate, plim, task_initq[t_idx][:, None].contiguous(),
-           task_req[t_idx][:, None].contiguous(), mins)
+           sscore[srow:srow + 1], gate, plim, task_initq[row][:, None].contiguous(),
+           task_req[row][:, None].contiguous(), mins)
     kw = dict(r_dim=int(named["idle"].shape[1]), r8=r8,
               weights=tuple(float(w) for w in lkw["weights"]), use_static=lkw["use_static"],
               enforce_pod_count=lkw["enforce_pod_count"], cpu_idx=0, mem_idx=1,
@@ -1608,17 +1668,18 @@ def loop_step_operands(eng, t_idx=0, **overrides):
     return ops, kw
 
 
-def phase_loop_parity(cache, device, check_every):
-    """The main path's loop on operands staged from a second cluster built
-    the same way: once with the kernel (held to its plain version at the
-    first step and every ``check_every``-th), once with the plain version on
-    the card; the codes must be equal."""
+def phase_loop_parity(cache, device, check_every, conf_text=FLAGSHIP_CONF,
+                      case="config3_templates"):
+    """A main path's loop (``case``) on operands staged from a second
+    cluster built the same way: once with the kernel (held to its plain
+    version at the first step and every ``check_every``-th), once with the
+    plain version on the card; the codes must be equal."""
     import torch
 
     from scheduler_tpu_torch.ops import fused as fused_mod
 
     t0 = time.perf_counter()
-    _, eng = engine_for(cache, FLAGSHIP_CONF, device, engine="step")
+    _, eng = engine_for(cache, conf_text, device, engine="step")
     init_s = time.perf_counter() - t0
     args, kw = eng.args, eng._allocate_kw()
     torch.cuda.synchronize()
@@ -1629,7 +1690,7 @@ def phase_loop_parity(cache, device, check_every):
     codes_p, stats_p = fused_mod.fused_allocate(*args, **kw, plain_step=True)
     plain_s = time.perf_counter() - t0
     equal = bool(torch.equal(codes_k, codes_p))
-    rec = {"phase": "loop_parity", "case": "config3_templates", "engine_init_s": init_s,
+    rec = {"phase": "loop_parity", "case": case, "engine_init_s": init_s,
            "equal": equal, "placed": int((codes_k >= 0).sum()), "steps": stats_k["steps"],
            "plain_steps": stats_p["steps"], "checked_steps": stats_k["checked"],
            "loop_s": kernel_s,
@@ -1801,8 +1862,9 @@ def read_counts():
 def run_cycle(cache, conf_path, engine="mega", after_action=None):
     """One ``Scheduler.run_once`` on the card with the launch counts set to
     0 just before and read just after; the fused route must run ``engine``:
-    one ``mega_allocate`` launch, or one ``placement_step`` launch a loop
-    step and none of ``mega_allocate``.  ``after_action(ssn)``, where given,
+    one ``mega_allocate`` launch, one ``placement_step`` launch a loop step
+    and none of ``mega_allocate`` (``step``), or the loop's XLA step arm,
+    which launches neither (``xla``).  ``after_action(ssn)``, where given,
     reads the open session after each action.  Returns (record,
     launches)."""
     import torch
@@ -1839,6 +1901,10 @@ def run_cycle(cache, conf_path, engine="mega", after_action=None):
     if engine == "step" and not (0 < rec["steps"] == launches["placement_step"]
                                  and launches["mega_allocate"] == 0):
         raise SystemExit(f"the loop did not launch placement_step once a step: {launches}, "
+                         f"{rec['steps']} steps")
+    if engine == "xla" and not (rec["steps"] > 0 and launches["placement_step"] == 0
+                                and launches["mega_allocate"] == 0):
+        raise SystemExit(f"the loop's XLA step arm launched a kernel: {launches}, "
                          f"{rec['steps']} steps")
     if routes["host"] != 0 or routes["fused"] < 1:
         raise SystemExit(f"the main path took the host route: {routes}")
@@ -1992,16 +2058,17 @@ def pending_outcome(ssn, pending):
             for job in ssn.jobs.values() for t in job.tasks.values() if t.name in pending}
 
 
-def reclaim_host_loop():
+def reclaim_host_loop(thin_requests=0):
     """The port's host loop (``AllocateAction._heap_loop``) on the CPU on
-    config 4's aftermath (``harness.make_reclaim_aftermath_cluster()``): the
-    pending tasks' statuses and nodes after the action, and the binds."""
+    config 4's aftermath (``harness.make_reclaim_aftermath_cluster``, with
+    ``thin_requests`` distinct thin requests): the pending tasks' statuses
+    and nodes after the action, and the binds."""
     from scheduler_tpu_torch.actions.allocate import AllocateAction, collect_candidates
     from scheduler_tpu_torch.conf import parse_scheduler_conf
     from scheduler_tpu_torch.framework import close_session, open_session
     from scheduler_tpu_torch.harness import make_reclaim_aftermath_cluster
 
-    cache = make_reclaim_aftermath_cluster().cache
+    cache = make_reclaim_aftermath_cluster(thin_requests=thin_requests).cache
     pending = {t.name for job in cache.jobs.values() for t in job.tasks.values()
                if t.status.name == "PENDING"}
     ssn = open_session(cache, parse_scheduler_conf(RECLAIM_CONF).tiers, device="cpu")
@@ -2011,10 +2078,14 @@ def reclaim_host_loop():
     return {"statuses": outcome, "binds": dict(cache.binder.binds)}
 
 
-def phase_main_path_reclaim(cache, conf_path):
+def phase_main_path_reclaim(cache, conf_path, config="config4_reclaim_aftermath", engine="mega",
+                            codes_path=None):
     """BASELINE config 4 after its reclaim (``harness.make_reclaim_aftermath_cluster``):
-    the mega kernel in multi-queue mode with releasing capacity.  Checks:
-    one launch; the ladder declined for releasing capacity; tasks both
+    the mega kernel in multi-queue mode with releasing capacity (path h),
+    or, with distinct thin requests past the mega gate, the loop's
+    releasing arm on its XLA step arm (path k, ``engine`` "xla"; the codes
+    go to ``codes_path``).  Checks: the engine; the ladder declined for
+    releasing capacity; tasks both
     allocated and pipelined, as many as the kernel placed; on every node the
     allocated requests within its idle, the pipelined ones within its
     releasing capacity (every dim, to the vocabulary's epsilon) and no more
@@ -2035,7 +2106,10 @@ def phase_main_path_reclaim(cache, conf_path):
         seen["requests"] = {t.name: t.resreq.array.copy() for job in ssn.jobs.values()
                             for t in job.tasks.values() if t.name in pending}
 
-    rec, launches = run_cycle(cache, conf_path, after_action=after_allocate)
+    with ReadbackSpy() as spy:
+        rec, launches = run_cycle(cache, conf_path, engine=engine, after_action=after_allocate)
+    if codes_path is not None:
+        np.save(codes_path, spy.codes)
     statuses, requests = seen["statuses"], seen["requests"]
     on_node = {name: [np.zeros_like(b[0]), np.zeros_like(b[0]), 0]
                for name, b in before.items()}
@@ -2061,13 +2135,16 @@ def phase_main_path_reclaim(cache, conf_path):
     allocated = split.get("BINDING", 0) + split.get("ALLOCATED", 0)
     pipelined = split.get("PIPELINED", 0)
     binds = len(cache.binder.binds)
-    emit({"phase": "main_path", "config": "config4_reclaim_aftermath",
+    arm = xla_arm_record(config, rec, loop_kw(spy.engine)) if engine == "xla" else None
+    extra = {"xla_ms_per_step": arm["ms_per_step"],
+             "loop_ms": rec["cohort"]["loop_ms"]} if arm else {}
+    emit({"phase": "main_path", "config": config,
           "nodes": len(cache.nodes), "running": sum(b[2] for b in before.values()),
           "releasing": sum(1 for job in cache.jobs.values() for t in job.tasks.values()
                            if t.status.name == "RELEASING"),
           "pending": len(pending), "allocated": allocated, "pipelined": pipelined,
           "binds": binds, "statuses": split, "queue_chain": evidence.get("queue_chain"),
-          "qfair": qf, **rec})
+          "qfair": qf, **extra, **rec})
     if qf.get("reason") != "releasing capacity (pipeline arm)" or qf.get("engaged") is not False:
         wrong.append(f"the ladder did not decline for releasing capacity: {qf}")
     if not (allocated > 0 and pipelined > 0 and allocated + pipelined == evidence.get("placed")):
@@ -2076,24 +2153,294 @@ def phase_main_path_reclaim(cache, conf_path):
     if binds != allocated:
         wrong.append(f"{binds} binds for {allocated} allocated tasks")
     if wrong:
-        raise SystemExit(f"the config 4 aftermath: {'; '.join(wrong[:5])}")
-    return launches, {"statuses": statuses, "binds": dict(cache.binder.binds)}
+        raise SystemExit(f"{config}: {'; '.join(wrong[:5])}")
+    return launches, {"statuses": statuses, "binds": dict(cache.binder.binds)}, arm
 
 
-def check_reclaim_host_loop(twin, outcome):
-    """Path h's binds, pipelined tasks and statuses against the port's host
-    loop on a twin cluster (``twin``: the ``reclaim_host_loop`` child, on
-    the CPU beside the kernel phases)."""
+def check_reclaim_host_loop(twin, outcome, config="config4_reclaim_aftermath"):
+    """Path h's (or k's) binds, pipelined tasks and statuses against the
+    port's host loop on a twin cluster (``twin``: the ``reclaim_host_loop``
+    child, on the CPU beside the kernel phases)."""
     host = twin.result()
     equal = host == outcome
     pipe = sum(1 for status, _ in outcome["statuses"].values() if status == "PIPELINED")
     host_pipe = sum(1 for status, _ in host["statuses"].values() if status == "PIPELINED")
-    emit({"phase": "host_loop_parity", "config": "config4_reclaim_aftermath",
+    emit({"phase": "host_loop_parity", "config": config,
           "binds": len(outcome["binds"]), "host_loop_binds": len(host["binds"]),
           "pipelined": pipe, "host_loop_pipelined": host_pipe, "equal_to_host_loop": equal,
           "wall_s": time.perf_counter() - twin.t0})
     if not equal:
-        raise SystemExit("the config 4 aftermath: binds or pipelines differ from the host loop's")
+        raise SystemExit(f"{config}: binds or pipelines differ from the host loop's")
+
+
+# -- the loop's arms at full size: paths i, j and k -----------------------------------
+
+class ReadbackSpy:
+    """Within the ``with`` block, keeps the last ``FusedAllocator`` of this
+    process that read its codes back (``engine``) and a copy of its codes
+    (``codes``)."""
+
+    def __enter__(self):
+        from scheduler_tpu_torch.ops.fused import FusedAllocator
+
+        self.cls, self.orig = FusedAllocator, FusedAllocator.readback
+        self.engine = self.codes = None
+
+        def readback(eng, orig=self.orig):
+            out = orig(eng)
+            self.engine, self.codes = eng, out.copy()
+            return out
+
+        FusedAllocator.readback = readback
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.readback = self.orig
+
+
+def proportion_state(ssn):
+    """Queue uid -> (deserved, allocated) host vectors of proportion."""
+    plugin = ssn.plugins["proportion"]
+    return {uid: (attr.deserved.array.copy(), attr.allocated.array.copy())
+            for uid, attr in plugin.queue_attrs.items()}
+
+
+def check_overused_gate(cache, queues, binds, gang_of, request_of):
+    """Proportion's overused gate, as far as the binds can show it: before
+    its last gang a queue was not overused, so some dim kept its allocation
+    then (the end's less that gang) at least eps below its deserved share.
+    The largest gang a queue took bounds its last in every dim, so every
+    queue that took gangs must keep a dim where deserved - (allocated - the
+    largest gang) is at least eps.  ``gang_of(name)`` is a bound pod's
+    (queue, gang) and ``request_of(gang)`` a pod's request vector in that
+    gang; ``queues`` maps a queue to proportion's (deserved, allocated)
+    after the action."""
+    import numpy as np
+
+    mins = cache.vocab.min_thresholds()
+    gangs = {}
+    for key in binds:
+        queue, gang = gang_of(key.split("/", 1)[1])
+        bound = gangs.setdefault(queue, {})
+        bound[gang] = bound.get(gang, 0) + 1
+    for queue, bound in gangs.items():
+        deserved, allocated = queues[queue]
+        r = min(deserved.shape[0], 2)
+        largest = np.max([request_of(g)[:r] * n for g, n in bound.items()], axis=0)
+        if np.all(deserved[:r] - (allocated[:r] - largest) < mins[:r]):
+            raise SystemExit(f"queue {queue} took a gang while overused: deserved "
+                             f"{deserved[:r].tolist()}, allocated {allocated[:r].tolist()}")
+    return len(gangs)
+
+
+def template_gang_of(queues):
+    """``(queue, gang)`` of a templates cluster's pod name (job-JJJJJ-TTTT),
+    its gangs dealt round-robin to ``queues``."""
+    def gang_of(name):
+        j = int(name.split("-")[1])
+        return queues[j % len(queues)], j
+    return gang_of
+
+
+def template_request_of(n_jobs):
+    """A templates cluster's pod request of gang j as a (cpu, memory)
+    vector."""
+    import numpy as np
+
+    request = job_template_request(n_jobs)
+
+    def request_of(j):
+        req = request(j, 0)
+        return np.asarray([req["cpu"], req["memory"]], dtype=np.float64)
+    return request_of
+
+
+def xla_step_bytes(n, r_dim, use_static, enforce_pod_count):
+    """Bytes the loop's XLA step arm must move a step at node bucket ``n``:
+    the node state's idle, releasing and task-count rows, allocatable and
+    the gate read once, the pod limits and the static mask and score rows
+    where they are on, and the winner's row written."""
+    per_node = (2 * r_dim + 1) * 4 + r_dim * 4 + 1
+    if enforce_pod_count:
+        per_node += 4
+    if use_static:
+        per_node += 5
+    return n * per_node + (2 * r_dim + 1) * 4
+
+
+def xla_arm_record(path, rec, kw):
+    """The XLA arm's numbers on a main path: steps, its summed event time and
+    per step, and the per-step bound by bytes."""
+    steps = rec["steps"]
+    ev = rec["cohort"]
+    nbytes = xla_step_bytes(kw["n"], kw["r_dim"], kw["use_static"], kw["enforce_pod_count"])
+    return {"path": path, "steps": steps, "xla_ms": ev["xla_ms"],
+            "ms_per_step": ev["xla_ms"] / steps, "loop_ms": ev["loop_ms"],
+            "loop_ms_per_step": ev["loop_ms"] / steps, "node_bucket": kw["n"],
+            "bytes_per_step": nbytes, "bound_ms_per_step": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes"}
+
+
+def loop_kw(eng):
+    """The loop's shape facts of an engine, for ``xla_arm_record``."""
+    return {"n": eng.n_bucket, "r_dim": len(eng.st.nodes.allocatable[0]),
+            "use_static": eng.use_static, "enforce_pod_count": eng.enforce_pod_count}
+
+
+def phase_main_path_tiers_templates(cache, conf_path, codes_path):
+    """Path i: config3_templates' gangs under the JAX default conf's tiers
+    (``TIERS_TEMPLATES``): proportion makes the one queue multi-queue,
+    nodeorder's weights with runs turn the top-2 score bound on, and 5,000
+    templates close the mega gate, so the loop runs its XLA step arm.
+    Checks: no kernel of the loop launched, K3 built the static rows, the
+    water-fill on the card and the ladder declined, no node overcommitted,
+    gangs whole, proportion's overused gate.  Writes the codes to
+    ``codes_path`` for the CPU twin (``check_cpu_codes``)."""
+    import numpy as np
+
+    n_nodes, n_jobs, tasks = TIERS_TEMPLATES
+    seen = {}
+    with ReadbackSpy() as spy:
+        rec, launches = run_cycle(cache, conf_path, engine="xla",
+                                  after_action=lambda ssn: seen.update(q=proportion_state(ssn)))
+    np.save(codes_path, spy.codes)
+    binds_map = dict(cache.binder.binds)
+    binds, gangs = check_binds(cache, n_nodes, n_jobs * tasks, tasks,
+                               request_fn=job_template_request(n_jobs))
+    check_overused_gate(cache, seen["q"], binds_map, template_gang_of(("default",)),
+                        template_request_of(n_jobs))
+    ev = rec["cohort"]
+    arm = xla_arm_record("templates_default_tiers", rec, loop_kw(spy.engine))
+    emit({"phase": "main_path", "config": "templates_default_tiers", "nodes": n_nodes,
+          "pods": n_jobs * tasks, "jobs": n_jobs, "binds": binds, "gangs_bound": gangs,
+          "allocated": binds, "pipelined": 0, "xla_ms_per_step": arm["ms_per_step"],
+          "loop_ms": ev["loop_ms"], "queue_chain": ev.get("queue_chain"),
+          "qfair": ev.get("qfair"), **rec})
+    if launches["static_predicate_mask"] < 1:
+        raise SystemExit("path i did not launch static_predicate_mask")
+    if binds < 1:
+        raise SystemExit("path i bound nothing")
+    check_declined_qfair(ev.get("qfair"), launches, "path i")
+    return launches, arm
+
+
+def phase_main_path_mq_templates(cache, conf_path, opts):
+    """Path j: config3_templates' gangs dealt to queues q0, q1, q2 of
+    weights 1:2:3 under the multi-queue conf (binpack alone): K1 with the
+    loop's multi-queue pop.  Checks: one K1 launch a step, no node
+    overcommitted, gangs whole, proportion's overused gate, the water-fill
+    on the card and the ladder declined."""
+    n_nodes, n_jobs, tasks = opts.nodes, opts.template_jobs, opts.template_tasks
+    seen = {}
+    rec, launches = run_cycle(cache, conf_path, engine="step",
+                              after_action=lambda ssn: seen.update(q=proportion_state(ssn)))
+    binds_map = dict(cache.binder.binds)
+    binds, gangs = check_binds(cache, n_nodes, n_jobs * tasks, tasks,
+                               request_fn=job_template_request(n_jobs))
+    queues_hit = check_overused_gate(cache, seen["q"], binds_map, template_gang_of(MQ_QUEUES),
+                                     template_request_of(n_jobs))
+    ev = rec["cohort"]
+    steps = rec["steps"]
+    emit({"phase": "main_path", "config": "templates_multi_queue", "nodes": n_nodes,
+          "pods": n_jobs * tasks, "jobs": n_jobs, "queues": len(MQ_QUEUES), "binds": binds,
+          "gangs_bound": gangs, "queues_bound": queues_hit, "allocated": binds, "pipelined": 0,
+          "k1_ms": ev["k1_ms"], "loop_ms": ev["loop_ms"],
+          "us_per_step": 1e3 * ev["loop_ms"] / steps,
+          "k1_us_per_launch": 1e3 * ev["k1_ms"] / steps, "queue_chain": ev.get("queue_chain"),
+          "qfair": ev.get("qfair"), **rec})
+    chain = ev.get("queue_chain") or {}
+    if binds < 1 or chain.get("queues") != len(MQ_QUEUES) or not chain.get("delta_updates"):
+        raise SystemExit(f"path j: {binds} binds, queue chain {chain}")
+    check_declined_qfair(ev.get("qfair"), launches, "path j")
+    return launches
+
+
+def cpu_loop_codes(cache, conf_text, codes_path):
+    """The fused route's engine on ``cache`` on the CPU (its loop's arms on
+    CPU tensors): writes its codes to ``codes_path``; returns its engine,
+    steps and seconds."""
+    import numpy as np
+
+    from scheduler_tpu_torch.actions.allocate import collect_candidates
+    from scheduler_tpu_torch.conf import parse_scheduler_conf
+    from scheduler_tpu_torch.framework import close_session, open_session
+    from scheduler_tpu_torch.ops.fused import FusedAllocator
+
+    ssn = open_session(cache, parse_scheduler_conf(conf_text).tiers, device="cpu")
+    t0 = time.perf_counter()
+    eng = FusedAllocator(ssn, collect_candidates(ssn), device="cpu")
+    codes = eng.readback()
+    seconds = time.perf_counter() - t0
+    np.save(codes_path, codes)
+    out = {"engine": eng.engine, "steps": eng.run_stats().get("steps"), "seconds": seconds}
+    close_session(ssn)
+    return out
+
+
+def check_cpu_codes(twin, card_codes_path, path):
+    """A main path's codes on the card against the same loop on the CPU
+    (``twin``: the CPU child, on a cluster built the same way): bitwise."""
+    import numpy as np
+
+    cpu = twin.result()
+    card = np.load(card_codes_path)
+    mine = np.load(cpu["codes"])
+    equal = card.dtype == mine.dtype and np.array_equal(card, mine)
+    emit({"phase": "loop_cpu_parity", "config": path, "tasks": int(card.shape[0]),
+          "cpu_engine": cpu["engine"], "cpu_steps": cpu["steps"], "cpu_loop_s": cpu["seconds"],
+          "placed": int(((card >= 0) | (card <= -3)).sum()), "equal": bool(equal),
+          "wall_s": time.perf_counter() - twin.t0})
+    if not equal:
+        raise SystemExit(f"{path}: the codes on the card differ from the CPU loop's")
+
+
+def loop_host_twins():
+    """Paths i and j at 0.1 scale (``TIERS_TEMPLATES_TWIN``,
+    ``MQ_TEMPLATES_TWIN``), on the CPU: the fused route (the loop's XLA arm,
+    K1's plain version with the multi-queue pop) and the host loop on twin
+    clusters; their binds, the counts that differ, and each route's
+    seconds."""
+    from scheduler_tpu_torch.actions.allocate import AllocateAction, collect_candidates
+    from scheduler_tpu_torch.conf import parse_scheduler_conf
+    from scheduler_tpu_torch.framework import close_session, open_session
+
+    out = {}
+    for path, shape, conf_text, kw in (
+            ("templates_default_tiers", TIERS_TEMPLATES_TWIN, DEFAULT_TIERS_CONF, {}),
+            ("templates_multi_queue", MQ_TEMPLATES_TWIN, MULTIQ_CONF,
+             dict(queues=MQ_QUEUES, queue_weights=MQ_WEIGHTS))):
+        rec = {"shape": list(shape)}
+        for route in ("fused", "host"):
+            cache = template_cluster(*shape, **kw)
+            ssn = open_session(cache, parse_scheduler_conf(conf_text).tiers, device="cpu")
+            t0 = time.perf_counter()
+            if route == "host":
+                AllocateAction()._heap_loop(ssn, collect_candidates(ssn))
+            else:
+                AllocateAction().execute(ssn)
+            close_session(ssn)
+            rec[f"{route}_s"] = time.perf_counter() - t0
+            rec[route] = dict(cache.binder.binds)
+        out[path] = rec
+    return out
+
+
+def check_loop_host_twins(twin):
+    """Paths i and j at 0.1 scale against the host loop (``twin``: the
+    ``loop_host_twins`` child).  Path i's binds must equal the host loop's.
+    Path j's are reported: on multi-queue sessions of per-gang templates
+    the JAX package's fused route and host loop differ too (its own
+    disagreement, which the port reproduces on both sides)."""
+    res = twin.result()
+    for path, rec in res.items():
+        fused, host = rec["fused"], rec["host"]
+        differ = sum(1 for k in set(fused) | set(host) if fused.get(k) != host.get(k))
+        emit({"phase": "host_loop_parity", "config": f"{path}_0.1", "shape": rec["shape"],
+              "binds": len(fused), "host_loop_binds": len(host), "binds_that_differ": differ,
+              "equal_to_host_loop": differ == 0, "fused_s": rec["fused_s"],
+              "host_loop_s": rec["host_s"], "wall_s": time.perf_counter() - twin.t0})
+        if path == "templates_default_tiers" and differ:
+            raise SystemExit(f"path i at 0.1 scale: {differ} binds differ from the host loop's")
 
 
 def child_argv(child, path, opts):
@@ -2180,9 +2527,25 @@ def child_main(child, path, opts) -> int:
         with open(path, "w") as f:
             json.dump(binds, f)
         return 0
-    if child == "reclaim_host_loop":
+    if child in ("reclaim_host_loop", "reclaim_templates_host_loop"):
+        thin = RECLAIM_THIN_REQUESTS if child == "reclaim_templates_host_loop" else 0
         with open(path, "w") as f:
-            json.dump(reclaim_host_loop(), f)
+            json.dump(reclaim_host_loop(thin), f)
+        return 0
+    if child == "loop_host_twins":
+        with open(path, "w") as f:
+            json.dump(loop_host_twins(), f)
+        return 0
+    if child in ("templates_default_tiers_cpu", "reclaim_aftermath_templates_cpu"):
+        if child == "templates_default_tiers_cpu":
+            cache, conf_text = template_cluster(*TIERS_TEMPLATES), DEFAULT_TIERS_CONF
+        else:
+            cache = make_reclaim_aftermath_cluster(thin_requests=RECLAIM_THIN_REQUESTS).cache
+            conf_text = RECLAIM_CONF
+        codes = path[:-len(".json")] + ".npy"
+        out = dict(cpu_loop_codes(cache, conf_text, codes), codes=codes)
+        with open(path, "w") as f:
+            json.dump(out, f)
         return 0
     if child == "mq_ladder_plain":
         import torch
@@ -2200,7 +2563,9 @@ def child_main(child, path, opts) -> int:
     gc.collect()
     conf = {"config3_multi_queue": MULTIQ_CONF, "config5": CONFIG2_CONF,
             "config2_default_tiers": DEFAULT_TIERS_CONF, "mq_ladder": MULTIQ_CONF,
-            "reclaim_aftermath": RECLAIM_CONF}[child]
+            "reclaim_aftermath": RECLAIM_CONF, "templates_default_tiers": DEFAULT_TIERS_CONF,
+            "templates_multi_queue": MULTIQ_CONF,
+            "reclaim_aftermath_templates": RECLAIM_CONF}[child]
     with open(conf_path, "w") as f:
         f.write(conf)  # config 5's plugins are config 2's
     t0 = time.perf_counter()
@@ -2215,9 +2580,17 @@ def child_main(child, path, opts) -> int:
         cache = make_mq_ladder_cluster(LADDER_NODES, LADDER_PODS, LADDER_QUEUES,
                                        LADDER_VOCAB).cache
         nodes, pods = LADDER_NODES, LADDER_PODS
-    elif child == "reclaim_aftermath":
-        built = make_reclaim_aftermath_cluster()
+    elif child in ("reclaim_aftermath", "reclaim_aftermath_templates"):
+        thin = RECLAIM_THIN_REQUESTS if child == "reclaim_aftermath_templates" else 0
+        built = make_reclaim_aftermath_cluster(thin_requests=thin)
         cache, nodes, pods = built.cache, built.n_nodes, built.n_pods
+    elif child == "templates_default_tiers":
+        cache = template_cluster(*TIERS_TEMPLATES)
+        nodes, pods = TIERS_TEMPLATES[0], TIERS_TEMPLATES[1] * TIERS_TEMPLATES[2]
+    elif child == "templates_multi_queue":
+        cache = template_cluster(opts.nodes, opts.template_jobs, opts.template_tasks,
+                                 queues=MQ_QUEUES, queue_weights=MQ_WEIGHTS)
+        nodes, pods = opts.nodes, opts.template_jobs * opts.template_tasks
     else:
         cache = make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache
         nodes, pods = opts.config2_nodes, opts.config2_pods
@@ -2241,7 +2614,25 @@ def child_main(child, path, opts) -> int:
         out["solve"] = device_vs_host_solve(ssn)
         close_session(ssn)
     elif child == "reclaim_aftermath":
-        out["launches"], out["outcome"] = phase_main_path_reclaim(cache, conf_path)
+        out["launches"], out["outcome"], _ = phase_main_path_reclaim(cache, conf_path)
+    elif child == "reclaim_aftermath_templates":
+        out["codes"] = os.path.join(os.path.dirname(path), f"{child}_codes.npy")
+        out["launches"], out["outcome"], out["arm"] = phase_main_path_reclaim(
+            cache, conf_path, child, "xla", out["codes"])
+    elif child == "templates_default_tiers":
+        out["codes"] = os.path.join(os.path.dirname(path), f"{child}_codes.npy")
+        out["launches"], out["arm"] = phase_main_path_tiers_templates(cache, conf_path,
+                                                                      out["codes"])
+    elif child == "templates_multi_queue":
+        out["launches"] = phase_main_path_mq_templates(cache, conf_path, opts)
+        del cache
+        gc.collect()
+        import torch
+
+        second = template_cluster(opts.nodes, opts.template_jobs, opts.template_tasks,
+                                  queues=MQ_QUEUES, queue_weights=MQ_WEIGHTS)
+        _, out["parity"] = phase_loop_parity(second, torch.device("cuda"), 200, MULTIQ_CONF,
+                                             child)
     else:
         out["launches"], out["binds"] = phase_main_path_default_tiers(cache, conf_path, nodes,
                                                                       pods)
@@ -2465,9 +2856,10 @@ def phase_e2e_small(conf_path):
         ("mq_ladder_64_x_1200", lambda: make_mq_ladder_cluster(64, 1200, 12, 6).cache,
          MULTIQ_CONF, "mega"),
         # Releasing capacity: config 4's aftermath (idle slots bind, the rest
-        # pipelines).
+        # pipelines); past the mega gate, the loop's releasing arm.
         ("reclaim_aftermath_20_x_1000", lambda: make_reclaim_aftermath_cluster(0.02).cache,
          RECLAIM_CONF, "mega"),
+        ("releasing_templates_16_x_4200", releasing_templates_cluster, FLAGSHIP_CONF, "xla"),
     )
     for name, build, conf_text, engine in cases:
         with open(conf_path, "w") as f:
@@ -2486,8 +2878,10 @@ def phase_e2e_small(conf_path):
               "equal_to_host_loop": equal})
         if not equal or not gpu.binder.binds:
             raise SystemExit(f"fused route and host loop disagree: {name}")
-        took = "placement_step" if engine == "step" else "mega_allocate"
-        if launches[took] < 1 or (engine == "step") != (launches["mega_allocate"] == 0):
+        ran = {"mega": launches["mega_allocate"] >= 1 and launches["placement_step"] == 0,
+               "step": launches["mega_allocate"] == 0 and launches["placement_step"] > 0,
+               "xla": launches["mega_allocate"] == 0 and launches["placement_step"] == 0}
+        if not ran[engine]:
             raise SystemExit(f"{name}: the fused route did not run the {engine} engine")
 
 
@@ -2496,14 +2890,16 @@ STEP_CASE_TIMES = ("n", "ms", "device_ms", "event_ms", "queued_ms", "round_trip_
                    "bound_ms", "bound_by")
 
 
-def step_entry(launches, slice_rec, recs, parity):
-    """K1's entry of the kernels line; every loop step that ``parity``
+def step_entry(launches_by_path, slice_rec, recs, parities):
+    """K1's entry of the kernels line: its launches on each main path that
+    runs it (``launches``: their sum); every loop step that ``parities``
     checked was bitwise equal (a disagreement stops the run)."""
     return {"name": "placement_step", "route": "cuda",
             "source": "scheduler_tpu_torch/csrc/placement_step.cu",
-            "replaces": "scheduler_tpu/ops/pallas_kernels.py:117", "launches": launches,
+            "replaces": "scheduler_tpu/ops/pallas_kernels.py:117",
+            "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
-            "checked_loop_steps": parity["checked_steps"],
+            "checked_loop_steps": {p["case"]: p["checked_steps"] for p in parities},
             "ms": slice_rec["ms"], "device_ms": slice_rec["device_ms"],
             "event_ms": slice_rec["event_ms"], "queued_ms": slice_rec["queued_ms"],
             "round_trip_ms": slice_rec["round_trip_ms"],
@@ -2573,7 +2969,13 @@ def main() -> int:
     parser.add_argument("--child", choices=("host_loop", "config3_multi_queue", "config5",
                                             "config2_default_tiers", "mq_ladder",
                                             "mq_ladder_plain", "reclaim_aftermath",
-                                            "reclaim_host_loop"),
+                                            "reclaim_host_loop", "templates_default_tiers",
+                                            "templates_multi_queue",
+                                            "reclaim_aftermath_templates",
+                                            "templates_default_tiers_cpu",
+                                            "reclaim_aftermath_templates_cpu",
+                                            "reclaim_templates_host_loop",
+                                            "loop_host_twins"),
                         help="run only this child process of the script (child_main) and "
                              "write its result to --out")
     parser.add_argument("--out", metavar="PATH")
@@ -2694,9 +3096,18 @@ def main() -> int:
     tiers_launches, tiers_binds = tiers["launches"], tiers["binds"]
     ladder_launches = run_child(out_dir, "mq_ladder", opts)["launches"]
     reclaim = run_child(out_dir, "reclaim_aftermath", opts)
-    # After the timed cycles: the host loops' twins, beside the kernel phases.
-    host_twin = BackgroundChild(out_dir, "host_loop", opts)
-    reclaim_twin = BackgroundChild(out_dir, "reclaim_host_loop", opts)
+    # The loop's arms: the XLA step arm (i), K1 with the multi-queue pop (j)
+    # and the releasing arm (k).
+    tiers_tpl = run_child(out_dir, "templates_default_tiers", opts)
+    mq_tpl = run_child(out_dir, "templates_multi_queue", opts)
+    reclaim_tpl = run_child(out_dir, "reclaim_aftermath_templates", opts)
+    # After the timed cycles: the host loops' and the CPU loops' twins,
+    # beside the kernel phases.
+    twins = [BackgroundChild(out_dir, child, opts) for child in (
+        "host_loop", "reclaim_host_loop", "reclaim_templates_host_loop", "loop_host_twins",
+        "templates_default_tiers_cpu", "reclaim_aftermath_templates_cpu")]
+    (host_twin, reclaim_twin, reclaim_tpl_twin, loop_twins, tiers_cpu,
+     reclaim_tpl_cpu) = twins
     ladder_plain = None
 
     try:
@@ -2734,13 +3145,23 @@ def main() -> int:
         phase_e2e_small(conf_path)
         check_host_loop(host_twin, tiers_binds)
         check_reclaim_host_loop(reclaim_twin, reclaim["outcome"])
+        check_cpu_codes(tiers_cpu, tiers_tpl["codes"], "templates_default_tiers")
+        check_cpu_codes(reclaim_tpl_cpu, reclaim_tpl["codes"], "reclaim_aftermath_templates")
+        check_reclaim_host_loop(reclaim_tpl_twin, reclaim_tpl["outcome"],
+                                "reclaim_aftermath_templates")
+        check_loop_host_twins(loop_twins)
         ladder_plain_rec = ladder_plain.result()
     finally:
-        host_twin.stop()
-        reclaim_twin.stop()
+        for twin in twins:
+            twin.stop()
         if ladder_plain is not None:
             ladder_plain.stop()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    # The loop's XLA step arm (no Pallas kernel: plain tensor operations on
+    # the card each step) on paths i and k.
+    emit({"xla_step_arm": {"replaces": "scheduler_tpu/ops/fused.py:704-864",
+                           "source": "scheduler_tpu_torch/ops/xla_step.py",
+                           "paths": [tiers_tpl["arm"], reclaim_tpl["arm"]]}})
 
     emit({"kernels": [
         mega_entry("cursor", flagship_launches["mega_allocate"], cursor_full),
@@ -2771,7 +3192,9 @@ def main() -> int:
          "max_abs_err": pred_err,
          **{k: pred_main[k] for k in PREDICATE_TIMES},
          "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K") + PREDICATE_TIMES}},
-        step_entry(templates_launches["placement_step"], step_recs[0], step_recs, parity),
+        step_entry({"config3_templates": templates_launches["placement_step"],
+                    "templates_multi_queue": mq_tpl["launches"]["placement_step"]},
+                   step_recs[0], step_recs, [parity, mq_tpl["parity"]]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

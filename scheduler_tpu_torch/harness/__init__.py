@@ -1,5 +1,7 @@
 from scheduler_tpu_torch.harness.synthetic import (
     SyntheticCluster,
+    aftermath_thin_requests,
+    job_template_request,
     make_gpu_topology_cluster,
     make_kubemark_density_cluster,
     make_mq_ladder_cluster,
@@ -7,5 +9,6 @@ from scheduler_tpu_torch.harness.synthetic import (
     make_synthetic_cluster,
 )
 
-__all__ = ["SyntheticCluster", "make_gpu_topology_cluster", "make_kubemark_density_cluster",
-           "make_mq_ladder_cluster", "make_reclaim_aftermath_cluster", "make_synthetic_cluster"]
+__all__ = ["SyntheticCluster", "aftermath_thin_requests", "job_template_request",
+           "make_gpu_topology_cluster", "make_kubemark_density_cluster", "make_mq_ladder_cluster",
+           "make_reclaim_aftermath_cluster", "make_synthetic_cluster"]

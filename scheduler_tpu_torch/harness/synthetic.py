@@ -171,6 +171,26 @@ def make_mq_ladder_cluster(n_nodes: int, n_pods: int, n_queues: int,
     )
 
 
+def job_template_request(n_jobs: int, seed: int = 0):
+    """Per-job request templates: job j takes cell c_j of a 64 x 128 grid,
+    drawn without replacement by ``numpy.random.default_rng(seed).choice(8192,
+    n_jobs, replace=False)``; every pod of the job asks cpu 125m * (1 + c %
+    64) (125m-8 cpu) and memory 256 MiB * (1 + c // 64) (256 MiB-32 GiB).
+    Returns ``request(j, t)`` for ``make_synthetic_cluster(request_fn=)``:
+    with more than 4,096 gangs, more than 4,096 request signatures close the
+    mega kernel's gate (``chip_smoke.template_cluster``)."""
+    import numpy as np
+
+    cells = np.random.default_rng(seed).choice(8192, n_jobs, replace=False)
+
+    def request(j: int, t: int) -> Dict[str, float]:
+        del t
+        c = int(cells[j])
+        return {"cpu": 125.0 * (1 + c % 64), "memory": 256.0 * MIB * (1 + c // 64)}
+
+    return request
+
+
 KUBEMARK_TS0 = 1_700_000_000.0
 
 
@@ -268,7 +288,25 @@ def make_gpu_topology_cluster(n_nodes: int, n_gangs: int, gang: int = 8) -> Synt
     )
 
 
-def make_reclaim_aftermath_cluster(scale: float = 1.0) -> SyntheticCluster:
+def aftermath_thin_requests(n_pend: int, n_distinct: int, seed: int = 0) -> List[Dict[str, float]]:
+    """The pending ``thin`` pods' requests of ``make_reclaim_aftermath_cluster``
+    with ``thin_requests``: ``n_distinct`` distinct (cpu, memory) pairs drawn
+    without replacement by ``numpy.random.default_rng(seed)`` from the grid
+    cpu 100m * a (a = 1..20) x memory 16 MiB * b (b = 1..256), each at most
+    the ``fat`` pod's 2 cpu / 4 GiB, so every ``thin`` pod still fits one
+    slot of idle or releasing capacity; then dealt pod by pod, each pair to
+    ``n_pend / n_distinct`` pods (rounded up) in a seeded shuffle."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(20 * 256, n_distinct, replace=False)
+    order = rng.permutation(np.resize(np.arange(n_distinct), n_pend))
+    return [{"cpu": 100.0 * (1 + int(cells[k]) % 20), "memory": 16 * MIB * (1 + int(cells[k]) // 20)}
+            for k in order.tolist()]
+
+
+def make_reclaim_aftermath_cluster(scale: float = 1.0, thin_requests: int = 0,
+                                   seed: int = 0) -> SyntheticCluster:
     """BASELINE config 4's cluster (two queues, proportion, reclaim;
     ``scripts/scenario_ladder.py`` scenario 4, its cluster build without the
     churn) in the state its reclaim leaves while the victims terminate.
@@ -285,14 +323,20 @@ def make_reclaim_aftermath_cluster(scale: float = 1.0) -> SyntheticCluster:
     allocate fits ``thin`` on each node's idle slot and pipelines the rest
     onto the releasing capacity, up to ``thin``'s deserved share.
 
+    With ``thin_requests`` > 0 the ``thin`` pods ask that many distinct
+    requests (``aftermath_thin_requests``, drawn from ``seed``): past 4,096
+    signatures the mega kernel's gate closes, and the ``fused_allocate``
+    loop's releasing arm runs.
+
     Timestamps are fixed, so every build orders its queues and jobs alike;
-    the build draws no random numbers."""
+    without ``thin_requests`` the build draws no random numbers."""
     gang = 50
     n_nodes = int(1000 * scale)
     n_run = int(25_000 * scale)
     n_pend = int(50_000 * scale)
     slots = n_run // n_nodes + 1
     request = {"cpu": 2000.0, "memory": 4 * GIB}
+    thin = aftermath_thin_requests(n_pend, thin_requests, seed) if thin_requests else None
     vocab = ResourceVocabulary()
     cache = SchedulerCache(vocab=vocab, async_io=False)
     cache.run()
@@ -311,8 +355,9 @@ def make_reclaim_aftermath_cluster(scale: float = 1.0) -> SyntheticCluster:
         pg.creation_timestamp = ts
         cache.add_pod_group(pg)
         for t in range(gang):
+            req = request if running or thin is None else thin[first + t]
             pod = PodSpec(
-                name=f"{name}-{t}", namespace="d", containers=[dict(request)],
+                name=f"{name}-{t}", namespace="d", containers=[dict(req)],
                 annotations={GROUP_NAME_ANNOTATION: name},
                 node_name=f"n{(first + t) % n_nodes:05d}" if running else "",
                 phase="Running" if running else "Pending")
@@ -324,7 +369,7 @@ def make_reclaim_aftermath_cluster(scale: float = 1.0) -> SyntheticCluster:
     for j in range(n_fat):
         add_gang(f"fat{j}", "fat", KUBEMARK_TS0 + 1.0 + j, True, j * gang)
     for j in range(n_pend // gang):
-        add_gang(f"thin{j}", "thin", KUBEMARK_TS0 + 1.0 + n_fat + j, False, 0)
+        add_gang(f"thin{j}", "thin", KUBEMARK_TS0 + 1.0 + n_fat + j, False, j * gang)
     for j in range(1, n_fat, 2):
         for task in list(cache.jobs[f"d/fat{j}"].tasks.values()):
             cache.evict(task, "reclaim")

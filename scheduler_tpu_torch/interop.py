@@ -7,10 +7,10 @@ both kernels can run on the same inputs, in cursor and in multi-queue mode
 and with releasing capacity (the queue operands ``jqueue``, ``jq_des`` and
 ``jq_alloc0`` and the releasing ledger ``rel0`` travel like the others);
 ``fused_operands_from_numpy`` does the same for the JAX ``fused_allocate``
-loop (``FusedAllocator.args`` / ``_allocate_kw()``), whose queue and
-releasing arms this package does not carry.  Cluster state travels as the ``{queues, nodes,
-podGroups, pods}`` JSON that ``cli.load_cluster_state`` reads in both
-packages.
+loop (``FusedAllocator.args`` / ``_allocate_kw()``): its whole operand list,
+the releasing ledger, the queue tensors, ``sig_of_task`` and the ladder's
+tables included.  Cluster state travels as the ``{queues, nodes, podGroups,
+pods}`` JSON that ``cli.load_cluster_state`` reads in both packages.
 """
 
 from __future__ import annotations
@@ -24,19 +24,14 @@ from scheduler_tpu_torch.ops.fused import FUSED_OPERAND_NAMES, HOST_OPERANDS
 from scheduler_tpu_torch.ops.megakernel import OPERAND_NAMES
 
 # Positional operands of the JAX ``fused_allocate``
-# (scheduler_tpu/ops/fused.py:175-221).
-JAX_FUSED_ARG_NAMES = (
-    "idle", "releasing", "task_count", "allocatable", "pods_limit", "node_gate",
-    "mins", "init_resreq", "resreq", "static_mask", "static_score",
-    "job_task_offset", "job_task_num", "job_deficit", "job_gang_order",
-    "job_priority", "job_tiebreak", "job_queue", "job_alloc_init", "queue_rank",
-    "queue_has_jobs", "queue_deserved", "queue_alloc_init", "drf_total", "run_len",
-    "sig_of_task", "qfair_share", "qfair_over",
-)
+# (scheduler_tpu/ops/fused.py:175-221): the port's loop takes the same.
+JAX_FUSED_ARG_NAMES = FUSED_OPERAND_NAMES
 
-# Static arguments of the port's loop, taken over as they are.
-_FUSED_KW = ("comparators", "weights", "enforce_pod_count", "use_static", "batch_runs",
-             "sorted_jobs", "n_queues", "has_releasing", "step_kernel")
+# Static arguments of the port's loop, taken over as they are (the JAX
+# ``window`` unrolling changes no result and is dropped).
+_FUSED_KW = ("comparators", "queue_comparators", "overused_gate", "use_static", "n_queues",
+             "weights", "enforce_pod_count", "batch_runs", "sorted_jobs", "has_releasing",
+             "step_kernel", "queue_delta", "sig_compress", "qfair_ladder")
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -67,30 +62,19 @@ def fused_operands_from_numpy(
     """``(operands, kw)`` for ``ops.fused.fused_allocate`` from the JAX
     engine's loop operands (``args``, in ``JAX_FUSED_ARG_NAMES`` order) and
     static arguments (``kw``): the ``HOST_OPERANDS`` as numpy arrays, the
-    rest as tensors on ``device``.  Signature-class compressed static tensors
-    are expanded back to one row per task through ``sig_of_task``; the
-    ``window`` unrolling and the queue-delta switch change no result and
-    are dropped.  Arms the port does not carry raise
-    ``NotImplementedError``."""
+    rest as tensors on ``device``.  Signature-class compressed static
+    tensors travel as they are, read through ``sig_of_task``.  The mesh is
+    not carried: a mesh raises ``NotImplementedError``."""
     if len(args) != len(JAX_FUSED_ARG_NAMES):
         raise TypeError(f"expected the {len(JAX_FUSED_ARG_NAMES)} JAX loop operands")
-    named = dict(zip(JAX_FUSED_ARG_NAMES, args))
-    unported = [name for name in ("queue_comparators", "overused_gate", "qfair_ladder")
-                if kw.get(name)]
     if kw.get("mesh") is not None:
-        unported.append("mesh")
-    if kw.get("has_releasing") or np.any(named["releasing"]):
-        unported.append("releasing capacity")
-    if unported:
-        raise NotImplementedError(f"fused_allocate arms not ported: {unported}")
-    if kw.get("use_static") and kw.get("sig_compress"):
-        sig = np.asarray(named["sig_of_task"])
-        named["static_mask"] = np.asarray(named["static_mask"])[sig]
-        named["static_score"] = np.asarray(named["static_score"])[sig]
+        raise NotImplementedError("fused_allocate arm not ported: mesh")
+    named = dict(zip(JAX_FUSED_ARG_NAMES, args))
     dev = torch.device(device)
     operands = tuple(np.array(named[name], copy=True, order="C") if name in HOST_OPERANDS
                      else _tensor(named[name], dev) for name in FUSED_OPERAND_NAMES)
     port_kw = {k: kw[k] for k in _FUSED_KW}
     port_kw["weights"] = tuple(float(w) for w in port_kw["weights"])
     port_kw["comparators"] = tuple(port_kw["comparators"])
+    port_kw["queue_comparators"] = tuple(port_kw["queue_comparators"])
     return operands, port_kw

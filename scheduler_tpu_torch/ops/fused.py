@@ -8,35 +8,41 @@ in its two job-selection modes: CURSOR MODE (one queue and no queue chain,
 jobs laid out in init-key order) and MULTI-QUEUE MODE (several queues, or
 any session whose conf names proportion: the queue pop by proportion's live
 share and overused gate, then the job chain within the winning queue, with
-the deserved and allocated rows of proportion's host water-fill).  Its two
-engines:
+the deserved and allocated rows of proportion's water-fill).  Its engines:
 
 * **mega** — the whole loop as ONE launch of the mega kernel
   (``ops/megakernel.py``), in either selection mode, with cohort chunks
   and, when the predicates or nodeorder plugin contributes session-static
-  [T, N] mask/score tensors, the kernel's static-row mode (one mask and
-  score row per static signature), and, where evicted pods still hold
-  RELEASING capacity, the kernel's releasing mode (a task fits on idle or
-  releasing; on releasing alone it is pipelined);
-* **step** — where the mega gate closes (more than 4,096 request
-  signatures, a node bucket past 32,768, static rows past 4 MiB) and the
-  step-kernel gate is open: ``fused_allocate``, the JAX engine's while
-  loop, driven from the host with ONE launch of the placement-step kernel
-  (``ops/step_kernel.py``) per step, in cursor mode only.
+  mask/score rows, the kernel's static-row mode (one mask and score row per
+  static signature), and, where evicted pods still hold RELEASING
+  capacity, the kernel's releasing mode (a task fits on idle or releasing;
+  on releasing alone it is pipelined);
+* **step** and **xla** — where the mega gate closes (more than 4,096
+  request signatures, a node bucket past 32,768, static rows past 4 MiB):
+  ``fused_allocate``, the JAX engine's while loop, driven from the host in
+  every selection mode (the cursor; the queue pop of multi-queue and
+  unsorted sessions with its delta, full-recompute and ladder chains).  A
+  step's selection is ONE launch of the placement-step kernel
+  (``ops/step_kernel.py``, engine ``step``) where the JAX step-kernel gate
+  admits the session, or else the loop's XLA step arm (``ops/xla_step.py``,
+  engine ``xla``: tensor operations on the device with the node state
+  resident there), which the JAX engine takes where the top-2 score bound
+  is live (runs batch under scorers other than binpack alone), where the
+  node bucket is past 65,536, and for releasing capacity (the joint
+  idle / releasing fit, pipelined codes).  The loop reads static rows by
+  static signature ([S, N]), never a [T, N] buffer.
 
-The engine is chosen by the JAX engine's gates before anything runs.
-Sessions that the JAX engine would run in a mode this package lacks raise
-``NotImplementedError`` naming it: the loop's releasing arm (a releasing
-session the mega gate closes), the loop's multi-queue arm (a multi-queue
-session the mega gate closes), and the XLA step arm of the loop (no step
-kernel: the top-2 score bound is live, or the node bucket is past 65,536).  A multi-queue session keeps its queue shares
-by the delta chain, by the full-recompute chain
+The engine is chosen by the JAX engine's gates before anything runs, and
+nothing falls back: a kernel that fails raises.  ``chip_smoke.py`` runs
+the loop's arms at full size on paths c (K1), i (the XLA arm under the
+default conf's tiers), j (K1 with the multi-queue pop) and k (the
+releasing arm); ``tests/test_torch_loop_arms.py`` holds them to the JAX
+loop on the CPU.  A multi-queue session keeps its queue shares by the
+delta chain, by the full-recompute chain
 (``SCHEDULER_TORCH_QUEUE_DELTA=0``) or, where the JAX engine admits it, by
 the qfair class ladder (``ops/qfair.py``; ``SCHEDULER_TORCH_QFAIR=host``
-turns off both the ladder and proportion's device water-fill).  The LP flavor,
-the mesh and signature-class compression have no switch in this package
-(the last changes only which buffer the same static rows are gathered
-from).
+turns off both the ladder and proportion's device water-fill).  The LP
+flavor and the mesh have no switch in this package.
 
 The result is ONE int32[T] array encoding the whole action:
   >= 0: allocated on that node   |   -1: never reached (left pending)
@@ -46,6 +52,7 @@ The result is ONE int32[T] array encoding the whole action:
 
 from __future__ import annotations
 
+import heapq
 import logging
 from typing import Dict, List, Optional, Sequence
 
@@ -92,23 +99,26 @@ MAX_BATCH = 128
 
 _BIG_I32 = 2**31 - 1
 
-# Operands of ``fused_allocate``: the JAX loop's, minus the releasing ledger
-# and the queue, signature-class and ladder operands of the arms this package
-# does not carry.
+# Operands of ``fused_allocate``: the JAX loop's, in its order
+# (scheduler_tpu/ops/fused.py:175-221).
 FUSED_OPERAND_NAMES = (
-    "idle", "task_count", "allocatable", "pods_limit", "node_gate", "mins",
-    "init_resreq", "resreq", "static_mask", "static_score",
+    "idle", "releasing", "task_count", "allocatable", "pods_limit", "node_gate",
+    "mins", "init_resreq", "resreq", "static_mask", "static_score",
     "job_task_offset", "job_task_num", "job_deficit", "job_gang_order",
-    "job_priority", "job_tiebreak", "job_alloc_init", "drf_total", "run_len",
+    "job_priority", "job_tiebreak", "job_queue", "job_alloc_init", "queue_rank",
+    "queue_has_jobs", "queue_deserved", "queue_alloc_init", "drf_total", "run_len",
+    "sig_of_task", "qfair_share", "qfair_over",
 )
 
 # The loop operands that only the host reads: numpy arrays in ``args``.  The
-# rest lie on the engine's device, where the placement-step kernel reads
-# what ``stage_step_operands`` makes of them.
+# rest lie on the engine's device, where the arm of each step reads them (the
+# node state starts from the host's ``idle``, ``releasing`` and
+# ``task_count`` and stays on the device for the XLA arm).
 HOST_OPERANDS = frozenset((
-    "idle", "task_count", "job_task_offset", "job_task_num", "job_deficit",
-    "job_gang_order", "job_priority", "job_tiebreak", "job_alloc_init", "drf_total",
-    "run_len",
+    "idle", "releasing", "task_count", "job_task_offset", "job_task_num", "job_deficit",
+    "job_gang_order", "job_priority", "job_tiebreak", "job_queue", "job_alloc_init",
+    "queue_rank", "queue_has_jobs", "queue_deserved", "queue_alloc_init", "drf_total",
+    "run_len", "sig_of_task", "qfair_share", "qfair_over",
 ))
 
 # Comparators the fused job-selection chain understands, keyed by plugin name.
@@ -117,9 +127,9 @@ _KNOWN_JOB_ORDER = ("priority", "gang", "drf")
 
 def _queue_delta_enabled() -> bool:
     """``SCHEDULER_TORCH_QUEUE_DELTA`` (default on): the delta-maintained
-    multi-queue chain; ``0`` makes the mega kernel re-derive every queue's
-    share at each pop (the full-recompute chain, the same results), and
-    declines the qfair ladder."""
+    multi-queue chain; ``0`` re-derives every queue's share at each pop (the
+    full-recompute chain, the same results), in the mega kernel and in the
+    loop, and declines the qfair ladder."""
     from scheduler_tpu_torch.utils.envflags import env_bool
 
     return env_bool("SCHEDULER_TORCH_QUEUE_DELTA", True)
@@ -133,35 +143,26 @@ def _cohort_chunks(device: torch.device) -> int:
 
 # -- the loop engine ---------------------------------------------------------------
 
-def _loop_arm_check(*, batch_runs, weights, sorted_jobs, n_queues, has_releasing,
-                    step_kernel, comparators) -> None:
-    """The arms of the JAX loop that this package carries: cursor mode with
-    the placement-step kernel.  Every other arm raises, named."""
-    if has_releasing:
-        raise NotImplementedError("fused_allocate arm not ported: releasing capacity")
-    if not sorted_jobs or n_queues != 1:
-        raise NotImplementedError(
-            "fused_allocate arm not ported: multi-queue / unsorted job selection")
-    if set(comparators) - set(_KNOWN_JOB_ORDER):
-        raise ValueError(f"unknown job-order comparators {comparators}")
-    binpack_only = weights[0] == 0.0 and weights[1] == 0.0 and weights[2] > 0.0
-    if not step_kernel or (batch_runs and not binpack_only):
-        raise NotImplementedError(
-            "fused_allocate arm not ported: the XLA step arm (no placement-step "
-            "kernel: top-2 score bound live, or node bucket past 65,536)")
-
-
 def stage_step_operands(idle, task_count, allocatable, pods_limit, node_gate, mins,
-                        init_resreq, resreq, static_mask, static_score, *, use_static):
+                        init_resreq, resreq, static_mask, static_score, sig_of_task, *,
+                        use_static):
     """The placement-step kernel's operands for a whole loop, as the JAX loop
     stages them (``scheduler_tpu/ops/fused.py:323-351``, ``:982-988``):
     ``(ns_host, alloc, smask, sscore, gate, plim, task_initq, task_req,
-    mins, r8)``.  ``ns_host`` is the host's float32 [r8 + 8, n] node state
-    (idle rows, task-count row r8), built from the host's ``idle`` and
-    ``task_count``; ``task_initq`` / ``task_req`` hold every task's request
-    rows [T, r8] (pad rows -1 / 0); the rest lie on ``allocatable``'s
-    device.  Without ``use_static`` the static rows are [1, n] dummies the
-    kernel never reads."""
+    mins, r8, k1_row)``.  ``ns_host`` is the host's float32 [r8 + 8, n]
+    node state (idle rows, task-count row r8), built from the host's
+    ``idle`` and ``task_count``; ``task_initq`` / ``task_req`` hold the
+    request rows (pad rows -1 / 0) that the kernel reads at a step's row
+    index; the rest lie on ``allocatable``'s device.
+
+    The kernel reads a task's request rows and its static rows at one row
+    index.  Without ``use_static`` that is the task row (``k1_row`` None)
+    and the static rows are [1, n] dummies the kernel never reads.  With it
+    the static rows come [S, n] with ``sig_of_task`` naming each task's row,
+    and the kernel's rows are the distinct (request rows, static row) pairs
+    of the tasks: ``k1_row`` [T] maps a task to its pair, and
+    ``task_initq`` / ``task_req`` / ``smask`` / ``sscore`` hold one row a
+    pair."""
     dev = allocatable.device
     n, r_dim = allocatable.shape
     t_cap = resreq.shape[0]
@@ -179,21 +180,93 @@ def stage_step_operands(idle, task_count, allocatable, pods_limit, node_gate, mi
         [resreq, torch.zeros((t_cap, r8 - r_dim), dtype=f32, device=dev)], dim=1
     ).contiguous()
     mins_c = torch.cat([mins, torch.zeros(r8 - r_dim, dtype=f32, device=dev)])[:, None]
+    k1_row = None
     if use_static:
-        if tuple(static_mask.shape) != (t_cap, n):
-            raise ValueError(f"static rows: expected shape {(t_cap, n)}, got "
-                             f"{tuple(static_mask.shape)}")
-        smask, sscore = static_mask.contiguous(), static_score.contiguous()
+        s_of_t = np.asarray(sig_of_task, dtype=np.int64)[:t_cap]
+        if s_of_t.shape[0] != t_cap or static_mask.shape[1] != n:
+            raise ValueError(f"static rows: expected [S, {n}] rows and {t_cap} row ids, got "
+                             f"{tuple(static_mask.shape)} and {s_of_t.shape[0]}")
+        key = np.concatenate([task_initq.cpu().numpy().view(np.int32),
+                              task_req.cpu().numpy().view(np.int32),
+                              s_of_t[:, None].astype(np.int32)], axis=1)
+        _, first, inverse = np.unique(key, axis=0, return_index=True, return_inverse=True)
+        k1_row = inverse.reshape(-1)
+        rows = torch.as_tensor(first, device=dev)
+        sig_rows = torch.as_tensor(s_of_t[first], device=dev)
+        task_initq = task_initq[rows].contiguous()
+        task_req = task_req[rows].contiguous()
+        smask = static_mask[sig_rows].contiguous()
+        sscore = static_score[sig_rows].contiguous()
     else:
         smask = torch.ones((1, n), dtype=torch.bool, device=dev)
         sscore = torch.zeros((1, n), dtype=f32, device=dev)
     gate = node_gate[None, :].contiguous()
     plim = pods_limit.to(f32)[None, :].contiguous()
-    return ns_host, alloc, smask, sscore, gate, plim, task_initq, task_req, mins_c, r8
+    return (ns_host, alloc, smask, sscore, gate, plim, task_initq, task_req, mins_c, r8,
+            k1_row)
+
+
+class _K1Arm:
+    """The loop's selection as the placement-step kernel (``StepLoop``): the
+    same ``step(t_idx, s_idx, hi0)`` as ``ops/xla_step.py::XlaStep``.  The
+    host keeps the float32 node-state mirror, sizes the batch from the
+    kernel's capacity count and pod room, adds the winner's column and
+    pushes it to the kernel with the next step."""
+
+    def __init__(self, staged, req8, *, device, plain, check_every, r_dim, weights,
+                 use_static, enforce_pod_count, batch_runs, cpu_idx, mem_idx):
+        (ns_host, alloc_t, smask, sscore, gate, plim, task_initq, task_req, mins_c, r8,
+         self.k1_row) = staged
+        self.loop = _sk.StepLoop(
+            ns_host, alloc_t, smask, sscore, gate, plim, task_initq, task_req, mins_c,
+            device=device, plain=plain, check_every=check_every, r_dim=r_dim, r8=r8,
+            weights=weights, use_static=use_static, enforce_pod_count=enforce_pod_count,
+            cpu_idx=cpu_idx, mem_idx=mem_idx, with_capacity=batch_runs)
+        self.ns = self.loop.ns_host  # the mirror the stepper pushes columns from
+        self.neg_req8 = -req8  # the column add's -req rows, pad rows -0
+        self.r8, self.n = r8, ns_host.shape[1]
+        self.batch_runs, self.enforce_pod_count = batch_runs, enforce_pod_count
+        self.push = -1
+
+    def step(self, t_idx: int, s_idx: int, hi0: int):
+        del s_idx  # the kernel's row carries the static row (k1_row)
+        row = t_idx if self.k1_row is None else int(self.k1_row[t_idx])
+        best, score, cap, pods = self.loop.step(row, self.push)
+        self.push = -1
+        best = min(best, self.n - 1)
+        if score == float("-inf"):
+            return best, False, False, False, 1
+        if self.batch_runs:
+            if self.enforce_pod_count:
+                hi0 = min(hi0, pods)
+            m = max(min(cap, max(hi0, 1)), 1)
+        else:
+            m = 1
+        m_f = np.float32(m)
+        # The node ledger's column add: idle rows -= m * req, task count += m.
+        self.ns[:self.r8, best] += self.neg_req8[t_idx] * m_f
+        self.ns[self.r8, best] += m_f
+        self.push = best
+        return best, True, True, False, m
+
+    def close(self) -> None:
+        self.loop.close()
+
+
+def _share_overused(deserved, allocated, mins, r_dim):
+    """``megakernel.queue_share_overused`` on float32 numpy rows indexed by
+    dim first ([r_dim, Q] or one queue's [r_dim]), on the CPU: ``(share
+    f32, overused bool)`` as numpy."""
+    share, over = _mk.queue_share_overused(
+        torch.from_numpy(np.ascontiguousarray(deserved, dtype=np.float32)),
+        torch.from_numpy(np.ascontiguousarray(allocated, dtype=np.float32)),
+        torch.from_numpy(np.ascontiguousarray(mins, dtype=np.float32)), r_dim)
+    return share.numpy(), over.numpy()
 
 
 def fused_allocate(
     idle: np.ndarray,               # f32 [N, R] (device units, node-bucket padded)
+    releasing: np.ndarray,          # f32 [N, R]
     task_count: np.ndarray,         # i32 [N]
     allocatable: torch.Tensor,      # f32 [N, R]
     pods_limit: torch.Tensor,       # i32 [N]
@@ -201,80 +274,107 @@ def fused_allocate(
     mins: torch.Tensor,             # f32 [R]
     init_resreq: torch.Tensor,      # f32 [T, R] (task-bucket padded)
     resreq: torch.Tensor,           # f32 [T, R]
-    static_mask: torch.Tensor,      # bool [T, N] ([1, 1] dummy without use_static)
-    static_score: torch.Tensor,     # f32 [T, N]
+    static_mask: torch.Tensor,      # bool [S, N] ([1, 1] dummy without use_static)
+    static_score: torch.Tensor,     # f32 [S, N]
     job_task_offset: np.ndarray,    # i32 [J]
     job_task_num: np.ndarray,       # i32 [J] (0 for padding)
     job_deficit: np.ndarray,        # i32 [J] ready-break deficit
     job_gang_order: np.ndarray,     # i32 [J] gang deficit for the ORDER comparator
     job_priority: np.ndarray,       # i32 [J]
     job_tiebreak: np.ndarray,       # i32 [J] rank by (creation, uid)
+    job_queue: np.ndarray,          # i32 [J]
     job_alloc_init: np.ndarray,     # f32 [J, R] drf allocated at session open
+    queue_rank: np.ndarray,         # i32 [Q] creation/uid rank
+    queue_has_jobs: np.ndarray,     # bool [Q] real queue
+    queue_deserved: np.ndarray,     # f32 [Q, R] proportion's deserved share
+    queue_alloc_init: np.ndarray,   # f32 [Q, R] queue allocated at session open
     drf_total: np.ndarray,          # f32 [R] cluster totals
     run_len: np.ndarray,            # i32 [T] identical-request run from each task
+    sig_of_task: np.ndarray,        # i32 [T] static row of each task (under sig_compress)
+    qfair_share: np.ndarray,        # f32 [Q, K] the ladder's share at rung k ([1, 1] dummy)
+    qfair_over: np.ndarray,         # bool [Q, K] the ladder's overused at rung k
     *,
     comparators,
+    queue_comparators=(),
+    overused_gate: bool = False,
+    use_static: bool = False,
+    n_queues: int = 0,
     weights,
     enforce_pod_count: bool,
-    use_static: bool = False,
     batch_runs: bool = False,
-    sorted_jobs: bool = True,
-    n_queues: int = 1,
-    has_releasing: bool = False,
-    step_kernel: bool = True,
+    sorted_jobs: bool = False,
+    has_releasing: bool = True,
+    step_kernel: bool = False,
+    queue_delta: bool = False,
+    sig_compress: bool = False,
+    qfair_ladder: bool = False,
     plain_step: bool = False,
     check_every: int = 0,
 ):
     """The JAX engine's ``fused_allocate`` while loop
-    (``scheduler_tpu/ops/fused.py:175-1030``) in cursor mode with the
-    placement-step kernel, driven from the host.  Returns ``(codes, stats)``:
-    int32 [T] codes on the host, bit for bit the JAX loop's, and
-    ``{"steps": kernel steps, "chain_selects": selections through the
-    comparator chain, "k1_ms": the kernel's summed event time (CUDA only)}``
-    plus, with ``check_every``, the count of kernel-versus-plain checks.
-    The ``HOST_OPERANDS`` are numpy arrays read on the host; the others
-    lie on the device that runs the kernel.
+    (``scheduler_tpu/ops/fused.py:175-1030``) on one device, driven from the
+    host, with the JAX loop's operands and static arguments (but ``window``
+    and ``mesh``).  Returns ``(codes, stats)``: int32 [T] codes on the
+    host, bit for bit the JAX loop's, and ``{"arm": "step_kernel" or
+    "xla", "steps", "chain_selects": job selections through the comparator
+    chain, "k1_ms" / "xla_ms": the arm's summed event time (CUDA only),
+    "delta_updates" / "full_recomputes" / "ladder_lookups": the queue
+    chain's refreshes, one a pop}`` plus, with ``check_every``, the count
+    of kernel-versus-plain checks.
 
-    Each step is one placement-step call over the whole node axis (a CUDA
-    launch on CUDA operands, its plain version on CPU operands or with
-    ``plain_step``); the node state lives on the device for it, and the host
-    keeps a float32 mirror that it updates with the step's column add and
-    pushes back one column a step.  Job selection (cursor, or the comparator
-    chain while dirty jobs exist), batch sizing, the float32 job state
-    (``JOB_STATE`` columns) and the codes stay on the host: float32 IEEE
-    operations in the JAX loop's order give its bits.  The JAX ``window``
-    unrolling is left out: it changes no result (a micro-step past the end
-    is a no-op), and here the loop simply stops when the JAX liveness
-    condition fails.  ``check_every`` > 0 holds the kernel to its plain
-    version (all four outputs, bitwise) at the first step and every
+    The arm of a step is the JAX loop's: the placement-step kernel
+    (``_K1Arm``: a CUDA launch on CUDA operands, its plain version on CPU
+    operands or with ``plain_step``) where ``step_kernel`` holds and the
+    session has neither releasing capacity nor a live top-2 score bound;
+    otherwise the XLA step arm (``ops/xla_step.py``: tensor operations on
+    the operands' device, with the joint idle / releasing fit and the
+    pipelined codes).  Job selection (the cursor; the comparator chain over
+    dirty jobs; in multi-queue and unsorted sessions the queue pop by
+    proportion's share and overused gate with the delta, full-recompute or
+    ladder chain, then the job chain in the winning queue), batch caps, the
+    float32 job and queue ledgers and the codes stay on the host: float32
+    IEEE operations in the JAX loop's order give its bits.  The JAX
+    ``window`` unrolling is left out: it changes no result (a micro-step
+    past the end is a no-op), and here the loop simply stops when the JAX
+    liveness condition fails.  ``check_every`` > 0 holds the kernel to its
+    plain version (all four outputs, bitwise) at the first step and every
     ``check_every``-th one."""
-    _loop_arm_check(batch_runs=batch_runs, weights=weights, sorted_jobs=sorted_jobs,
-                    n_queues=n_queues, has_releasing=has_releasing, step_kernel=step_kernel,
-                    comparators=comparators)
+    if set(comparators) - set(_KNOWN_JOB_ORDER):
+        raise ValueError(f"unknown job-order comparators {comparators}")
+    if set(queue_comparators) - {"proportion"}:
+        raise ValueError(f"unknown queue comparators {queue_comparators}")
     from scheduler_tpu_torch.api.vocab import CPU as _CPU_IDX, MEMORY as _MEM_IDX
+    from scheduler_tpu_torch.ops.xla_step import XlaStep
 
     dev = allocatable.device
     n, r_dim = allocatable.shape
     t_cap = resreq.shape[0]
-    cross_batch = batch_runs  # cursor mode
-    (ns_host, alloc_t, smask, sscore, gate, plim, task_initq, task_req, mins_c,
-     r8) = stage_step_operands(idle, task_count, allocatable, pods_limit, node_gate, mins,
-                               init_resreq, resreq, static_mask, static_score,
-                               use_static=use_static)
+    track_queue_alloc = bool(queue_comparators) or overused_gate
+    use_queue_delta = queue_delta and track_queue_alloc
+    use_ladder = qfair_ladder and use_queue_delta
+    single_queue = n_queues == 1 and not queue_comparators and not overused_gate
+    cursor_mode = sorted_jobs and single_queue
+    cross_batch = batch_runs and cursor_mode
+    binpack_only = weights[0] == 0.0 and weights[1] == 0.0 and weights[2] > 0.0
+    score_bound = batch_runs and not binpack_only
+    step_kernel = step_kernel and not has_releasing and not score_bound
+    static_row = use_static and sig_compress
+
     offsets = np.asarray(job_task_offset, dtype=np.int64)
     nums = np.asarray(job_task_num, dtype=np.int64)
     deficit = np.asarray(job_deficit, dtype=np.int64)
     gang_order = np.asarray(job_gang_order, dtype=np.int64)
     priority = np.asarray(job_priority, dtype=np.int32)
     tiebreak = np.asarray(job_tiebreak, dtype=np.int32)
+    jqueue = np.asarray(job_queue, dtype=np.int64)
     alloc_init = np.asarray(job_alloc_init, dtype=np.float32)
     if cross_batch:
         # Pad the job axis so the cross-job [cur, cur + m) rows never clamp.
         def pad(a, v):
             return np.concatenate([a, np.full((MAX_BATCH,) + a.shape[1:], v, dtype=a.dtype)])
 
-        offsets, nums, deficit, gang_order = (pad(a, 0) for a in (offsets, nums, deficit,
-                                                                 gang_order))
+        offsets, nums, deficit, gang_order, jqueue = (
+            pad(a, 0) for a in (offsets, nums, deficit, gang_order, jqueue))
         priority, tiebreak = pad(priority, 0), pad(tiebreak, _BIG_I32)
         alloc_init = pad(alloc_init, 0)
     j_cap = nums.shape[0]
@@ -284,11 +384,28 @@ def fused_allocate(
     total = np.asarray(drf_total, dtype=np.float32)
     total_safe = np.where(total > 0, total, np.float32(1.0)).astype(np.float32)
     total_mask = total > 0
-    req8 = task_req.cpu().numpy()  # the task rows the kernel reads, pad rows 0
-    req_h = req8[:, :r_dim]
-    neg_req8 = -req8  # the column add's -req rows, pad rows -0
+    req_h = resreq.cpu().numpy()
     run_l = np.asarray(run_len, dtype=np.int64).tolist()
     offsets_l, nums_l, deficit_l = offsets.tolist(), nums.tolist(), deficit.tolist()
+    sig_l = np.asarray(sig_of_task, dtype=np.int64).tolist() if static_row else None
+    mins_h = mins.cpu().numpy().astype(np.float32)
+
+    # The queue ledgers (queue_alloc_init, the delta chain's share and
+    # overused vectors, the ladder's placement counts), on the host.
+    q_rank = np.asarray(queue_rank, dtype=np.int32)
+    q_n = q_rank.shape[0]
+    q_has_jobs = np.asarray(queue_has_jobs, dtype=bool)
+    q_des = np.asarray(queue_deserved, dtype=np.float32)
+    q_alloc = np.array(queue_alloc_init, dtype=np.float32)
+    jqueue_l = jqueue.tolist()
+    if use_queue_delta:
+        q_share, q_over = _share_overused(q_des.T, q_alloc.T, mins_h, r_dim)
+    else:
+        q_share, q_over = np.zeros(q_n, np.float32), np.zeros(q_n, bool)
+    q_count = np.zeros(q_n, dtype=np.int64)
+    lad_share = np.asarray(qfair_share, dtype=np.float32)
+    lad_over = np.asarray(qfair_over, dtype=bool)
+    cpumem = np.arange(r_dim) < 2
 
     # job_state f32 [J, 3 + R]: consumed | n_alloc | left | drf allocated.
     job_state = np.zeros((j_cap, JOB_STATE.DRF + r_dim), dtype=np.float32)
@@ -296,112 +413,252 @@ def fused_allocate(
     cross_head = np.zeros(JOB_STATE.DRF + r_dim, dtype=np.float32)
     cross_head[JOB_STATE.CONSUMED] = cross_head[JOB_STATE.ALLOCATED] = 1.0
     out = np.full(t_cap + MAX_BATCH, UNPLACED, dtype=np.int32)
+    counts = {"chain_selects": 0, "delta_updates": 0, "full_recomputes": 0,
+              "ladder_lookups": 0}
 
-    def select_dirty(cursor0: int) -> int:
-        """The comparator chain over the dirty jobs and the cursor head
-        (indices <= cursor0): a lexicographic masked argmin, integer keys
-        kept integer, then the tiebreak rank."""
-        hi = min(cursor0 + 1, j_cap)
+    def eligible(hi: int) -> np.ndarray:
         js = job_state[:hi]
-        cand = (js[:, JOB_STATE.LEFT] == 0) & (js[:, JOB_STATE.CONSUMED] < nums_f[:hi])
+        return (js[:, JOB_STATE.LEFT] == 0) & (js[:, JOB_STATE.CONSUMED] < nums_f[:hi])
+
+    def key_columns(idx: np.ndarray) -> list:
+        """The comparator chain's keys of jobs ``idx``, one array a
+        comparator in tier order: integer keys kept integer."""
+        cols = []
         for name in comparators:
             if name == "priority":
-                key, sentinel = -priority[:hi], np.int32(_BIG_I32)
+                cols.append(-priority[idx])
             elif name == "gang":
-                key = ((gang_f[:hi] - js[:, JOB_STATE.ALLOCATED]) <= 0).astype(np.int32)
-                sentinel = np.int32(_BIG_I32)
+                cols.append(((gang_f[idx] - job_state[idx, JOB_STATE.ALLOCATED]) <= 0)
+                            .astype(np.int32))
             else:  # drf
-                frac = np.where(total_mask[None, :], js[:, JOB_STATE.DRF:] / total_safe[None, :],
-                                np.float32(0.0))
-                key, sentinel = frac.max(axis=1), np.float32(np.inf)
-            masked = np.where(cand, key, sentinel)
-            cand = cand & (masked == masked.min())
-        if not cand.any():
-            return HALT
-        return int(np.argmin(np.where(cand, tiebreak[:hi], np.int32(_BIG_I32))))
+                cols.append(np.where(total_mask[None, :],
+                                     job_state[idx, JOB_STATE.DRF:] / total_safe[None, :],
+                                     np.float32(0.0)).max(axis=1))
+        return cols
 
-    stepper = _sk.StepLoop(
-        ns_host, alloc_t, smask, sscore, gate, plim, task_initq, task_req, mins_c,
-        device=dev, plain=plain_step, check_every=check_every, r_dim=r_dim, r8=r8,
-        weights=tuple(float(w) for w in weights), use_static=use_static,
-        enforce_pod_count=enforce_pod_count, cpu_idx=_CPU_IDX, mem_idx=_MEM_IDX,
-        with_capacity=batch_runs)
-    ns = stepper.ns_host  # the mirror the stepper pushes columns from
-    cur, cursor, n_dirty, steps, push, chain_selects = -1, 0, 0, 0, -1, 0
+    def job_chain(idx: np.ndarray) -> int:
+        """The comparator chain over the candidate jobs ``idx`` (ascending):
+        a lexicographic argmin, then the tiebreak rank (the lowest index
+        among equal ranks); HALT when there is no candidate."""
+        if idx.shape[0] == 0:
+            return HALT
+        cand = np.ones(idx.shape[0], dtype=bool)
+        for key in key_columns(idx):
+            cand &= key == key[cand].min()
+        idx = idx[cand]
+        return int(idx[np.argmin(tiebreak[idx])])
+
+    # The pool of the queue pop (outside cursor mode): a heap a queue of its
+    # eligible jobs keyed by (chain keys, tiebreak, index), the job chain's
+    # lexicographic order.  A job's keys move only with its own placements,
+    # so the keys are refreshed when its pop ends, and the heap's first
+    # current entry is the chain's winner over the queue's eligible jobs.
+    heaps = [[] for _ in range(q_n)]
+    version = np.zeros(j_cap, dtype=np.int64)
+    elig_now = np.zeros(j_cap, dtype=bool)
+    q_elig = np.zeros(q_n, dtype=np.int64)
+
+    def chain_keys(idx: np.ndarray) -> list:
+        cols = [col.tolist() for col in key_columns(idx)]
+        return list(zip(*cols, tiebreak[idx].tolist(), idx.tolist()))
+
+    def pool_init() -> None:
+        elig_now[:] = eligible(j_cap)
+        idx = np.flatnonzero(elig_now)
+        for key, j in zip(chain_keys(idx), idx.tolist()):
+            heaps[jqueue_l[j]].append((key, 0))
+            q_elig[jqueue_l[j]] += 1
+        for heap in heaps:
+            heapq.heapify(heap)
+
+    def pool_update(j: int) -> None:
+        """Job ``j``'s pop ended: re-key it, or drop it from its queue's
+        eligible count."""
+        version[j] += 1
+        js = job_state[j]
+        if js[JOB_STATE.LEFT] == 0 and js[JOB_STATE.CONSUMED] < nums_f[j]:
+            heapq.heappush(heaps[jqueue_l[j]], (chain_keys(np.asarray([j]))[0], version[j]))
+        elif elig_now[j]:
+            elig_now[j] = False
+            q_elig[jqueue_l[j]] -= 1
+
+    def pool_first(q: int) -> int:
+        heap = heaps[q]
+        while heap:
+            key, ver = heap[0]
+            j = key[-1]
+            if ver == version[j] and elig_now[j]:
+                return j
+            heapq.heappop(heap)
+        return HALT
+
+    def select_job() -> int:
+        """The JAX ``select_job`` (``scheduler_tpu/ops/fused.py:496-572``)
+        outside cursor mode: the queue pop, then the job chain in the
+        winning queue."""
+        counts["chain_selects"] += 1
+        if single_queue:
+            return pool_first(0)
+        q_has = (q_elig > 0) & q_has_jobs
+        if track_queue_alloc and not use_queue_delta:
+            counts["full_recomputes"] += 1
+        if overused_gate:
+            if use_queue_delta:
+                q_has = q_has & ~q_over
+            else:
+                # deserved.less_equal(allocated) on every dim.
+                q_has = q_has & ~((q_des - q_alloc) < mins_h[None, :]).all(axis=1)
+        cand_q = q_has
+        for _ in queue_comparators:  # proportion
+            if use_queue_delta:
+                qkey = q_share
+            else:
+                pos = q_des > 0
+                frac = np.where(pos, q_alloc / np.where(pos, q_des, np.float32(1.0)),
+                                np.float32(0.0))
+                frac = np.where(~pos & cpumem[None, :] & (q_alloc > 0), np.float32(1.0), frac)
+                qkey = frac.max(axis=1)
+            masked_q = np.where(cand_q, qkey, np.float32(np.inf))
+            cand_q = cand_q & (masked_q == masked_q.min())
+        # HALT without a selectable queue: guard on any_queue first (an
+        # all-sentinel argmin would name queue 0).
+        if not q_has.any():
+            return HALT
+        return pool_first(int(np.argmin(np.where(cand_q, q_rank, np.int32(_BIG_I32)))))
+
+    def refresh(q: int) -> None:
+        """The lazy delta refresh of queue ``q``'s share and overused flag
+        (``scheduler_tpu/ops/fused.py:616-652``): a rung gather of the
+        ladder, or the share chain over its allocated row."""
+        if use_ladder:
+            counts["ladder_lookups"] += 1
+            rung = min(int(q_count[q]), lad_share.shape[1] - 1)
+            q_share[q], q_over[q] = lad_share[q, rung], lad_over[q, rung]
+        else:
+            counts["delta_updates"] += 1
+            share, over = _share_overused(q_des[q], q_alloc[q], mins_h, r_dim)
+            q_share[q], q_over[q] = share, over
+
+    if step_kernel:
+        staged = stage_step_operands(idle, task_count, allocatable, pods_limit, node_gate,
+                                     mins, init_resreq, resreq, static_mask, static_score,
+                                     sig_of_task if static_row else np.arange(t_cap),
+                                     use_static=use_static)
+        req8 = np.concatenate([req_h, np.zeros((t_cap, staged[9] - r_dim), np.float32)], axis=1)
+        arm = _K1Arm(staged, req8, device=dev, plain=plain_step, check_every=check_every,
+                     r_dim=r_dim, weights=tuple(float(w) for w in weights),
+                     use_static=use_static, enforce_pod_count=enforce_pod_count,
+                     batch_runs=batch_runs, cpu_idx=_CPU_IDX, mem_idx=_MEM_IDX)
+    else:
+        arm = XlaStep(idle, releasing, task_count, allocatable, pods_limit, node_gate, mins,
+                      init_resreq, resreq, static_mask, static_score,
+                      weights=weights, use_static=use_static,
+                      enforce_pod_count=enforce_pod_count, has_releasing=has_releasing,
+                      batch_runs=batch_runs, score_bound=score_bound)
+    cur, cursor, n_dirty, steps, last_q = -1, 0, 0, 0, 0
+    n_elig = n_real  # eligible jobs: pending tasks left, no failure yet
+    if not cursor_mode:
+        pool_init()
     try:
         while True:
             if cur < 0:
-                # Liveness: every eligible job is fresh (past the cursor),
-                # dirty, or in its pop; a HALT ends the action.
-                if cur == HALT or not (cursor < n_real or n_dirty > 0):
-                    break
-                cursor0 = cursor
-                if n_dirty > 0:
-                    sel = select_dirty(cursor0)
-                    chain_selects += 1
+                # Liveness, then the selection of the next pop; a HALT ends
+                # the action.
+                if cursor_mode:
+                    # Every eligible job is fresh (past the cursor), dirty,
+                    # or in its pop.
+                    if not (cursor < n_real or n_dirty > 0):
+                        break
+                    cursor0 = cursor
+                    if n_dirty > 0:
+                        # The comparator chain over the dirty jobs and the
+                        # cursor head (indices <= cursor0).
+                        counts["chain_selects"] += 1
+                        sel = job_chain(np.flatnonzero(eligible(min(cursor0 + 1, j_cap))))
+                    else:
+                        sel = cursor0
+                    if sel < 0:
+                        break
+                    if sel == cursor0:
+                        cursor += 1
+                    else:
+                        n_dirty -= 1  # a chain winner off the head is a dirty job
                 else:
-                    sel = cursor0
-                if sel < 0:
-                    cur = HALT
-                    continue
-                if sel == cursor0:
-                    cursor += 1
-                else:
-                    n_dirty -= 1  # a chain winner off the head is a dirty job
+                    if n_elig == 0:
+                        break
+                    if use_queue_delta:
+                        refresh(last_q)
+                    sel = select_job()
+                    if sel < 0:
+                        break
                 cur = sel
             steps += 1
             if steps > t_cap:
                 raise RuntimeError("fused_allocate: the loop outran its task count")
             t_idx = min(max(offsets_l[cur] + int(job_state[cur, JOB_STATE.CONSUMED]), 0),
                         t_cap - 1)
-            best, score, cap, pods = stepper.step(t_idx, push)
-            push = -1
-            best = min(best, n - 1)
-            if score == float("-inf"):
+            single_pop = nums_l[cur] == 1
+            hi0 = 1
+            if batch_runs:
+                d = deficit_l[cur]
+                room = d - int(job_state[cur, JOB_STATE.ALLOCATED]) if d > 0 else 1
+                if cross_batch and single_pop and n_dirty == 0:
+                    room = MAX_BATCH  # cross-job run of one-task pops
+                hi0 = min(run_l[t_idx], MAX_BATCH, room)
+            best, feasible, alloc_here, pipe_here, m = arm.step(
+                t_idx, sig_l[t_idx] if static_row else t_idx, hi0)
+            q_idx = jqueue_l[cur]
+            if not feasible:
                 # First infeasible task: the pop ends, the job leaves.
                 job_state[cur, :JOB_STATE.DRF] += (1.0, 0.0, 1.0)
                 job_state[cur, JOB_STATE.DRF:] += np.float32(0.0) * req_h[t_idx]
                 out[t_idx] = FAILED
+                if track_queue_alloc and use_queue_delta:
+                    last_q = q_idx
+                n_elig -= 1
+                if not cursor_mode:
+                    pool_update(cur)
                 cur = -1
                 continue
-            single_pop = nums_l[cur] == 1
-            if batch_runs:
-                d = deficit_l[cur]
-                room = d - int(job_state[cur, JOB_STATE.ALLOCATED]) if d > 0 else 1
-                if single_pop and n_dirty == 0:
-                    room = MAX_BATCH  # cross-job run of one-task pops
-                hi0 = min(run_l[t_idx], MAX_BATCH, room)
-                if enforce_pod_count:
-                    hi0 = min(hi0, pods)
-                m = max(min(cap, max(hi0, 1)), 1)
-            else:
-                m = 1
-            m_f = np.float32(m)
-            # The node ledger's column add: idle rows -= m * req, task count += m.
-            ns[:r8, best] += neg_req8[t_idx] * m_f
-            ns[r8, best] += m_f
-            push = best
-            if cross_batch and single_pop:
+            # Placed: m copies on idle, or one pipelined onto releasing.
+            copies = m if alloc_here else 1
+            pc = np.float32(copies)
+            if cross_batch and single_pop and alloc_here:
                 # m one-task pops at once: rows [cur, cur + m) each consume,
                 # allocate and add their request; the cursor retires them.
                 cross_head[JOB_STATE.DRF:] = req_h[t_idx]
                 job_state[cur:cur + m] += cross_head
                 cursor += m - 1
             else:
-                job_state[cur, :JOB_STATE.DRF] += (m, m, 0.0)
-                job_state[cur, JOB_STATE.DRF:] += m_f * req_h[t_idx]
-            out[t_idx:t_idx + m] = best
+                job_state[cur, :JOB_STATE.DRF] += (copies, m if alloc_here else 0, 0.0)
+                job_state[cur, JOB_STATE.DRF:] += pc * req_h[t_idx]
+            out[t_idx:t_idx + copies] = best if alloc_here else _PIPE_BASE - best
+            if track_queue_alloc:
+                # proportion's allocate handler: the queue's allocated grows
+                # by every copy, pipelined ones too (the ladder counts them).
+                if use_ladder:
+                    q_count[q_idx] += copies
+                else:
+                    q_alloc[q_idx] += pc * req_h[t_idx]
+                if use_queue_delta:
+                    last_q = q_idx
             became_ready = job_state[cur, JOB_STATE.ALLOCATED] >= deficit_l[cur]
             drained = job_state[cur, JOB_STATE.CONSUMED] >= nums_l[cur]
+            if drained:
+                n_elig -= 1
             if became_ready or drained:
-                if became_ready and not drained:
+                if cursor_mode and became_ready and not drained:
                     n_dirty += 1  # ready with a tail: re-enters the pool
+                if not cursor_mode:
+                    pool_update(cur)
                 cur = -1
     finally:
-        stepper.close()
-    stats = {"steps": steps, "chain_selects": chain_selects, "k1_ms": stepper.k1_ms}
-    if check_every:
-        stats["checked"] = stepper.checked
+        arm.close()
+    stats = {"arm": "step_kernel" if step_kernel else "xla", "steps": steps,
+             "k1_ms": arm.loop.k1_ms if step_kernel else None,
+             "xla_ms": None if step_kernel else arm.xla_ms, **counts}
+    if check_every and step_kernel:
+        stats["checked"] = arm.loop.checked
     return torch.from_numpy(out[:t_cap].copy()), stats
 
 
@@ -743,12 +1000,19 @@ class FusedAllocator:
             and (2 * r8 + 12) * nb * 4 <= 8 * 1024 * 1024
         )
         mins_f32 = np.asarray(policy.scaled_mins(r), dtype=np.float32)
+        # Static rows by static signature: one [N] mask and score row per
+        # signature, for the mega kernel's static-row mode and the loop.
+        static_sids = (self._static_signature_ids(ssn)
+                       if self.use_static and t_total > 0 else None)
         # The loop's operands, staged lazily (``args``): a session that runs
         # the mega kernel never builds them.
         self._args = None
+        # The loop reads static rows by static signature (sig_of_task).
+        self._sig_compress = static_sids is not None
         self._args_parts = (
             scale, node_gate, total, offsets, nums, deficits, gang_order, priorities,
-            tiebreak, alloc_init, run_host, static_mask_dev, static_score_dev, mins_f32,
+            tiebreak, queues_idx, alloc_init, queue_deserved, queue_alloc, run_host,
+            static_sids, static_mask_dev, static_score_dev, mins_f32,
         )
         self.use_mega = False
         # Multi-queue sessions run the kernel's queue-chain mode: proportion
@@ -765,9 +1029,7 @@ class FusedAllocator:
             n_sigs=1,  # signature count checked after the table builds
             comparators=self.comparators,
         )
-        static_sids = None
         if mega_ok and self.use_static and t_total > 0:
-            static_sids = self._static_signature_ids(ssn)
             mega_ok = static_sids is not None and _mk.mega_supported(
                 has_releasing=self.has_releasing,
                 use_static=True,
@@ -786,21 +1048,6 @@ class FusedAllocator:
                 gang_order, priorities, tiebreak, alloc_init, total, run_host,
                 score_bound, static_sids, static_mask_dev, static_score_dev,
                 single_queue, queues_idx, queue_deserved, queue_alloc,
-            )
-        if t_total and not self.use_mega and self.has_releasing:
-            # The loop's releasing arm is not ported: a releasing session
-            # that the mega gate turns away raises (as ``_loop_arm_check``).
-            raise NotImplementedError("fused_allocate arm not ported: releasing capacity")
-        if t_total and not self.use_mega and not single_queue:
-            raise NotImplementedError(
-                "fused_allocate arm not ported: multi-queue / unsorted job selection "
-                "(a multi-queue session that the mega gate closes)"
-            )
-        if t_total and not self.use_mega and not self.step_kernel:
-            raise NotImplementedError(
-                "fused allocate mode not ported: the XLA step arm of the loop "
-                "(mega gate closed, no placement-step kernel: top-2 score bound "
-                "live, or node bucket past 65,536)"
             )
 
     def _request_signatures(self, scale):
@@ -1147,22 +1394,27 @@ class FusedAllocator:
     @property
     def engine(self) -> str:
         """``"mega"`` (one launch of the whole loop), ``"step"`` (the loop
-        with one placement-step launch a step) or ``"none"`` (nothing
-        pending)."""
+        with one placement-step launch a step), ``"xla"`` (the loop's XLA
+        step arm: tensor operations on the device each step) or ``"none"``
+        (nothing pending)."""
         if self.flat_count == 0:
             return "none"
-        return "mega" if self.use_mega else "step"
+        if self.use_mega:
+            return "mega"
+        return "step" if self.step_kernel else "xla"
 
     @property
     def args(self) -> tuple:
         """The loop's operands (``FUSED_OPERAND_NAMES``), staged at first use
-        as the JAX engine's ``args`` are (``scheduler_tpu/ops/fused.py:2772-2810``),
-        minus the releasing, queue, signature-class and ladder operands: the
-        ``HOST_OPERANDS`` as numpy arrays, the rest on the engine's device."""
+        as the JAX engine's ``args`` are (``scheduler_tpu/ops/fused.py:2772-2820``):
+        the ``HOST_OPERANDS`` as numpy arrays, the rest on the engine's
+        device.  Static rows come one a static signature ([S, N], with
+        ``sig_of_task`` naming each task's row), as the mega kernel's
+        static-row mode stages them, never [T, N]."""
         if self._args is None:
             (scale, node_gate, total, offsets, nums, deficits, gang_order, priorities,
-             tiebreak, alloc_init, run_host, static_mask_dev, static_score_dev,
-             mins_f32) = self._args_parts
+             tiebreak, queues_idx, alloc_init, queue_deserved, queue_alloc, run_host,
+             static_sids, static_mask_dev, static_score_dev, mins_f32) = self._args_parts
             dev = self.device
             st, tb, t = self.st, self._t_bucket, self.flat_count
             state = self._node_state(scale)
@@ -1174,11 +1426,33 @@ class FusedAllocator:
             def f32(a):
                 return np.ascontiguousarray(a, dtype=np.float32)
 
+            sig_host = np.zeros(tb, dtype=np.int32)
             if static_mask_dev is None:
                 static_mask_dev = torch.ones((1, 1), dtype=torch.bool, device=dev)
                 static_score_dev = torch.zeros((1, 1), dtype=torch.float32, device=dev)
+            elif static_sids is not None:
+                # One row a static signature, gathered from its first task's.
+                _, first_rows = np.unique(static_sids, return_index=True)
+                rep = torch.as_tensor(first_rows.astype(np.int64), device=dev)
+                static_mask_dev, static_score_dev = static_mask_dev[rep], static_score_dev[rep]
+                sig_host[:t] = static_sids
+            qb = bucket(max(len(self.queue_uids), 1))
+            q_n = queue_deserved.shape[0]
+            queue_rank = np.arange(qb, dtype=np.int32)
+            queue_has = np.zeros(qb, dtype=bool)
+            queue_has[:q_n] = True
+            q_des = np.zeros((qb, queue_deserved.shape[1]), dtype=np.float32)
+            q_des[:q_n] = queue_deserved
+            q_alloc = np.zeros_like(q_des)
+            q_alloc[:q_n] = queue_alloc
+            if self._ladder_host is not None:
+                qf_share, qf_over = self._ladder_host
+            else:
+                qf_share = np.zeros((1, 1), dtype=np.float32)
+                qf_over = np.zeros((1, 1), dtype=bool)
             self._args = (
                 f32(state["idle"]),
+                f32(state["releasing"]),
                 state["task_count"],
                 to_dev(state["allocatable"], np.float32),
                 to_dev(state["pods_limit"]),
@@ -1194,25 +1468,38 @@ class FusedAllocator:
                 gang_order,
                 priorities,
                 tiebreak,
+                queues_idx,
                 f32(scale_columns(alloc_init, scale)),
+                queue_rank,
+                queue_has,
+                q_des,
+                q_alloc,
                 f32(scale_columns(total[None, :], scale)[0]),
                 run_host,
+                sig_host,
+                f32(qf_share),
+                np.ascontiguousarray(qf_over, dtype=bool),
             )
         return self._args
 
     def _allocate_kw(self) -> dict:
-        """The loop's static arguments (the JAX ``_allocate_kw`` of the arm
-        this package carries)."""
+        """The loop's static arguments (the JAX ``_allocate_kw``, but the
+        ``window`` unrolling and the mesh)."""
         return dict(
             comparators=self.comparators,
+            queue_comparators=self.queue_comparators,
+            overused_gate=self.overused_gate,
+            use_static=self.use_static,
+            n_queues=len(self.queue_uids),
             weights=self.weights,
             enforce_pod_count=self.enforce_pod_count,
-            use_static=self.use_static,
             batch_runs=self.batch_runs,
             sorted_jobs=True,
-            n_queues=len(self.queue_uids),
             has_releasing=self.has_releasing,
             step_kernel=self.step_kernel,
+            queue_delta=self.queue_delta,
+            sig_compress=self._sig_compress,
+            qfair_ladder=self.qfair_ladder,
         )
 
     def dispatch(self) -> None:
@@ -1259,8 +1546,11 @@ class FusedAllocator:
             if self.use_mega:
                 self.kernel_ms = start.elapsed_time(stop)
             else:
+                # The loop: the arm's summed device time (K1's launches, or
+                # the XLA arm's steps), and the whole loop.
                 self.loop_ms = start.elapsed_time(stop)
-                self.kernel_ms = self._stats_raw["k1_ms"]
+                self.kernel_ms = self._stats_raw["k1_ms"] if self.step_kernel \
+                    else self._stats_raw["xla_ms"]
         return self._encoded
 
     def _codes(self) -> np.ndarray:
@@ -1272,10 +1562,12 @@ class FusedAllocator:
     def run_stats(self) -> dict:
         """Evidence of the last run: the engine, cohorts seen by the build,
         loop steps, tasks per step, chunk placements (mega) or the loop's
-        time (step).  ``kernel_ms`` is the kernel's device time from CUDA
-        events: the one mega launch, or the placement-step launches summed
-        (also ``k1_ms``); ``loop_ms`` is the whole loop, host steps included,
-        from CUDA events around it."""
+        time and chain selections (step, xla).  The queue chain's counters
+        are the kernel's (a refresh a placement) or the loop's (a refresh
+        a pop).  ``kernel_ms`` is the device time from CUDA events: the one
+        mega launch, the placement-step launches summed (also ``k1_ms``) or
+        the XLA arm's steps summed (also ``xla_ms``); ``loop_ms`` is the
+        whole loop, host steps included, from CUDA events around it."""
         out = {
             "engine": self.engine,
             "cohorts": self.cohort_count,
@@ -1304,8 +1596,15 @@ class FusedAllocator:
         raw = self._stats_raw
         if isinstance(raw, dict):
             out["steps"] = raw["steps"]
-            if raw["k1_ms"] is not None:
-                out["k1_ms"] = raw["k1_ms"]
+            out["chain_selects"] = raw["chain_selects"]
+            for key in ("k1_ms", "xla_ms"):
+                if raw[key] is not None:
+                    out[key] = raw[key]
+            if "queue_chain" in out:
+                out["queue_chain"]["delta_updates"] = raw["delta_updates"]
+                out["queue_chain"]["full_recomputes"] = raw["full_recomputes"]
+                if self.qfair_ladder:
+                    out["qfair"]["ladder_lookups"] = raw["ladder_lookups"]
         elif raw is not None:
             steps = int(raw[STATS.STEPS])
             out["steps"] = steps

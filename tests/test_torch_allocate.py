@@ -150,15 +150,26 @@ def test_fused_route_matches_host_loop(fixture):
 
 def test_multi_queue_session_past_the_mega_gate_raises():
     """A multi-queue session that the mega gate closes (here: more than
-    4,096 request signatures) would take the loop's multi-queue arm, which
-    is not ported: the engine build raises, naming it."""
+    4,096 request signatures) takes the loop's multi-queue arm.  The port
+    took to raising here before it had that arm; now its engine runs the
+    loop (binpack alone: K1, here its plain version) with the queue pop,
+    and one allocate action gives the JAX package's statuses, FitErrors and
+    binds."""
     from chip_smoke import template_cluster
     from scheduler_tpu_torch.actions.allocate import collect_candidates
     from scheduler_tpu_torch.ops.fused import FusedAllocator
 
     ssn = open_session("scheduler_tpu_torch", template_cluster(16, 4200, 1), MULTIQ_CONF)
-    with pytest.raises(NotImplementedError, match="multi-queue"):
-        FusedAllocator(ssn, collect_candidates(ssn), device="cpu")
+    engine = FusedAllocator(ssn, collect_candidates(ssn), device="cpu")
+    assert engine.engine == "step" and not engine.use_mega
+    outcomes = []
+    for pkg in ("scheduler_tpu", "scheduler_tpu_torch"):
+        cache = template_cluster(16, 4200, 1, pkg)
+        ssn = open_session(pkg, cache, MULTIQ_CONF)
+        importlib.import_module(f"{pkg}.framework").get_action("allocate").execute(ssn)
+        outcomes.append(outcome(pkg, cache, ssn))
+    assert outcomes[1] == outcomes[0]
+    assert outcomes[1][2] and outcomes[1][1]
 
 
 def test_scheduler_run_once_matches_jax(tmp_path):

@@ -18,7 +18,9 @@ met flags, evidence),
 word), ``placement_step`` (all four outputs; node counts across its
 cluster, ties across CTAs, a pushed column) and the ``fused_allocate``
 loop with it (codes, against the loop with the plain version on the
-card).
+card; in cursor mode and with the multi-queue pop).  The loop's XLA step
+arm (plain tensor operations, no kernel) runs on the card against the
+same arm on the CPU: equal codes, its node state on the card.
 """
 
 import numpy as np
@@ -558,6 +560,10 @@ LOOP_CASES = {
     "static": (lambda: smoke.spec_cluster(smoke.static_spec()), smoke.PREDICATES_CONF, "mega"),
     "templates-64x4200": (lambda: smoke.template_cluster(64, 4200, 1), smoke.FLAGSHIP_CONF,
                           "step"),
+    # K1 inside the loop's multi-queue pop (path j's twin).
+    "templates-mq-64x4200x2": (lambda: smoke.template_cluster(
+        64, 4200, 2, queues=smoke.MQ_QUEUES, queue_weights=smoke.MQ_WEIGHTS),
+        smoke.MULTIQ_CONF, "step"),
 }
 
 
@@ -578,3 +584,66 @@ def test_loop_matches_loop_with_plain_step(case):
     plain, _ = fused_mod.fused_allocate(*args, **kw, plain_step=True)
     assert torch.equal(codes, plain)
     assert int((codes >= 0).sum()) > 0 and stats["k1_ms"] > 0
+
+
+# case id -> (cluster factory, conf, engine the gates choose, loop kwargs
+# overrides).  Each runs the loop's XLA step arm.
+XLA_CASES = {
+    # Path i's twin: the top-2 score bound under the default conf's tiers.
+    "templates-default-tiers-64x4200x2": (
+        lambda: smoke.template_cluster(64, 4200, 2), smoke.DEFAULT_TIERS_CONF, "xla", {}),
+    # Path k's twin, and config 4's aftermath at 10 % past the mega gate:
+    # the releasing arm.
+    "releasing-templates-16x4200": (smoke.releasing_templates_cluster, smoke.FLAGSHIP_CONF,
+                                    "xla", {}),
+    "reclaim-aftermath-templates-0.1": (
+        lambda: make_reclaim_aftermath_cluster(0.1, thin_requests=5000).cache,
+        smoke.RECLAIM_CONF, "xla", {}),
+    # Static rows by signature with the score bound (config 2 at 64 x 600).
+    "config2-64x600": (lambda: make_kubemark_density_cluster(64, 600).cache,
+                       smoke.CONFIG2_CONF, "mega", {}),
+    # The multi-queue pop on the XLA arm (path j's twin, K1 gated off).
+    "templates-mq-64x4200x2": (lambda: smoke.template_cluster(
+        64, 4200, 2, queues=smoke.MQ_QUEUES, queue_weights=smoke.MQ_WEIGHTS),
+        smoke.MULTIQ_CONF, "step", dict(step_kernel=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(XLA_CASES))
+def test_xla_arm_on_the_card_matches_the_cpu(case):
+    """The loop's XLA step arm on the card against the same arm on the CPU,
+    on the operands of one engine per device built from twin clusters:
+    equal codes, no kernel launched, the node state on the card."""
+    from scheduler_tpu_torch.ops import xla_step
+
+    device = _card()
+    build, conf, engine, overrides = XLA_CASES[case]
+    codes = {}
+    for dev in (device, torch.device("cpu")):
+        _, eng = smoke.engine_for(build(), conf, dev, engine=engine)
+        eng.use_mega = False
+        kw = dict(eng._allocate_kw(), **overrides)
+        seen = []
+        init = xla_step.XlaStep.__init__
+
+        def spy(arm, *a, init=init, seen=seen, **k):
+            init(arm, *a, **k)
+            seen.append(arm)
+
+        xla_step.XlaStep.__init__ = spy
+        try:
+            before = (sk.launches, mk.launches)
+            codes[dev.type], stats = fused_mod.fused_allocate(*eng.args, **kw)
+        finally:
+            xla_step.XlaStep.__init__ = init
+        assert (sk.launches, mk.launches) == before
+        assert stats["arm"] == "xla" and stats["steps"] > 0
+        assert seen and seen[0].node_state.device.type == dev.type
+        if dev.type == "cuda":
+            assert stats["xla_ms"] > 0
+    assert torch.equal(codes["cuda"], codes["cpu"])
+    placed = (codes["cuda"] >= 0) | (codes["cuda"] <= fused_mod._PIPE_BASE)
+    assert int(placed.sum()) > 0
+    if "releas" in case or "reclaim" in case:
+        assert int((codes["cuda"] <= fused_mod._PIPE_BASE).sum()) > 0

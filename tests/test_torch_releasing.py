@@ -23,7 +23,8 @@ codes, stats, statuses and FitErrors bitwise or word for word):
   ``Scheduler.run_once`` and through one allocate action: binds, pipelined
   tasks, statuses, FitErrors, node ledgers, proportion's queue attributes
   and ``run_stats()`` key for key but the wall time;
-* the launch plan with the releasing rows, and the refusals that stay loud.
+* a releasing session that the mega gate closes: the loop's releasing arm;
+* the launch plan with the releasing rows, and the refusal that stays loud.
 
 The JAX side runs proportion's default device water-fill, which needs
 ``jax.experimental.enable_x64``: this jax lacks it, and each test here
@@ -456,24 +457,32 @@ def test_mega_plan_takes_16_ctas_for_the_releasing_slice():
 
 def test_releasing_session_past_the_mega_gate_raises():
     """A releasing session that the mega gate closes (here: more than 4,096
-    request signatures) would take the loop's releasing arm, which is not
-    ported: the engine build raises, naming it."""
-    from scheduler_tpu_torch.apis.objects import GROUP_NAME_ANNOTATION, PodGroup, PodSpec
+    request signatures) takes the loop's releasing arm.  The port took to
+    raising here before it had that arm; now its engine runs the loop's XLA
+    step arm with the joint idle / releasing fit, and one allocate action
+    gives the JAX package's statuses (PIPELINED among them), FitErrors,
+    node ledgers and binds."""
+    def build(pkg):
+        objects = importlib.import_module(f"{pkg}.apis.objects")
+        cache = smoke.template_cluster(16, 4200, 1, pkg)
+        pg = objects.PodGroup(name="old", namespace="default", queue="default", min_member=1)
+        pg.status.phase = "Running"
+        cache.add_pod_group(pg)
+        node = sorted(cache.nodes)[0]
+        cache.add_pod(objects.PodSpec(name="old-0", namespace="default",
+                                      containers=[{"cpu": 1000.0, "memory": GIB}],
+                                      annotations={objects.GROUP_NAME_ANNOTATION: "old"},
+                                      node_name=node, phase="Running"))
+        for task in list(cache.jobs["default/old"].tasks.values()):
+            cache.evict(task, "reclaim")
+        return cache
 
-    cache = smoke.template_cluster(16, 4200, 1)
-    pg = PodGroup(name="old", namespace="default", queue="default", min_member=1)
-    pg.status.phase = "Running"
-    cache.add_pod_group(pg)
-    node = sorted(cache.nodes)[0]
-    cache.add_pod(PodSpec(name="old-0", namespace="default",
-                          containers=[{"cpu": 1000.0, "memory": GIB}],
-                          annotations={GROUP_NAME_ANNOTATION: "old"}, node_name=node,
-                          phase="Running"))
-    for task in list(cache.jobs["default/old"].tasks.values()):
-        cache.evict(task, "reclaim")
-    ssn = open_in("scheduler_tpu_torch", cache, BENCH_CONF)
-    with pytest.raises(NotImplementedError, match="releasing capacity"):
-        TorchFused(ssn, torch_candidates(ssn), device="cpu")
+    ssn = open_in("scheduler_tpu_torch", build("scheduler_tpu_torch"), BENCH_CONF)
+    engine = TorchFused(ssn, torch_candidates(ssn), device="cpu")
+    assert engine.engine == "xla" and engine.has_releasing
+    outs = [run_allocate(pkg, build(pkg), BENCH_CONF) for pkg in PKGS]
+    assert outs[1] == outs[0]
+    assert any(status == "PIPELINED" for status, _ in outs[1][0].values())
 
 
 def test_the_mesh_still_raises_in_releasing_mode():

@@ -14,7 +14,8 @@ Tolerance everywhere: none (bitwise).
 3. A per-job-template cluster with more than 4,096 request signatures,
    where both packages' gates pick the loop by themselves: equal staged
    operands and equal allocate outcomes, keyed by name.
-4. The gates: the XLA step arm (no K1) raises in the port.
+4. The gates: where the JAX engine's loop runs without K1 (the XLA step
+   arm), the port's runs the same arm and gives the same codes.
 """
 
 import numpy as np
@@ -225,17 +226,22 @@ def test_allocate_on_the_loop_matches_jax():
 
 def test_xla_step_arm_raises_in_the_port():
     """Runs plus nodeorder's weights turn the top-2 score bound on, so the
-    JAX engine takes its loop WITHOUT K1 where the mega gate closes; the
-    port has no such arm and says so."""
+    JAX engine takes its loop WITHOUT K1 where the mega gate closes.  The
+    port took to raising here before it had the XLA step arm; now its engine
+    picks that arm by the same gate and gives the JAX loop's codes, and its
+    loop keeps the arm when asked for K1 (the gate holds inside it)."""
     engine = jax_engine(template_twin("scheduler_tpu", 64, 4200, 2), SCORE_BOUND_CONF)
     assert not engine.use_mega and not engine.step_kernel and engine.batch_runs
-    with pytest.raises(NotImplementedError, match="XLA step arm"):
-        port_engine(template_twin("scheduler_tpu_torch", 64, 4200, 2), SCORE_BOUND_CONF)
+    expected = np.asarray(jax_fused_allocate(*engine.args, **engine._allocate_kw()))
+    port = port_engine(template_twin("scheduler_tpu_torch", 64, 4200, 2), SCORE_BOUND_CONF)
+    assert port.engine == "xla" and not port.step_kernel
+    np.testing.assert_array_equal(port.readback(), expected)
     args, kw = fused_operands_from_numpy(
         [np.asarray(a) for a in engine.args], dict(engine._allocate_kw(), step_kernel=True),
         "cpu")
-    with pytest.raises(NotImplementedError, match="XLA step arm"):
-        fused_mod.fused_allocate(*args, **kw)
+    codes, stats = fused_mod.fused_allocate(*args, **kw)
+    assert stats["arm"] == "xla"
+    np.testing.assert_array_equal(codes.numpy(), expected)
 
 
 def test_mega_sessions_keep_the_mega_kernel():
