@@ -10,10 +10,11 @@ What it does, one JSON line per phase:
 
 1. device: the card, the CUDA version, and the one build of every kernel of
    the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path, eleven times, each on a freshly built cluster that no other
-   session has touched (a cold cycle, as a scheduler's first cycle after
-   start-up), through ``Scheduler.run_once`` on the card, with every
-   kernel's launch count set to 0 just before and read just after:
+2. main_path, thirteen times, each on a freshly built cluster that no other
+   session has touched, through ``Scheduler.run_once`` on the card, with
+   every kernel's launch count set to 0 just before and read just after:
+   a to k a cold cycle each (a scheduler's first cycle after start-up), l
+   and m the cycles after it (the engine resident across cycles):
    a. BASELINE config 2, the kubemark density scenario (priority, gang, drf,
       predicates, nodeorder; 1,000 nodes x 5,000 bare pods, half of them
       selecting a zone): ``static_predicate_mask`` builds the selector mask
@@ -92,10 +93,33 @@ What it does, one JSON line per phase:
       loop runs its releasing arm on the XLA step arm.  Checks as for h;
       later the codes bitwise the CPU loop's, and the binds, pipelined
       tasks and statuses the host loop's.
+   l. the flagship by the JAX package's steady protocol
+      (``harness.measure.steady_cycle_phases``: b's cluster and conf, the
+      engine built once through the engine cache, then a timed cycle that
+      hits it and launches ``mega_allocate`` before the host rebinds), then
+      five cycles of config 3's churn (``harness.config3_churn``: a tenth
+      of the gangs retired and as many new gangs of 100), each timed as it
+      comes.  Checks: the steady cycle hits with one K2 launch, binds all
+      100,000 pods in whole gangs, and its bind map's digest is b's; each
+      churn cycle rebuilds with one K2 launch; no node overcommitted.
+      Prints the steady cycle's phases, uploads and K2's events ms, and
+      the churn cycles' p50 and p99 seconds.
+   m. the JAX default conf's loop: six cycles of ``Scheduler.run_once``
+      with no conf (enqueue, allocate, backfill over the default tiers) on
+      config 2's cluster plus 1,000 BestEffort pods and a backlog of gangs
+      created Pending (``default_conf_cluster``), 50 pods completing on 50
+      nodes before each of cycles 3-6.  Checks: the engine cache's outcomes
+      ``DEFAULT_CONF_OUTCOMES`` (miss, rebuild, four hits, each hit's
+      refresh sparse), K2 once a cycle, K3 in cycle 1 only, enqueue's
+      admissions, backfill's binds, every backlog gang whole and the
+      waiting ones pending, no node overcommitted or past 110 pods, every
+      selector honoured; later, per cycle, binds and task statuses equal to
+      a cold twin (``SCHEDULER_TORCH_ENGINE_CACHE=0``, a child beside the
+      untimed phases).
    Each prints the phase seconds and the engine's time from CUDA events
    (the kernel's; for i and k the XLA arm's steps summed, and per step);
    d, f, i, j and k also the water-fill's evidence and why the ladder
-   declined.  d to k each run in a child process of the script, after one
+   declined.  d to m each run in a child process of the script, after one
    config-1 cycle there (``--child``, ``child_main``), so that the garbage
    collection at the head of the cycle walks that path's cluster alone.
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
@@ -139,7 +163,8 @@ What it does, one JSON line per phase:
    with both, on the loop's releasing arm).
 
 Then the ``xla_step_arm`` line (the XLA arm on paths i and k: steps, time a
-step, its bound by bytes), the ``kernels`` line, the card's name and power
+step, its bound by bytes), the ``kernels`` line (with each kernel's launches
+on every path that runs it, l's and m's included), the card's name and power
 limit as nvidia-smi prints them, and as the last line ``{"ok": true,
 "device": {...}}``.  Any
 failure exits non-zero; with no CUDA device, or without the port beside
@@ -1861,12 +1886,14 @@ def read_counts():
 
 def run_cycle(cache, conf_path, engine="mega", after_action=None):
     """One ``Scheduler.run_once`` on the card with the launch counts set to
-    0 just before and read just after; the fused route must run ``engine``:
-    one ``mega_allocate`` launch, one ``placement_step`` launch a loop step
-    and none of ``mega_allocate`` (``step``), or the loop's XLA step arm,
-    which launches neither (``xla``).  ``after_action(ssn)``, where given,
-    reads the open session after each action.  Returns (record,
-    launches)."""
+    0 just before and read just after (``conf_path`` None: the default
+    conf); the fused route must run ``engine``: one ``mega_allocate``
+    launch, one ``placement_step`` launch a loop step and none of
+    ``mega_allocate`` (``step``), or the loop's XLA step arm, which launches
+    neither (``xla``).  ``after_action(ssn)``, where given, reads the open
+    session after each action.  Returns (record, launches); the record's
+    ``notes`` hold the engine cache's outcome, the ``dirty`` refresh
+    evidence and backfill's evidence."""
     import torch
 
     from scheduler_tpu_torch.scheduler import Scheduler
@@ -1893,7 +1920,8 @@ def run_cycle(cache, conf_path, engine="mega", after_action=None):
     evidence = notes.get("cohort") or {}
     rec = {"cycle_s": cycle_s, "phases_s": spent, "engine": evidence.get("engine"),
            "kernel_ms": evidence.get("kernel_ms"), "steps": evidence.get("steps"),
-           "cohort": evidence, "launches": launches, "routes": routes}
+           "cohort": evidence, "launches": launches, "routes": routes,
+           "notes": {k: notes.get(k) for k in ("engine_cache", "dirty", "backfill")}}
     if evidence.get("engine") != engine or evidence.get("kernel_ms") is None:
         raise SystemExit(f"the main path did not run the {engine} engine: {evidence}")
     if engine == "mega" and launches["mega_allocate"] != 1:
@@ -1923,14 +1951,23 @@ def phase_main_path_config2(cache, conf_path, n_nodes, n_pods):
     return launches
 
 
+def binds_digest(binds) -> str:
+    """A digest of a bind map (pod namespace/name -> node)."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(sorted(dict(binds).items())).encode()).hexdigest()
+
+
 def phase_main_path_flagship(cache, conf_path, n_nodes, n_pods, tasks_per_job):
+    """Path b, a cold cycle.  Returns (launches, the binds' digest)."""
     rec, launches = run_cycle(cache, conf_path)
     binds, gangs = check_binds(cache, n_nodes, n_pods, tasks_per_job)
+    digest = binds_digest(cache.binder.binds)
     emit({"phase": "main_path", "config": "config3", "nodes": n_nodes, "pods": n_pods,
-          "binds": binds, "gangs_bound": gangs, **rec})
+          "binds": binds, "gangs_bound": gangs, "binds_digest": digest, **rec})
     if binds < 1:
         raise SystemExit("the main path bound nothing")
-    return launches
+    return launches, digest
 
 
 def phase_main_path_templates(cache, conf_path, n_nodes, n_jobs, tasks_per_job):
@@ -2443,6 +2480,292 @@ def check_loop_host_twins(twin):
             raise SystemExit(f"path i at 0.1 scale: {differ} binds differ from the host loop's")
 
 
+# -- paths l and m: the resident engine across cycles ------------------------------
+
+# Path l's churn: cycles after the steady one, each retiring a tenth of the
+# gangs and submitting as many (the scenario ladder's config 3 churn).
+STEADY_CHURN_CYCLES = 5
+
+# Path m: config 2's cluster under the default conf, with BestEffort pods
+# for backfill and a backlog of gangs created Pending (minimum resources
+# set) for enqueue: (gangs, pods a gang, cpu milli, memory) of gangs that
+# fit, and of gangs whose 20-cpu pods no 16-cpu node can hold, which stay
+# pending in every cycle.
+DEFAULT_CONF_BEST_EFFORT = 1000
+DEFAULT_CONF_BACKLOG = (100, 8, 1000.0, 2 * GIB)
+DEFAULT_CONF_WAITING = (10, 8, 20_000.0, 8 * GIB)
+DEFAULT_CONF_CYCLES = 6
+# Pods completing before each of cycles 3-6 (1 % of config 2's 5,000), one a
+# node on as many nodes.
+DEFAULT_CONF_COMPLETIONS = 50
+# The engine cache's outcome in each cycle: the first build, the rebuild
+# after cycle 1 placed the workload, then hits (a sparse refresh of the
+# completions' nodes) while the backlog waits.
+DEFAULT_CONF_OUTCOMES = ("miss", "rebuild", "hit", "hit", "hit", "hit")
+
+
+def default_conf_cluster(n_nodes, n_pods):
+    """Path m's cluster: ``make_kubemark_density_cluster(n_nodes, n_pods)``
+    (BASELINE config 2) plus ``DEFAULT_CONF_BEST_EFFORT`` bare BestEffort
+    pods (every odd one selecting zone ``z{t % 4}``) and the gangs of
+    ``DEFAULT_CONF_BACKLOG`` and ``DEFAULT_CONF_WAITING``, their PodGroups
+    created Pending with their minimum resources, as a submission is.
+    Timestamps are fixed, so every build orders its jobs alike."""
+    from scheduler_tpu_torch.apis.objects import GROUP_NAME_ANNOTATION, PodGroup, PodSpec
+    from scheduler_tpu_torch.harness import make_kubemark_density_cluster
+    from scheduler_tpu_torch.harness.synthetic import KUBEMARK_TS0, pin_shadow_timestamps
+
+    cache = make_kubemark_density_cluster(n_nodes, n_pods).cache
+    stamp = iter(KUBEMARK_TS0 + 1.0 + k * 1e-6 for k in range(1 << 30))
+    for t in range(DEFAULT_CONF_BEST_EFFORT):
+        pod = PodSpec(name=f"be-{t:04d}", namespace="d", scheduler_name="volcano",
+                      containers=[], node_selector={"zone": f"z{t % 4}"} if t % 2 else {})
+        pod.creation_timestamp = next(stamp)
+        cache.add_pod(pod)
+    for kind, (n_gangs, size, cpu, mem) in (("backlog", DEFAULT_CONF_BACKLOG),
+                                            ("waiting", DEFAULT_CONF_WAITING)):
+        for g in range(n_gangs):
+            name = f"{kind}-{g:03d}"
+            pg = PodGroup(name=name, namespace="d", queue="default", min_member=size,
+                          min_resources={"cpu": size * cpu, "memory": size * mem})
+            pg.creation_timestamp = next(stamp)
+            cache.add_pod_group(pg)
+            for t in range(size):
+                pod = PodSpec(name=f"{name}-{t}", namespace="d",
+                              containers=[{"cpu": cpu, "memory": mem}],
+                              annotations={GROUP_NAME_ANNOTATION: name})
+                pod.creation_timestamp = next(stamp)
+                cache.add_pod(pod)
+    pin_shadow_timestamps(cache)
+    return cache
+
+
+def complete_pods(cache, count):
+    """``count`` bound sleep pods complete (deleted through the cache), one
+    a node: the first by pod name on each node, nodes in the order of their
+    pods' names.  Returns the nodes touched."""
+    bound = sorted((t for job in cache.jobs.values() for t in job.tasks.values()
+                    if t.node_name and t.name.startswith("sleep-")), key=lambda t: t.name)
+    nodes, pods = set(), []
+    for task in bound:
+        if task.node_name not in nodes:
+            nodes.add(task.node_name)
+            pods.append(task.pod)
+            if len(pods) == count:
+                break
+    for pod in pods:
+        cache.delete_pod(pod)
+    return sorted(nodes)
+
+
+def check_live_placements(cache, pod_limit=True):
+    """No node past its capacity in any resource or (``pod_limit``: where
+    the conf's predicates plugin gates it) past its pod limit, and every
+    placed pod with a zone selector in its zone, over the pods the cache
+    holds on nodes now.  Returns (pods placed, most pods on a node)."""
+    used, count, placed = {}, {}, 0
+    for job in cache.jobs.values():
+        for task in job.tasks.values():
+            host = task.node_name
+            if not host:
+                continue
+            placed += 1
+            on_host = used.setdefault(host, {})
+            for container in task.pod.containers:
+                for name, qty in container.items():
+                    on_host[name] = on_host.get(name, 0.0) + qty
+            count[host] = count.get(host, 0) + 1
+            labels = cache.nodes[host].node.labels
+            for k, v in task.pod.node_selector.items():
+                if labels.get(k) != v:
+                    raise SystemExit(f"{task.name} selects {k}={v} but sits on {host}")
+    for host, on_host in used.items():
+        alloc = cache.nodes[host].node.allocatable
+        if any(qty > alloc.get(name, 0.0) for name, qty in on_host.items()) or \
+                (pod_limit and count[host] > alloc["pods"]):
+            raise SystemExit(f"node {host} overcommitted: {on_host}, {count[host]} pods")
+    check_idle_ledger(cache)
+    return placed, max(count.values(), default=0)
+
+
+def phase_steady_flagship(opts):
+    """Path l: BASELINE config 3 by the JAX package's steady protocol
+    (``harness.measure.steady_cycle_phases``: the engine built once through
+    the engine cache, then one timed cycle that hits it and launches K2
+    before the host rebinds), then ``STEADY_CHURN_CYCLES`` cycles of config
+    3's churn (``harness.config3_churn``), each timed as it comes
+    (``timed_cycle_phases``: they rebuild).  Checks: the steady cycle hits
+    with one K2 launch, binds every gang whole with no node overcommitted,
+    and its bind map's digest is returned for path b's; each churn cycle
+    rebuilds with one K2 launch; no node overcommitted at the end."""
+    import numpy as np
+
+    from scheduler_tpu_torch.conf import parse_scheduler_conf
+    from scheduler_tpu_torch.harness import config3_churn
+    from scheduler_tpu_torch.harness.measure import steady_cycle_phases, timed_cycle_phases
+
+    conf = parse_scheduler_conf(FLAGSHIP_CONF)
+    build, churn = config3_churn(opts.nodes, opts.pods, opts.tasks_per_job)
+    t0 = time.perf_counter()
+    cache = build()
+    emit({"phase": "cluster", "config": "config3_steady", "nodes": opts.nodes,
+          "pods": opts.pods, "build_s": time.perf_counter() - t0})
+    reset_counts()
+    cycle_s, rec = steady_cycle_phases(cache, conf, ("allocate",))
+    launches, routes = read_counts()
+    notes = rec.pop("notes")
+    evidence = notes.get("cohort") or {}
+    binds, gangs = check_binds(cache, opts.nodes, opts.pods, opts.tasks_per_job)
+    digest = binds_digest(cache.binder.binds)
+    steady = {"cycle_s": cycle_s, "engine_cache": notes.get("engine_cache"),
+              "dirty": notes.get("dirty"), "engine": evidence.get("engine"),
+              "kernel_ms": evidence.get("kernel_ms"), "steps": evidence.get("steps"),
+              "phases_s": {k: v for k, v in rec.items() if not k.startswith("upload")},
+              "uploads": rec["uploads"], "upload_bytes": rec["upload_bytes"],
+              "upload_hits": rec["upload_hits"], "launches": launches, "routes": routes,
+              "binds": binds, "gangs_bound": gangs, "binds_digest": digest}
+    emit({"phase": "main_path", "config": "config3_steady", "nodes": opts.nodes,
+          "pods": opts.pods, **steady})
+    if (steady["engine_cache"] != "hit" or steady["engine"] != "mega"
+            or launches["mega_allocate"] != 1 or "overlap_host" not in rec
+            or steady["kernel_ms"] is None):
+        raise SystemExit(f"path l: the steady cycle did not hit the resident engine with one "
+                         f"eager K2 launch: {steady}")
+    if routes["host"] != 0 or routes["fused"] != 1 or binds != opts.pods:
+        raise SystemExit(f"path l: the steady cycle bound {binds} of {opts.pods}: {routes}")
+    rng = np.random.default_rng(42)
+    churn_s, churn_launches = [], 0
+    for i in range(1, STEADY_CHURN_CYCLES + 1):
+        churn(cache, rng, i)
+        before = len(cache.binder.binds)
+        reset_counts()
+        el, r = timed_cycle_phases(cache, conf, ("allocate",))
+        lc, routes = read_counts()
+        n = r.pop("notes")
+        churn_s.append(el)
+        churn_launches += lc["mega_allocate"]
+        emit({"phase": "churn_cycle", "config": "config3_steady", "cycle": i, "cycle_s": el,
+              "engine_cache": n.get("engine_cache"), "placed": len(cache.binder.binds) - before,
+              "kernel_ms": (n.get("cohort") or {}).get("kernel_ms"), "phases_s": r,
+              "launches": lc})
+        if n.get("engine_cache") != "rebuild" or lc["mega_allocate"] != 1 or routes["host"]:
+            raise SystemExit(f"path l: churn cycle {i} did not rebuild with one K2 launch: "
+                             f"{n.get('engine_cache')}, {lc}, {routes}")
+    # The flagship's conf has no predicates plugin: no pod-count gate.
+    placed, _ = check_live_placements(cache, pod_limit=False)
+    churn_rec = {"cycles": STEADY_CHURN_CYCLES, "cycle_s": churn_s,
+                 "p50_s": float(np.percentile(churn_s, 50)),
+                 "p99_s": float(np.percentile(churn_s, 99)), "placed_live": placed}
+    emit({"phase": "churn", "config": "config3_steady", **churn_rec})
+    return {"launches": launches, "churn_launches": churn_launches, "digest": digest,
+            "steady": steady, "churn": churn_rec}
+
+
+def phase_default_conf_loop(opts):
+    """Path m: ``DEFAULT_CONF_CYCLES`` cycles of ``Scheduler.run_once`` with
+    no conf (the default: enqueue, allocate and backfill over the default
+    tiers) on ``default_conf_cluster``, ``DEFAULT_CONF_COMPLETIONS`` pods
+    completing before each cycle from the third on, launch counts set to 0
+    before each cycle and read after it.  Checks: the engine cache's
+    outcomes are ``DEFAULT_CONF_OUTCOMES`` with a sparse refresh on every
+    hit (with ``SCHEDULER_TORCH_ENGINE_CACHE=0``, the cold twin: every cycle
+    ``off``), K2 once a cycle, K3 in cycle 1 only, the backlog admitted by
+    enqueue and bound whole, the waiting gangs pending, backfill's binds,
+    and no node overcommitted or past its pod limit, every selector
+    honoured.  Returns each cycle's record with the digests of its binds
+    and of the session's task statuses."""
+    cold = os.environ.get("SCHEDULER_TORCH_ENGINE_CACHE") == "0"
+    t0 = time.perf_counter()
+    cache = default_conf_cluster(opts.config2_nodes, opts.config2_pods)
+    n_pods = (opts.config2_pods + DEFAULT_CONF_BEST_EFFORT
+              + DEFAULT_CONF_BACKLOG[0] * DEFAULT_CONF_BACKLOG[1]
+              + DEFAULT_CONF_WAITING[0] * DEFAULT_CONF_WAITING[1])
+    emit({"phase": "cluster", "config": "default_conf_loop", "nodes": opts.config2_nodes,
+          "pods": n_pods, "cache": "off" if cold else "on",
+          "build_s": time.perf_counter() - t0})
+    cycles = []
+    for cycle in range(DEFAULT_CONF_CYCLES):
+        completed = (complete_pods(cache, DEFAULT_CONF_COMPLETIONS)
+                     if cycle >= 2 else [])
+        seen = {}
+
+        def after_action(ssn, seen=seen):
+            seen["statuses"] = sorted((t.name, t.status.name, t.node_name)
+                                      for job in ssn.jobs.values() for t in job.tasks.values())
+            seen["phases"] = sorted((uid, job.pod_group.status.phase)
+                                    for uid, job in ssn.jobs.items()
+                                    if job.pod_group is not None)
+
+        before = len(cache.binder.binds)
+        rec, launches = run_cycle(cache, None, after_action=after_action)
+        notes = rec["notes"]
+        phases_of = dict(seen["phases"])
+        waiting = [uid for uid in phases_of if uid.startswith("d/waiting-")]
+        backlog = [uid for uid in phases_of if uid.startswith("d/backlog-")]
+        out = {"cycle": cycle + 1, "cycle_s": rec["cycle_s"], "phases_s": rec["phases_s"],
+               "kernel_ms": rec["kernel_ms"], "engine_cache": notes["engine_cache"],
+               "dirty": notes["dirty"], "backfill": notes["backfill"],
+               "completed_on_nodes": len(completed), "binds": len(cache.binder.binds),
+               "new_binds": len(cache.binder.binds) - before,
+               "admitted": sum(phases_of[u] != "Pending" for u in backlog + waiting),
+               "launches": launches,
+               "binds_digest": binds_digest(cache.binder.binds),
+               "statuses_digest": binds_digest({f"{n}": [s, h] for n, s, h in seen["statuses"]})}
+        emit({"phase": "main_path", "config": "default_conf_loop",
+              "cache": "off" if cold else "on", **out})
+        want = "off" if cold else DEFAULT_CONF_OUTCOMES[cycle]
+        if out["engine_cache"] != want:
+            raise SystemExit(f"path m cycle {cycle + 1}: engine cache {out['engine_cache']}, "
+                             f"expected {want}")
+        if want == "hit" and (out["dirty"] or {}).get("mode") != "sparse":
+            raise SystemExit(f"path m cycle {cycle + 1}: the hit's refresh was not sparse: "
+                             f"{out['dirty']}")
+        if launches["mega_allocate"] != 1:
+            raise SystemExit(f"path m cycle {cycle + 1}: K2 launched "
+                             f"{launches['mega_allocate']} times")
+        k3_ok = launches["static_predicate_mask"] >= 1 if cycle == 0 else \
+            launches["static_predicate_mask"] == 0
+        if not k3_ok:
+            raise SystemExit(f"path m cycle {cycle + 1}: K3 launched "
+                             f"{launches['static_predicate_mask']} times")
+        if out["admitted"] != len(backlog) + len(waiting):
+            raise SystemExit(f"path m cycle {cycle + 1}: enqueue admitted {out['admitted']} "
+                             f"of {len(backlog) + len(waiting)} gangs")
+        cycles.append(out)
+    placed, most = check_live_placements(cache)
+    per_gang = {}
+    for job in cache.jobs.values():
+        if job.name.startswith(("backlog-", "waiting-")):
+            per_gang[job.name] = sum(1 for t in job.tasks.values() if t.node_name)
+    whole = sum(n == DEFAULT_CONF_BACKLOG[1] for g, n in per_gang.items() if g.startswith("b"))
+    waiting_bound = sum(n for g, n in per_gang.items() if g.startswith("w"))
+    be_bound = cycles[0]["backfill"]["host_binds"]
+    summary = {"placed_live": placed, "most_pods_on_a_node": most, "backlog_gangs_whole": whole,
+               "waiting_pods_bound": waiting_bound, "best_effort_bound": be_bound}
+    emit({"phase": "default_conf_loop", "cache": "off" if cold else "on", **summary})
+    if whole != DEFAULT_CONF_BACKLOG[0] or waiting_bound or \
+            be_bound != DEFAULT_CONF_BEST_EFFORT:
+        raise SystemExit(f"path m: unexpected placements: {summary}")
+    if any(0 < n < DEFAULT_CONF_BACKLOG[1] for n in per_gang.values()):
+        raise SystemExit(f"path m: a gang bound in part: {per_gang}")
+    return {"cycles": cycles, "summary": summary}
+
+
+def check_default_conf_twin(twin, result):
+    """Path m against its cold twin (``--child default_conf_cold``, the
+    same cycles with ``SCHEDULER_TORCH_ENGINE_CACHE=0``): per cycle, equal
+    binds and equal task statuses."""
+    cold = twin.result()
+    differ = [c["cycle"] for c, d in zip(result["cycles"], cold["cycles"])
+              if (c["binds_digest"], c["statuses_digest"]) != (d["binds_digest"],
+                                                               d["statuses_digest"])]
+    emit({"phase": "default_conf_twin", "cycles": len(cold["cycles"]),
+          "equal_to_cold_twin": not differ, "differ": differ,
+          "wall_s": time.perf_counter() - twin.t0})
+    if differ or len(cold["cycles"]) != DEFAULT_CONF_CYCLES:
+        raise SystemExit(f"path m: cycles {differ} differ from the cold twin")
+
+
 def child_argv(child, path, opts):
     """The command line of this script's child process ``child`` (see
     ``--child``), writing its result to ``path``."""
@@ -2544,6 +2867,21 @@ def child_main(child, path, opts) -> int:
             conf_text = RECLAIM_CONF
         codes = path[:-len(".json")] + ".npy"
         out = dict(cpu_loop_codes(cache, conf_text, codes), codes=codes)
+        with open(path, "w") as f:
+            json.dump(out, f)
+        return 0
+    if child in ("config3_steady", "default_conf_loop", "default_conf_cold"):
+        # Paths l and m, and m's cold twin, after one config-1 cycle that
+        # warms the card, the kernel library and PyTorch up.
+        if child == "default_conf_cold":
+            os.environ["SCHEDULER_TORCH_ENGINE_CACHE"] = "0"
+        conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
+        with open(conf_path, "w") as f:
+            f.write(CONFIG1_CONF)
+        run_cycle(config1_cluster(), conf_path)
+        gc.collect()
+        out = phase_steady_flagship(opts) if child == "config3_steady" else \
+            phase_default_conf_loop(opts)
         with open(path, "w") as f:
             json.dump(out, f)
         return 0
@@ -2909,12 +3247,14 @@ def step_entry(launches_by_path, slice_rec, recs, parities):
             "cases": {r["case"]: {k: r[k] for k in STEP_CASE_TIMES} for r in recs}}
 
 
-def mega_entry(mode, launches, rec, path=None):
+def mega_entry(mode, launches, rec, path=None, by_path=None):
     """K2's entry of the kernels line for one instantiation on one main
-    path (``path``: the main path, where the mode has more than one)."""
+    path (``path``: the main path, where the mode has more than one;
+    ``by_path``: its launches on every path that runs it)."""
     if rec["mode"] != mode:
         raise SystemExit(f"the {path or mode} operands ran {rec['mode']}, not {mode}")
     return {"name": "mega_allocate", "mode": mode, "path": path, "route": "cuda",
+            "launches_by_path": by_path or {path: launches},
             "source": "scheduler_tpu_torch/csrc/mega_allocate.cu",
             "replaces": "scheduler_tpu/ops/megakernel.py:181",
             "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -2975,7 +3315,8 @@ def main() -> int:
                                             "templates_default_tiers_cpu",
                                             "reclaim_aftermath_templates_cpu",
                                             "reclaim_templates_host_loop",
-                                            "loop_host_twins"),
+                                            "loop_host_twins", "config3_steady",
+                                            "default_conf_loop", "default_conf_cold"),
                         help="run only this child process of the script (child_main) and "
                              "write its result to --out")
     parser.add_argument("--out", metavar="PATH")
@@ -3082,8 +3423,8 @@ def main() -> int:
     gc.collect()
     with open(conf_path, "w") as f:
         f.write(FLAGSHIP_CONF)
-    flagship_launches = phase_main_path_flagship(flagship_cluster(), conf_path, opts.nodes,
-                                                 opts.pods, opts.tasks_per_job)
+    flagship_launches, flagship_digest = phase_main_path_flagship(
+        flagship_cluster(), conf_path, opts.nodes, opts.pods, opts.tasks_per_job)
     gc.collect()
     templates_launches, _ = phase_main_path_templates(
         templates_cluster(), conf_path, opts.nodes, opts.template_jobs, opts.template_tasks)
@@ -3101,6 +3442,14 @@ def main() -> int:
     tiers_tpl = run_child(out_dir, "templates_default_tiers", opts)
     mq_tpl = run_child(out_dir, "templates_multi_queue", opts)
     reclaim_tpl = run_child(out_dir, "reclaim_aftermath_templates", opts)
+    # The resident engine across cycles: config 3 by the steady protocol,
+    # then churn (l); the default conf's loop over six cycles (m).
+    steady = run_child(out_dir, "config3_steady", opts)
+    if steady["digest"] != flagship_digest:
+        raise SystemExit("path l: the steady cycle's binds differ from path b's cold cycle's")
+    emit({"phase": "steady_vs_cold", "binds_digest_equal": True,
+          "steady_cycle_s": steady["steady"]["cycle_s"]})
+    default_loop = run_child(out_dir, "default_conf_loop", opts)
     # After the timed cycles: the host loops' and the CPU loops' twins,
     # beside the kernel phases.
     twins = [BackgroundChild(out_dir, child, opts) for child in (
@@ -3108,7 +3457,7 @@ def main() -> int:
         "templates_default_tiers_cpu", "reclaim_aftermath_templates_cpu")]
     (host_twin, reclaim_twin, reclaim_tpl_twin, loop_twins, tiers_cpu,
      reclaim_tpl_cpu) = twins
-    ladder_plain = None
+    ladder_plain = default_twin = None
 
     try:
         # The same operands again, from second clusters built the same way (K2
@@ -3142,6 +3491,8 @@ def main() -> int:
         ladder_plain = BackgroundChild(out_dir, "mq_ladder_plain", opts)
         full_chain = phase_kernel_cases(device)
         gc.collect()
+        # Path m's cold twin beside the untimed phases that follow.
+        default_twin = BackgroundChild(out_dir, "default_conf_cold", opts)
         phase_e2e_small(conf_path)
         check_host_loop(host_twin, tiers_binds)
         check_reclaim_host_loop(reclaim_twin, reclaim["outcome"])
@@ -3150,12 +3501,12 @@ def main() -> int:
         check_reclaim_host_loop(reclaim_tpl_twin, reclaim_tpl["outcome"],
                                 "reclaim_aftermath_templates")
         check_loop_host_twins(loop_twins)
+        check_default_conf_twin(default_twin, default_loop)
         ladder_plain_rec = ladder_plain.result()
     finally:
-        for twin in twins:
-            twin.stop()
-        if ladder_plain is not None:
-            ladder_plain.stop()
+        for twin in twins + [ladder_plain, default_twin]:
+            if twin is not None:
+                twin.stop()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     # The loop's XLA step arm (no Pallas kernel: plain tensor operations on
     # the card each step) on paths i and k.
@@ -3163,14 +3514,22 @@ def main() -> int:
                            "source": "scheduler_tpu_torch/ops/xla_step.py",
                            "paths": [tiers_tpl["arm"], reclaim_tpl["arm"]]}})
 
+    m_launches = {k: sum(c["launches"][k] for c in default_loop["cycles"])
+                  for k in ("mega_allocate", "static_predicate_mask", "qfair_solve")}
     emit({"kernels": [
-        mega_entry("cursor", flagship_launches["mega_allocate"], cursor_full),
-        mega_entry("static", config2_launches["mega_allocate"], static_full),
+        mega_entry("cursor", flagship_launches["mega_allocate"], cursor_full, by_path={
+            "config3": flagship_launches["mega_allocate"],
+            "config3_steady": steady["launches"]["mega_allocate"],
+            "config3_churn": steady["churn_launches"]}),
+        mega_entry("static", config2_launches["mega_allocate"], static_full,
+                   by_path={"config2": config2_launches["mega_allocate"]}),
         mega_entry("static", config5_launches["mega_allocate"], config5_full, "config5"),
         mega_entry("multi_queue", mq_launches["mega_allocate"], mq_full,
                    "config3_multi_queue"),
         mega_entry("multi_queue_static", tiers_launches["mega_allocate"], tiers_full,
-                   "config2_default_tiers"),
+                   "config2_default_tiers", by_path={
+                       "config2_default_tiers": tiers_launches["mega_allocate"],
+                       "default_conf_loop": m_launches["mega_allocate"]}),
         ladder_entry(ladder_launches["mega_allocate"], ladder_recs, ladder_plain_rec),
         mega_entry("multi_queue_releasing", reclaim["launches"]["mega_allocate"], reclaim_full,
                    "config4_reclaim_aftermath"),
@@ -3179,7 +3538,8 @@ def main() -> int:
                    "ladder_{}_x_{}_{}q kernel case".format(*LADDER_SMALL)),
         qfair_entry({"mq_ladder": ladder_launches["qfair_solve"],
                      "config3_multi_queue": mq_launches["qfair_solve"],
-                     "config2_default_tiers": tiers_launches["qfair_solve"]},
+                     "config2_default_tiers": tiers_launches["qfair_solve"],
+                     "default_conf_loop": m_launches["qfair_solve"]},
                     ladder_solve, qfair_err),
         {"name": "static_predicate_mask", "route": "cuda",
          "source": "scheduler_tpu_torch/csrc/static_predicate_mask.cu",
@@ -3188,7 +3548,8 @@ def main() -> int:
          "launches_by_path": {
              "config2": config2_launches["static_predicate_mask"],
              "config5": config5_launches["static_predicate_mask"],
-             "config2_default_tiers": tiers_launches["static_predicate_mask"]},
+             "config2_default_tiers": tiers_launches["static_predicate_mask"],
+             "default_conf_loop": m_launches["static_predicate_mask"]},
          "max_abs_err": pred_err,
          **{k: pred_main[k] for k in PREDICATE_TIMES},
          "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K") + PREDICATE_TIMES}},

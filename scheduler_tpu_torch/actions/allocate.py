@@ -235,14 +235,22 @@ class AllocateAction(Action):
     # -- fused route -----------------------------------------------------------
 
     def _run_fused(self, ssn, candidates: List[JobInfo]) -> None:
-        from scheduler_tpu_torch.ops.fused import FusedAllocator
+        from scheduler_tpu_torch.ops import engine_cache
         from scheduler_tpu_torch.utils import phases
 
         routes["fused"] += 1
         with phases.phase("engine_init"):
-            engine = FusedAllocator(ssn, candidates, device=ssn.device)
+            # The resident engine across cycles: a steady cycle refreshes the
+            # cached engine's node state instead of rebuilding it, and a hit
+            # starts the run while the host rebinds (ops/engine_cache.py).
+            engine, cache_status = engine_cache.get_engine(
+                ssn, candidates, eager_dispatch=True
+            )
+        phases.note("engine_cache", cache_status)
         with phases.phase("dispatch"):
-            engine.dispatch()  # mega: non-blocking launch; step: the whole loop
+            # mega: non-blocking launch; loop: the whole loop; a no-op where
+            # the hit already dispatched.
+            engine.dispatch()
         with phases.phase("device"):
             engine.readback()  # blocking collect of the codes
         # Engine evidence: the engine, cohorts seen by the build, loop steps,

@@ -12,7 +12,7 @@ from scheduler_tpu_torch.api.vocab import ResourceVocabulary
 
 
 class ClusterInfo:
-    __slots__ = ("jobs", "nodes", "queues", "vocab", "node_generation")
+    __slots__ = ("jobs", "nodes", "queues", "vocab", "node_generation", "dirty_epoch")
 
     def __init__(self, vocab: ResourceVocabulary) -> None:
         self.vocab = vocab
@@ -23,6 +23,8 @@ class ClusterInfo:
         # cache mutex) — consumers keying caches on it must never read the
         # live counter, which can advance between snapshot and use.
         self.node_generation: int = -1
+        # The cache's dirty-set epoch at snapshot time (-1: unknown).
+        self.dirty_epoch: int = -1
 
     def __repr__(self) -> str:
         return (

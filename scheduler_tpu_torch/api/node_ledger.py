@@ -202,6 +202,9 @@ class NodeLedger:
         """[R] sum of live nodes' allocatable (placeholder rows are zero)."""
         return self.allocatable[: self.n].sum(axis=0)
 
+    def total_used(self) -> np.ndarray:
+        return self.used[: self.n].sum(axis=0)
+
     def apply_node_deltas(
         self,
         rows: np.ndarray,        # i64 [K] ledger rows (unique)
@@ -252,6 +255,9 @@ class NodeLedger:
         """OR of allocatable map-presence flags — what the object path's
         per-node ``add(node.allocatable)`` would leave in has_scalars."""
         return bool(self.alloc_scalars[: self.n].any())
+
+    def any_used_scalars(self) -> bool:
+        return bool(self.scalar_flags["used"][: self.n].any())
 
     # -- snapshot -------------------------------------------------------------
 

@@ -79,6 +79,11 @@ class SchedulerCache(Cache):
         from scheduler_tpu_torch.api.tensors import NodeStaticCache
 
         self.node_tensor_cache = NodeStaticCache()
+        # Per-signature static-mask rows memoized across cycles by the device
+        # predicate builder (plugins/predicates.py): {plugin: entry}, each
+        # entry keyed by (node generation, widths, pressure checks, device)
+        # and dropped wholesale when its key goes stale.
+        self.static_mask_cache: Dict[str, dict] = {}
         # Condition-dedupe ledgers (reference podConditionHaveUpdate): the
         # last unschedulable message pushed per pod + a per-job short-circuit
         # signature; pruned on pod delete.
@@ -86,6 +91,23 @@ class SchedulerCache(Cache):
         self._job_cond_sig: Dict[str, tuple] = {}
         self.queues: Dict[str, QueueInfo] = {}
         self.priority_classes: Dict[str, int] = {}
+
+        # Dirty-set marks: which nodes, jobs and queues changed after a given
+        # epoch, so the engine cache's hit path refreshes exactly the churned
+        # node rows (ops/fused.py ``_refresh_dynamic``).  Every mutation path
+        # marks under the mutex; ``snapshot()`` stamps the epoch onto the
+        # ClusterInfo.  Past ``_DIRTY_CAP`` live entries a map clears and its
+        # floor advances: queries older than the floor answer "unknown" and
+        # the consumer diffs the full tensors instead.  The marks are a
+        # superset of real changes (a no-op rewrite still marks); consumers
+        # content-compare the marked rows.
+        self._dirty_epoch = 0
+        self._node_dirty: Dict[str, int] = {}
+        self._job_dirty: Dict[str, int] = {}
+        self._queue_dirty: Dict[str, int] = {}
+        self._node_dirty_floor = 0
+        self._job_dirty_floor = 0
+        self._queue_dirty_floor = 0
 
         self.binder = binder if binder is not None else FakeBinder()
         self.evictor = evictor if evictor is not None else FakeEvictor()
@@ -118,6 +140,45 @@ class SchedulerCache(Cache):
             self._io_pool.submit(fn, *args)
         else:
             fn(*args)
+
+    # -- dirty-set bookkeeping ------------------------------------------------
+
+    # Beyond this many live entries a map, the per-row bookkeeping costs more
+    # than the full-tensor diff it replaces: overflow to "unknown".
+    _DIRTY_CAP = 8192
+
+    def _mark_dirty(self, table: str, names) -> None:
+        """Record that ``names`` of ``table`` mutated.  Callers hold the
+        mutex (every call site is a mutation path that already does)."""
+        self._dirty_epoch += 1
+        epoch = self._dirty_epoch
+        d = getattr(self, f"_{table}_dirty")
+        for name in names:
+            d[name] = epoch
+        if len(d) > self._DIRTY_CAP:
+            d.clear()
+            setattr(self, f"_{table}_dirty_floor", epoch)
+
+    def dirty_nodes_since(self, epoch: int):
+        """Names of nodes whose dynamic state may have changed after
+        ``epoch`` (a superset: consumers content-compare), or ``None`` when
+        the answer is unknown (the epoch predates the map's floor, or none)."""
+        with self.mutex:
+            if epoch < self._node_dirty_floor or epoch < 0:
+                return None
+            return {n for n, e in self._node_dirty.items() if e > epoch}
+
+    def dirty_counts_since(self, epoch: int) -> Dict[str, int]:
+        """Per-table dirty counts after ``epoch``; -1 = unknown (overflow)."""
+        out = {}
+        with self.mutex:
+            for table in ("node", "job", "queue"):
+                if epoch < getattr(self, f"_{table}_dirty_floor") or epoch < 0:
+                    out[f"{table}s"] = -1
+                    continue
+                d = getattr(self, f"_{table}_dirty")
+                out[f"{table}s"] = sum(1 for e in d.values() if e > epoch)
+        return out
 
     # -- job/node accessors --------------------------------------------------
 
@@ -176,8 +237,10 @@ class SchedulerCache(Cache):
         task = TaskInfo(pod, self.vocab)
         task.job = job.uid
         job.add_task_info(task)
+        self._mark_dirty("job", (job.uid,))
         if pod.node_name:
             self._get_or_create_node(pod.node_name).add_task(task)
+            self._mark_dirty("node", (pod.node_name,))
 
     def update_pod(self, pod: PodSpec) -> None:
         with self.mutex:
@@ -200,6 +263,7 @@ class SchedulerCache(Cache):
         job = self.jobs.get(job_id)
         self._pod_cond_last.pop(pod.uid, None)
         if job is not None:
+            self._mark_dirty("job", (job.uid,))
             row = job.store.row_of.get(pod.uid)
             task = job.view_for_row(row) if row is not None else None
             if task is not None:
@@ -209,6 +273,7 @@ class SchedulerCache(Cache):
                         self.nodes[task.node_name].remove_task(task)
                     except KeyError:
                         pass
+                    self._mark_dirty("node", (task.node_name,))
             if gc:
                 self._gc_job(job)
 
@@ -230,18 +295,21 @@ class SchedulerCache(Cache):
             self.node_generation += 1
             ni = self._get_or_create_node(node.name)
             ni.set_node(node)
+            self._mark_dirty("node", (node.name,))
 
     def update_node(self, node: NodeSpec) -> None:
         with self.mutex:
             self.node_generation += 1
             ni = self._get_or_create_node(node.name)
             ni.set_node(node)
+            self._mark_dirty("node", (node.name,))
 
     def delete_node(self, node: NodeSpec) -> None:
         with self.mutex:
             self.node_generation += 1
             self.nodes.pop(node.name, None)
             self.node_ledger.detach(node.name)
+            self._mark_dirty("node", (node.name,))
 
     # -- podgroup events ------------------------------------------------------
 
@@ -253,6 +321,7 @@ class SchedulerCache(Cache):
                 job = JobInfo(job_id, self.vocab)
                 self.jobs[job_id] = job
             job.set_pod_group(pg)
+            self._mark_dirty("job", (job_id,))
 
     def update_pod_group(self, pg: PodGroup) -> None:
         self.add_pod_group(pg)
@@ -264,12 +333,14 @@ class SchedulerCache(Cache):
             if job is not None:
                 job.unset_pod_group()
                 self._gc_job(job)
+                self._mark_dirty("job", (job_id,))
 
     # -- queue events ---------------------------------------------------------
 
     def add_queue(self, queue: Queue) -> None:
         with self.mutex:
             self.queues[queue.name] = QueueInfo(queue)
+            self._mark_dirty("queue", (queue.name,))
 
     def update_queue(self, queue: Queue) -> None:
         self.add_queue(queue)
@@ -277,6 +348,7 @@ class SchedulerCache(Cache):
     def delete_queue(self, queue: Queue) -> None:
         with self.mutex:
             self.queues.pop(queue.name, None)
+            self._mark_dirty("queue", (queue.name,))
 
     # -- priority classes ------------------------------------------------------
 
@@ -296,6 +368,9 @@ class SchedulerCache(Cache):
         with self.mutex:
             info = ClusterInfo(self.vocab)
             info.node_generation = self.node_generation
+            # The dirty-set epoch at freeze time: the engine cache's hit path
+            # asks what changed after the snapshot it last refreshed from.
+            info.dirty_epoch = self._dirty_epoch
             # Node state isolation = ONE ledger matrix copy; per-node views
             # materialize lazily (api/node_ledger.py LedgerNodeMap).
             info.nodes = LedgerNodeMap(
@@ -362,6 +437,8 @@ class SchedulerCache(Cache):
             job.update_task_status(task, TaskStatus.BINDING)
             task.node_name = hostname
             node.add_task(task)
+            self._mark_dirty("node", (hostname,))
+            self._mark_dirty("job", (job.uid,))
 
         self._submit_io(self._bind_one, task, hostname)
 
@@ -471,6 +548,8 @@ class SchedulerCache(Cache):
                     # used += row, releasing untouched.
                     agg = (row, None, row, count, 0)
                 self.nodes[hostname].bulk_add_tasks(node_tasks, agg=agg)
+            self._mark_dirty("job", by_job)
+            self._mark_dirty("node", by_node)
 
         def bind_chunk(chunk) -> None:
             from scheduler_tpu_torch.cache.interface import BulkBindError
@@ -523,6 +602,8 @@ class SchedulerCache(Cache):
                 node.remove_task(task)
             task.node_name = ""
             job.update_task_status(task, TaskStatus.PENDING)
+            self._mark_dirty("node", (hostname,))
+            self._mark_dirty("job", (job.uid,))
 
     # -- columnar commit hooks (device-engine extension) --------------------------
 
@@ -587,6 +668,7 @@ class SchedulerCache(Cache):
             ])
             for cjob, rows, names, _ids in resolved:
                 cjob.set_node_names_rows(rows, names)
+            self._mark_dirty("job", (cjob.uid for cjob, *_ in resolved))
             # Per-node batches via ONE stable integer argsort across the whole
             # batch; each group's name resolves from its first member.
             ids_all = (
@@ -641,6 +723,7 @@ class SchedulerCache(Cache):
                             [(members, TaskStatus.BINDING)],
                             (row, None, row, count, 0),
                         )
+                self._mark_dirty("node", (nm for nm, _ in groups))
 
         # Chunk against the WHOLE batch, spanning job boundaries: per-job
         # chunking degenerates to one submission per job (1000 jobs x 100
@@ -743,6 +826,8 @@ class SchedulerCache(Cache):
                     tasks_by_node.setdefault(task.node_name, []).append(task)
             for name, ts in tasks_by_node.items():
                 self.nodes[name].bulk_release_tasks(ts, strict=False)
+            self._mark_dirty("node", tasks_by_node)
+            self._mark_dirty("job", {job.uid for job, _, _ in found})
             # A victim whose LIVE cache status moved between the session
             # snapshot and this commit (informer event: e.g. a deletion
             # already marked it RELEASING) takes the generic transition the
@@ -753,6 +838,7 @@ class SchedulerCache(Cache):
                     node = self.nodes[task.node_name]
                     if task.uid in node.tasks:
                         node.update_task(task)
+                        self._mark_dirty("node", (task.node_name,))
         if not found:
             return []
         chunk = max(16, min(self._BIND_CHUNK, -(-len(found) // self._IO_WORKERS)))
@@ -776,10 +862,12 @@ class SchedulerCache(Cache):
                         except KeyError:
                             continue
                         job2.update_task_status(task2, TaskStatus.RUNNING)
+                        self._mark_dirty("job", (job2.uid,))
                         if task2.node_name and task2.node_name in self.nodes:
                             node2 = self.nodes[task2.node_name]
                             if task2.uid in node2.tasks:
                                 node2.update_task(task2)
+                                self._mark_dirty("node", (task2.node_name,))
                     continue
                 emitted.append((task.pod, task.node_name))
             if emitted:
@@ -795,10 +883,12 @@ class SchedulerCache(Cache):
         with self.mutex:
             job, task = self._find_job_and_task(ti)
             job.update_task_status(task, TaskStatus.RELEASING)
+            self._mark_dirty("job", (job.uid,))
             if task.node_name and task.node_name in self.nodes:
                 node = self.nodes[task.node_name]
                 if task.uid in node.tasks:
                     node.update_task(task)
+                    self._mark_dirty("node", (task.node_name,))
 
         def do_evict() -> None:
             try:
@@ -811,10 +901,12 @@ class SchedulerCache(Cache):
                     except KeyError:
                         return
                     job2.update_task_status(task2, TaskStatus.RUNNING)
+                    self._mark_dirty("job", (job2.uid,))
                     if task2.node_name and task2.node_name in self.nodes:
                         node2 = self.nodes[task2.node_name]
                         if task2.uid in node2.tasks:
                             node2.update_task(task2)
+                            self._mark_dirty("node", (task2.node_name,))
                 return
             # Event emission stays OUTSIDE the try: a recorder problem must
             # never roll back an eviction that actually happened.

@@ -14,17 +14,20 @@ from typing import Dict, List, Optional
 
 import yaml
 
-# Compiled-in default configuration.  The reference's default (util.go:31-42)
-# names actions and plugins this package does not carry; the default here is
-# the flagship allocate cycle (BASELINE config 3) over the builtin set.
+# Compiled-in default configuration (reference util.go:31-42), the JAX
+# package's default (scheduler_tpu/conf.py:18-29).
 DEFAULT_SCHEDULER_CONF = """
-actions: "allocate"
+actions: "enqueue, allocate, backfill"
 tiers:
 - plugins:
   - name: priority
   - name: gang
+  - name: conformance
+- plugins:
   - name: drf
-  - name: binpack
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
 """
 
 _FLAG_NAMES = (

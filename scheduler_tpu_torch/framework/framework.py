@@ -53,6 +53,7 @@ def open_session(cache, tiers: List[Tier], device=None) -> Session:
             ssn.pod_group_status[job.uid] = job.pod_group.status.clone()
     ssn.nodes = snapshot.nodes
     ssn.node_generation = getattr(snapshot, "node_generation", -1)
+    ssn.dirty_epoch = getattr(snapshot, "dirty_epoch", -1)
     ssn.queues = snapshot.queues
 
     for tier in tiers:
@@ -88,6 +89,12 @@ def close_session(ssn: Session) -> None:
         metrics.update_plugin_duration(plugin.name(), "OnSessionClose", time.monotonic() - start)
 
     JobUpdater(ssn).update_all()
+
+    # A cached engine outlives its session but must not keep the session's
+    # object graph alive (ops/engine_cache.py).
+    from scheduler_tpu_torch.ops import engine_cache
+
+    engine_cache.release_session(ssn)
 
     ssn.jobs = {}
     ssn.nodes = {}

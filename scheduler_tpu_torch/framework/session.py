@@ -17,6 +17,7 @@ contract and are preserved exactly:
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import logging
 from typing import Callable, Dict, List, Optional, TYPE_CHECKING
@@ -138,6 +139,8 @@ class Session:
         # The cache's node-spec generation captured AT SNAPSHOT TIME
         # (open_session); -1 = unknown (bare Session in tests).
         self.node_generation: int = -1
+        # The cache's dirty-set epoch captured at snapshot time; -1 = unknown.
+        self.dirty_epoch: int = -1
 
     # -- registration (Add*Fn) ----------------------------------------------
 
@@ -206,6 +209,46 @@ class Session:
 
     def add_device_queue_fair(self, name: str, builder: Callable) -> None:
         self.device_queue_fair[name] = builder
+
+    def plugin_config_signature(self) -> tuple:
+        """Hashable fingerprint of everything plugin-side that an engine
+        build depends on: the tier layout (plugin names, enable flags and
+        arguments, in order) and the registered callback and capability
+        sets.  Two sessions with equal signatures dispatch alike, so the
+        cross-cycle engine cache (``ops/engine_cache.py``) keys on it."""
+        tiers_sig = tuple(
+            tuple(
+                (
+                    p.name,
+                    tuple(
+                        (f.name, getattr(p, f.name))
+                        for f in dataclasses.fields(p)
+                        if f.name.startswith("enabled_")
+                    ),
+                    tuple(sorted(p.arguments.items())),
+                )
+                for p in tier.plugins
+            )
+            for tier in self.tiers
+        )
+        caps = (
+            tuple(sorted(self.job_order_fns)),
+            tuple(sorted(self.queue_order_fns)),
+            tuple(sorted(self.task_order_fns)),
+            tuple(sorted(self.predicate_fns)),
+            tuple(sorted(self.overused_fns)),
+            tuple(sorted(self.job_ready_fns)),
+            tuple(sorted(self.node_order_fns)),
+            tuple(sorted(self.node_map_fns)),
+            tuple(sorted(self.batch_node_order_fns)),
+            tuple(sorted(self.device_predicates)),
+            tuple(sorted(self.device_scorers)),
+            tuple(sorted(self.device_score_weights.items())),
+            tuple(sorted(self.device_weighted_plugins)),
+            tuple(sorted(self.device_dynamic_gates)),
+            tuple(sorted(self.device_queue_fair)),
+        )
+        return (tiers_sig, caps)
 
     # -- tiered dispatch ------------------------------------------------------
 

@@ -376,3 +376,122 @@ def make_reclaim_aftermath_cluster(scale: float = 1.0, thin_requests: int = 0,
     return SyntheticCluster(
         cache=cache, n_nodes=n_nodes, n_pods=len(pod_names), vocab=vocab, pod_names=pod_names
     )
+
+
+# -- churn: the scenario ladder's steady-state workloads ----------------------------
+
+def retire_jobs(cache, entries) -> None:
+    """Delete jobs' pods and PodGroups through the cache's event handlers
+    (the informer's delete path: bound pods free their nodes)."""
+    for pg, pods in entries:
+        for pod in pods:
+            cache.delete_pod(pod)
+        if pg is not None:
+            cache.delete_pod_group(pg)
+
+
+def config3_churn(n_nodes: int, n_pods: int, per_job: int = 100):
+    """BASELINE config 3 under churn, a copy of ``scripts/scenario_ladder.py``
+    ``_s3_build_churn``: ``(build, churn)``.  ``build()`` is
+    ``make_synthetic_cluster(n_nodes, n_pods, tasks_per_job=per_job)``'s
+    cache; ``churn(cache, rng, i)`` retires a tenth of the live gangs (drawn
+    by ``rng``) and adds as many new Inqueue gangs of ``per_job`` pods with
+    the flagship's request and priority pattern."""
+    alive = {"jobs": [], "gen": 0}
+
+    def add_gang(cache, g, base_idx):
+        pg = PodGroup(name=g, namespace="default", queue="default", min_member=per_job)
+        pg.status.phase = "Inqueue"
+        pg.creation_timestamp = KUBEMARK_TS0 + base_idx * 1e-6
+        cache.add_pod_group(pg)
+        pods = []
+        for t in range(per_job):
+            i = base_idx + t
+            pod = PodSpec(name=f"{g}-{t:04d}", namespace="default",
+                          containers=[mixed_request(i, False)],
+                          priority=(base_idx // per_job) % 10,
+                          annotations={GROUP_NAME_ANNOTATION: g})
+            pod.creation_timestamp = KUBEMARK_TS0 + i * 1e-6
+            cache.add_pod(pod)
+            pods.append(pod)
+        alive["jobs"].append((pg, pods))
+
+    def build():
+        cache = make_synthetic_cluster(n_nodes, n_pods, tasks_per_job=per_job).cache
+        for job in cache.jobs.values():
+            alive["jobs"].append((job.pod_group, [t.pod for t in job.tasks.values()]))
+        return cache
+
+    def churn(cache, rng, i):
+        del i
+        k = max(1, len(alive["jobs"]) // 10)
+        idx = rng.choice(len(alive["jobs"]), size=k, replace=False)
+        chosen = sorted(set(idx.tolist()), reverse=True)
+        retiring = [alive["jobs"][j] for j in chosen]
+        for j in chosen:
+            alive["jobs"][j] = alive["jobs"][-1]
+            alive["jobs"].pop()
+        retire_jobs(cache, retiring)
+        alive["gen"] += 1
+        for t in range(k):
+            add_gang(cache, f"churn-{alive['gen']:03d}-{t:04d}",
+                     n_pods + (alive["gen"] * k + t) * per_job)
+
+    return build, churn
+
+
+def config2_churn(n_nodes: int, n_pods: int):
+    """BASELINE config 2 under churn, a copy of ``scripts/scenario_ladder.py``
+    ``_s2_build_churn``: ``(build, churn)``.  ``build()`` makes the kubemark
+    density cluster (``make_kubemark_density_cluster``'s nodes and pods,
+    drawn from ``numpy.random.default_rng(0)`` in the ladder's order);
+    ``churn(cache, rng, i)`` deletes a tenth of the live sleep pods (drawn
+    by ``rng``) and adds as many new ones.  Here every shadow PodGroup takes
+    its pod's creation time (``pin_shadow_timestamps``), so two builds order
+    their jobs alike."""
+    import numpy as np
+
+    alive = {"pods": [], "gen": 0}
+
+    def make_pod(rng, name, idx):
+        pod = PodSpec(
+            name=name, namespace="d", scheduler_name="volcano",
+            containers=[{"cpu": float(rng.choice([100, 200, 500])),
+                         "memory": float(rng.choice([1, 2])) * 2**30}],
+            node_selector={"zone": f"z{idx % 4}"} if idx % 2 == 0 else {})
+        pod.creation_timestamp = KUBEMARK_TS0 + idx * 1e-6
+        return pod
+
+    def build():
+        rng = np.random.default_rng(0)
+        cache = SchedulerCache(vocab=ResourceVocabulary(), async_io=False)
+        cache.run()
+        cache.add_queue(Queue(name="default", weight=1))
+        for i in range(n_nodes):
+            cache.add_node(NodeSpec(name=f"hollow-{i:05d}", allocatable={
+                "cpu": 16000.0, "memory": 64 * GIB, "pods": 110},
+                labels={"zone": f"z{i % 4}"}))
+        for t in range(n_pods):
+            pod = make_pod(rng, f"sleep-{t:05d}", t)
+            cache.add_pod(pod)
+            alive["pods"].append(pod)
+        pin_shadow_timestamps(cache)
+        return cache
+
+    def churn(cache, rng, i):
+        del i
+        k = max(1, n_pods // 10)
+        idx = rng.choice(len(alive["pods"]), size=k, replace=False)
+        for j in sorted(set(idx.tolist()), reverse=True):
+            cache.delete_pod(alive["pods"][j])
+            alive["pods"][j] = alive["pods"][-1]
+            alive["pods"].pop()
+        base = alive["gen"] * n_pods + n_pods
+        alive["gen"] += 1
+        for t in range(k):
+            pod = make_pod(rng, f"sleep-g{alive['gen']}-{t:05d}", base + t)
+            cache.add_pod(pod)
+            alive["pods"].append(pod)
+        pin_shadow_timestamps(cache)
+
+    return build, churn

@@ -24,6 +24,7 @@ import torch
 from scheduler_tpu_torch.api.job_info import JobInfo, TaskInfo
 from scheduler_tpu_torch.api.types import TaskStatus
 from scheduler_tpu_torch.ops.predicates import base_static_mask
+from scheduler_tpu_torch.ops.transfer_cache import to_device
 
 
 def gang_ready_active(ssn) -> bool:
@@ -68,7 +69,7 @@ def build_static_tensors_device(ssn, st, n_bucket: int, t_bucket: int, device):
     contributions, padded with infeasible / zero-score rows and columns."""
     t_count = max(st.tasks.count, 1)
     n = st.nodes.count
-    mask = base_static_mask(t_count, torch.from_numpy(st.nodes.ready).to(device))
+    mask = base_static_mask(t_count, to_device(st.nodes.ready, device=device))
     for builder in ssn.device_predicates.values():
         contribution = builder(st, device)
         if contribution is None:

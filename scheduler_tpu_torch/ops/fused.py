@@ -76,6 +76,7 @@ from scheduler_tpu_torch.ops.device import (
     scale_columns,
 )
 from scheduler_tpu_torch.ops import step_kernel as _sk
+from scheduler_tpu_torch.ops.transfer_cache import to_device as _to_device
 from scheduler_tpu_torch.ops.layout import JOB_STATE, SIG_REQ, STATS
 from scheduler_tpu_torch.utils import phases
 from scheduler_tpu_torch.utils.scheduler_helper import (
@@ -133,6 +134,27 @@ def _queue_delta_enabled() -> bool:
     from scheduler_tpu_torch.utils.envflags import env_bool
 
     return env_bool("SCHEDULER_TORCH_QUEUE_DELTA", True)
+
+
+def _dirty_delta_enabled() -> bool:
+    """``SCHEDULER_TORCH_DIRTY_DELTA`` (default on): the engine cache's hit
+    path refreshes only the node rows the cache marked dirty; ``0`` diffs
+    the whole node tensors instead.  Both are exact (every marked row is
+    still compared by value), so this is an A/B lever and the test's way to
+    pin the full-diff path."""
+    from scheduler_tpu_torch.utils.envflags import env_bool
+
+    return env_bool("SCHEDULER_TORCH_DIRTY_DELTA", True)
+
+
+def _session_device(ssn) -> torch.device:
+    """The device a session's engines run on (``None``: CUDA)."""
+    dev = getattr(ssn, "device", None)
+    return torch.device("cuda" if dev is None else dev)
+
+
+# The dynamic node tensors a cache hit refreshes.
+_DYNAMIC = ("idle", "releasing", "task_count")
 
 
 def _cohort_chunks(device: torch.device) -> int:
@@ -666,16 +688,23 @@ class FusedAllocator:
     """Host shim: session -> tensors -> the mega kernel or the loop ->
     decoded rows.
 
-    Built fresh every cycle.  ``engine`` says which engine the JAX gates
-    chose; setting ``use_mega = False`` on an engine that chose the mega
-    kernel runs the loop on the same session instead (as the JAX tests do).
-    Execution is split into ``dispatch`` and a blocking ``readback``; the
-    mega kernel's dispatch does not block, so callers can overlap host work
-    with the device."""
+    Built once for a session and kept across cycles by the engine cache
+    (``ops/engine_cache.py``): ``update`` re-points a resident engine at a
+    new session whose layout token matches, refreshing only the dynamic
+    node state and proportion's queue rows.  ``engine`` says which engine
+    the JAX gates chose; setting ``use_mega = False`` on an engine that
+    chose the mega kernel runs the loop on the same session instead (as the
+    JAX tests do).  Execution is split into ``dispatch`` and a blocking
+    ``readback``; the mega kernel's dispatch does not block, so callers can
+    overlap host work with the device."""
 
     def __init__(self, ssn, jobs: Sequence[JobInfo], device=None) -> None:
         self.device = resolve_device(device)
         self.ssn = ssn
+        # Cross-cycle state (reset here, so a rebuild in place through
+        # ``update`` keeps nothing of the engine it replaces).
+        self._layout_token = None  # ops/engine_cache.py layout fingerprint
+        self._job_uids = None      # survives release(); _rebind restores jobs
         self._dev = None          # in-flight device codes (dispatch pending)
         self._dev_stats = None    # in-flight evidence counters
         self._stats_raw = None    # collected evidence of the last readback
@@ -873,6 +902,25 @@ class FusedAllocator:
         tb = bucket(max(t_total, 1))
         self.n_bucket = nb
         self._t_bucket = tb
+        # The engine cache's refresh state: the padded, scaled host copies of
+        # the dynamic node tensors a hit refreshes, their device twins (the
+        # mega kernel's; the loop reads the host copies) with an ownership
+        # flag each, the dirty-set epoch they mirror, and proportion's rows.
+        # A device twin starts as a shared transfer-cache resident (not
+        # owned); the first change replaces it with the engine's own copy,
+        # which later refreshes may write in place.
+        self._scale = scale
+        self._host_dyn = {
+            "idle": pad_rows(scale_columns(st.nodes.idle, scale), nb),
+            "releasing": pad_rows(scale_columns(st.nodes.releasing, scale), nb),
+            "task_count": pad_rows(st.nodes.task_count.astype(np.int32), nb),
+        }
+        self._dyn_dev: Optional[Dict[str, torch.Tensor]] = None
+        self._dyn_owned = {name: False for name in _DYNAMIC}
+        self._refresh_epoch = getattr(ssn, "dirty_epoch", -1)
+        self._node_index: Optional[dict] = None
+        self._mega_qpack = None   # (queue of each job lane, j_pad, jb) in multi-queue mode
+        self._ladder_ctx = None   # (request rows, counts, mins, qb) of the ladder's tables
 
         node_gate = pad_rows(st.nodes.ready, nb, fill=False)
         total = st.nodes.allocatable.sum(axis=0)
@@ -980,6 +1028,7 @@ class FusedAllocator:
             self._qfair = dict(fair.get("qfair", {}))
             self._build_qfair_ladder(policy, queue_deserved, queue_alloc, queues_idx,
                                      bucket(len(queue_names)), r, scale)
+        self._host_queue_fair = (queue_deserved, queue_alloc)
 
         # --- engines: the mega kernel and the loop with K1 --------------------
         binpack_only = (
@@ -1104,15 +1153,25 @@ class FusedAllocator:
         req_rows = np.zeros((qb, r), dtype=np.float32)
         uq, first = np.unique(q_of_task, return_index=True)
         req_rows[uq] = req_s[first]
+        self._ladder_ctx = (req_rows, counts,
+                            np.asarray(policy.scaled_mins(r), dtype=np.float32), qb)
+        self._ladder_host = self._ladder_tables(queue_deserved, queue_alloc)
+        self.qfair_ladder = True
+
+    def _ladder_tables(self, queue_deserved, queue_alloc):
+        """The ladder's rung tables from proportion's scaled deserved and
+        allocated rows ([Q, R]): a pure function of those rows and the
+        request classes the build admitted."""
+        from scheduler_tpu_torch.ops import qfair as _qf
+
+        req_rows, counts, mins_f32, qb = self._ladder_ctx
+        r = req_rows.shape[1]
         q_n = queue_deserved.shape[0]
         des = np.zeros((qb, r), dtype=np.float32)
         des[:q_n] = queue_deserved
         held = np.zeros((qb, r), dtype=np.float32)
         held[:q_n] = queue_alloc
-        self._ladder_host = _qf.build_ladder(
-            des, held, req_rows, counts, np.asarray(policy.scaled_mins(r), dtype=np.float32),
-            r)
-        self.qfair_ladder = True
+        return _qf.build_ladder(des, held, req_rows, counts, mins_f32, r)
 
     def _pack_mega_ladder(self):
         """The ladder in the mega kernel's table layout: rung on the rows
@@ -1128,15 +1187,14 @@ class FusedAllocator:
         return qf_share, qf_over
 
     def _node_state(self, scale) -> Dict[str, np.ndarray]:
-        """Padded, unit-scaled host node columns (device units)."""
+        """Padded, unit-scaled host node columns (device units): the
+        dynamic ones are the refresh state's host copies."""
         st, nb = self.st, self.n_bucket
-        return {
-            "idle": pad_rows(scale_columns(st.nodes.idle, scale), nb),
-            "releasing": pad_rows(scale_columns(st.nodes.releasing, scale), nb),
-            "task_count": pad_rows(st.nodes.task_count.astype(np.int32), nb),
-            "allocatable": pad_rows(scale_columns(st.nodes.allocatable, scale), nb),
-            "pods_limit": pad_rows(st.nodes.pods_limit.astype(np.int32), nb),
-        }
+        return dict(
+            self._host_dyn,
+            allocatable=pad_rows(scale_columns(st.nodes.allocatable, scale), nb),
+            pods_limit=pad_rows(st.nodes.pods_limit.astype(np.int32), nb),
+        )
 
     def _static_signature_ids(self, ssn) -> Optional[np.ndarray]:
         """Dense per-task STATIC-signature ids: tasks sharing (selector row,
@@ -1239,15 +1297,18 @@ class FusedAllocator:
         dev = self.device
 
         def to_dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return _to_device(a, device=dev)
 
         t_rows = _mk.task_table_rows(tb)
         run2 = np.ones(t_rows * 128, dtype=np.int32)
         run2[:tb] = run_host
         # The idle and releasing ledgers at the same column scale
-        # (scheduler_tpu/ops/fused.py:1587, :2041-2044).
+        # (scheduler_tpu/ops/fused.py:1587, :2041-2044), from the dynamic
+        # node tensors' device twins (shared residents until a refresh
+        # changes them).
+        self._dyn_dev = {name: to_dev(state[name]) for name in _DYNAMIC}
         ns0, rel0 = _mk.build_node_ledgers(
-            to_dev(state["idle"]), to_dev(state["task_count"]), to_dev(state["releasing"]), nb,
+            self._dyn_dev["idle"], self._dyn_dev["task_count"], self._dyn_dev["releasing"], nb,
             r, self.has_releasing)
         alloc_t = torch.zeros((8, nb), dtype=torch.float32, device=dev)
         alloc_t[:r] = to_dev(state["allocatable"]).T
@@ -1283,6 +1344,7 @@ class FusedAllocator:
             jq_des = jq_alloc0 = zeros8
         else:
             jq = queues_idx[:jb].astype(np.int32)
+            self._mega_qpack = (jq, j_pad, jb)
             jqueue = _mk.pack_lane_i32(jq, j_pad)
             jq_des = np.zeros((8, j_pad), dtype=np.float32)
             jq_des[:r, :jb] = np.asarray(queue_deserved, dtype=np.float32)[jq].T
@@ -1350,6 +1412,376 @@ class FusedAllocator:
             mesh=None,
         )
         self.use_mega = True
+
+    # -- the cross-cycle half (ops/engine_cache.py's hit path) ----------------
+
+    def update(self, ssn, jobs: Sequence[JobInfo], token, eager_dispatch: bool = False) -> str:
+        """Re-point this resident engine at a new session
+        (``scheduler_tpu/ops/fused.py:2142-2198``).
+
+        When the session's layout token equals the one this engine was built
+        from, only the dynamic node tensors (idle, releasing, task counts:
+        compared by value and written where they changed) and proportion's
+        queue rows refresh, the tensors derived from them are rebuilt (K2's
+        node ledgers, its queue lanes and the ladder's tables, the loop's
+        node and queue operands), and the host bookkeeping rebinds to the
+        new session's job clones.  Any mismatch, or any failure on the delta
+        path (logged), rebuilds the engine in place.  With
+        ``eager_dispatch`` the engine starts its run before the rebind: the
+        mega kernel's launch does not block, so the rebind's host time
+        overlaps the kernel and lands in the ``overlap_host`` phase; the
+        loop engines' dispatch runs the whole loop first, so their overlap
+        is 0.  Returns ``"hit"`` or ``"rebuild"``."""
+        import time as _time
+
+        try:
+            delta_ok = (
+                token is not None
+                and token == self._layout_token
+                and self._delta_compatible(ssn)
+                and self._refresh_dynamic(ssn)
+            )
+        except Exception:
+            logger.exception("engine delta update failed; rebuilding")
+            delta_ok = False
+        if not delta_ok:
+            self.__init__(ssn, jobs, device=_session_device(ssn))
+            self._layout_token = token
+            return "rebuild"
+        try:
+            self._dev = self._dev_stats = self._stats_raw = self._encoded = None
+            self._events = None
+            self.kernel_ms = self.loop_ms = None
+            if eager_dispatch:
+                # The dispatch reads only the staged operands, never the jobs.
+                self.dispatch()
+                t0 = _time.perf_counter()
+                self._rebind(ssn)
+                overlap = _time.perf_counter() - t0 if self.use_mega else 0.0
+                phases.add("overlap_host", overlap)
+            else:
+                self._rebind(ssn)
+        except Exception:
+            logger.exception("engine rebind failed; rebuilding")
+            self.__init__(ssn, jobs, device=_session_device(ssn))
+            self._layout_token = token
+            return "rebuild"
+        return "hit"
+
+    def _rebind(self, ssn) -> None:
+        """Point the host bookkeeping at the new session's clones.  The
+        layout token guarantees uid-for-uid identical job stores, so the
+        pending row indices and every tensor derived from them stay valid;
+        the task tensors' lazy columns gather from the new stores."""
+        uids = self._job_uids if self.jobs is None else [j.uid for j in self.jobs]
+        self.ssn = ssn
+        self.jobs = [ssn.jobs[u] for u in uids]
+        self._job_uids = uids
+        tasks = self.st.tasks
+        tasks._uid_fragments = [(job.store, rows) for job, rows in zip(self.jobs, self.job_rows)]
+        tasks._cores = tasks._uids = tasks._index = None
+
+    def release(self) -> None:
+        """Drop every reference into the closing session: the session, its
+        job clones and the task objects the task tensors gather from.  A
+        resident engine keeps its tensors and host layout only; ``_rebind``
+        restores the rest on the next hit."""
+        if self.jobs is not None:
+            self._job_uids = [j.uid for j in self.jobs]
+        self.ssn = None
+        self.jobs = None
+        tasks = self.st.tasks
+        tasks._uid_fragments = None
+        tasks._cores = tasks._uids = tasks._index = None
+
+    def _delta_compatible(self, ssn) -> bool:
+        """Cheap structural re-checks guarding the delta path
+        (``scheduler_tpu/ops/fused.py:2220-2324`` but the mesh, LP, signature
+        compression, eviction, backfill and tenant regimes, which this
+        package does not carry).  The cache key and the layout token pin all
+        of them in the cached flow; these re-checks cover direct callers."""
+        if _session_device(ssn) != self.device:
+            return False
+        if self.weights != score_weights(ssn):
+            return False
+        comparators = tuple(
+            name
+            for tier in ssn.tiers
+            for plugin in tier.plugins
+            if plugin.job_order_enabled() and (name := plugin.name) in ssn.job_order_fns
+        )
+        if comparators != self.comparators:
+            return False
+        queue_comparators = tuple(
+            name
+            for tier in ssn.tiers
+            for plugin in tier.plugins
+            if plugin.queue_order_enabled()
+            and (name := plugin.name) in ssn.queue_order_fns
+        )
+        if queue_comparators != self.queue_comparators:
+            return False
+        overused = any(
+            plugin.name in ssn.overused_fns
+            for tier in ssn.tiers
+            for plugin in tier.plugins
+        )
+        if overused != self.overused_gate:
+            return False
+        if self.use_static != bool(ssn.device_predicates or ssn.device_scorers):
+            return False
+        if self.enforce_pod_count != ("pod_count" in ssn.device_dynamic_gates):
+            return False
+        if self.queue_delta != _queue_delta_enabled():
+            return False
+        from scheduler_tpu_torch.ops.qfair import qfair_flavor
+
+        if self.qfair_flavor != qfair_flavor():
+            return False
+        queue_names = sorted(
+            ssn.queues, key=lambda q: (ssn.queues[q].creation_timestamp, q)
+        )
+        return queue_names == self.queue_uids
+
+    def _refresh_dynamic(self, ssn) -> bool:
+        """Bring the dynamic node tensors and proportion's queue rows up to
+        the new session (``scheduler_tpu/ops/fused.py:2326-2409``).  Returns
+        False when the refresh cannot keep the engine's program: releasing
+        capacity appeared or vanished (it selects K2's releasing mode and the
+        loop's releasing arm), in which case the caller rebuilds.
+
+        Two node paths: when the cache names the nodes dirtied after this
+        engine's last refresh, only those rows are gathered, compared and
+        written (the steady state: a few rows of thousands); otherwise (the
+        ``SCHEDULER_TORCH_DIRTY_DELTA=0`` switch, an unknown epoch, a map
+        overflow, a releasing session, or a dirty set wide enough that the
+        whole-tensor compare wins) the whole tensors are compared.  Both are
+        exact.  The ``dirty`` note records which ran."""
+        led = getattr(ssn.nodes, "ledger", None)
+        if led is None:
+            return False
+        r = int(self._scale.shape[0])
+        if led.r < r:
+            led.widen(r)
+        order = led.sorted_rows()
+        if len(order) != len(self.node_names):
+            return False  # the key pins the node count
+        scale = self._scale
+        evidence = {"mode": "full", "dirty_nodes": -1, "rows_scattered": -1}
+        dirty = self._dirty_node_set(ssn)
+        handled = False
+        node_changed = False
+        if dirty is not None:
+            evidence.update(mode="sparse", dirty_nodes=len(dirty), rows_scattered=0)
+            handled, node_changed = self._refresh_nodes_sparse(led, dirty, r, evidence)
+        if not handled:
+            evidence.update(mode="full", dirty_nodes=-1, rows_scattered=-1)
+            idle = led.idle[order][:, :r]
+            releasing = led.releasing[order][:, :r]
+            task_count = led.task_count[order].astype(np.int32)
+            if bool(np.any(releasing)) != self.has_releasing:
+                return False
+            nb = self.n_bucket
+            node_changed = self._refresh_buffer(
+                "idle", pad_rows(scale_columns(idle, scale), nb))
+            node_changed |= self._refresh_buffer(
+                "releasing", pad_rows(scale_columns(releasing, scale), nb))
+            node_changed |= self._refresh_buffer("task_count", pad_rows(task_count, nb))
+            # The host snapshot keeps serving readers after the build.
+            self.st.nodes.idle = idle
+            self.st.nodes.releasing = releasing
+            self.st.nodes.used = led.used[order][:, :r]
+            self.st.nodes.task_count = task_count
+        phases.note("dirty", evidence)
+        self._refresh_epoch = getattr(ssn, "dirty_epoch", -1)
+
+        queue_changed = False
+        if self.queue_comparators or self.overused_gate:
+            builder = ssn.device_queue_fair.get("proportion")
+            if builder is None:
+                return False
+            # Allocated-at-open moves with the whole cluster, not only with
+            # this engine's jobs: always re-solve ([Q, R] rows).
+            fair = builder(self.queue_uids)
+            self._qfair = dict(fair.get("qfair", {}))
+            qd_old, qa_old = self._host_queue_fair
+            qd = np.zeros_like(qd_old)
+            qa = np.zeros_like(qa_old)
+            qd[:] = scale_columns(fair["deserved"], scale)
+            qa[:] = scale_columns(fair["allocated"], scale)
+            if not (np.array_equal(qd, qd_old) and np.array_equal(qa, qa_old)):
+                self._host_queue_fair = (qd, qa)
+                queue_changed = True
+        if node_changed or queue_changed:
+            self._rewire_args(node_changed, queue_changed)
+        return True
+
+    # Dirty sets wider than nodes / RATIO take the whole-tensor compare.
+    SPARSE_DIRTY_RATIO = 8
+
+    def _dirty_node_set(self, ssn):
+        """Node names dirtied after this engine's last refresh, or ``None``
+        where the sparse path must not run: the switch off, a releasing
+        session, an unknown epoch, a map overflow, or a dirty set wider than
+        nodes / ``SPARSE_DIRTY_RATIO``."""
+        if not _dirty_delta_enabled() or self.has_releasing:
+            return None
+        if self._refresh_epoch < 0 or getattr(ssn, "dirty_epoch", -1) < 0:
+            return None
+        fn = getattr(getattr(ssn, "cache", None), "dirty_nodes_since", None)
+        if fn is None:
+            return None
+        dirty = fn(self._refresh_epoch)
+        if dirty is None or len(dirty) * self.SPARSE_DIRTY_RATIO > len(self.node_names):
+            return None
+        return dirty
+
+    def _refresh_nodes_sparse(self, led, dirty, r: int, evidence: dict):
+        """Refresh exactly the dirtied node rows.  Returns ``(handled,
+        node_changed)``; ``handled`` False sends the caller to the
+        whole-tensor path (releasing capacity appeared: only that path's
+        check may decide the rebuild)."""
+        if not dirty:
+            return True, False
+        index = self._node_index
+        if index is None:
+            index = self._node_index = {name: i for i, name in enumerate(self.node_names)}
+        eng_rows, led_rows = [], []
+        for name in sorted(dirty):  # deterministic write order
+            i = index.get(name)
+            row = led.row_of.get(name)
+            if i is None or row is None:
+                # A node added or removed around this snapshot moved the node
+                # generation and with it the layout token: the caller
+                # rebuilds this cycle or the next.
+                continue
+            eng_rows.append(i)
+            led_rows.append(row)
+        if not eng_rows:
+            return True, False
+        eng = np.asarray(eng_rows, dtype=np.int64)
+        rows = np.asarray(led_rows, dtype=np.int64)
+        releasing = led.releasing[rows][:, :r]
+        if np.any(releasing):
+            return False, False
+        scale = self._scale
+        idle = led.idle[rows][:, :r]
+        task_count = led.task_count[rows].astype(np.int32)
+        changed = self._refresh_rows("idle", eng, scale_columns(idle, scale), evidence)
+        changed |= self._refresh_rows(
+            "releasing", eng, scale_columns(releasing, scale), evidence)
+        changed |= self._refresh_rows("task_count", eng, task_count, evidence)
+        # Engine row i is sorted position i on both sides.
+        self.st.nodes.idle[eng] = idle
+        self.st.nodes.releasing[eng] = releasing
+        self.st.nodes.used[eng] = led.used[rows][:, :r]
+        self.st.nodes.task_count[eng] = task_count
+        return True, changed
+
+    def _refresh_rows(self, name: str, eng_rows: np.ndarray, new_vals, evidence: dict) -> bool:
+        """Sparse twin of ``_refresh_buffer``: compare only the dirty rows
+        and write the changed ones, into the host copy in place and into the
+        device twin."""
+        host = self._host_dyn[name]
+        new_vals = np.asarray(new_vals, dtype=host.dtype)
+        diff = host[eng_rows] != new_vals
+        changed = np.nonzero(diff.any(axis=1) if new_vals.ndim == 2 else diff)[0]
+        if changed.shape[0] == 0:
+            return False
+        rows = eng_rows[changed]
+        host[rows] = new_vals[changed]
+        evidence["rows_scattered"] += int(rows.shape[0])
+        self._write_device_rows(name, rows)
+        return True
+
+    def _refresh_buffer(self, name: str, new_host: np.ndarray) -> bool:
+        """Bring one dynamic node tensor up to ``new_host``.  Unchanged
+        content keeps everything (the steady cycle); otherwise the changed
+        rows are written into the device twin."""
+        old_host = self._host_dyn[name]
+        if np.array_equal(old_host, new_host):
+            return False
+        diff = new_host != old_host
+        rows = np.nonzero(diff.any(axis=1) if new_host.ndim == 2 else diff)[0]
+        self._host_dyn[name] = new_host
+        self._write_device_rows(name, rows)
+        return True
+
+    def _write_device_rows(self, name: str, rows: np.ndarray) -> None:
+        """Write host rows ``rows`` of ``name`` into its device twin (the
+        mega kernel's; the loop engines read the host copy).  In place only
+        into a twin the engine owns, and only for a few rows; a shared
+        transfer-cache resident, or wide churn, gets a new copy of the whole
+        host tensor, which the engine owns from then on.  The copy is
+        synchronous and the in-place write is ordered on the stream after
+        the engine's previous launch, which reads the twin."""
+        if self._dyn_dev is None:
+            return
+        host = self._host_dyn[name]
+        dev = self._dyn_dev[name]
+        if self._dyn_owned[name] and rows.shape[0] * 4 <= host.shape[0]:
+            idx = torch.as_tensor(rows, dtype=torch.int64, device=dev.device)
+            vals = torch.from_numpy(np.ascontiguousarray(host[rows])).to(dev.device)
+            dev.index_copy_(0, idx, vals)
+        else:
+            self._dyn_dev[name] = torch.from_numpy(host.copy()).to(dev.device)
+            self._dyn_owned[name] = True
+
+    def _rewire_args(self, node_changed: bool, queue_changed: bool) -> None:
+        """Rebuild what derives from the refreshed rows in every operand set
+        this engine stages: the loop's node and queue operands (and the
+        ladder's tables), K2's node ledgers, queue lanes and ladder
+        tables."""
+        r = int(self._scale.shape[0])
+        qd, qa = self._host_queue_fair
+        if queue_changed:
+            parts = list(self._args_parts)
+            parts[11], parts[12] = qd, qa
+            self._args_parts = tuple(parts)
+            if self.qfair_ladder:
+                self._ladder_host = self._ladder_tables(qd, qa)
+        if self._args is not None:
+            a = list(self._args)
+            if node_changed:
+                a[0] = np.ascontiguousarray(self._host_dyn["idle"], dtype=np.float32)
+                a[1] = np.ascontiguousarray(self._host_dyn["releasing"], dtype=np.float32)
+                a[2] = self._host_dyn["task_count"]
+            if queue_changed:
+                a[21], a[22] = self._padded_queue_rows(qd, qa)
+                if self.qfair_ladder:
+                    qf_share, qf_over = self._ladder_host
+                    a[26] = np.ascontiguousarray(qf_share, dtype=np.float32)
+                    a[27] = np.ascontiguousarray(qf_over, dtype=bool)
+            self._args = tuple(a)
+        if self.use_mega:
+            m = list(self._mega_args)
+            if node_changed:
+                m[0], m[2] = _mk.build_node_ledgers(
+                    self._dyn_dev["idle"], self._dyn_dev["task_count"],
+                    self._dyn_dev["releasing"], self.n_bucket, r, self.has_releasing)
+            if queue_changed and self._mega_qpack is not None:
+                jq, j_pad, jb = self._mega_qpack
+                jq_des = np.zeros((8, j_pad), dtype=np.float32)
+                jq_des[:r, :jb] = np.asarray(qd, dtype=np.float32)[jq].T
+                jq_alloc0 = np.zeros((8, j_pad), dtype=np.float32)
+                jq_alloc0[:r, :jb] = np.asarray(qa, dtype=np.float32)[jq].T
+                m[21] = _to_device(jq_des, device=self.device)
+                m[22] = _to_device(jq_alloc0, device=self.device)
+                if self._mega_kw.get("qfair_ladder"):
+                    qf_share, qf_over = self._pack_mega_ladder()
+                    m[23] = _to_device(qf_share, device=self.device)
+                    m[24] = _to_device(qf_over, device=self.device)
+            self._mega_args = tuple(m)
+
+    def _padded_queue_rows(self, queue_deserved, queue_alloc):
+        """The loop's float32 [qb, R] deserved and allocated-at-open rows."""
+        qb = bucket(max(len(self.queue_uids), 1))
+        q_n = queue_deserved.shape[0]
+        q_des = np.zeros((qb, queue_deserved.shape[1]), dtype=np.float32)
+        q_des[:q_n] = queue_deserved
+        q_alloc = np.zeros_like(q_des)
+        q_alloc[:q_n] = queue_alloc
+        return q_des, q_alloc
 
     # -- capability probe ----------------------------------------------------
 
@@ -1420,8 +1852,7 @@ class FusedAllocator:
             state = self._node_state(scale)
 
             def to_dev(a, dtype=None):
-                a = np.ascontiguousarray(a if dtype is None else np.asarray(a, dtype=dtype))
-                return torch.from_numpy(a).to(dev)
+                return _to_device(a, dtype, device=dev)
 
             def f32(a):
                 return np.ascontiguousarray(a, dtype=np.float32)
@@ -1441,10 +1872,7 @@ class FusedAllocator:
             queue_rank = np.arange(qb, dtype=np.int32)
             queue_has = np.zeros(qb, dtype=bool)
             queue_has[:q_n] = True
-            q_des = np.zeros((qb, queue_deserved.shape[1]), dtype=np.float32)
-            q_des[:q_n] = queue_deserved
-            q_alloc = np.zeros_like(q_des)
-            q_alloc[:q_n] = queue_alloc
+            q_des, q_alloc = self._padded_queue_rows(queue_deserved, queue_alloc)
             if self._ladder_host is not None:
                 qf_share, qf_over = self._ladder_host
             else:

@@ -249,8 +249,18 @@ class PredicatesPlugin(Plugin):
         return mask
 
     def _assemble_signature_mask(self, ssn, st, pressure_checks, device):
+        """[T, N] mask rows gathered from one row a signature.  The rows are
+        memoized across cycles in the owning cache's ``static_mask_cache``
+        (``scheduler_tpu/plugins/predicates.py:316-345``), keyed by the node
+        generation, the node count, the label and taint widths, the pressure
+        checks and the device: a cycle builds with the kernel only the
+        signatures the memo lacks, and none at all when it has them all.  A
+        session of more than 4,096 signatures bypasses the memo; the memo
+        starts over past 16,384 entries."""
         n = st.nodes.count
-        codes, sel, unk, tol = signature_rows(st)
+        l = st.tasks.selector.shape[1]
+        k = st.tasks.tolerated.shape[1]
+        codes, uniq = signature_codes(st)
 
         pressure_ok = None
         if pressure_checks:
@@ -262,20 +272,45 @@ class PredicatesPlugin(Plugin):
                 ):
                     pressure_ok[j] = False
 
-        rows = self._compute_sig_rows(st, sel, unk, tol, pressure_ok, device)
-        return rows[torch.as_tensor(codes.astype(np.int64), device=device)]
+        def rows_for(uniq_subset):
+            sel, unk, tol = split_signatures(uniq_subset, l, k)
+            return self._compute_sig_rows(st, sel, unk, tol, pressure_ok, device)
+
+        def gather(rows, idx):
+            return rows[torch.as_tensor(idx.astype(np.int64), device=device)]
+
+        holder = getattr(getattr(ssn, "cache", None), "static_mask_cache", None)
+        snap_gen = getattr(ssn, "node_generation", -1)
+        if holder is None or snap_gen < 0 or uniq.shape[0] > 4096:
+            return gather(rows_for(uniq), codes)
+
+        key = (snap_gen, n, l, k, tuple(pressure_checks), str(torch.device(device)))
+        entry = holder.get("predicates")
+        if entry is None or entry["key"] != key or len(entry["index"]) > 16384:
+            entry = {"key": key, "index": {}, "buffer": None}
+            holder["predicates"] = entry
+        sig_bytes = [uniq[i].tobytes() for i in range(uniq.shape[0])]
+        missing = [i for i, b in enumerate(sig_bytes) if b not in entry["index"]]
+        if missing:
+            new_rows = rows_for(uniq[missing])
+            base = 0 if entry["buffer"] is None else entry["buffer"].shape[0]
+            for off, i in enumerate(missing):
+                entry["index"][sig_bytes[i]] = base + off
+            entry["buffer"] = (
+                new_rows if entry["buffer"] is None
+                else torch.cat([entry["buffer"], new_rows], dim=0)
+            )
+        rows_idx = np.asarray([entry["index"][b] for b in sig_bytes], dtype=np.int64)
+        return gather(entry["buffer"], rows_idx[codes])
 
 
-def signature_rows(st):
-    """The static-predicate kernel's task-side operands at signature width:
-    ``(codes [T], selector [S, L], unknown [S], tolerated [S, K])``, one row
-    per distinct (selector, tolerations, unknown-flag) byte row of the
-    session's tasks, ``codes`` mapping each task to its row."""
+def signature_codes(st):
+    """``(codes [T], uniq uint8 [S, L + K + 1])``: one byte row per distinct
+    (selector, tolerations, unknown-flag) row of the session's tasks,
+    ``codes`` mapping each task to its row."""
     from scheduler_tpu_torch.api.job_info import unique_row_codes
 
     t = st.tasks.count
-    l = st.tasks.selector.shape[1]
-    k = st.tasks.tolerated.shape[1]
     sig_inputs = np.concatenate(
         [
             st.tasks.selector[:t],
@@ -284,9 +319,24 @@ def signature_rows(st):
         ],
         axis=1,
     ).astype(np.uint8)
-    codes, uniq = unique_row_codes(sig_inputs)
+    return unique_row_codes(sig_inputs)
+
+
+def signature_rows(st):
+    """The static-predicate kernel's task-side operands at signature width:
+    ``(codes [T], selector [S, L], unknown [S], tolerated [S, K])``, one row
+    per distinct (selector, tolerations, unknown-flag) byte row of the
+    session's tasks, ``codes`` mapping each task to its row."""
+    codes, uniq = signature_codes(st)
+    return (codes,) + split_signatures(
+        uniq, st.tasks.selector.shape[1], st.tasks.tolerated.shape[1])
+
+
+def split_signatures(uniq, l, k):
+    """Signature byte rows -> ``(selector [S, L], unknown [S], tolerated
+    [S, K])`` as bool."""
     sub = uniq.astype(bool)
-    return codes, sub[:, :l], sub[:, l + k], sub[:, l : l + k]
+    return sub[:, :l], sub[:, l + k], sub[:, l : l + k]
 
 
 def _affinity_only_pod(pod: PodSpec) -> PodSpec:

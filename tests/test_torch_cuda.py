@@ -647,3 +647,115 @@ def test_xla_arm_on_the_card_matches_the_cpu(case):
     assert int(placed.sum()) > 0
     if "releas" in case or "reclaim" in case:
         assert int((codes["cuda"] <= fused_mod._PIPE_BASE).sum()) > 0
+
+
+# -- the resident engine across cycles (ops/engine_cache.py) ------------------------
+
+HIT_CASES = {
+    # Contended flagship gangs (K2's cursor mode): some gangs never fit.
+    "flagship_8_x_600": (lambda: make_synthetic_cluster(8, 600, tasks_per_job=10).cache,
+                         smoke.FLAGSHIP_CONF),
+    # Config 2 past its pod room under the default tiers (K3, then K2's
+    # multi-queue mode with static rows): 320 pods stay pending.
+    "config2_default_tiers_8_x_1200": (lambda: make_kubemark_density_cluster(8, 1200).cache,
+                                       smoke.DEFAULT_TIERS_CONF),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HIT_CASES))
+def test_engine_cache_hit_codes_equal_a_cold_engine(case):
+    """Two cycles (miss, rebuild), one bound pod completes, and the third
+    session hits the resident engine with one node row refreshed in place:
+    the hit's K2 codes and stats, launched eagerly, equal those of an
+    engine built cold on the same session."""
+    card = _card()
+    from scheduler_tpu_torch.actions.allocate import collect_candidates
+    from scheduler_tpu_torch.conf import parse_scheduler_conf
+    from scheduler_tpu_torch.framework import close_session, get_action, open_session
+    from scheduler_tpu_torch.ops import engine_cache
+    from scheduler_tpu_torch.utils import phases
+
+    build, conf_text = HIT_CASES[case]
+    cache = build()
+    tiers = parse_scheduler_conf(conf_text).tiers
+    engine_cache.clear()
+    outcomes = []
+    for _ in range(2):
+        phases.begin()
+        ssn = open_session(cache, tiers, device=card)
+        get_action("allocate").execute(ssn)
+        close_session(ssn)
+        outcomes.append(phases.take_notes()["engine_cache"])
+        phases.end()
+    assert outcomes == ["miss", "rebuild"]
+    bound = min((t for job in cache.jobs.values() for t in job.tasks.values() if t.node_name),
+                key=lambda t: t.name)
+    cache.delete_pod(bound.pod)
+    phases.begin()
+    ssn = open_session(cache, tiers, device=card)
+    cands = collect_candidates(ssn)
+    launches = mk.launches
+    engine, status = engine_cache.get_engine(ssn, cands, eager_dispatch=True)
+    dirty = phases.take_notes()["dirty"]
+    phases.end()
+    assert status == "hit" and engine.use_mega and mk.launches == launches + 1
+    assert dirty["mode"] == "sparse" and dirty["rows_scattered"] >= 1
+    codes = engine.readback().copy()
+    stats = engine._stats_raw.copy()
+    cold = fused_mod.FusedAllocator(ssn, cands, device=card)
+    np.testing.assert_array_equal(codes, cold.readback())
+    np.testing.assert_array_equal(stats, cold._stats_raw)
+    close_session(ssn)
+    engine_cache.clear()
+
+
+@pytest.mark.cuda
+def test_refreshed_owned_buffer_equals_a_fresh_upload():
+    """On the card: the first refresh of a shared transfer-cache resident
+    replaces it with the engine's own copy (the resident keeps its bytes),
+    the next writes that copy in place, and each equals a fresh upload of
+    the refreshed host rows; K2's node ledger follows."""
+    card = _card()
+    from scheduler_tpu_torch.framework import close_session
+    from scheduler_tpu_torch.ops import transfer_cache
+
+    transfer_cache.clear()
+    cache = make_synthetic_cluster(8, 60, tasks_per_job=6).cache
+    ssn, eng = smoke.engine_for(cache, smoke.FLAGSHIP_CONF, card)
+    shared = eng._dyn_dev["idle"]
+    before = shared.clone()
+    close_session(ssn)
+    for node, cpu_used in (("hn-000003", 500.0), ("hn-000005", 250.0)):
+        ssn, _ = smoke.engine_for(cache, smoke.FLAGSHIP_CONF, card)
+        led = ssn.nodes.ledger
+        led.idle[led.row_of[node], 0] -= cpu_used
+        eng._refresh_epoch = -1
+        assert eng._refresh_dynamic(ssn)
+        close_session(ssn)
+        owned = eng._dyn_dev["idle"]
+        assert eng._dyn_owned["idle"] and owned is not shared and owned.is_cuda
+        assert torch.equal(owned.cpu(), torch.from_numpy(eng._host_dyn["idle"].copy()))
+        assert torch.equal(eng._mega_args[0][0, :8].cpu(), owned[:8, 0].cpu())
+        assert torch.equal(shared, before)
+    assert float(owned[5, 0]) == float(before[5, 0]) - 250.0
+    assert float(owned[3, 0]) == float(before[3, 0])
+
+
+@pytest.mark.cuda
+def test_static_mask_memo_skips_the_kernel():
+    """A second build on the same cluster (the same node generation) finds
+    every signature row in the cache's memo: K3 launches zero times and the
+    static rows are the first build's."""
+    card = _card()
+    cache = make_kubemark_density_cluster(64, 600).cache
+    launches = pk.launches
+    _, first = smoke.engine_for(cache, smoke.CONFIG2_CONF, card)
+    assert pk.launches > launches
+    launches = pk.launches
+    _, second = smoke.engine_for(cache, smoke.CONFIG2_CONF, card)
+    assert pk.launches == launches
+    names = dict(zip(mk.OPERAND_NAMES, first._mega_args))
+    again = dict(zip(mk.OPERAND_NAMES, second._mega_args))
+    assert torch.equal(names["smask"], again["smask"])
+    assert torch.equal(names["sscore"], again["sscore"])
