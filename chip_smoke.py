@@ -10,11 +10,12 @@ What it does, one JSON line per phase:
 
 1. device: the card, the CUDA version, and the one build of every kernel of
    the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path, thirteen times, each on a freshly built cluster that no other
+2. main_path, sixteen times, each on a freshly built cluster that no other
    session has touched, through ``Scheduler.run_once`` on the card, with
    every kernel's launch count set to 0 just before and read just after:
-   a to k a cold cycle each (a scheduler's first cycle after start-up), l
-   and m the cycles after it (the engine resident across cycles):
+   a to k and n to o a cold cycle each (a scheduler's first cycle after
+   start-up), l and m the cycles after it (the engine resident across
+   cycles):
    a. BASELINE config 2, the kubemark density scenario (priority, gang, drf,
       predicates, nodeorder; 1,000 nodes x 5,000 bare pods, half of them
       selecting a zone): ``static_predicate_mask`` builds the selector mask
@@ -116,12 +117,39 @@ What it does, one JSON line per phase:
       selector honoured; later, per cycle, binds and task statuses equal to
       a cold twin (``SCHEDULER_TORCH_ENGINE_CACHE=0``, a child beside the
       untimed phases).
+   n. the production conf (``deploy/scheduler-conf.yaml``: enqueue,
+      reclaim, allocate, backfill, preempt over the JAX default tiers) on
+      b's cluster: the static rows (5 bytes x 131,072 x 16,384) are far
+      past the fused limit, so allocate takes the device route, the per-pop
+      engine (``ops/allocator.py``): K3 builds the predicates' mask rows on
+      the card and ``place_scan`` runs once a job pop.  Checks: the route,
+      one ``place_scan`` launch a pop, K3, no node overcommitted, every gang
+      whole or unbound.  Prints pops, tasks scanned, the scan's summed event
+      ms and reclaim's and preempt's phase seconds.  Then, after the timed
+      cycle, ``place_scan`` replays the first ``SCAN_CHECK_POPS`` pops from
+      the engine's starting node state against its plain version (codes and
+      node state bitwise, codes equal to the main path's) and is timed on
+      the first.
+   n'. f's cluster with ``SCHEDULER_TORCH_FUSED_STATIC_LIMIT=1``: the
+      device route on the default tiers.  Checks: the route, config 2's;
+      later the binds equal to the host loop's (the twin f is held to).
+   o. BASELINE config 4 before its reclaim (``harness.make_reclaim_cluster``)
+      through ``reclaim, allocate`` over priority, gang, proportion.
+      Checks: evictions only from the queue overused when reclaim began, no
+      gang below its floor, on every node the pipelined requests within its
+      victims' (``reclaim_invariants``), allocate's one ``mega_allocate``
+      launch; later the evictions in order, binds and statuses equal to the
+      same cycle on the CPU (a child beside the untimed phases).
    Each prints the phase seconds and the engine's time from CUDA events
    (the kernel's; for i and k the XLA arm's steps summed, and per step);
    d, f, i, j and k also the water-fill's evidence and why the ladder
-   declined.  d to m each run in a child process of the script, after one
+   declined.  d to o each run in a child process of the script, after one
    config-1 cycle there (``--child``, ``child_main``), so that the garbage
    collection at the head of the cycle walks that path's cluster alone.
+   Then the preempt storms (``STORM_CASES``: ``tests/test_evict_parity.py``'s
+   storm clusters, ``storm_spec``, through reclaim and preempt), in a child,
+   each on the card and on the CPU: evictions in order, statuses and binds
+   equal.
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
    on the same CUDA tensors, bitwise.  ``mega_allocate`` (codes and stats):
    BASELINE config 1, a 1,000 x 10,000 flagship session, a case with
@@ -164,7 +192,8 @@ What it does, one JSON line per phase:
 
 Then the ``xla_step_arm`` line (the XLA arm on paths i and k: steps, time a
 step, its bound by bytes), the ``kernels`` line (with each kernel's launches
-on every path that runs it, l's and m's included), the card's name and power
+on every path that runs it, l's to o's included, and ``place_scan``'s entry
+below the TPU kernels' from path n), the card's name and power
 limit as nvidia-smi prints them, and as the last line ``{"ok": true,
 "device": {...}}``.  Any
 failure exits non-zero; with no CUDA device, or without the port beside
@@ -273,6 +302,32 @@ tiers:
   - name: priority
   - name: gang
   - name: proportion
+"""
+
+# BASELINE config 4 through a real reclaim (scripts/scenario_ladder.py
+# scenario 4's conf, then allocate): path o.
+RECLAIM_ALLOCATE_CONF = RECLAIM_CONF.replace('actions: "allocate"',
+                                             'actions: "reclaim, allocate"')
+
+# The production conf the deploy manifests pass (all five actions over the
+# JAX default tiers): path n, at the flagship's cluster.
+PRODUCTION_CONF = os.path.join("deploy", "scheduler-conf.yaml")
+# Path n's first pops whose operands hold place_scan to its plain version.
+SCAN_CHECK_POPS = 64
+
+# tests/test_evict_parity.py's storm clusters (seed, queues) through its
+# full conf's tiers, reclaim then preempt: the preempt phase.
+STORM_CASES = ((7, 1), (7, 2), (42, 1), (42, 2), (1234, 1), (1234, 2))
+STORM_CONF = """
+actions: "reclaim, preempt"
+tiers:
+- plugins:
+  - name: conformance
+  - name: gang
+  - name: priority
+  - name: drf
+  - name: proportion
+  - name: binpack
 """
 
 # The plugin tiers of the JAX package's default conf (scheduler_tpu/conf.py),
@@ -455,6 +510,70 @@ def step_operands(seed, n, r_dim, *, infeasible=False, ties=False, exact=False):
     smask = (rng.random((1, n)) < 0.8) | ties
     sscore = (rng.integers(0, 5, (1, n)) * (0 if ties else 1)).astype(np.float32)
     return [ns, alloc, smask, sscore, gate, plim, initq, req, mins]
+
+
+def scan_operands(seed, n, t, r_dim=2, *, exact=False, score=True, infeasible=False,
+                  n_rows=None):
+    """Placement-scan operands in the JAX layout (``scheduler_tpu/ops/
+    placement.py``'s ``_place_scan``), as numpy arrays drawn from
+    ``numpy.random.default_rng(seed)``: ``n`` nodes with cpu in millicores
+    and memory in MiB (the device units), idle a share of allocatable that
+    runs out within a few placements, releasing capacity beside it (so the
+    scan pipelines), task counts against pod limits, ``n_rows`` task rows
+    (default ``t``) of which the scan takes the first ``t`` in a shuffled
+    order (``rows``), their static mask rows (about 80 % feasible) and, with
+    ``score``, static score rows (else None).  ``infeasible`` makes the
+    first task ask more cpu than any node has.
+
+    With ``exact`` capacities and requests are powers of two and idle and
+    releasing multiples of allocatable / 64, so every score term and every
+    sum of them is exact in float32: the CPU tests need that wherever two
+    terms meet, since XLA's CPU backend contracts a product into the sum
+    that follows it (a fused multiply-add, 1 ulp apart on rounding
+    operands), which the port, like its CUDA build (``--fmad=false``),
+    never does."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_rows = t if n_rows is None else n_rows
+    alloc = np.zeros((n, r_dim), np.float32)
+    if exact:
+        alloc[:, 0] = rng.choice([4096, 16384, 65536], n)
+        alloc[:, 1] = rng.choice([8192, 65536, 262144], n)
+        idle = alloc * rng.integers(0, 9, (n, r_dim)) / 64
+        releasing = alloc * rng.integers(0, 17, (n, r_dim)) / 64
+    else:
+        alloc[:, 0] = rng.choice([4000, 16000, 64000], n) - rng.integers(0, 1000, n)
+        alloc[:, 1] = rng.choice([8000, 64000, 262144], n) - rng.integers(0, 4000, n)
+        idle = alloc * rng.random((n, r_dim)) * 0.15
+        releasing = alloc * rng.random((n, r_dim)) * 0.3
+    if r_dim > 2:
+        alloc[:, 2:] = rng.integers(0, 8, (n, r_dim - 2))
+        idle[:, 2:] = alloc[:, 2:]
+        releasing[:, 2:] = 0.0
+    req = np.zeros((n_rows, r_dim), np.float32)
+    if exact:
+        req[:, 0] = rng.choice([128, 512, 2048], n_rows)
+        req[:, 1] = rng.choice([256, 1024, 8192], n_rows)
+    else:
+        req[:, 0] = rng.integers(100, 3000, n_rows)
+        req[:, 1] = rng.integers(100, 9000, n_rows)
+    if r_dim > 2:
+        req[:, 2:] = rng.integers(0, 2, (n_rows, r_dim - 2))
+    init = req.copy()
+    if infeasible:
+        init[0, 0] = 1e9
+    rows = rng.permutation(n_rows)[:t].astype(np.int32)
+    return {
+        "idle": idle.astype(np.float32), "releasing": releasing.astype(np.float32),
+        "task_count": rng.integers(0, 30, n).astype(np.int32), "allocatable": alloc,
+        "pods_limit": rng.integers(10, 40, n).astype(np.int32),
+        "mins": np.asarray([10.0, 10.0] + [0.1] * (r_dim - 2), np.float32),
+        "init_resreq": init, "resreq": req,
+        "static_mask": rng.random((n_rows, n)) < 0.8,
+        "static_score": (rng.integers(0, 5, (n_rows, n)).astype(np.float32) if score else None),
+        "rows": rows,
+    }
 
 
 def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=False,
@@ -958,18 +1077,62 @@ def _objects_of(objects, kind: str, value):
     )
 
 
+def storm_spec(seed: int, n_queues: int = 1) -> dict:
+    """``tests/test_evict_parity.py::storm_cluster``'s recipe as a spec
+    (``spec_cluster``), drawing the same numbers from ``seed``: queues q0,
+    q1, ... of weights 1, 2, ...; 4-7 nodes of 4 cpu / 8 GiB; 3-6 RUNNING
+    filler gangs of 2-4 pods (500 or 1000 millicpu, 256 MiB, priority 0)
+    with mixed ``min_member`` floors (1 / half / full), mostly in queue q0,
+    placed under the nodes' capacity; and per queue one ``storm`` gang of
+    1-3 pending pods (1 or 2 cpu, 128 MiB, priority 5-10).  Preempt and
+    reclaim both find work there."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    queues = [f"q{i}" for i in range(n_queues)]
+    n_nodes = int(rng.integers(4, 8))
+    names = [f"n{i:02d}" for i in range(n_nodes)]
+    nodes = [(name, {"cpu": 4000.0, "memory": 8 * GIB, "pods": 110}) for name in names]
+    room = {name: 4000.0 for name in names}
+    groups, pods = [], []
+    for g in range(int(rng.integers(3, 7))):
+        size = int(rng.integers(2, 5))
+        mm = int(rng.choice([1, max(1, size // 2), size]))
+        queue = queues[0] if n_queues > 1 and g % 3 else queues[g % n_queues]
+        groups.append((f"fill{g}", mm, queue, "Running"))
+        for t in range(size):
+            cpu = float(rng.choice([500, 1000]))
+            target = names[int(rng.integers(0, len(names)))]
+            if room[target] < cpu:
+                continue
+            room[target] -= cpu
+            pods.append((f"fill{g}-{t}", f"fill{g}", {"cpu": cpu, "memory": 256 * 1024.0**2}, 0,
+                         {"node_name": target, "phase": "Running"}))
+    for queue in queues:
+        lane = f"storm-{queue}"
+        groups.append((lane, 1, queue))
+        for p in range(int(rng.integers(1, 4))):
+            pods.append((f"{lane}-{p}", lane,
+                         {"cpu": float(rng.choice([1000, 2000])), "memory": 128 * 1024.0**2},
+                         int(rng.integers(5, 11))))
+    return {"queues": [(q, i + 1) for i, q in enumerate(queues)], "nodes": nodes,
+            "groups": groups, "pods": pods}
+
+
 def spec_cluster(spec: dict, pkg: str = "scheduler_tpu_torch"):
     """The cluster ``spec`` as a cache of package ``pkg`` (the port; the CPU
     tests build the same spec in the JAX package too, so objects and
     timestamps are identical in both).  A node is ``(name,
     allocatable[, extra])`` with extra keys ``labels``, ``taints`` ([(key,
     value, effect)]), ``unschedulable`` and ``conditions``; a group is
-    ``(name, min_member[, queue])``; ``queues`` (optional, default
-    ``[("default", 1)]``) lists ``(name, weight)`` in creation order; a pod is ``(name, group, request, priority[,
+    ``(name, min_member[, queue[, phase]])`` (phase default ``Inqueue``);
+    ``queues`` (optional, default ``[("default", 1)]``) lists ``(name,
+    weight)`` in creation order; a pod is ``(name, group, request, priority[,
     extra])``, group None for a bare pod (a shadow PodGroup, stamped with the
     pod's creation time), with extra keys ``node_selector``, ``tolerations``
     ([(key, operator, value, effect)]), ``affinity`` (see ``_objects_of``),
-    ``host_ports`` and ``labels``."""
+    ``host_ports``, ``labels``, and ``node_name`` and ``phase`` for a pod
+    that already runs (phase default ``Pending``)."""
     from scheduler_tpu_torch.harness.synthetic import pin_shadow_timestamps
 
     objects = importlib.import_module(f"{pkg}.apis.objects")
@@ -990,16 +1153,17 @@ def spec_cluster(spec: dict, pkg: str = "scheduler_tpu_torch"):
             unschedulable=extra.get("unschedulable", False),
             conditions=dict(extra.get("conditions", {})),
         ))
-    for k, (name, min_member, *queue) in enumerate(spec["groups"]):
+    for k, (name, min_member, *rest) in enumerate(spec["groups"]):
         pg = objects.PodGroup(name=name, namespace="default",
-                              queue=queue[0] if queue else "default", min_member=min_member)
-        pg.status.phase = "Inqueue"
+                              queue=rest[0] if rest else "default", min_member=min_member)
+        pg.status.phase = rest[1] if len(rest) > 1 else "Inqueue"
         pg.creation_timestamp = ts0 + (k + 1) * 1e-6
         cache.add_pod_group(pg)
     for k, (name, group, req, prio, *rest) in enumerate(spec["pods"]):
         extra = rest[0] if rest else {}
         pod = objects.PodSpec(
-            name=name, namespace="default", containers=[dict(req)], phase="Pending",
+            name=name, namespace="default", containers=[dict(req)],
+            phase=extra.get("phase", "Pending"), node_name=extra.get("node_name", ""),
             priority=prio,
             annotations={objects.GROUP_NAME_ANNOTATION: group} if group else {},
             scheduler_name="" if group else "volcano",
@@ -1865,11 +2029,15 @@ def reset_counts():
     from scheduler_tpu_torch.ops import qfair as qf
     from scheduler_tpu_torch.ops import step_kernel as sk
 
-    allocate.routes["fused"] = allocate.routes["host"] = 0
+    from scheduler_tpu_torch.ops import place_scan_kernel as psk
+
+    for route in allocate.routes:
+        allocate.routes[route] = 0
     mk.launches = 0
     pk.launches = 0
     qf.launches = 0
     sk.launches = 0
+    psk.launches = 0
 
 
 def read_counts():
@@ -1879,8 +2047,11 @@ def read_counts():
     from scheduler_tpu_torch.ops import qfair as qf
     from scheduler_tpu_torch.ops import step_kernel as sk
 
+    from scheduler_tpu_torch.ops import place_scan_kernel as psk
+
     return ({"mega_allocate": mk.launches, "static_predicate_mask": pk.launches,
-             "placement_step": sk.launches, "qfair_solve": qf.launches},
+             "placement_step": sk.launches, "qfair_solve": qf.launches,
+             "place_scan": psk.launches},
             dict(allocate.routes))
 
 
@@ -1890,7 +2061,9 @@ def run_cycle(cache, conf_path, engine="mega", after_action=None):
     conf); the fused route must run ``engine``: one ``mega_allocate``
     launch, one ``placement_step`` launch a loop step and none of
     ``mega_allocate`` (``step``), or the loop's XLA step arm, which launches
-    neither (``xla``).  ``after_action(ssn)``, where given, reads the open
+    neither (``xla``); or, with ``engine`` ``device``, the device route
+    (the per-pop engine) must run once, with one ``place_scan`` launch a
+    pop and no fused engine.  ``after_action(ssn)``, where given, reads the open
     session after each action.  Returns (record, launches); the record's
     ``notes`` hold the engine cache's outcome, the ``dirty`` refresh
     evidence and backfill's evidence."""
@@ -1917,13 +2090,20 @@ def run_cycle(cache, conf_path, engine="mega", after_action=None):
     notes = phases.take_notes()
     spent = phases.end()
     launches, routes = read_counts()
-    evidence = notes.get("cohort") or {}
+    evidence = notes.get("device_pops" if engine == "device" else "cohort") or {}
     rec = {"cycle_s": cycle_s, "phases_s": spent, "engine": evidence.get("engine"),
            "kernel_ms": evidence.get("kernel_ms"), "steps": evidence.get("steps"),
            "cohort": evidence, "launches": launches, "routes": routes,
            "notes": {k: notes.get(k) for k in ("engine_cache", "dirty", "backfill")}}
     if evidence.get("engine") != engine or evidence.get("kernel_ms") is None:
         raise SystemExit(f"the main path did not run the {engine} engine: {evidence}")
+    if engine == "device":
+        if not (routes["device"] == 1 and routes["fused"] == routes["host"] == 0
+                and launches["place_scan"] == evidence["pops"] > 0
+                and launches["mega_allocate"] == launches["placement_step"] == 0):
+            raise SystemExit(f"the device route did not launch place_scan once a pop: "
+                             f"{routes}, {launches}, {evidence}")
+        return rec, launches
     if engine == "mega" and launches["mega_allocate"] != 1:
         raise SystemExit(f"the main path did not launch mega_allocate once: {launches}")
     if engine == "step" and not (0 < rec["steps"] == launches["placement_step"]
@@ -2766,6 +2946,436 @@ def check_default_conf_twin(twin, result):
         raise SystemExit(f"path m: cycles {differ} differ from the cold twin")
 
 
+# -- the per-pop engine, reclaim and preempt (paths n, n', o and the storms) --------
+
+def scan_node_ops(r_dim, weights, enforce_pod_count, has_score) -> int:
+    """Float32 operations a node and scanned task that place_scan's
+    function needs (``step_node_ops``'s count, K1's, with the fit against
+    both idle and releasing): the epsilon fits (6 a row each), their OR,
+    the static mask, the pod-count gate, the static score's add, the score
+    terms and the masked argmax."""
+    ops = 12 * r_dim + 1 + 1 + 3 + 2 * bool(enforce_pod_count) + bool(has_score)
+    lr_w, bal_w, bp_w = weights
+    if lr_w or bal_w or bp_w:
+        ops += 6  # the requested columns and the safe divisors
+    return ops + 13 * bool(lr_w) + 12 * bool(bal_w) + 11 * bool(bp_w)
+
+
+def scan_bound_ms(n, r_dim, t, scanned, placed, weights, enforce_pod_count, has_score):
+    """place_scan's least time for one pop on this card: the larger of its
+    bytes at the memory rate and its operations at the float32 peak.  The
+    work is what this pop's data needs: the ``scanned`` tasks before the
+    scan stopped (a ready break or a failure) and the ``placed`` ones.
+    Bytes, each read or written once: the node state of the ``n`` real
+    nodes (idle and releasing; allocatable's cpu and memory columns where a
+    score weight is non-zero; task counts and pod limits under the
+    pod-count gate) and the epsilon row; a scanned task's mask row (and
+    score row), request rows and row index; the written idle or releasing
+    row and task count of each placement, and the ``t`` results.
+    Operations: ``scan_node_ops`` over every node for each scanned task."""
+    state = n * 2 * r_dim * 4 + 4 * r_dim
+    if any(weights):
+        state += n * 2 * 4
+    if enforce_pod_count:
+        state += n * 2 * 4
+    rows = scanned * (n * (1 + (4 if has_score else 0)) + 2 * r_dim * 4 + 4)
+    written = placed * (r_dim * 4 + 4) + 3 * t * 4
+    t_bytes = (state + rows + written) / HBM_BYTES_PER_S
+    t_ops = (scanned * n * scan_node_ops(r_dim, weights, enforce_pod_count, has_score)
+             / FP32_OPS_PER_S)
+    return ("bytes" if t_bytes > t_ops else "operations"), 1e3 * max(t_bytes, t_ops)
+
+
+class ScanCapture:
+    """The per-pop engine's (``ops/allocator.py``) first ``limit`` pops,
+    recorded while the main path runs without any work on the card: the
+    arguments the engine built its node state from (its host snapshot) and,
+    for each pop, references to its spec and the codes it returned.
+    ``scan_record`` rebuilds the starting node state after the cycle and
+    runs the pops again, outside the cycle's clock."""
+
+    def __init__(self, limit):
+        self.limit = limit
+        self.pops = []
+        self.snapshot = None
+        self.weights = self.enforce = None
+
+    def __enter__(self):
+        from scheduler_tpu_torch.ops import allocator
+
+        self._orig = build, place = (allocator.node_state_from_tensors,
+                                     allocator.sequential_place_job)
+
+        def build_spy(*args):
+            if self.snapshot is None:
+                self.snapshot = args
+            return build(*args)
+
+        def place_spy(state, spec, weights=(0.0, 0.0, 0.0), enforce_pod_count=False,
+                      events=None):
+            state, result = place(state, spec, weights, enforce_pod_count, events)
+            if len(self.pops) < self.limit:
+                self.weights, self.enforce = weights, enforce_pod_count
+                self.pops.append((spec, result))
+            return state, result
+
+        allocator.node_state_from_tensors = build_spy
+        allocator.sequential_place_job = place_spy
+        return self
+
+    def __exit__(self, *exc):
+        from scheduler_tpu_torch.ops import allocator
+
+        allocator.node_state_from_tensors, allocator.sequential_place_job = self._orig
+        return False
+
+    def start_state(self):
+        """The engine's node state before its first pop, rebuilt from its
+        host snapshot: (idle, releasing, task counts) copies the scan may
+        write, and (allocatable, pod limits, mins)."""
+        from scheduler_tpu_torch.ops import allocator
+
+        state = allocator.node_state_from_tensors(*self.snapshot)
+        return ([state.idle.clone(), state.releasing.clone(), state.task_count.clone()],
+                [state.allocatable, state.pods_limit, state.mins])
+
+    def operands(self, i):
+        """Pop ``i``'s operands of ``place_scan`` after the node state."""
+        spec = self.pops[i][0]
+        return [spec.init_resreq, spec.resreq, spec.static_mask, spec.static_score, spec.rows,
+                int(spec.ready_deficit), self.weights, self.enforce, spec.n_active]
+
+
+def scan_record(capture, repeats=20):
+    """place_scan against its plain version on the captured pops, replayed
+    in order from the engine's starting node state: each pop's codes equal
+    to the plain version's and to the codes the pop returned on the main
+    path, the node state it writes bitwise the plain version's.  Its time a
+    pop on the first pop's operands: CUDA events around each of
+    ``repeats`` launches, the node state restored before each; the plain
+    version's time once; the first pop's bound (``scan_bound_ms``)."""
+    import numpy as np
+    import torch
+
+    from scheduler_tpu_torch.ops import place_scan_kernel as psk
+
+    dyn, fixed = capture.start_state()
+    saved = [x.clone() for x in dyn]
+    worst, tasks, first = 0.0, 0, None
+    for i, (spec, result) in enumerate(capture.pops):
+        rest = fixed + capture.operands(i)
+        dyn_p = [x.clone() for x in dyn]
+        codes = psk.place_scan(*dyn, *rest)
+        plain = psk.place_scan_reference(*dyn_p, *rest)
+        torch.cuda.synchronize()
+        main = np.stack([result.chosen, result.pipelined, result.failed]).astype(np.int32)
+        if not torch.equal(codes, plain):
+            raise SystemExit(f"place_scan: pop {i}'s codes differ from its plain version")
+        if not np.array_equal(codes.cpu().numpy(), main):
+            raise SystemExit(f"place_scan: pop {i}'s replay differs from the main path's codes")
+        for a, b in zip(dyn, dyn_p):
+            worst = max(worst, float((a.double() - b.double()).abs().max()))
+        first = codes if first is None else first
+        tasks += int(spec.rows.shape[0])
+    dyn = [x.clone() for x in saved]
+    rest = fixed + capture.operands(0)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(repeats):
+        for x, y in zip(dyn, saved):
+            x.copy_(y)
+        e0.record()
+        psk.place_scan(*dyn, *rest)
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    for x, y in zip(dyn, saved):
+        x.copy_(y)
+    e0.record()
+    psk.place_scan_reference(*dyn, *rest)
+    e1.record()
+    e1.synchronize()
+    spec = capture.pops[0][0]
+    t = int(spec.rows.shape[0])
+    n = int(spec.n_active)
+    r_dim = int(dyn[0].shape[1])
+    placed = int((first[0] >= 0).sum())
+    scanned = placed + int(first[2].sum())
+    has_score = spec.static_score is not None
+    bound_by, bound_ms = scan_bound_ms(n, r_dim, t, scanned, placed, capture.weights,
+                                       capture.enforce, has_score)
+    return {"checked_pops": len(capture.pops), "checked_tasks": tasks, "max_abs_err": worst,
+            "codes_equal": True, "nodes": n, "r_dim": r_dim, "pop_tasks": t,
+            "scanned_tasks": scanned, "placed_tasks": placed, "weights": list(capture.weights),
+            "enforce_pod_count": capture.enforce, "static_score_rows": has_score,
+            "ms": total / repeats, "plain_ms": e0.elapsed_time(e1), "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_production_conf(opts, conf_path):
+    """Path n: the production conf (``deploy/scheduler-conf.yaml``: enqueue,
+    reclaim, allocate, backfill and preempt over the JAX default tiers) on
+    b's cluster, one cold ``Scheduler.run_once``.  The static rows (5 bytes
+    x 131,072 x 16,384) are far past the fused limit, so allocate takes the
+    device route: K3 builds the predicates' mask rows and ``place_scan``
+    runs once a job pop.  Checks: the route and the launches, no node
+    overcommitted, every gang bound whole or not at all.  Then, outside
+    the cycle's clock, ``place_scan`` against its plain version on the
+    first ``SCAN_CHECK_POPS`` pops replayed, and timed (``scan_record``)."""
+    from scheduler_tpu_torch.harness import make_synthetic_cluster
+
+    t0 = time.perf_counter()
+    cache = make_synthetic_cluster(opts.nodes, opts.pods,
+                                   tasks_per_job=opts.tasks_per_job).cache
+    emit({"phase": "cluster", "config": "production_conf", "nodes": opts.nodes,
+          "pods": opts.pods, "build_s": time.perf_counter() - t0})
+    with ScanCapture(SCAN_CHECK_POPS) as capture:
+        rec, launches = run_cycle(cache, conf_path, engine="device")
+    binds, gangs = check_binds(cache, opts.nodes, opts.pods, opts.tasks_per_job)
+    phases_s = rec["phases_s"]
+    emit({"phase": "main_path", "config": "production_conf", "nodes": opts.nodes,
+          "pods": opts.pods, "binds": binds, "gangs_bound": gangs,
+          "pops": rec["cohort"]["pops"], "tasks_scanned": rec["cohort"]["tasks_scanned"],
+          "place_scan_event_ms": rec["kernel_ms"],
+          "reclaim_s": phases_s.get("action:reclaim"),
+          "preempt_s": phases_s.get("action:preempt"), **rec})
+    if launches["static_predicate_mask"] < 1:
+        raise SystemExit("path n did not launch static_predicate_mask")
+    if binds < 1:
+        raise SystemExit("path n bound nothing")
+    scan = scan_record(capture)
+    emit({"phase": "kernel_vs_plain", "kernel": "place_scan",
+          "case": "production_conf_first_pops", **scan})
+    return {"launches": launches, "routes": rec["routes"], "scan": scan,
+            "cycle_s": rec["cycle_s"]}
+
+
+def phase_default_tiers_device(opts, conf_path):
+    """Path n': f's cluster (config 2 under the default tiers) with
+    ``SCHEDULER_TORCH_FUSED_STATIC_LIMIT=1``: the fused gate declines and
+    allocate takes the device route.  Checks: the route, config 2's bind
+    checks; later its binds equal the host loop's (``check_host_loop``).
+    Returns (launches, binds)."""
+    from scheduler_tpu_torch.harness import make_kubemark_density_cluster
+
+    os.environ["SCHEDULER_TORCH_FUSED_STATIC_LIMIT"] = "1"
+    cache = make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache
+    rec, launches = run_cycle(cache, conf_path, engine="device")
+    binds, most = check_config2_binds(cache)
+    emit({"phase": "main_path", "config": "config2_default_tiers_device",
+          "nodes": opts.config2_nodes, "pods": opts.config2_pods, "binds": binds,
+          "most_pods_on_a_node": most, "pops": rec["cohort"]["pops"],
+          "tasks_scanned": rec["cohort"]["tasks_scanned"], **rec})
+    if launches["static_predicate_mask"] < 1 or binds < 1:
+        raise SystemExit(f"path n': {binds} binds, launches {launches}")
+    return launches, dict(cache.binder.binds)
+
+
+def reclaim_invariants(ssn, running_before):
+    """After a reclaim action: evictions come only from queues that were
+    overused when it began (recorded by the caller as ``running_before``:
+    job uid -> (queue, running tasks)), no gang fell below its min_member
+    or its own starting count, and on every node the pipelined requests
+    fit in what its victims free (every dim, to the vocabulary's epsilon).
+    Returns the counts."""
+    import numpy as np
+
+    mins = ssn.cache.vocab.min_thresholds()
+    freed, piped, wrong = {}, {}, []
+    evicted_queues = set()
+    for job in ssn.jobs.values():
+        ready = job.ready_task_num()
+        queue, before = running_before.get(job.uid, (job.queue, 0))
+        if ready < min(job.min_available, before):
+            wrong.append(f"{job.uid} fell to {ready} of min_member {job.min_available}")
+        for t in job.tasks.values():
+            if t.status.name == "RELEASING":
+                evicted_queues.add(queue)
+                acc = freed.setdefault(t.node_name, np.zeros_like(mins))
+                acc[: t.resreq.array.shape[0]] += t.resreq.array[: acc.shape[0]]
+            elif t.status.name == "PIPELINED":
+                acc = piped.setdefault(t.node_name, np.zeros_like(mins))
+                acc[: t.init_resreq.array.shape[0]] += t.init_resreq.array[: acc.shape[0]]
+    for node, need in piped.items():
+        if (need - freed.get(node, np.zeros_like(mins)) > mins).any():
+            wrong.append(f"{node}: pipelined {need.tolist()} past its victims' "
+                         f"{freed.get(node, np.zeros_like(mins)).tolist()}")
+    return wrong, evicted_queues, sum(1 for job in ssn.jobs.values()
+                                      for t in job.tasks.values()
+                                      if t.status.name == "PIPELINED")
+
+
+def reclaim_cycle(cache, conf_path, device):
+    """One cycle of ``conf_path`` (reclaim, then allocate) on ``device``
+    (None: the card), reading the session after reclaim: evictions in order
+    (the cache's), the invariants (``reclaim_invariants``), whether K2 meets
+    releasing capacity, and the task statuses.  Returns (record, launches,
+    outcome)."""
+    import torch
+
+    from scheduler_tpu_torch.scheduler import Scheduler
+    from scheduler_tpu_torch.utils import phases
+
+    running_before = {uid: (job.queue, job.ready_task_num()) for uid, job in cache.jobs.items()}
+    overused = {}
+    seen = {}
+    sched = Scheduler(cache, scheduler_conf=conf_path, device=device)
+    sched._load_conf()
+    for action in sched.actions:
+        def execute(ssn, run=action.execute, name=action.name()):
+            if name == "reclaim":
+                overused.update({q.name: ssn.overused(q) for q in ssn.queues.values()})
+            run(ssn)
+            if name == "reclaim":
+                seen["reclaim"] = reclaim_invariants(ssn, running_before)
+                seen["releasing_nodes"] = sum(
+                    1 for n in ssn.nodes.values()
+                    if (n.releasing.array[:2] > cache.vocab.min_thresholds()[:2]).any())
+            seen["statuses"] = sorted((t.name, t.status.name, t.node_name)
+                                      for job in ssn.jobs.values() for t in job.tasks.values())
+
+        action.execute = execute
+    reset_counts()
+    phases.begin()
+    t0 = time.perf_counter()
+    sched.run_once()
+    if device is None:
+        torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t0
+    notes = phases.take_notes()
+    spent = phases.end()
+    launches, routes = read_counts()
+    wrong, evicted_queues, pipelined = seen["reclaim"]
+    statuses = {}
+    for _, status, _ in seen["statuses"]:
+        statuses[status] = statuses.get(status, 0) + 1
+    bad_queues = sorted(q for q in evicted_queues if not overused.get(q))
+    if bad_queues:
+        wrong.append(f"evictions from queues not overused: {bad_queues}")
+    evictions = list(cache.evictor.evicts)
+    rec = {"cycle_s": cycle_s, "phases_s": spent, "routes": routes,
+           "evictions": len(evictions), "pipelined_by_reclaim": pipelined,
+           "binds": len(cache.binder.binds), "statuses": statuses,
+           "overused_at_reclaim": overused,
+           "releasing_nodes_at_allocate": seen["releasing_nodes"],
+           "engine": (notes.get("cohort") or {}).get("engine"),
+           "kernel_ms": (notes.get("cohort") or {}).get("kernel_ms"),
+           "evict": notes.get("evict"), "victims": notes.get("victims")}
+    outcome = {"evictions": evictions, "binds": dict(cache.binder.binds),
+               "statuses": binds_digest({n: [s, h] for n, s, h in seen["statuses"]})}
+    return rec, launches, outcome, wrong
+
+
+def phase_config4_reclaim(conf_path):
+    """Path o: BASELINE config 4 before its reclaim
+    (``harness.make_reclaim_cluster``), ``reclaim, allocate`` over priority,
+    gang and proportion on the card.  Checks (``reclaim_invariants``):
+    evictions only from the overused queue, no gang below its floor,
+    nothing pipelined past what its node's victims free; then allocate's
+    one ``mega_allocate`` launch; later the evictions in order, the binds
+    and the statuses equal to the same cycle on the CPU (``--child
+    config4_reclaim_cpu``)."""
+    from scheduler_tpu_torch.harness import make_reclaim_cluster
+
+    t0 = time.perf_counter()
+    built = make_reclaim_cluster()
+    emit({"phase": "cluster", "config": "config4_reclaim", "nodes": built.n_nodes,
+          "pods": built.n_pods, "build_s": time.perf_counter() - t0})
+    rec, launches, outcome, wrong = reclaim_cycle(built.cache, conf_path, None)
+    emit({"phase": "main_path", "config": "config4_reclaim", "launches": launches, **rec})
+    if rec["evictions"] < 1 or rec["pipelined_by_reclaim"] < 1:
+        wrong.append(f"reclaim evicted {rec['evictions']}, pipelined "
+                     f"{rec['pipelined_by_reclaim']}")
+    if launches["mega_allocate"] != 1 or rec["engine"] != "mega" or launches["qfair_solve"] < 1:
+        wrong.append(f"allocate after reclaim: engine {rec['engine']}, launches {launches}")
+    if wrong:
+        raise SystemExit(f"path o: {'; '.join(wrong[:5])}")
+    return {"launches": launches, "outcome": outcome, "record": rec}
+
+
+def check_config4_reclaim_twin(twin, card):
+    """Path o against the same cycle on the CPU (``--child
+    config4_reclaim_cpu``): evictions in order, binds and statuses."""
+    cpu = twin.result()
+    equal = {k: cpu["outcome"][k] == card["outcome"][k] for k in card["outcome"]}
+    emit({"phase": "cpu_parity", "config": "config4_reclaim", **equal,
+          "cpu_cycle_s": cpu["record"]["cycle_s"], "wall_s": time.perf_counter() - twin.t0})
+    if not all(equal.values()):
+        raise SystemExit(f"path o differs from its CPU run: {equal}")
+
+
+def storm_run(seed, n_queues, device):
+    """One session of ``STORM_CONF`` on ``storm_spec(seed, n_queues)`` on
+    ``device`` (None: the card): the evictions in commit order (captured at
+    the cache), the task statuses and nodes, the binds, the launches."""
+    from scheduler_tpu_torch.conf import parse_scheduler_conf
+    from scheduler_tpu_torch.framework import close_session, get_action, open_session
+
+    cache = spec_cluster(storm_spec(seed, n_queues))
+    evlog = []
+    evict, evict_bulk = cache.evict, cache.evict_bulk
+
+    def one(task, reason):
+        evlog.append([task.name, reason])
+        return evict(task, reason)
+
+    def bulk(tasks, reason):
+        out = evict_bulk(tasks, reason)
+        evlog.extend([t.name, reason] for t in out)
+        return out
+
+    cache.evict, cache.evict_bulk = one, bulk
+    conf = parse_scheduler_conf(STORM_CONF)
+    reset_counts()
+    ssn = open_session(cache, conf.tiers, device=device)
+    for name in conf.actions:
+        get_action(name).execute(ssn)
+    statuses = sorted([t.name, t.status.name, t.node_name]
+                      for job in ssn.jobs.values() for t in job.tasks.values())
+    close_session(ssn)
+    launches, _ = read_counts()
+    return {"evictions": evlog, "statuses": statuses, "binds": dict(cache.binder.binds),
+            "launches": launches}
+
+
+def phase_preempt_storms():
+    """The preempt phase: every ``STORM_CASES`` storm through reclaim and
+    preempt on the card and on the CPU; evictions (in order), statuses and
+    binds must be equal.  Returns the card's launches summed."""
+    total = {}
+    for seed, n_queues in STORM_CASES:
+        card = storm_run(seed, n_queues, None)
+        cpu = storm_run(seed, n_queues, "cpu")
+        equal = all(card[k] == cpu[k] for k in ("evictions", "statuses", "binds"))
+        pipelined = sum(1 for _, s, _ in card["statuses"] if s == "PIPELINED")
+        emit({"phase": "preempt_storm", "seed": seed, "queues": n_queues,
+              "evictions": len(card["evictions"]),
+              "evicted_by": sorted({r for _, r in card["evictions"]}),
+              "pipelined": pipelined, "equal_to_cpu": equal, "launches": card["launches"]})
+        if not equal:
+            raise SystemExit(f"storm seed {seed}, {n_queues} queues: the card's run differs "
+                             f"from the CPU's")
+        for k, v in card["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def place_scan_entry(launches_by_path, scan):
+    """place_scan's entry of the kernels line (no TPU Pallas kernel: it
+    replaces the JAX package's XLA scan): launches on each path that runs
+    it, its error against the plain version on path n's first pops and its
+    time a pop on path n's operands."""
+    return {"name": "place_scan", "route": "cuda",
+            "source": "scheduler_tpu_torch/csrc/place_scan.cu",
+            "replaces": "scheduler_tpu/ops/placement.py:71-137",
+            "launches": launches_by_path["production_conf"],
+            "launches_by_path": launches_by_path,
+            "max_abs_err": scan["max_abs_err"], "checked_pops": scan["checked_pops"],
+            "checked_tasks": scan["checked_tasks"], "nodes": scan["nodes"],
+            "pop_tasks": scan["pop_tasks"], "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+            "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"], "library_ms": None}
+
+
 def child_argv(child, path, opts):
     """The command line of this script's child process ``child`` (see
     ``--child``), writing its result to ``path``."""
@@ -2811,18 +3421,19 @@ class BackgroundChild:
             return json.load(f)
 
 
-def check_host_loop(twin, binds):
+def check_host_loop(twin, binds, config="config2_default_tiers"):
     """The port's host loop on a twin of a config-2 cluster under the
     default tiers (``twin``: the ``host_loop`` child, on the CPU; at full
     size it takes minutes of one core, so it runs beside the kernel phases
-    that follow the main paths): the main path's binds must be its own."""
+    that follow the main paths): the main path's binds (f's on the fused
+    route, n''s on the device route) must be its own."""
     host = twin.result()
     equal = binds == host
-    emit({"phase": "host_loop_parity", "config": "config2_default_tiers",
+    emit({"phase": "host_loop_parity", "config": config,
           "binds": len(binds), "host_loop_binds": len(host), "equal_to_host_loop": equal,
           "wall_s": time.perf_counter() - twin.t0})
     if not equal:
-        raise SystemExit("config 2 under the default tiers: binds differ from the host loop's")
+        raise SystemExit(f"{config}: binds differ from the host loop's")
 
 
 def child_main(child, path, opts) -> int:
@@ -2882,6 +3493,45 @@ def child_main(child, path, opts) -> int:
         gc.collect()
         out = phase_steady_flagship(opts) if child == "config3_steady" else \
             phase_default_conf_loop(opts)
+        with open(path, "w") as f:
+            json.dump(out, f)
+        return 0
+    if child == "config4_reclaim_cpu":
+        from scheduler_tpu_torch.harness import make_reclaim_cluster
+
+        conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
+        with open(conf_path, "w") as f:
+            f.write(RECLAIM_ALLOCATE_CONF)
+        rec, _, outcome, wrong = reclaim_cycle(make_reclaim_cluster().cache, conf_path, "cpu")
+        if wrong:
+            raise SystemExit(f"path o on the CPU: {'; '.join(wrong[:5])}")
+        with open(path, "w") as f:
+            json.dump({"outcome": outcome, "record": rec}, f)
+        return 0
+    if child == "preempt_storm":
+        with open(path, "w") as f:
+            json.dump({"launches": phase_preempt_storms()}, f)
+        return 0
+    if child in ("production_conf", "config2_default_tiers_device", "config4_reclaim"):
+        # Paths n, n' and o, after one config-1 cycle that warms the card,
+        # the kernel library and PyTorch up.
+        conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
+        with open(conf_path, "w") as f:
+            f.write(CONFIG1_CONF)
+        run_cycle(config1_cluster(), conf_path)
+        gc.collect()
+        if child == "production_conf":
+            root = os.path.dirname(os.path.abspath(__file__))
+            out = phase_production_conf(opts, os.path.join(root, PRODUCTION_CONF))
+        elif child == "config2_default_tiers_device":
+            with open(conf_path, "w") as f:
+                f.write(DEFAULT_TIERS_CONF)
+            launches, binds = phase_default_tiers_device(opts, conf_path)
+            out = {"launches": launches, "binds": binds}
+        else:
+            with open(conf_path, "w") as f:
+                f.write(RECLAIM_ALLOCATE_CONF)
+            out = phase_config4_reclaim(conf_path)
         with open(path, "w") as f:
             json.dump(out, f)
         return 0
@@ -3316,7 +3966,10 @@ def main() -> int:
                                             "reclaim_aftermath_templates_cpu",
                                             "reclaim_templates_host_loop",
                                             "loop_host_twins", "config3_steady",
-                                            "default_conf_loop", "default_conf_cold"),
+                                            "default_conf_loop", "default_conf_cold",
+                                            "production_conf", "config2_default_tiers_device",
+                                            "config4_reclaim", "config4_reclaim_cpu",
+                                            "preempt_storm"),
                         help="run only this child process of the script (child_main) and "
                              "write its result to --out")
     parser.add_argument("--out", metavar="PATH")
@@ -3450,13 +4103,21 @@ def main() -> int:
     emit({"phase": "steady_vs_cold", "binds_digest_equal": True,
           "steady_cycle_s": steady["steady"]["cycle_s"]})
     default_loop = run_child(out_dir, "default_conf_loop", opts)
+    # The per-pop engine on the production conf at the north-star shape (n)
+    # and on f's cluster (n'), config 4 through a real reclaim (o), and the
+    # preempt storms.
+    production = run_child(out_dir, "production_conf", opts)
+    tiers_device = run_child(out_dir, "config2_default_tiers_device", opts)
+    reclaim_o = run_child(out_dir, "config4_reclaim", opts)
+    storms = run_child(out_dir, "preempt_storm", opts)
     # After the timed cycles: the host loops' and the CPU loops' twins,
     # beside the kernel phases.
     twins = [BackgroundChild(out_dir, child, opts) for child in (
         "host_loop", "reclaim_host_loop", "reclaim_templates_host_loop", "loop_host_twins",
-        "templates_default_tiers_cpu", "reclaim_aftermath_templates_cpu")]
+        "templates_default_tiers_cpu", "reclaim_aftermath_templates_cpu",
+        "config4_reclaim_cpu")]
     (host_twin, reclaim_twin, reclaim_tpl_twin, loop_twins, tiers_cpu,
-     reclaim_tpl_cpu) = twins
+     reclaim_tpl_cpu, reclaim_o_cpu) = twins
     ladder_plain = default_twin = None
 
     try:
@@ -3495,6 +4156,8 @@ def main() -> int:
         default_twin = BackgroundChild(out_dir, "default_conf_cold", opts)
         phase_e2e_small(conf_path)
         check_host_loop(host_twin, tiers_binds)
+        check_host_loop(host_twin, tiers_device["binds"], "config2_default_tiers_device")
+        check_config4_reclaim_twin(reclaim_o_cpu, reclaim_o)
         check_reclaim_host_loop(reclaim_twin, reclaim["outcome"])
         check_cpu_codes(tiers_cpu, tiers_tpl["codes"], "templates_default_tiers")
         check_cpu_codes(reclaim_tpl_cpu, reclaim_tpl["codes"], "reclaim_aftermath_templates")
@@ -3516,6 +4179,11 @@ def main() -> int:
 
     m_launches = {k: sum(c["launches"][k] for c in default_loop["cycles"])
                   for k in ("mega_allocate", "static_predicate_mask", "qfair_solve")}
+    # Path o's K2 runs in releasing mode only where its reclaim leaves
+    # releasing capacity at allocate (its pipelines take what they free).
+    o_mode = ("multi_queue_releasing"
+              if reclaim_o["record"]["releasing_nodes_at_allocate"] else "multi_queue")
+    o_k2 = reclaim_o["launches"]["mega_allocate"]
     emit({"kernels": [
         mega_entry("cursor", flagship_launches["mega_allocate"], cursor_full, by_path={
             "config3": flagship_launches["mega_allocate"],
@@ -3525,21 +4193,29 @@ def main() -> int:
                    by_path={"config2": config2_launches["mega_allocate"]}),
         mega_entry("static", config5_launches["mega_allocate"], config5_full, "config5"),
         mega_entry("multi_queue", mq_launches["mega_allocate"], mq_full,
-                   "config3_multi_queue"),
+                   "config3_multi_queue", by_path={
+                       "config3_multi_queue": mq_launches["mega_allocate"],
+                       **({"config4_reclaim": o_k2} if o_mode == "multi_queue" else {})}),
         mega_entry("multi_queue_static", tiers_launches["mega_allocate"], tiers_full,
                    "config2_default_tiers", by_path={
                        "config2_default_tiers": tiers_launches["mega_allocate"],
                        "default_conf_loop": m_launches["mega_allocate"]}),
         ladder_entry(ladder_launches["mega_allocate"], ladder_recs, ladder_plain_rec),
         mega_entry("multi_queue_releasing", reclaim["launches"]["mega_allocate"], reclaim_full,
-                   "config4_reclaim_aftermath"),
+                   "config4_reclaim_aftermath", by_path={
+                       "config4_reclaim_aftermath": reclaim["launches"]["mega_allocate"],
+                       **({"config4_reclaim": o_k2} if o_mode != "multi_queue" else {})}),
         # The full-recompute chain is the kill-switch: no main path runs it.
         mega_entry("multi_queue_full", 0, full_chain["ladder_small"],
                    "ladder_{}_x_{}_{}q kernel case".format(*LADDER_SMALL)),
         qfair_entry({"mq_ladder": ladder_launches["qfair_solve"],
                      "config3_multi_queue": mq_launches["qfair_solve"],
                      "config2_default_tiers": tiers_launches["qfair_solve"],
-                     "default_conf_loop": m_launches["qfair_solve"]},
+                     "default_conf_loop": m_launches["qfair_solve"],
+                     "production_conf": production["launches"]["qfair_solve"],
+                     "config2_default_tiers_device": tiers_device["launches"]["qfair_solve"],
+                     "config4_reclaim": reclaim_o["launches"]["qfair_solve"],
+                     "preempt_storm": storms["launches"]["qfair_solve"]},
                     ladder_solve, qfair_err),
         {"name": "static_predicate_mask", "route": "cuda",
          "source": "scheduler_tpu_torch/csrc/static_predicate_mask.cu",
@@ -3549,13 +4225,19 @@ def main() -> int:
              "config2": config2_launches["static_predicate_mask"],
              "config5": config5_launches["static_predicate_mask"],
              "config2_default_tiers": tiers_launches["static_predicate_mask"],
-             "default_conf_loop": m_launches["static_predicate_mask"]},
+             "default_conf_loop": m_launches["static_predicate_mask"],
+             "production_conf": production["launches"]["static_predicate_mask"],
+             "config2_default_tiers_device":
+                 tiers_device["launches"]["static_predicate_mask"]},
          "max_abs_err": pred_err,
          **{k: pred_main[k] for k in PREDICATE_TIMES},
          "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K") + PREDICATE_TIMES}},
         step_entry({"config3_templates": templates_launches["placement_step"],
                     "templates_multi_queue": mq_tpl["launches"]["placement_step"]},
                    step_recs[0], step_recs, [parity, mq_tpl["parity"]]),
+        place_scan_entry({"production_conf": production["launches"]["place_scan"],
+                          "config2_default_tiers_device": tiers_device["launches"]["place_scan"]},
+                         production["scan"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,7 @@ tasks until the first infeasible task (job leaves the rotation, fit errors
 recorded) or until the gang goes ready (job re-queued), and the queue is
 re-pushed after every pop.
 
-The action runs in one of two routes:
+The action runs in one of three routes, chosen as the JAX package chooses:
 
 * **fused** (every plugin device-capable, ``FusedAllocator.supported``): the
   whole action — job selection and every task placement — runs on the
@@ -14,11 +14,17 @@ The action runs in one of two routes:
   or, where its gate closes, as the ``fused_allocate`` loop with one
   placement-step launch a step (``ops/fused.py``); one result array, one
   columnar commit.
+* **device** (the fused gate declines — static ``[T, N]`` rows past
+  ``SCHEDULER_TORCH_FUSED_STATIC_LIMIT`` — but every plugin is
+  device-capable, ``DeviceAllocator.supported``): the host heaps pop the
+  jobs, and each job pop's task loop is one launch of the placement scan
+  (``ops/allocator.py``, ``ops/placement.py``), node state resident on the
+  device across pops; placements commit per task.
 * **host**: the reference's per-task predicate/prioritize/select sweep
   using the session's host callbacks — the reference semantics, taken for
-  the sessions the fused route declines (and for scan-dynamic jobs).
+  the sessions neither engine takes (and for scan-dynamic jobs).
 
-Both apply results through the session so event handlers, gang dispatch and
+All apply results through the session so event handlers, gang dispatch and
 cache bind semantics are identical.  ``routes`` counts how often each route
 ran.
 """
@@ -26,6 +32,7 @@ ran.
 from __future__ import annotations
 
 import logging
+from collections import deque
 from typing import Dict, List
 
 from scheduler_tpu_torch.api.job_info import JobInfo, TaskInfo
@@ -39,12 +46,13 @@ from scheduler_tpu_torch.utils.scheduler_helper import (
     predicate_nodes,
     prioritize_nodes,
     select_best_node,
+    task_sort_key,
 )
 
 logger = logging.getLogger("scheduler_tpu_torch.actions.allocate")
 
 # Route counters: how many times each route ran (plain integers).
-routes = {"fused": 0, "host": 0}
+routes = {"fused": 0, "device": 0, "host": 0}
 
 
 def _inversion_queues(ssn, static_jobs: List[JobInfo], dynamic_jobs: List[JobInfo]) -> set:
@@ -150,6 +158,7 @@ class AllocateAction(Action):
         candidates = collect_candidates(ssn)
         if not candidates:
             return
+        from scheduler_tpu_torch.ops.allocator import DeviceAllocator
         from scheduler_tpu_torch.ops.fused import FusedAllocator
 
         # Jobs with scan-dynamic predicates (host ports / pod affinity) can
@@ -172,10 +181,15 @@ class AllocateAction(Action):
             if not dynamic_jobs:
                 return
             candidates = dynamic_jobs
+        elif static_jobs and DeviceAllocator.supported(ssn):
+            self._run_device(ssn, static_jobs)
+            if not dynamic_jobs:
+                return
+            candidates = dynamic_jobs
         self._heap_loop(ssn, candidates)
 
-    def _heap_loop(self, ssn, candidates: List[JobInfo]) -> None:
-        routes["host"] += 1
+    def _heap_loop(self, ssn, candidates: List[JobInfo], engine=None) -> None:
+        routes["host" if engine is None else "device"] += 1
         queues = PriorityQueue(ssn.queue_order_fn)
         jobs_map: Dict[str, PriorityQueue] = {}
         for job in candidates:
@@ -194,8 +208,13 @@ class AllocateAction(Action):
 
         logger.debug("allocating over %d queues", len(jobs_map))
 
+        # The host pops keep the reference's per-job task heap; the device
+        # pops a sorted deque (the scan consumes tasks strictly in task
+        # order, and repeated pops of a gang-ready job would otherwise
+        # drain and re-push the whole heap each time).
         pending_tasks: Dict[str, PriorityQueue] = {}
-        # Node views are materialized at the first pop only.
+        ordered_pending: Dict[str, deque] = {}
+        # Node views are materialized at the first host pop only.
         all_nodes: List = []
         all_nodes_ready = False
 
@@ -218,6 +237,18 @@ class AllocateAction(Action):
                 continue
 
             job = jobs.pop()
+            if engine is not None:
+                if job.uid not in ordered_pending:
+                    eligible = [
+                        t
+                        for t in job.task_status_index.get(TaskStatus.PENDING, {}).values()
+                        if not t.resreq.is_empty()  # BestEffort handled by backfill
+                    ]
+                    eligible.sort(key=task_sort_key(ssn))
+                    ordered_pending[job.uid] = deque(eligible)
+                self._run_device_pop(ssn, engine, job, ordered_pending[job.uid], jobs)
+                queues.push(queue)
+                continue
             if job.uid not in pending_tasks:
                 tasks = PriorityQueue(ssn.task_order_fn)
                 for task in job.task_status_index.get(TaskStatus.PENDING, {}).values():
@@ -261,6 +292,55 @@ class AllocateAction(Action):
         with phases.phase("apply"):
             record_fused_failures(failures)
             ssn.bulk_apply_columnar(items, node_batches, engine.commit_plan())
+
+    # -- device route ----------------------------------------------------------
+
+    def _run_device(self, ssn, candidates: List[JobInfo]) -> None:
+        from scheduler_tpu_torch.ops.allocator import DeviceAllocator
+        from scheduler_tpu_torch.utils import phases
+
+        with phases.phase("engine_init"):
+            engine = DeviceAllocator(ssn, candidates)
+        with phases.phase("device_pops"):
+            self._heap_loop(ssn, candidates, engine)
+        phases.note("device_pops", engine.run_stats())
+
+    def _run_device_pop(self, ssn, engine, job: JobInfo, pending: deque,
+                        jobs: PriorityQueue) -> None:
+        if not pending:
+            return
+
+        # The engine scans the ordered tail (one task where the gang is
+        # already ready) and returns the rows it processed.
+        rows = engine.place_job(job, list(pending))
+        if rows is None:
+            # Unknown job_ready semantics — shouldn't happen with builtins.
+            logger.warning("device engine refused job %s; tasks left pending", job.uid)
+            return
+
+        consumed = 0
+        requeue_job = False
+        for task, node_name, pipelined, failed in rows:
+            consumed += 1
+            if failed:
+                fe = FitErrors()
+                fe.set_node_error("*", FitError(task.name, "*", NODE_RESOURCE_FIT_FAILED))
+                job.nodes_fit_errors[task.uid] = fe
+                break
+            if pipelined:
+                ssn.pipeline(task, node_name)
+            else:
+                ssn.allocate(task, node_name)
+            # The reference checks JobReady after every placement, pipeline
+            # or allocate (allocate.go:184-187).
+            if ssn.job_ready(job):
+                requeue_job = True
+                break
+
+        for _ in range(consumed):
+            pending.popleft()
+        if requeue_job:
+            jobs.push(job)
 
     # -- host engine ----------------------------------------------------------
 

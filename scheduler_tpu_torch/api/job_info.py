@@ -770,6 +770,13 @@ class JobInfo:
         task order, no task objects."""
         return self._rows_builtin_sorted(self.pending_rows(), use_priority)
 
+    def pending_rows_all_sorted(self, use_priority: bool) -> np.ndarray:
+        """Every live PENDING row (best-effort included — preempt/reclaim
+        hunt for all pending tasks, preempt.go:105-116) in builtin order."""
+        st = self._store
+        rows = np.nonzero(st.status[: st.n] == int(TaskStatus.PENDING))[0]
+        return self._rows_builtin_sorted(rows, use_priority)
+
     def view_for_row(self, row: int) -> TaskInfo:
         """The task view for a row (materializes just this one if needed)."""
         st = self._store

@@ -305,28 +305,23 @@ def aftermath_thin_requests(n_pend: int, n_distinct: int, seed: int = 0) -> List
             for k in order.tolist()]
 
 
-def make_reclaim_aftermath_cluster(scale: float = 1.0, thin_requests: int = 0,
-                                   seed: int = 0) -> SyntheticCluster:
-    """BASELINE config 4's cluster (two queues, proportion, reclaim;
-    ``scripts/scenario_ladder.py`` scenario 4, its cluster build without the
-    churn) in the state its reclaim leaves while the victims terminate.
+def make_reclaim_cluster(scale: float = 1.0, thin_requests: int = 0,
+                         seed: int = 0) -> SyntheticCluster:
+    """BASELINE config 4's cluster before its reclaim (two queues,
+    proportion, reclaim; ``scripts/scenario_ladder.py`` scenario 4, its
+    cluster build, ``_s4_build_churn``'s ``build``, without the churn).
 
     Queues ``fat`` and ``thin`` of weight 1; ``1000 * scale`` nodes of
     26 x (2 cpu, 4 GiB) and 110 pods; ``25,000 * scale`` RUNNING ``fat``
     pods of 2 cpu and 4 GiB in gangs of 50 (minMember 1), pod t of gang j on
     node (50 j + t) mod nodes, so 25 on each node at full size; ``50,000 *
     scale`` pending ``thin`` pods of the same request in gangs of 50
-    (minMember 1).  Then ``cache.evict(task, "reclaim")`` on every pod of
-    every odd-numbered ``fat`` gang: 12,500 pods at full size, spread over
-    all nodes, whose resources stay RELEASING until they terminate.  That is
-    what a reclaim that enforces the 1:1 shares leaves behind: the next
-    allocate fits ``thin`` on each node's idle slot and pipelines the rest
-    onto the releasing capacity, up to ``thin``'s deserved share.
+    (minMember 1).  ``fat`` holds 25,000 of the 26,000 slots while the 1:1
+    weights deserve each queue 13,000: a reclaim takes ``fat`` down to its
+    share for ``thin``.
 
     With ``thin_requests`` > 0 the ``thin`` pods ask that many distinct
-    requests (``aftermath_thin_requests``, drawn from ``seed``): past 4,096
-    signatures the mega kernel's gate closes, and the ``fused_allocate``
-    loop's releasing arm runs.
+    requests (``aftermath_thin_requests``, drawn from ``seed``).
 
     Timestamps are fixed, so every build orders its queues and jobs alike;
     without ``thin_requests`` the build draws no random numbers."""
@@ -370,12 +365,31 @@ def make_reclaim_aftermath_cluster(scale: float = 1.0, thin_requests: int = 0,
         add_gang(f"fat{j}", "fat", KUBEMARK_TS0 + 1.0 + j, True, j * gang)
     for j in range(n_pend // gang):
         add_gang(f"thin{j}", "thin", KUBEMARK_TS0 + 1.0 + n_fat + j, False, j * gang)
-    for j in range(1, n_fat, 2):
-        for task in list(cache.jobs[f"d/fat{j}"].tasks.values()):
-            cache.evict(task, "reclaim")
     return SyntheticCluster(
         cache=cache, n_nodes=n_nodes, n_pods=len(pod_names), vocab=vocab, pod_names=pod_names
     )
+
+
+def make_reclaim_aftermath_cluster(scale: float = 1.0, thin_requests: int = 0,
+                                   seed: int = 0) -> SyntheticCluster:
+    """BASELINE config 4's cluster (``make_reclaim_cluster``) in the state
+    its reclaim leaves while the victims terminate:
+    ``cache.evict(task, "reclaim")`` on every pod of every odd-numbered
+    ``fat`` gang, 12,500 pods at full size, spread over all nodes, whose
+    resources stay RELEASING until they terminate.  That is what a reclaim
+    that enforces the 1:1 shares leaves behind: the next allocate fits
+    ``thin`` on each node's idle slot and pipelines the rest onto the
+    releasing capacity, up to ``thin``'s deserved share.
+
+    With ``thin_requests`` > 0 the ``thin`` pods ask that many distinct
+    requests: past 4,096 signatures the mega kernel's gate closes, and the
+    ``fused_allocate`` loop's releasing arm runs."""
+    cluster = make_reclaim_cluster(scale, thin_requests, seed)
+    cache = cluster.cache
+    for j in range(1, int(25_000 * scale) // 50, 2):
+        for task in list(cache.jobs[f"d/fat{j}"].tasks.values()):
+            cache.evict(task, "reclaim")
+    return cluster
 
 
 # -- churn: the scenario ladder's steady-state workloads ----------------------------

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 # The flags that change which program a build selects: a resident engine
 # built under one value must not serve another.
 _ENV_KEYS = (
+    "SCHEDULER_TORCH_FUSED_STATIC_LIMIT",
     "SCHEDULER_TORCH_QFAIR",
     "SCHEDULER_TORCH_QFAIR_ITERS",
     "SCHEDULER_TORCH_QUEUE_DELTA",

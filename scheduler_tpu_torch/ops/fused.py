@@ -147,6 +147,15 @@ def _dirty_delta_enabled() -> bool:
     return env_bool("SCHEDULER_TORCH_DIRTY_DELTA", True)
 
 
+def fused_static_limit() -> int:
+    """``SCHEDULER_TORCH_FUSED_STATIC_LIMIT``: the bytes of static [T, N]
+    rows (5 an element) up to which the fused engine takes a session
+    (default 160 MiB, the JAX package's ``SCHEDULER_TPU_FUSED_STATIC_LIMIT``)."""
+    from scheduler_tpu_torch.utils.envflags import env_int
+
+    return env_int("SCHEDULER_TORCH_FUSED_STATIC_LIMIT", 160 * 1024 * 1024, minimum=0)
+
+
 def _session_device(ssn) -> torch.device:
     """The device a session's engines run on (``None``: CUDA)."""
     dev = getattr(ssn, "device", None)
@@ -1796,11 +1805,15 @@ class FusedAllocator:
             if name not in ssn.device_predicates:
                 return False
         if ssn.device_predicates or ssn.device_scorers:
+            # Static [T, N] tensors (bool mask + f32 score = 5 bytes an
+            # element) fuse while they fit the limit; past it the per-pop
+            # engine (ops/allocator.py) reads the rows a pop at a time.
+            # SCHEDULER_TORCH_FUSED_STATIC_LIMIT is in bytes.
             n_bucket = bucket(max(len(ssn.nodes), 1))
             sized = ssn.jobs.values() if jobs is None else jobs
             pending = sum(job.pending_eligible_count() for job in sized)
             t_bucket = bucket(max(pending, 1))
-            if 5 * t_bucket * n_bucket > 160 * 1024 * 1024:
+            if 5 * t_bucket * n_bucket > fused_static_limit():
                 return False
         if set(ssn.job_order_fns) - set(_KNOWN_JOB_ORDER):
             return False

@@ -697,8 +697,10 @@ def mega_allocate_reference(
                 share_l, over_l = queue_share_overused(
                     jq_des[:r_dim], js[JROW.QUEUE_ALLOC : JROW.QUEUE_ALLOC + r_dim], mins,
                     r_dim)
-            else:
+            elif use_qdelta:
                 share_l, over_l = js[JROW.SHARE], js[JROW.OVERUSED] >= 0.5
+            # Without a queue chain (no proportion) the queues pop by rank
+            # alone, and the job ledger has no share rows.
             if overused_gate:
                 cand = cand & ~over_l
             if queue_proportion:

@@ -7,7 +7,10 @@ unschedulable gate.  Label logic is vocabulary-encoded (see
 becomes a 0/1 matrix product whose zero entries are the passing pairs.
 
 These are the plain PyTorch versions that the static-predicate kernel's
-plain version is built from (``ops/predicate_kernel.py``).  The products run
+plain version is built from (``ops/predicate_kernel.py``).  Resource fit is
+separate (``fit_mask``): it reads the live idle matrix inside the placement
+scan (``ops/placement.py``), while the label and taint masks are static for
+a session.  The products run
 in float32 (PyTorch's default keeps TF32 off; with it on they would not
 change, since 0 and 1 are exact in TF32 and the sums are accumulated in
 float32): every operand is 0 or 1 and every count is below 2^24, so
@@ -17,6 +20,15 @@ float32): every operand is 0 or 1 and every count is below 2^24, so
 from __future__ import annotations
 
 import torch
+
+
+def fit_mask(req: torch.Tensor, avail: torch.Tensor, mins: torch.Tensor) -> torch.Tensor:
+    """Epsilon-exact LessEqual of one request against many availability rows.
+
+    req [R], avail [N, R], mins [R] -> bool [N].  Mirrors
+    ``Resource.LessEqual`` (resource_info.go:253-276): per dim,
+    req < avail or |avail - req| < min."""
+    return ((req[None, :] < avail) | ((avail - req[None, :]).abs() < mins[None, :])).all(dim=-1)
 
 
 def _count(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -113,7 +113,9 @@ class Scheduler:
             try:
                 for action in self.actions:
                     action_start = time.perf_counter()
-                    action.execute(ssn)
+                    # One phase an action (the JAX package's "action:" spans).
+                    with phases.phase(f"action:{action.name()}"):
+                        action.execute(ssn)
                     metrics.update_action_duration(
                         action.name(), time.perf_counter() - action_start
                     )

@@ -81,6 +81,10 @@ plugin_latency = _Histogram(
 action_latency = _Histogram(
     f"{NAMESPACE}_action_scheduling_latency_microseconds", "Action latency", _LATENCY_BUCKETS_US
 )
+preemption_victims = _Gauge(f"{NAMESPACE}_pod_preemption_victims", "Current preemption victims")
+preemption_attempts = _Counter(
+    f"{NAMESPACE}_total_preemption_attempts", "Total preemption attempts"
+)
 unschedule_task_count = _Gauge(
     f"{NAMESPACE}_unschedule_task_count", "Unschedulable tasks per job"
 )
@@ -111,6 +115,14 @@ def update_plugin_duration(plugin: str, on_session: str, seconds: float) -> None
 
 def update_action_duration(action: str, seconds: float) -> None:
     action_latency.observe(seconds * 1e6, (action,))
+
+
+def update_preemption_victims_count(count: int) -> None:
+    preemption_victims.set(count)
+
+
+def register_preemption_attempts() -> None:
+    preemption_attempts.inc()
 
 
 def update_unschedule_task_count(job_id: str, count: int) -> None:
@@ -182,12 +194,12 @@ def render_prometheus() -> str:
                 out.append(f"{h.name}_bucket{inf_lbl} {total}")
                 out.append(f"{h.name}_count{lbl} {total}")
                 out.append(f"{h.name}_sum{lbl} {h.sums[labels]}")
-        for c in (job_retry_counts,):
+        for c in (preemption_attempts, job_retry_counts):
             out.append(f"# HELP {c.name} {c.help}")
             out.append(f"# TYPE {c.name} counter")
             for labels, v in c.values.items():
                 out.append(f"{c.name}{_fmt_labels(c.name, labels)} {v}")
-        for g in (unschedule_task_count, unschedule_job_count):
+        for g in (preemption_victims, unschedule_task_count, unschedule_job_count):
             out.append(f"# HELP {g.name} {g.help}")
             out.append(f"# TYPE {g.name} gauge")
             for labels, v in g.values.items():

@@ -38,6 +38,17 @@ def take_notes() -> Dict[str, object]:
     return out
 
 
+def active() -> bool:
+    """True between ``begin()`` and ``end()``."""
+    return _phases is not None
+
+
+def get_note(name: str):
+    """The note ``name`` recorded so far in this cycle (None if none),
+    without taking the notes."""
+    return _notes.get(name)
+
+
 def add(name: str, secs: float) -> None:
     if _phases is not None:
         _phases[name] = _phases.get(name, 0.0) + secs

@@ -21,6 +21,44 @@ def get_node_list(nodes: Dict[str, NodeInfo]) -> List[NodeInfo]:
     return sorted(nodes.values(), key=lambda n: n.name)
 
 
+class RowTaskQueue:
+    """Task-order queue over job-store ROWS (builtin order only): the
+    preempt/reclaim preemptor queues without heap-building O(T log T) Python
+    comparator dispatch.  Rows come pre-sorted from the columnar lexsort
+    (``pending_rows_all_sorted``); a view materializes only per POP — hunts
+    pop a handful of tasks while the heap path pushed every pending task."""
+
+    __slots__ = ("_job", "_rows", "_i")
+
+    def __init__(self, job, rows) -> None:
+        self._job = job
+        self._rows = rows
+        self._i = 0
+
+    def empty(self) -> bool:
+        return self._i >= len(self._rows)
+
+    def pop(self):
+        row = int(self._rows[self._i])
+        self._i += 1
+        return self._job.view_for_row(row)
+
+
+def build_preemptor_task_queue(ssn, job, builtin_order: bool, use_priority: bool):
+    """The preempt/reclaim per-job pending-task queue: columnar RowTaskQueue
+    under builtin task order, the comparator heap otherwise.  ONE definition —
+    both actions must order preemptor tasks identically."""
+    if builtin_order:
+        return RowTaskQueue(job, job.pending_rows_all_sorted(use_priority))
+    from scheduler_tpu_torch.api.types import TaskStatus
+    from scheduler_tpu_torch.utils.priority_queue import PriorityQueue
+
+    tasks = PriorityQueue(ssn.task_order_fn)
+    for task in job.task_status_index[TaskStatus.PENDING].values():
+        tasks.push(task)
+    return tasks
+
+
 def predicate_nodes(
     task: TaskInfo,
     nodes: List[NodeInfo],
@@ -67,6 +105,11 @@ def prioritize_nodes(
             + batch.get(node.name, 0.0)
         )
     return result
+
+
+def sort_nodes(node_scores: Dict[NodeInfo, float]) -> List[NodeInfo]:
+    """Nodes best-first (scheduler_helper.go:131-145)."""
+    return [n for n, _ in sorted(node_scores.items(), key=lambda kv: -kv[1])]
 
 
 def select_best_node(node_scores: Dict[NodeInfo, float]) -> NodeInfo:

@@ -118,8 +118,12 @@ def run_actions(cache, pkg, conf_text, actions=None, patch_allocate=None):
     framework.close_session(ssn)
     notes = phases.take_notes()
     phases.end()
-    pg_phases = {uid: job.pod_group.status.phase for uid, job in cache.jobs.items()
-                 if job.pod_group is not None}
+    # PodGroup phases by name; a bare pod's shadow group is named after the
+    # pod's UID (a process-global counter), so it is keyed by its pod.
+    pg_phases = {(uid if "podgroup-" not in uid
+                  else "shadow:" + ",".join(sorted(t.name for t in job.tasks.values()))):
+                 job.pod_group.status.phase
+                 for uid, job in cache.jobs.items() if job.pod_group is not None}
     return {"statuses": statuses, "fit_errors": fes, "binds": dict(cache.binder.binds),
             "pod_groups": pg_phases,
             "notes": {k: notes.get(k) for k in ("backfill", "engine_cache", "dirty")}}

@@ -15,7 +15,10 @@ and synthetic operands across its launch plans, its qfair-ladder mode and
 full-recompute queue chain, its releasing mode), ``qfair_solve`` (deserved rows bit for bit,
 met flags, evidence),
 ``static_predicate_mask`` (the mask; vocabulary widths around its packed
-word), ``placement_step`` (all four outputs; node counts across its
+word), ``place_scan`` (codes and the node state it writes; the weights,
+ready deficits, pipelines, the pod-count gate, infeasible tasks, rows left
+out of a pop and pad node columns, 10,000 nodes and a pop of 100),
+``placement_step`` (all four outputs; node counts across its
 cluster, ties across CTAs, a pushed column) and the ``fused_allocate``
 loop with it (codes, against the loop with the plain version on the
 card; in cursor mode and with the multi-queue pop).  The loop's XLA step
@@ -40,6 +43,7 @@ from scheduler_tpu_torch.harness import (
 from scheduler_tpu_torch.interop import mega_operands_from_numpy
 from scheduler_tpu_torch.ops import fused as fused_mod
 from scheduler_tpu_torch.ops import megakernel as mk
+from scheduler_tpu_torch.ops import place_scan_kernel as psk
 from scheduler_tpu_torch.ops import predicate_kernel as pk
 from scheduler_tpu_torch.ops import qfair
 from scheduler_tpu_torch.ops import step_kernel as sk
@@ -128,6 +132,23 @@ def test_cuda_kernel_matches_plain_version(case):
         assert int(stats[mk.STATS.QDELTA_UPDATES]) > 0
     if kw["has_releasing"]:
         assert int((codes <= mk.PIPE_BASE).sum()) == 240
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_multi_queue_without_a_queue_chain():
+    """Three queues and no proportion (priority and gang only): multi-queue
+    mode with no queue chain, the queues popped by rank alone; the kernel
+    against its plain version, bitwise."""
+    device = _card()
+    _, engine = smoke.engine_for(smoke.spec_cluster(smoke.multi_queue_spec()),
+                                 smoke.CONFIG1_CONF, device)
+    kw = engine._mega_kw
+    assert kw["multi_queue"] and not (kw["queue_proportion"] or kw["overused_gate"])
+    codes, stats = mk.mega_allocate(*engine._mega_args, n_queues=len(engine.queue_uids), **kw)
+    ref_codes, ref_stats = mk.mega_allocate_reference(*engine._mega_args, **kw)
+    assert torch.equal(codes, ref_codes)
+    assert torch.equal(stats, ref_stats)
+    assert int((codes >= 0).sum()) > 0
 
 
 @pytest.mark.cuda
@@ -759,3 +780,97 @@ def test_static_mask_memo_skips_the_kernel():
     again = dict(zip(mk.OPERAND_NAMES, second._mega_args))
     assert torch.equal(names["smask"], again["smask"])
     assert torch.equal(names["sscore"], again["sscore"])
+
+
+# -- place_scan against its plain version ------------------------------------------
+
+# case id -> (scan_operands kwargs, weights, ready deficit or None (the pop's
+# length), enforce_pod_count, rows left out of the pop, pad node columns)
+SCAN_CASES = {
+    "none": (dict(seed=1, n=97, t=24), (0.0, 0.0, 0.0), None, False, 0, 0),
+    "least-pod-count": (dict(seed=2, n=97, t=24), (1.0, 0.0, 0.0), None, True, 0, 0),
+    "balanced-no-score": (dict(seed=3, n=97, t=24, score=False), (0.0, 1.0, 0.0), None, True,
+                          0, 0),
+    "binpack-pipelines": (dict(seed=5, n=12, t=32), (0.0, 0.0, 1.0), None, False, 0, 0),
+    "nodeorder": (dict(seed=4, n=300, t=40), (1.0, 1.0, 0.0), None, True, 0, 0),
+    "all-weights": (dict(seed=6, n=300, t=40), (2.0, 1.0, 0.5), None, True, 0, 0),
+    "deficit-0": (dict(seed=7, n=40, t=16), (1.0, 1.0, 0.0), 0, True, 0, 0),
+    "deficit-negative": (dict(seed=8, n=40, t=16), (1.0, 1.0, 0.0), -3, True, 0, 0),
+    "deficit-1": (dict(seed=9, n=40, t=16), (1.0, 1.0, 0.0), 1, True, 0, 0),
+    "deficit-5": (dict(seed=10, n=40, t=16), (1.0, 1.0, 0.0), 5, False, 0, 0),
+    "infeasible-first": (dict(seed=11, n=30, t=12, infeasible=True), (1.0, 0.0, 0.0), None,
+                         True, 0, 0),
+    "pad-rows": (dict(seed=12, n=33, t=16), (1.0, 1.0, 0.0), None, True, 4, 0),
+    "pad-columns": (dict(seed=13, n=1000, t=30, n_rows=200), (1.0, 1.0, 0.0), None, True, 0,
+                    24),
+    "scalar-dims": (dict(seed=14, n=64, t=16, r_dim=5), (2.0, 1.0, 0.5), None, True, 0, 0),
+    "north-star-pop": (dict(seed=15, n=10_000, t=100, n_rows=1000), (1.0, 1.0, 0.0), 100, True,
+                       0, 6384),
+    "north-star-binpack": (dict(seed=16, n=10_000, t=100), (0.0, 0.0, 1.0), None, False, 0, 0),
+}
+
+
+def _scan_args(case, device):
+    """The case's operands on ``device`` (node state copies the scan may
+    write) and its call arguments."""
+    kw, weights, deficit, enforce, pad_rows, pad_cols = SCAN_CASES[case]
+    ops = smoke.scan_operands(**kw)
+    n = kw["n"]
+
+    def cols(a, fill):
+        return np.concatenate([a, np.full((pad_cols,) + a.shape[1:], fill, a.dtype)])
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    state = [dev(cols(ops["idle"], 1e6)), dev(cols(ops["releasing"], 1e6)),
+             dev(cols(ops["task_count"], 0)), dev(cols(ops["allocatable"], 1e6)),
+             dev(cols(ops["pods_limit"], 100)), dev(ops["mins"])]
+    mask = np.concatenate([ops["static_mask"], np.ones((len(ops["static_mask"]), pad_cols),
+                                                       bool)], axis=1)
+    score = ops["static_score"]
+    if score is not None:
+        score = np.concatenate([score, np.full((len(score), pad_cols), 1e6, np.float32)],
+                               axis=1)
+    rows = ops["rows"]
+    t = len(rows)
+    if pad_rows:
+        # The JAX layout's pad rows (the last ``pad_rows`` and one in the
+        # middle) are left out of the pop's rows.
+        keep = np.ones(t, bool)
+        keep[-pad_rows:] = False
+        keep[t // 3] = False
+        rows = rows[keep]
+    rest = [dev(ops["init_resreq"]), dev(ops["resreq"]), dev(mask), dev(score), dev(rows),
+            t if deficit is None else deficit, weights, enforce, n]
+    return state, rest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_place_scan_matches_plain(case):
+    device = _card()
+    state_k, rest = _scan_args(case, device)
+    state_p = [x.clone() for x in state_k]
+    before = psk.launches
+    codes = psk.place_scan(*state_k, *rest)
+    torch.cuda.synchronize()
+    assert psk.launches == before + 1
+    plain = psk.place_scan_reference(*state_p, *rest)
+    assert torch.equal(codes, plain)
+    for a, b in zip(state_k[:3], state_p[:3]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (codes[0] >= 0).any() or case == "infeasible-first"
+
+
+@pytest.mark.cuda
+def test_place_scan_launch_refuses_cpu_tensors():
+    """The kernel's launch takes CUDA tensors only, and the wrapper refuses
+    operands on two devices: no silent fallback."""
+    device = _card()
+    state, rest = _scan_args("none", "cpu")
+    with pytest.raises(ValueError):
+        psk._launch(*state, *rest)
+    state_dev = [x.to(device) for x in state]
+    with pytest.raises(ValueError):
+        psk.place_scan(*state_dev, *rest)
