@@ -125,14 +125,20 @@ What it does, one JSON line per phase:
       the card and ``place_scan`` runs once a job pop.  Checks: the route,
       one ``place_scan`` launch a pop, K3, no node overcommitted, every gang
       whole or unbound.  Prints pops, tasks scanned, the scan's summed event
-      ms and reclaim's and preempt's phase seconds.  Then, after the timed
-      cycle, ``place_scan`` replays the first ``SCAN_CHECK_POPS`` pops from
-      the engine's starting node state against its plain version (codes and
-      node state bitwise, codes equal to the main path's) and is timed on
-      the first.
+      ms (events recorded by the kernel's entry point immediately around
+      each launch), the host ms in its wrapper, ``device_pops`` split into
+      scan, wrapper and the rest, and reclaim's and preempt's phase
+      seconds.  Then, after the timed cycle, ``place_scan`` replays the
+      first ``SCAN_CHECK_POPS`` pops from the engine's starting node state
+      against its plain version (codes and node state bitwise, codes equal
+      to the main path's) and is timed on the first (events and profiler
+      device time; its launch plan: 16 CTAs, the node slice on chip).
    n'. f's cluster with ``SCHEDULER_TORCH_FUSED_STATIC_LIMIT=1``: the
       device route on the default tiers.  Checks: the route, config 2's;
       later the binds equal to the host loop's (the twin f is held to).
+      Prints the same split as n, and replays and times its first
+      ``SCAN_CHECK_POPS`` pops the same way (one-task pops: the small-n
+      plan, one CTA on the global arm).
    o. BASELINE config 4 before its reclaim (``harness.make_reclaim_cluster``)
       through ``reclaim, allocate`` over priority, gang, proportion.
       Checks: evictions only from the queue overused when reclaim began, no
@@ -193,7 +199,8 @@ What it does, one JSON line per phase:
 Then the ``xla_step_arm`` line (the XLA arm on paths i and k: steps, time a
 step, its bound by bytes), the ``kernels`` line (with each kernel's launches
 on every path that runs it, l's to o's included, and ``place_scan``'s entry
-below the TPU kernels' from path n), the card's name and power
+below the TPU kernels' from paths n and n', with its launch plan), the
+card's name and power
 limit as nvidia-smi prints them, and as the last line ``{"ok": true,
 "device": {...}}``.  Any
 failure exits non-zero; with no CUDA device, or without the port beside
@@ -574,6 +581,48 @@ def scan_operands(seed, n, t, r_dim=2, *, exact=False, score=True, infeasible=Fa
         "static_score": (rng.integers(0, 5, (n_rows, n)).astype(np.float32) if score else None),
         "rows": rows,
     }
+
+
+PLANT_SCORE = 5.0
+
+
+def plant_scan(ops, kind, slices):
+    """Plant winners at a launch plan's node slices (``slices``: each CTA's
+    (first node, node count), ``place_scan_kernel.node_slices``) in
+    ``scan_operands``' arrays, in place.  Every static score becomes 0 but
+    ``PLANT_SCORE`` on the planted nodes, which every task may take (mask
+    set, cpu and memory at the largest allocatable, idle at allocatable)
+    until their pod room (``task_count`` below
+    ``pods_limit`` by the room) runs out; then the rest tie at 0.  Kinds:
+    ``ties``, the middle node of every slice after the first, room 2
+    (equal scores in different CTAs: the lowest index wins); ``edges``, the
+    first and the last node of every slice, room 1 (winners on slice edges,
+    one after the other across CTAs); ``ranks``, the first three nodes of
+    rank 0 and the last three of the last non-empty slice, room 1
+    (consecutive winners in rank 0, then in rank C - 1).  Meant for score
+    weights (0, 0, 0) and the pod-count gate, so the static score is the
+    whole score and the room holds.  Returns the planted nodes."""
+    import numpy as np
+
+    full = [(b, c) for b, c in slices if c > 0]
+    if kind == "ties":
+        nodes, room = [b + c // 2 for b, c in full[1:]], 2
+    elif kind == "edges":
+        nodes, room = sorted({x for b, c in full for x in (b, b + c - 1)}), 1
+    elif kind == "ranks":
+        (b0, c0), (bl, cl) = full[0], full[-1]
+        nodes, room = sorted(set(range(b0, b0 + min(3, c0)))
+                             | set(range(bl + cl - min(3, cl), bl + cl))), 1
+    else:
+        raise ValueError(f"plant_scan: unknown kind {kind!r}")
+    nodes = np.asarray(nodes, np.int64)
+    ops["static_score"][:] = 0.0
+    ops["static_score"][:, nodes] = PLANT_SCORE
+    ops["static_mask"][:, nodes] = True
+    ops["allocatable"][nodes, :2] = (64000.0, 262144.0)
+    ops["idle"][nodes] = ops["allocatable"][nodes]
+    ops["task_count"][nodes] = ops["pods_limit"][nodes] - room
+    return nodes
 
 
 def mega_operands(seed, nb, r_dim, n_jobs, *, n_nodes=None, gated=None, alike=False,
@@ -3051,9 +3100,12 @@ def scan_record(capture, repeats=20):
     in order from the engine's starting node state: each pop's codes equal
     to the plain version's and to the codes the pop returned on the main
     path, the node state it writes bitwise the plain version's.  Its time a
-    pop on the first pop's operands: CUDA events around each of
-    ``repeats`` launches, the node state restored before each; the plain
-    version's time once; the first pop's bound (``scan_bound_ms``)."""
+    pop on the first pop's operands, the node state restored before each
+    launch: CUDA events recorded by the kernel's entry point immediately
+    around each of ``repeats`` launches (``event_ms``) and the profiler's
+    device time (``device_ms``; ``ms`` is it where the trace has it); the
+    plain version's time once; the first pop's launch plan and bound
+    (``scan_bound_ms``)."""
     import numpy as np
     import torch
 
@@ -3074,23 +3126,32 @@ def scan_record(capture, repeats=20):
         if not np.array_equal(codes.cpu().numpy(), main):
             raise SystemExit(f"place_scan: pop {i}'s replay differs from the main path's codes")
         for a, b in zip(dyn, dyn_p):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise SystemExit(f"place_scan: pop {i}'s node state differs from its plain "
+                                 f"version's")
             worst = max(worst, float((a.double() - b.double()).abs().max()))
         first = codes if first is None else first
         tasks += int(spec.rows.shape[0])
     dyn = [x.clone() for x in saved]
     rest = fixed + capture.operands(0)
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    evs = events()
     total = 0.0
     for _ in range(repeats):
         for x, y in zip(dyn, saved):
             x.copy_(y)
-        e0.record()
-        psk.place_scan(*dyn, *rest)
-        e1.record()
-        e1.synchronize()
-        total += e0.elapsed_time(e1)
+        psk.place_scan(*dyn, *rest, events=evs)
+        evs[1].synchronize()
+        total += evs[0].elapsed_time(evs[1])
+
+    def restored_launch():
+        for x, y in zip(dyn, saved):
+            x.copy_(y)
+        return psk.place_scan(*dyn, *rest)
+
+    device_ms, _ = device_ms_per_call(restored_launch, repeats, match="place_scan_kernel")
     for x, y in zip(dyn, saved):
         x.copy_(y)
+    e0, e1 = events()
     e0.record()
     psk.place_scan_reference(*dyn, *rest)
     e1.record()
@@ -3104,12 +3165,27 @@ def scan_record(capture, repeats=20):
     has_score = spec.static_score is not None
     bound_by, bound_ms = scan_bound_ms(n, r_dim, t, scanned, placed, capture.weights,
                                        capture.enforce, has_score)
+    event_ms = total / repeats
+    ms = device_ms if device_ms is not None else event_ms
+    plan = psk.scan_plan(n, r_dim, t, capture.weights, capture.enforce)
     return {"checked_pops": len(capture.pops), "checked_tasks": tasks, "max_abs_err": worst,
             "codes_equal": True, "nodes": n, "r_dim": r_dim, "pop_tasks": t,
             "scanned_tasks": scanned, "placed_tasks": placed, "weights": list(capture.weights),
             "enforce_pod_count": capture.enforce, "static_score_rows": has_score,
-            "ms": total / repeats, "plain_ms": e0.elapsed_time(e1), "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "plan": plan.describe(), "ms": ms, "event_ms": event_ms, "device_ms": device_ms,
+            "us_per_task": 1e3 * ms / max(scanned, 1), "plain_ms": e0.elapsed_time(e1),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def device_pops_split(rec):
+    """The device route's ``device_pops`` phase split into the scan
+    kernel's events, the host time in its wrapper and the rest (the pops'
+    host work: heaps, commits, uploads, readbacks), in seconds."""
+    total = rec["phases_s"].get("device_pops")
+    scan_s = rec["kernel_ms"] / 1e3
+    wrapper_s = rec["cohort"].get("wrapper_ms", 0.0) / 1e3
+    return {"device_pops_s": total, "scan_s": scan_s, "wrapper_s": wrapper_s,
+            "rest_s": None if total is None else total - scan_s - wrapper_s}
 
 
 def phase_production_conf(opts, conf_path):
@@ -3137,6 +3213,8 @@ def phase_production_conf(opts, conf_path):
           "pods": opts.pods, "binds": binds, "gangs_bound": gangs,
           "pops": rec["cohort"]["pops"], "tasks_scanned": rec["cohort"]["tasks_scanned"],
           "place_scan_event_ms": rec["kernel_ms"],
+          "place_scan_wrapper_ms": rec["cohort"].get("wrapper_ms"),
+          "device_pops_split": device_pops_split(rec),
           "reclaim_s": phases_s.get("action:reclaim"),
           "preempt_s": phases_s.get("action:preempt"), **rec})
     if launches["static_predicate_mask"] < 1:
@@ -3155,20 +3233,28 @@ def phase_default_tiers_device(opts, conf_path):
     ``SCHEDULER_TORCH_FUSED_STATIC_LIMIT=1``: the fused gate declines and
     allocate takes the device route.  Checks: the route, config 2's bind
     checks; later its binds equal the host loop's (``check_host_loop``).
-    Returns (launches, binds)."""
+    Then its first ``SCAN_CHECK_POPS`` pops replayed (``scan_record``: the
+    small-n plan).  Returns (launches, binds, the scan's record)."""
     from scheduler_tpu_torch.harness import make_kubemark_density_cluster
 
     os.environ["SCHEDULER_TORCH_FUSED_STATIC_LIMIT"] = "1"
     cache = make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache
-    rec, launches = run_cycle(cache, conf_path, engine="device")
+    with ScanCapture(SCAN_CHECK_POPS) as capture:
+        rec, launches = run_cycle(cache, conf_path, engine="device")
     binds, most = check_config2_binds(cache)
     emit({"phase": "main_path", "config": "config2_default_tiers_device",
           "nodes": opts.config2_nodes, "pods": opts.config2_pods, "binds": binds,
           "most_pods_on_a_node": most, "pops": rec["cohort"]["pops"],
-          "tasks_scanned": rec["cohort"]["tasks_scanned"], **rec})
+          "tasks_scanned": rec["cohort"]["tasks_scanned"],
+          "place_scan_event_ms": rec["kernel_ms"],
+          "place_scan_wrapper_ms": rec["cohort"].get("wrapper_ms"),
+          "device_pops_split": device_pops_split(rec), **rec})
     if launches["static_predicate_mask"] < 1 or binds < 1:
         raise SystemExit(f"path n': {binds} binds, launches {launches}")
-    return launches, dict(cache.binder.binds)
+    scan = scan_record(capture)
+    emit({"phase": "kernel_vs_plain", "kernel": "place_scan",
+          "case": "config2_default_tiers_device_first_pops", **scan})
+    return launches, dict(cache.binder.binds), scan
 
 
 def reclaim_invariants(ssn, running_before):
@@ -3360,20 +3446,26 @@ def phase_preempt_storms():
     return total
 
 
-def place_scan_entry(launches_by_path, scan):
+def place_scan_entry(launches_by_path, scan, small):
     """place_scan's entry of the kernels line (no TPU Pallas kernel: it
     replaces the JAX package's XLA scan): launches on each path that runs
-    it, its error against the plain version on path n's first pops and its
-    time a pop on path n's operands."""
+    it, its error against the plain version on path n's first pops, its
+    time a pop and launch plan on path n's operands, and the same on path
+    n''s (``small``)."""
+    keys = ("nodes", "pop_tasks", "scanned_tasks", "plan", "ms", "event_ms", "device_ms",
+            "us_per_task", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "checked_pops")
     return {"name": "place_scan", "route": "cuda",
             "source": "scheduler_tpu_torch/csrc/place_scan.cu",
             "replaces": "scheduler_tpu/ops/placement.py:71-137",
             "launches": launches_by_path["production_conf"],
             "launches_by_path": launches_by_path,
-            "max_abs_err": scan["max_abs_err"], "checked_pops": scan["checked_pops"],
-            "checked_tasks": scan["checked_tasks"], "nodes": scan["nodes"],
-            "pop_tasks": scan["pop_tasks"], "ms": scan["ms"], "plain_ms": scan["plain_ms"],
-            "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"], "library_ms": None}
+            "max_abs_err": max(scan["max_abs_err"], small["max_abs_err"]),
+            "checked_pops": scan["checked_pops"], "checked_tasks": scan["checked_tasks"],
+            "nodes": scan["nodes"], "pop_tasks": scan["pop_tasks"], "plan": scan["plan"],
+            "ms": scan["ms"], "event_ms": scan["event_ms"], "device_ms": scan["device_ms"],
+            "us_per_task": scan["us_per_task"], "plain_ms": scan["plain_ms"],
+            "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"], "library_ms": None,
+            "config2_default_tiers_device": {k: small[k] for k in keys}}
 
 
 def child_argv(child, path, opts):
@@ -3526,8 +3618,8 @@ def child_main(child, path, opts) -> int:
         elif child == "config2_default_tiers_device":
             with open(conf_path, "w") as f:
                 f.write(DEFAULT_TIERS_CONF)
-            launches, binds = phase_default_tiers_device(opts, conf_path)
-            out = {"launches": launches, "binds": binds}
+            launches, binds, scan = phase_default_tiers_device(opts, conf_path)
+            out = {"launches": launches, "binds": binds, "scan": scan}
         else:
             with open(conf_path, "w") as f:
                 f.write(RECLAIM_ALLOCATE_CONF)
@@ -4237,7 +4329,7 @@ def main() -> int:
                    step_recs[0], step_recs, [parity, mq_tpl["parity"]]),
         place_scan_entry({"production_conf": production["launches"]["place_scan"],
                           "config2_default_tiers_device": tiers_device["launches"]["place_scan"]},
-                         production["scan"]),
+                         production["scan"], tiers_device["scan"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -214,6 +214,8 @@ class DeviceAllocator:
         self._resreq = torch.from_numpy(np.ascontiguousarray(req)).to(self.device)
         self.stats = {"pops": 0, "tasks_scanned": 0}
         self.kernel_ms = 0.0 if self.device.type == "cuda" else None
+        self.wrapper_ms = 0.0  # host time in the scan's wrapper (CUDA only)
+        self._events = None
 
     # -- capability probe ----------------------------------------------------
 
@@ -280,13 +282,17 @@ class DeviceAllocator:
         )
         events = None
         if self.kernel_ms is not None:
-            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            if self._events is None:  # one pair, read after each pop's readback
+                self._events = (torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True))
+            events = self._events
         self.state, result = sequential_place_job(
             self.state, spec, self.weights, enforce_pod_count=self.enforce_pod_count,
             events=events,
         )
         if events is not None:
             self.kernel_ms += events[0].elapsed_time(events[1])  # the readback synchronized
+            self.wrapper_ms += 1e3 * result.wrapper_s
         self.stats["pops"] += 1
         self.stats["tasks_scanned"] += len(tasks)
 
@@ -302,9 +308,11 @@ class DeviceAllocator:
         return out
 
     def run_stats(self) -> dict:
-        """The engine's evidence: pops, tasks scanned, the scan kernel's
-        summed event ms (CUDA only)."""
+        """The engine's evidence: pops, tasks scanned and (CUDA only) the
+        scan kernel's summed event ms and the host ms spent in its
+        wrapper."""
         out = dict(self.stats, engine="device")
         if self.kernel_ms is not None:
             out["kernel_ms"] = self.kernel_ms
+            out["wrapper_ms"] = self.wrapper_ms
         return out

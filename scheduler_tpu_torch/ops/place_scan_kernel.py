@@ -14,6 +14,12 @@ through a plain C entry point with ``ctypes``.
   Each launch adds one to ``launches``.
 * ``place_scan_reference`` — the plain PyTorch version: the scan body of
   the JAX function, one task at a time.
+* ``scan_plan`` — the kernel's launch plan: one thread-block cluster of
+  ``ctas`` CTAs, each owning an equal contiguous slice of ``[0, n_active)``
+  (``node_slices``), held in shared memory (the on-chip arm) where it fits
+  and the pop scans more than one task, else read in place (the global
+  arm).  A plan the card cannot run makes the launch raise; nothing falls
+  back.
 
 Both update ``idle``, ``releasing`` and ``task_count`` in place and return
 an int32 ``[3, t]`` tensor on the inputs' device: row 0 the chosen node of
@@ -40,7 +46,8 @@ gathers nothing.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -53,6 +60,83 @@ launches = 0
 
 # Resource dims the kernel keeps in shared memory (the vocabulary's width).
 MAX_R = 32
+
+# The launch plan's constants (csrc/place_scan.cu): threads a CTA (1,024 at
+# two resource dims, else 512), the largest cluster (16 is a non-portable
+# size), the nodes a CTA takes before the plan doubles the cluster, a
+# block's shared memory on the H100 and the part of it the kernel's static
+# arrays keep.
+THREADS_R2 = 1024
+THREADS = 512
+MAX_CTAS = 16
+NODES_PER_CTA = 1024
+SMEM_LIMIT = 232_448
+STATIC_SMEM = 2048
+_ERR_NO_CLUSTER = 10001
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """A launch of the kernel: ``ctas`` CTAs of ``threads`` threads, each
+    owning ``slice`` nodes; ``on_chip``: the slice in shared memory
+    (``smem_bytes`` of it), else the global arm."""
+
+    ctas: int
+    slice: int
+    on_chip: bool
+    smem_bytes: int
+    threads: int
+
+    def describe(self) -> dict:
+        return {"ctas": self.ctas, "threads": self.threads, "slice": self.slice,
+                "arm": "shared" if self.on_chip else "global", "smem_bytes": self.smem_bytes}
+
+
+def slice_words(r: int, has_weights: bool, enforce_pod_count: bool) -> int:
+    """4-byte words a node of an on-chip slice takes: the idle and the
+    releasing rows, the task count, the allocatable cpu and memory columns
+    where a score weight is non-zero, the pod limit under the gate."""
+    return 2 * r + 1 + 2 * bool(has_weights) + bool(enforce_pod_count)
+
+
+def scan_plan(n_active: int, r: int, t: int, weights: Tuple[float, float, float],
+              enforce_pod_count: bool, ctas: Optional[int] = None,
+              arm: Optional[str] = None) -> ScanPlan:
+    """The plan for a pop of ``t`` tasks over ``n_active`` nodes of ``r``
+    dims.  By default the smallest cluster (1, 2, 4, 8 or 16 CTAs) that
+    gives a CTA at most ``NODES_PER_CTA`` nodes, and the on-chip arm where
+    the slice fits and ``t`` > 1 (a one-task pop reads each node once
+    either way).  ``ctas`` and ``arm`` ("shared" or "global") force a plan;
+    a shared arm that does not fit raises."""
+    if ctas is None:
+        ctas = 1
+        while ctas < MAX_CTAS and ctas * NODES_PER_CTA < n_active:
+            ctas *= 2
+    if ctas not in (1, 2, 4, 8, 16):
+        raise ValueError(f"place_scan: a cluster of {ctas} CTAs (1, 2, 4, 8 or 16)")
+    share = -(-max(int(n_active), 0) // ctas)
+    slice_ = -(-share // 4) * 4
+    need = slice_ * slice_words(r, any(weights), enforce_pod_count) * 4
+    fits = need <= SMEM_LIMIT - STATIC_SMEM
+    if arm is None:
+        arm = "shared" if fits and t > 1 else "global"
+    if arm not in ("shared", "global"):
+        raise ValueError(f"place_scan: arm {arm!r} (shared or global)")
+    if arm == "shared" and not fits:
+        raise ValueError(f"place_scan: a slice of {slice_} nodes x {r} dims ({need} bytes) "
+                         f"does not fit a CTA's shared memory")
+    on_chip = arm == "shared"
+    return ScanPlan(ctas, slice_, on_chip, need if on_chip else 0,
+                    THREADS_R2 if r == 2 else THREADS)
+
+
+def node_slices(n_active: int, plan: ScanPlan) -> List[Tuple[int, int]]:
+    """Each CTA's (first node, node count), as the kernel cuts them."""
+    out = []
+    for rank in range(plan.ctas):
+        base = min(rank * plan.slice, n_active)
+        out.append((base, min(plan.slice, n_active - base)))
+    return out
 
 
 def place_scan_reference(idle, releasing, task_count, allocatable, pods_limit, mins,
@@ -107,13 +191,16 @@ def place_scan(idle: torch.Tensor, releasing: torch.Tensor, task_count: torch.Te
                init_resreq: torch.Tensor, resreq: torch.Tensor, static_mask: torch.Tensor,
                static_score: Optional[torch.Tensor], rows: torch.Tensor, ready_deficit: int,
                weights: Tuple[float, float, float], enforce_pod_count: bool,
-               n_active: Optional[int] = None) -> torch.Tensor:
+               n_active: Optional[int] = None, plan: Optional[ScanPlan] = None,
+               events=None) -> torch.Tensor:
     """Scan the tasks ``rows`` (int32 [t], rows of ``init_resreq`` /
     ``resreq`` f32 [T, R] and of ``static_mask`` bool / ``static_score`` f32
     [T, N]; ``static_score`` None: no static score) over the node state
     ``idle``, ``releasing`` f32 [N, R], ``task_count`` int32 [N] (written in
     place), ``allocatable`` f32 [N, R], ``pods_limit`` int32 [N], ``mins``
-    f32 [R].  Returns int32 [3, t]: chosen, pipelined, failed."""
+    f32 [R].  Returns int32 [3, t]: chosen, pipelined, failed.  On CUDA,
+    ``plan`` (default ``scan_plan``'s) is the launch, and ``events`` (a pair
+    of ``torch.cuda.Event``) are recorded immediately around it."""
     n, r = idle.shape
     t = rows.shape[0]
     n_t = init_resreq.shape[0]
@@ -151,9 +238,11 @@ def place_scan(idle: torch.Tensor, releasing: torch.Tensor, task_count: torch.Te
         raise ValueError(f"place_scan: no kernel for device {dev}")
     if r < 2 or r > MAX_R:
         raise ValueError(f"place_scan: {r} resource dims outside 2..{MAX_R}")
+    if plan is None:
+        plan = scan_plan(n_active, r, t, weights, enforce_pod_count)
     return _launch(idle, releasing, task_count, allocatable, pods_limit, mins, init_resreq,
                    resreq, static_mask, static_score, rows, ready_deficit, weights,
-                   enforce_pod_count, n_active)
+                   enforce_pod_count, n_active, plan, events)
 
 
 _fn = None
@@ -163,19 +252,31 @@ def _entry():
     """The kernel's C entry point, its argument types set once."""
     global _fn
     if _fn is None:
-        fn = cuda_build.load().place_scan_launch
+        fn = cuda_build.load().place_scan_cluster_launch
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def _raw_event(event) -> int:
+    """The CUDA event behind a ``torch.cuda.Event`` (created at its first
+    record, so a fresh one is recorded once here; the kernel's launch
+    records it again)."""
+    if not event.cuda_event:
+        event.record()
+    return event.cuda_event
+
+
 def _launch(idle, releasing, task_count, allocatable, pods_limit, mins, init_resreq, resreq,
-            static_mask, static_score, rows, ready_deficit, weights, enforce_pod_count, n_active):
+            static_mask, static_score, rows, ready_deficit, weights, enforce_pod_count, n_active,
+            plan: ScanPlan, events=None):
     global launches
     if idle.device.type != "cuda":
         raise ValueError(f"place_scan: the kernel takes CUDA tensors, got {idle.device}")
+    if plan.ctas * plan.slice < n_active:
+        raise ValueError(f"place_scan: {plan} does not cover {n_active} nodes")
     n, r = idle.shape
     t = rows.shape[0]
     fn = _entry()
@@ -185,14 +286,19 @@ def _launch(idle, releasing, task_count, allocatable, pods_limit, mins, init_res
         out[1:] = 0
         return out
     w_lr, w_bal, w_bp = (float(w) for w in weights)
+    ev0, ev1 = (_raw_event(e) for e in events) if events is not None else (None, None)
     stream = torch._C._cuda_getCurrentRawStream(idle.device.index)  # the current stream
     rc = fn(idle.data_ptr(), releasing.data_ptr(), task_count.data_ptr(),
             allocatable.data_ptr(), pods_limit.data_ptr(), mins.data_ptr(),
             init_resreq.data_ptr(), resreq.data_ptr(), static_mask.data_ptr(),
             static_score.data_ptr() if static_score is not None else None,
             rows.data_ptr(), out.data_ptr(), static_mask.stride(0), t, n_active, r,
-            int(ready_deficit), int(bool(enforce_pod_count)), w_lr, w_bal, w_bp, stream)
+            int(ready_deficit), int(bool(enforce_pod_count)), w_lr, w_bal, w_bp,
+            plan.ctas, plan.threads, plan.slice, int(plan.on_chip), plan.smem_bytes, stream,
+            ev0, ev1, None)
+    if rc == _ERR_NO_CLUSTER:
+        raise RuntimeError(f"place_scan: the card cannot schedule {plan}")
     if rc != 0:
-        raise RuntimeError(f"place_scan launch failed: CUDA error {rc}")
+        raise RuntimeError(f"place_scan launch failed: CUDA error {rc} ({plan})")
     launches += 1
     return out

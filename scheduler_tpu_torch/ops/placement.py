@@ -33,6 +33,7 @@ engine that owns it, ``ops/allocator.py``, holds its own copies).
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -73,6 +74,7 @@ class PlacementResult:
     chosen: np.ndarray     # i32 [t] node index or -1
     pipelined: np.ndarray  # bool [t]
     failed: np.ndarray     # bool [t] first infeasible task (host records FitErrors)
+    wrapper_s: float = 0.0  # host seconds in the scan's wrapper (the launch included)
 
 
 def _place_scan(idle, releasing, task_count, allocatable, pods_limit, mins, init_resreq,
@@ -107,15 +109,14 @@ def sequential_place_job(
 
     ``weights`` = (least_requested, balanced_allocation, binpack) scorer
     weights; a weight of 0 leaves its scorer out.  ``events`` (a pair of
-    CUDA events) are recorded around the launch."""
-    if events is not None:
-        events[0].record()
+    CUDA events) are recorded immediately around the kernel's launch."""
+    t0 = time.perf_counter()
     codes = place_scan(state.idle, state.releasing, state.task_count, state.allocatable,
                        state.pods_limit, state.mins, spec.init_resreq, spec.resreq,
                        spec.static_mask, spec.static_score, spec.rows,
-                       int(spec.ready_deficit), weights, enforce_pod_count, spec.n_active)
-    if events is not None:
-        events[1].record()
+                       int(spec.ready_deficit), weights, enforce_pod_count, spec.n_active,
+                       events=events)
+    wrapper_s = time.perf_counter() - t0
     host = codes.cpu().numpy()
     return state, PlacementResult(chosen=host[0], pipelined=host[1].astype(bool),
-                                  failed=host[2].astype(bool))
+                                  failed=host[2].astype(bool), wrapper_s=wrapper_s)

@@ -785,7 +785,11 @@ def test_static_mask_memo_skips_the_kernel():
 # -- place_scan against its plain version ------------------------------------------
 
 # case id -> (scan_operands kwargs, weights, ready deficit or None (the pop's
-# length), enforce_pod_count, rows left out of the pop, pad node columns)
+# length), enforce_pod_count, rows left out of the pop, pad node columns[,
+# extras]).  Extras: "plan", a forced launch plan (CTAs or None for the
+# default count, arm or None); "plant", a chip_smoke.plant_scan kind planted
+# at the plan's node slices; "fails", the first task finds no node.
+ZERO = (0.0, 0.0, 0.0)
 SCAN_CASES = {
     "none": (dict(seed=1, n=97, t=24), (0.0, 0.0, 0.0), None, False, 0, 0),
     "least-pod-count": (dict(seed=2, n=97, t=24), (1.0, 0.0, 0.0), None, True, 0, 0),
@@ -807,15 +811,58 @@ SCAN_CASES = {
     "north-star-pop": (dict(seed=15, n=10_000, t=100, n_rows=1000), (1.0, 1.0, 0.0), 100, True,
                        0, 6384),
     "north-star-binpack": (dict(seed=16, n=10_000, t=100), (0.0, 0.0, 1.0), None, False, 0, 0),
+    # The cluster's node slices: ties and winners at their edges.
+    "ties-across-ctas": (dict(seed=17, n=10_000, t=40), ZERO, None, True, 0, 0,
+                         {"plant": "ties"}),
+    "ties-across-ctas-global": (dict(seed=17, n=10_000, t=40), ZERO, None, True, 0, 0,
+                                {"plant": "ties", "plan": (None, "global")}),
+    "slice-edges": (dict(seed=18, n=10_000, t=40), ZERO, None, True, 0, 0, {"plant": "edges"}),
+    "slice-edges-8-ctas": (dict(seed=18, n=10_000, t=40), ZERO, None, True, 0, 0,
+                           {"plant": "edges", "plan": (8, "shared")}),
+    "ranks-first-and-last": (dict(seed=19, n=10_000, t=12), ZERO, None, True, 0, 0,
+                             {"plant": "ranks"}),
+    "ranks-first-and-last-global": (dict(seed=19, n=10_000, t=12), ZERO, None, True, 0, 0,
+                                    {"plant": "ranks", "plan": (16, "global")}),
+    # Node counts around the plan's cuts, and none at all.
+    "n-active-1": (dict(seed=55, n=1, t=6), (1.0, 1.0, 0.0), None, True, 0, 24),
+    "n-active-7": (dict(seed=21, n=7, t=12), (1.0, 1.0, 0.0), None, True, 0, 9),
+    "n-active-7-16-ctas": (dict(seed=21, n=7, t=12), (1.0, 1.0, 0.0), None, True, 0, 9,
+                           {"plan": (16, "shared")}),
+    "n-active-10001": (dict(seed=22, n=10_001, t=50), (1.0, 1.0, 0.0), None, True, 0, 0),
+    "n-active-0": (dict(seed=23, n=0, t=5), (1.0, 1.0, 0.0), None, True, 0, 24,
+                   {"fails": True}),
+    # The widest vocabulary: the default (shared) plan and the global arm.
+    "r32-shared": (dict(seed=24, n=10_000, t=30, r_dim=32), (2.0, 1.0, 0.5), None, True, 0, 0,
+                   {"plan": (None, "shared")}),
+    "r32-global": (dict(seed=24, n=10_000, t=30, r_dim=32), (2.0, 1.0, 0.5), None, True, 0, 0,
+                   {"plan": (None, "global")}),
+    # The engine's mask stride (16,384) with pad columns, on the global arm.
+    "stride-16384-global": (dict(seed=15, n=10_000, t=100, n_rows=1000), (1.0, 1.0, 0.0), 100,
+                            True, 0, 6384, {"plan": (None, "global")}),
+    "ready-break-mid-pop": (dict(seed=26, n=3000, t=60), (1.0, 1.0, 0.0), 7, True, 0, 0),
 }
+
+
+def _scan_plan(case, t):
+    """The case's forced launch plan, or None (the wrapper's own)."""
+    kw, weights, _, enforce, _, _, *extra = SCAN_CASES[case]
+    forced = (extra[0] if extra else {}).get("plan")
+    if forced is None:
+        return None
+    return psk.scan_plan(kw["n"], kw.get("r_dim", 2), t, weights, enforce, *forced)
 
 
 def _scan_args(case, device):
     """The case's operands on ``device`` (node state copies the scan may
-    write) and its call arguments."""
-    kw, weights, deficit, enforce, pad_rows, pad_cols = SCAN_CASES[case]
+    write), its call arguments and its launch plan (None: the wrapper's)."""
+    kw, weights, deficit, enforce, pad_rows, pad_cols, *extra = SCAN_CASES[case]
+    extra = extra[0] if extra else {}
     ops = smoke.scan_operands(**kw)
     n = kw["n"]
+    plan = _scan_plan(case, kw["t"])
+    if "plant" in extra:
+        shown = plan or psk.scan_plan(n, kw.get("r_dim", 2), kw["t"], weights, enforce)
+        smoke.plant_scan(ops, extra["plant"], psk.node_slices(n, shown))
 
     def cols(a, fill):
         return np.concatenate([a, np.full((pad_cols,) + a.shape[1:], fill, a.dtype)])
@@ -843,24 +890,77 @@ def _scan_args(case, device):
         rows = rows[keep]
     rest = [dev(ops["init_resreq"]), dev(ops["resreq"]), dev(mask), dev(score), dev(rows),
             t if deficit is None else deficit, weights, enforce, n]
-    return state, rest
+    return state, rest, plan
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(SCAN_CASES))
-def test_place_scan_matches_plain(case):
-    device = _card()
-    state_k, rest = _scan_args(case, device)
+def _scan_equal_plain(state_k, rest, plan):
+    """One launch with ``plan`` against the plain version on copies of the
+    same operands: codes and the node state it writes, bitwise.  Returns
+    the codes."""
     state_p = [x.clone() for x in state_k]
     before = psk.launches
-    codes = psk.place_scan(*state_k, *rest)
+    codes = psk.place_scan(*state_k, *rest, plan=plan)
     torch.cuda.synchronize()
     assert psk.launches == before + 1
     plain = psk.place_scan_reference(*state_p, *rest)
     assert torch.equal(codes, plain)
     for a, b in zip(state_k[:3], state_p[:3]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    assert (codes[0] >= 0).any() or case == "infeasible-first"
+    return codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_place_scan_matches_plain(case):
+    device = _card()
+    state_k, rest, plan = _scan_args(case, device)
+    codes = _scan_equal_plain(state_k, rest, plan)
+    extra = SCAN_CASES[case][6] if len(SCAN_CASES[case]) > 6 else {}
+    if extra.get("fails"):
+        assert int(codes[2, 0]) == 1 and (codes[0] == -1).all()
+    else:
+        assert (codes[0] >= 0).any() or case == "infeasible-first"
+    if "plant" in extra:
+        assert int(codes[0, 0]) >= 0  # a planted node won the first task
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["shared", "global"])
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
+def test_place_scan_every_plan(ctas, arm):
+    """Every plan the wrapper can pick (and the ones it can be given), on
+    the same operands: 3,000 nodes, a pop of 40 with a ready break at 30."""
+    device = _card()
+    kw = dict(seed=27, n=3000, t=40)
+    ops = smoke.scan_operands(**kw)
+    plan = psk.scan_plan(3000, 2, 40, (1.0, 1.0, 0.0), True, ctas, arm)
+    assert (plan.ctas, plan.on_chip) == (ctas, arm == "shared")
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    state = [dev(ops[k]) for k in ("idle", "releasing", "task_count", "allocatable",
+                                     "pods_limit", "mins")]
+    rest = [dev(ops[k]) for k in ("init_resreq", "resreq", "static_mask", "static_score",
+                                    "rows")] + [30, (1.0, 1.0, 0.0), True, 3000]
+    codes = _scan_equal_plain(state, rest, plan)
+    assert int((codes[0] >= 0).sum()) >= 30
+
+
+@pytest.mark.cuda
+def test_place_scan_plan_the_card_cannot_run_raises():
+    """A plan past the card's shared memory, or with another CTA size than
+    the kernel's, is refused by the entry point and the wrapper raises:
+    nothing runs, nothing falls back."""
+    device = _card()
+    state, rest, _ = _scan_args("nodeorder", device)
+    plan = psk.scan_plan(300, 2, 40, (1.0, 1.0, 0.0), True)
+    before = psk.launches
+    for bad in (psk.ScanPlan(plan.ctas, plan.slice, True, psk.SMEM_LIMIT + 4096, plan.threads),
+                psk.ScanPlan(plan.ctas, plan.slice, plan.on_chip, plan.smem_bytes, psk.THREADS)):
+        with pytest.raises(RuntimeError):
+            psk.place_scan(*state, *rest, plan=bad)
+    assert psk.launches == before
 
 
 @pytest.mark.cuda
@@ -868,9 +968,9 @@ def test_place_scan_launch_refuses_cpu_tensors():
     """The kernel's launch takes CUDA tensors only, and the wrapper refuses
     operands on two devices: no silent fallback."""
     device = _card()
-    state, rest = _scan_args("none", "cpu")
+    state, rest, _ = _scan_args("none", "cpu")
     with pytest.raises(ValueError):
-        psk._launch(*state, *rest)
+        psk._launch(*state, *rest, psk.scan_plan(97, 2, 24, (0.0, 0.0, 0.0), False))
     state_dev = [x.to(device) for x in state]
     with pytest.raises(ValueError):
         psk.place_scan(*state_dev, *rest)

@@ -13,7 +13,13 @@ infeasible first task, more resource dims.  Where two or more score terms
 meet the operands are exact in float32 (``exact``): XLA's CPU backend
 contracts a product into the sum that follows it, the port never does.
 Also ``sequential_place_job`` reading the pop's rows by index from the
-session tensors, against the JAX scan on the gathered rows.
+session tensors, against the JAX scan on the gathered rows; the CUDA
+kernel's tie and boundary operands (``chip_smoke.plant_scan``: equal
+scores in different CTAs' node slices, winners on a slice's first and last
+node, consecutive winners in rank 0 and in the last rank), a node count
+past a slice cut and a ready break mid-pop at cluster scale; and the launch
+plan (``scan_plan``): its slices cover ``[0, n_active)`` exactly once,
+contiguous, and its arm fits.
 """
 
 import jax.numpy as jnp
@@ -21,8 +27,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import scan_operands
+from chip_smoke import plant_scan, scan_operands
 from scheduler_tpu.ops import placement as jp
+from scheduler_tpu_torch.ops import place_scan_kernel as psk
 from scheduler_tpu_torch.ops import placement as tp
 
 WEIGHTS = {
@@ -205,3 +212,79 @@ def test_sequential_place_job_reads_rows_by_index(score):
     port = [state.idle.numpy()[:n], state.releasing.numpy()[:n], state.task_count.numpy()[:n],
             result.chosen, result.pipelined, result.failed]
     _assert_bitwise(port, ref)
+
+
+@pytest.mark.parametrize("kind", ["ties", "edges", "ranks"])
+@pytest.mark.parametrize("ctas", [8, 16])
+def test_scan_matches_jax_on_planted_slices(kind, ctas):
+    """The kernel's slice boundaries at 10,000 nodes: the planted nodes win
+    first, in index order, each as often as its pod room allows."""
+    t, n = 40, 10_000
+    ops = scan_operands(17, n, t)
+    plan = psk.scan_plan(n, 2, t, WEIGHTS["none"], True, ctas)
+    nodes = plant_scan(ops, kind, psk.node_slices(n, plan))
+    valid = np.ones(t, bool)
+    ref = _jax_scan(ops, valid, t, WEIGHTS["none"], True)
+    _assert_bitwise(_port_scan(ops, valid, t, WEIGHTS["none"], True), ref)
+    expect = np.repeat(nodes, 2 if kind == "ties" else 1)[:t]
+    assert np.array_equal(ref[3][:len(expect)], expect)
+
+
+@pytest.mark.parametrize("n,t,deficit", [(10_001, 50, 50), (3000, 60, 7)])
+def test_scan_matches_jax_at_cluster_scale(n, t, deficit):
+    """A node count one past a cut of 16 slices, and a ready break in the
+    middle of a pop."""
+    ops = scan_operands(22, n, t, exact=True)
+    valid = np.ones(t, bool)
+    ref = _jax_scan(ops, valid, deficit, WEIGHTS["nodeorder"], True)
+    _assert_bitwise(_port_scan(ops, valid, deficit, WEIGHTS["nodeorder"], True), ref)
+    placed = ref[3] >= 0
+    assert placed.sum() >= min(deficit, t) and (placed & ~ref[4]).sum() <= deficit
+
+
+PLAN_SHAPES = [(0, 1), (1, 6), (7, 12), (1000, 1), (1024, 100), (1025, 100), (10_000, 100),
+               (10_001, 100), (65_536, 100), (131_072, 100)]
+
+
+@pytest.mark.parametrize("n_active,t", PLAN_SHAPES)
+@pytest.mark.parametrize("r", [2, 32])
+def test_scan_plan_slices_cover_the_nodes(n_active, t, r):
+    """Every plan, the wrapper's and the forced ones: the CTAs' slices are
+    contiguous and cover [0, n_active) once; an on-chip slice fits."""
+    for ctas in (None, 1, 2, 4, 8, 16):
+        for arm in (None, "global"):
+            plan = psk.scan_plan(n_active, r, t, (1.0, 1.0, 0.0), True, ctas, arm)
+            slices = psk.node_slices(n_active, plan)
+            assert len(slices) == plan.ctas
+            assert plan.threads == (psk.THREADS_R2 if r == 2 else psk.THREADS)
+            at = 0
+            for base, count in slices:
+                assert base == at and 0 <= count <= plan.slice
+                at = base + count
+            assert at == n_active and plan.slice % 4 == 0
+            assert plan.ctas * plan.slice >= n_active
+            if plan.on_chip:
+                assert plan.smem_bytes == plan.slice * psk.slice_words(r, True, True) * 4
+                assert plan.smem_bytes <= psk.SMEM_LIMIT - psk.STATIC_SMEM and t > 1
+            else:
+                assert plan.smem_bytes == 0
+
+
+def test_scan_plan_defaults_and_refusals():
+    """The production conf's pop (10,000 nodes, 100 tasks): 16 CTAs, the
+    slice on chip; a one-task pop at 1,000 nodes (config 2): one CTA, the
+    global arm; a slice past shared memory: the global arm, and refused
+    when the shared arm is forced; a cluster size the card cannot take."""
+    plan = psk.scan_plan(10_000, 2, 100, (1.0, 1.0, 0.0), True)
+    assert (plan.ctas, plan.slice, plan.on_chip) == (16, 628, True)
+    assert plan.describe()["arm"] == "shared"
+    plan = psk.scan_plan(1000, 2, 1, (1.0, 1.0, 0.0), True)
+    assert (plan.ctas, plan.on_chip) == (1, False)
+    assert psk.scan_plan(1000, 2, 5, (0.0, 0.0, 0.0), False).on_chip
+    assert not psk.scan_plan(200_000, 2, 100, (1.0, 1.0, 0.0), True).on_chip
+    with pytest.raises(ValueError):
+        psk.scan_plan(10_000, 32, 100, (1.0, 1.0, 0.0), True, 8, "shared")
+    with pytest.raises(ValueError):
+        psk.scan_plan(10_000, 2, 100, (1.0, 1.0, 0.0), True, 3)
+    with pytest.raises(ValueError):
+        psk.scan_plan(10_000, 2, 100, (1.0, 1.0, 0.0), True, None, "texture")
