@@ -74,12 +74,18 @@ What it does, one JSON line per phase:
       rows): proportion makes the one queue multi-queue, nodeorder's
       weights with runs turn the top-2 score bound on, and the 5,000
       templates close the mega gate, so the ``fused_allocate`` loop runs
-      its XLA step arm (``ops/xla_step.py``: tensor operations on the card
-      each step, no kernel).  Checks: no loop kernel launched, K3's rows,
-      no node overcommitted, gangs whole, proportion's overused gate; later
-      the codes bitwise those of the same loop on the CPU (a child beside
-      the kernel phases), and at 0.1 scale of the nodes the fused route's
-      binds equal to the host loop's.
+      its XLA step arm: one ``xla_step`` launch a step
+      (``csrc/xla_step.cu``).  Checks: one launch a step and no other loop
+      kernel, K3's rows, no node overcommitted, gangs whole, proportion's
+      overused gate; after the cycle, every step of the arm replayed from
+      its starting state, each result the main path's and the kernel held
+      to its plain version on a clone of the node state at the first step
+      and every 200th; the first ``XLA_CHECK_STEPS`` steps replayed again,
+      the kernel held to its plain version at each, and timed (profiler
+      device time, events, the host round trip; the plain version's
+      events); later the codes bitwise those of the same loop on the CPU
+      (a child beside the kernel phases), and at 0.1 scale of the nodes the
+      fused route's binds equal to the host loop's.
    j. config3_templates (10,000 nodes x 5,000 gangs of 20) dealt to
       queues q0, q1, q2 of weights 1:2:3 under the multi-queue conf: the
       loop with one ``placement_step`` launch a step and the loop's
@@ -91,9 +97,10 @@ What it does, one JSON line per phase:
       route and host loop disagree on such sessions too).
    k. config 4's aftermath whose 50,000 thin pods ask 5,000 distinct
       requests (``RECLAIM_THIN_REQUESTS``): the mega gate closes and the
-      loop runs its releasing arm on the XLA step arm.  Checks as for h;
-      later the codes bitwise the CPU loop's, and the binds, pipelined
-      tasks and statuses the host loop's.
+      loop runs its releasing arm on the XLA step arm (``xla_step``).
+      Checks as for h, one ``xla_step`` launch a step, the replays as for
+      i; later the codes bitwise the CPU loop's, and
+      the binds, pipelined tasks and statuses the host loop's.
    l. the flagship by the JAX package's steady protocol
       (``harness.measure.steady_cycle_phases``: b's cluster and conf, the
       engine built once through the engine cache, then a timed cycle that
@@ -147,7 +154,8 @@ What it does, one JSON line per phase:
       launch; later the evictions in order, binds and statuses equal to the
       same cycle on the CPU (a child beside the untimed phases).
    Each prints the phase seconds and the engine's time from CUDA events
-   (the kernel's; for i and k the XLA arm's steps summed, and per step);
+   (the kernel's; for i and k the ``xla_step`` launches summed, and per
+   step, beside the host time of the arm's C calls);
    d, f, i, j and k also the water-fill's evidence and why the ladder
    declined.  d to o each run in a child process of the script, after one
    config-1 cycle there (``--child``, ``child_main``), so that the garbage
@@ -177,9 +185,14 @@ What it does, one JSON line per phase:
    ladder against the delta chain on the same operands, equal codes, each
    timed three times in turns; and against its plain version (timed; its
    100,001 steps take minutes, so in a child process of the script,
-   ``--child mq_ladder_plain``, beside the untimed phases).  ``qfair_solve``: the ladder
-   flagship's water-fill (timed, beside the host water-fill's time and
-   bits) and random fleets of 1 to 128 queues and 2 to 18 dims.
+   ``--child mq_ladder_plain``, which builds its cluster and engine beside
+   the timed phases and runs the kernel and its plain version beside the
+   untimed ones, as do the
+   synthetic cases, ``--child kernel_cases_synthetic``).  ``qfair_solve``:
+   the ladder flagship's water-fill (timed, beside the host water-fill's
+   time and bits, with its chain floor: rounds x 2 x Q x the latency of a
+   float64 add, ``DADD_NS``) and random fleets of 0 to 1,100 queues and 2
+   to 40 dims.
    ``static_predicate_mask``: config 2's real operands
    (timed), a wide random case (4,096 signatures x 10,000 nodes, timed) and
    empty label / taint vocabularies.  ``placement_step`` (all four outputs;
@@ -190,17 +203,24 @@ What it does, one JSON line per phase:
    one; and
    loop_parity: the templates loop on a second cluster, once with the
    kernel (held to its plain version at the first step and every 200th)
-   and once with the plain version on the card, equal codes.
+   and once with the plain version on the card, equal codes.  ``xla_step``
+   (the five results and the node state): the planted cases
+   (``XLA_STEP_PLANTS``: ties across threads and strides, the winner and
+   runner-up on stride edges, a runner-up tie, nothing feasible, pod room 0 and 1, a
+   grid fit that fails and passes again, a score prefix that cuts the
+   batch), each checked with the plain version to hold its property, then
+   timed (profiler device time, events, round trip) beside the plain
+   version's events.
 4. e2e_small: the fused route on the card against the host loop on small
    clusters, bind for bind (one of them, 4,200 single-pod jobs of distinct
    requests, on the loop route with K1; one with releasing capacity; one
    with both, on the loop's releasing arm).
 
-Then the ``xla_step_arm`` line (the XLA arm on paths i and k: steps, time a
-step, its bound by bytes), the ``kernels`` line (with each kernel's launches
-on every path that runs it, l's to o's included, and ``place_scan``'s entry
-below the TPU kernels' from paths n and n', with its launch plan), the
-card's name and power
+Then the ``kernels`` line (with each kernel's launches on every path that
+runs it, l's to o's included; ``place_scan``'s entry below the TPU
+kernels' from paths n and n', with its launch plan; ``xla_step``'s from
+paths i and k and the planted cases; ``qfair_solve``'s with its chain
+floor), the card's name and power
 limit as nvidia-smi prints them, and as the last line ``{"ok": true,
 "device": {...}}``.  Any
 failure exits non-zero; with no CUDA device, or without the port beside
@@ -584,6 +604,226 @@ def scan_operands(seed, n, t, r_dim=2, *, exact=False, score=True, infeasible=Fa
 
 
 PLANT_SCORE = 5.0
+
+
+# -- the loop's XLA step arm: operands and planted cases -------------------------------
+
+# The step's flags on the planted cases (the default conf's nodeorder weights
+# with the pod count, static rows, releasing capacity, batching and the
+# score bound: every branch of the kernel), per case overrides below.
+XLA_STEP_FLAGS = dict(weights=(1.0, 1.0, 0.0), use_static=True, enforce_pod_count=True,
+                      has_releasing=True, batch_runs=True, score_bound=True)
+
+
+def xla_step_operands(seed, n, r_dim=2, *, t_rows=4, s_rows=3, releasing=True):
+    """XLA-step operands as numpy arrays drawn from
+    ``numpy.random.default_rng(seed)``: cpu in millicores and memory in MiB,
+    idle (and, with ``releasing``, releasing) a random share of
+    allocatable, task counts against pod limits, ``t_rows`` task rows and
+    ``s_rows`` static rows.  Keys are ``XlaStep``'s operand names, the node
+    state ``[n, 2 r + 1]`` (idle | releasing | task count) under
+    ``node_state``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alloc = np.zeros((n, r_dim), np.float32)
+    alloc[:, 0] = rng.choice([4000, 16000, 64000], n) - rng.integers(0, 1000, n)
+    alloc[:, 1] = rng.choice([8000, 64000, 262144], n) - rng.integers(0, 4000, n)
+    alloc[:, 2:] = rng.integers(0, 8, (n, r_dim - 2))
+    idle = (alloc * rng.random((n, r_dim))).astype(np.float32)
+    rel = (alloc * rng.random((n, r_dim)) * 0.5).astype(np.float32) if releasing else \
+        np.zeros((n, r_dim), np.float32)
+    tc = rng.integers(0, 30, n).astype(np.float32)
+    req = np.zeros((t_rows, r_dim), np.float32)
+    req[:, 0] = rng.integers(100, 3000, t_rows)
+    req[:, 1] = rng.integers(100, 9000, t_rows)
+    req[:, 2:] = rng.integers(0, 2, (t_rows, r_dim - 2))
+    return {
+        "node_state": np.concatenate([idle, rel, tc[:, None]], axis=1),
+        "allocatable": alloc,
+        "pods_limit": rng.integers(10, 40, n).astype(np.int32),
+        "node_gate": rng.random(n) < 0.9,
+        "mins": np.array([10.0, 10.0] + [0.1] * (r_dim - 2), np.float32),
+        "init_resreq": req.copy(), "resreq": req,
+        "static_mask": rng.random((s_rows, n)) < 0.8,
+        "static_score": rng.integers(0, 5, (s_rows, n)).astype(np.float32),
+    }
+
+
+# kind -> (nodes, resource dims, flag overrides, host cap hi0).  Each plants
+# the property its name says on task row 0 and static row 0, with the
+# planted nodes placed by the launch plan's thread count (node j is thread
+# j mod threads's, in stride j div threads); ``xla_plant_failures`` checks
+# the property with the plain version.
+XLA_STEP_PLANTS = {
+    "ties_across_strides": (3000, 2, {}, 128),
+    "stride_edges": (3000, 2, {}, 128),
+    "runner_up_tie": (3000, 2, {}, 128),
+    "infeasible": (3000, 2, {}, 128),
+    "pod_room_0": (3000, 2, {}, 128),
+    "pod_room_1": (3000, 2, {}, 128),
+    # A request of -inf on a scalar dim: the grid's j = 1 reads idle - 0 *
+    # -inf (NaN, no fit) and every later j +inf (a fit), so the fit is not
+    # a prefix; with finite requests it always is.  Binpack alone: no score
+    # bound, whose prefix would hide the max.
+    "grid_gap": (3000, 3, dict(weights=(0.0, 0.0, 1.0), score_bound=False), 128),
+    "score_cut": (3000, 2, dict(weights=(1.0, 0.0, 0.0)), 128),
+}
+
+
+def plant_xla_step(ops, kind, threads):
+    """Plant ``kind`` (``XLA_STEP_PLANTS``) into ``xla_step_operands``'s
+    arrays in place, the nodes placed by the plan's ``threads``: the same
+    thread's nodes in two strides, different warps, the first stride's last
+    thread and the last node.  Returns the planted nodes by role."""
+    import numpy as np
+
+    ns, alloc = ops["node_state"], ops["allocatable"]
+    n, r_dim = alloc.shape
+    mid, last = threads // 2, n - 1
+    if last <= mid + threads:
+        raise ValueError(f"XLA-step plant {kind!r}: {n} nodes are under two strides of {threads}")
+    if kind == "infeasible":
+        ops["init_resreq"][0, 0] = 1e9
+        return {}
+
+    def only(nodes, scores):
+        # Every node infeasible but ``nodes``: empty big nodes alike but for
+        # their static score row.
+        ops["node_gate"][:] = False
+        for j, sc in zip(nodes, scores):
+            ops["node_gate"][j] = True
+            alloc[j] = [64000.0, 262144.0] + [8.0] * (r_dim - 2)
+            ns[j, :r_dim] = alloc[j]
+            ns[j, r_dim:2 * r_dim] = 0.0
+            ns[j, 2 * r_dim] = 0.0
+            ops["pods_limit"][j] = 100
+            ops["static_mask"][0, j] = True
+            ops["static_score"][0, j] = sc
+        ops["resreq"][0] = [1000.0, 2000.0] + [1.0] * (r_dim - 2)
+        ops["init_resreq"][0] = ops["resreq"][0]
+
+    if kind == "ties_across_strides":
+        nodes = sorted({mid, mid + threads, threads - 1, last})
+        only(nodes, [3.0] * len(nodes))
+        return {"tied": nodes}
+    if kind == "stride_edges":
+        w, r = last, threads - 1
+        only([w, r], [4.0, 2.0])
+        return {"best": w, "second": r}
+    if kind == "runner_up_tie":
+        a, b, c = mid, threads, last
+        only([a, b, c], [4.0, 2.0, 2.0])
+        return {"best": a, "second": min(b, c), "tied": sorted({b, c})}
+    if kind in ("pod_room_0", "pod_room_1"):
+        p, q = last, threads
+        only([p, q], [4.0, 2.0])
+        if kind == "pod_room_0":
+            ns[p, 2 * r_dim] = ops["pods_limit"][p] = 20
+            return {"full": p, "best": q}
+        ns[p, 2 * r_dim] = ops["pods_limit"][p] - 1
+        return {"best": p}
+    if kind == "grid_gap":
+        w = last
+        only([w], [1.0])
+        ops["resreq"][0, 2] = -np.inf
+        ops["init_resreq"][0, 2] = 0.0
+        return {"best": w}
+    if kind == "score_cut":
+        w, r = threads, 0
+        only([w, r], [0.0, 0.0])
+        ns[r, 0] -= 5 * ops["resreq"][0, 0]
+        return {"best": w, "second": r}
+    raise ValueError(f"unknown XLA-step plant {kind!r}")
+
+
+def xla_plant_case(kind, plan=None, seed=0):
+    """A planted case's numpy operands, flags, host cap and planted roles,
+    for ``plan`` (default: ``xla_step.step_plan``'s for its size)."""
+    from scheduler_tpu_torch.ops import xla_step
+
+    n, r_dim, overrides, hi0 = XLA_STEP_PLANTS[kind]
+    ops = xla_step_operands(seed, n, r_dim)
+    plan = plan or xla_step.step_plan(n)
+    roles = plant_xla_step(ops, kind, plan.threads)
+    return ops, dict(XLA_STEP_FLAGS, **overrides), hi0, roles
+
+
+def xla_plant_failures(kind, ops, flags, hi0, roles):
+    """The plain version on a CPU copy of a planted case: the properties
+    its kind claims that do not hold (an empty list: all hold)."""
+    import numpy as np
+    import torch
+
+    from scheduler_tpu_torch.ops import xla_step
+
+    t = {k: torch.from_numpy(np.array(v)) for k, v in ops.items()}
+    detail = {}
+    best, ok, alloc_here, pipe, m = xla_step.xla_step_reference(
+        t["node_state"], t["allocatable"], t["pods_limit"], t["node_gate"], t["mins"],
+        t["init_resreq"], t["resreq"], t["static_mask"], t["static_score"], 0, 0, hi0,
+        detail=detail, **flags)
+    masked = detail["masked"]
+    top = masked.max()
+    wrong = []
+
+    def need(cond, what):
+        if not cond:
+            wrong.append(what)
+
+    if kind == "infeasible":
+        need(not ok and best == 0, "nothing feasible gives node 0")
+        return wrong
+    need(ok, "a node is feasible")
+    if "best" in roles:
+        need(best == roles["best"], f"best {best} is the planted {roles['best']}")
+    if kind == "ties_across_strides":
+        tied = [int(j) for j in torch.nonzero(masked == top).flatten()]
+        need(tied == roles["tied"] and len(tied) >= 2 and best == tied[0],
+             f"the tie {tied} is the planted {roles['tied']}, won by its lowest index")
+    if "second" in roles:
+        need(detail["second_idx"] == roles["second"],
+             f"runner-up {detail['second_idx']} is the planted {roles['second']}")
+    if kind == "runner_up_tie":
+        b, c = roles["tied"]
+        need(bool(masked[b] == masked[c]), "the runner-up tie holds")
+    if kind == "pod_room_0":
+        p = roles["full"]
+        need(float(ops["node_state"][p, -1]) == float(ops["pods_limit"][p]),
+             "the full node has pod room 0")
+    if kind == "pod_room_1":
+        need(detail["hi"] == 1 and detail["ok_js"][1] and m == 1,
+             f"pod room 1 caps the batch at 1 (hi {detail.get('hi')}, m {m})")
+    if kind == "grid_gap":
+        fits = detail["ok_js"]
+        need(not fits[0] and any(fits[1:]) and m > 1,
+             f"the fit fails at j = 1 and passes past it (m {m})")
+    if kind == "score_cut":
+        ok_s, fits = detail["ok_s"], detail["ok_js"]
+        need(1 <= m < 127 and not ok_s[m] and fits[m],
+             f"the score prefix cuts the batch at {m} while the fit goes on")
+    if kind in ("stride_edges", "runner_up_tie", "pod_room_0", "pod_room_1", "grid_gap",
+                "score_cut"):
+        need(alloc_here and not pipe, "the winner is allocated")
+    return wrong
+
+
+def xla_arm_on(ops, flags, device, **kw):
+    """An ``XlaStep`` bound to ``xla_step_operands``-style numpy arrays on
+    ``device`` (keywords: ``plan``, ``plain``, ``check_every``)."""
+    import numpy as np
+    import torch
+
+    from scheduler_tpu_torch.ops import xla_step
+
+    t = {k: torch.from_numpy(np.array(v)).to(device) for k, v in ops.items()
+         if k != "node_state"}
+    ns = ops["node_state"]
+    r_dim = ops["allocatable"].shape[1]
+    return xla_step.XlaStep(ns[:, :r_dim], ns[:, r_dim:2 * r_dim], ns[:, 2 * r_dim],
+                            t["allocatable"], t["pods_limit"], t["node_gate"], t["mins"],
+                            t["init_resreq"], t["resreq"], t["static_mask"], t["static_score"],
+                            **flags, **kw)
 
 
 def plant_scan(ops, kind, slices):
@@ -1495,6 +1735,23 @@ def qfair_bound_ms(ops, qf_raw):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+# The latency of a dependent float64 add on the H100 (NVIDIA H100 80GB
+# HBM3): 8.27-8.34 SM clocks at its highest SM clock, 1,980 MHz, as
+# scripts/qfair_ab.py measures it (PERF.md, qfair_solve's row).
+DADD_NS = 8.3 / 1.98
+
+
+def qfair_chain_floor(ops, qf_raw):
+    """The water-fill's chain floor beside its bound: each round run folds
+    the unmet weights and then the increased (or decreased) sums, two
+    chains of Q dependent float64 adds, so rounds x 2 x Q x the add's
+    latency (``DADD_NS``)."""
+    q_n = int(ops[1].shape[0])
+    rounds = max(0, int(qf_raw[1]))
+    return {"rounds": rounds, "dadd_ns": DADD_NS,
+            "chain_floor_ms": rounds * 2 * q_n * DADD_NS * 1e-6}
+
+
 def compare_qfair(case, ops, iters, timed=False, repeats=20):
     """qfair_solve and its plain version on the same CUDA operands: deserved
     bit for bit, met and the evidence equal.  With ``timed``: the kernel's
@@ -1530,6 +1787,9 @@ def compare_qfair(case, ops, iters, timed=False, repeats=20):
                                                  repeats, match="qfair_solve_kernel")
         rec["ms"] = rec["device_ms"] if rec["device_ms"] is not None else rec["event_ms"]
         rec["bound_ms"], rec["bound_by"] = qfair_bound_ms(ops, got[2])
+        rec.update(qfair_chain_floor(ops, got[2]))
+        rec["plan"] = dict(zip(("threads", "on_chip", "smem_bytes"),
+                               qf.qfair_plan(*ops[1].shape)))
     emit(rec)
     if not equal:
         raise SystemExit(f"qfair_solve and its plain version disagree: {case}")
@@ -1578,11 +1838,14 @@ def device_vs_host_solve(ssn):
 
 
 def phase_qfair_cases(device):
-    """qfair_solve against its plain version on random fleets: 1 to 128
-    queues, 2 to 18 dims, capped and uncapped.  Returns the worst error."""
+    """qfair_solve against its plain version on random fleets: 0 to 1,100
+    queues (more than the CTA's threads), 2 to 40 dims (past a warp's
+    lanes; 1,100 x 40 past shared memory: the global arm), capped and
+    uncapped.  Returns the worst error."""
     worst = 0.0
     for q_n, r_n, seed in ((1, 2, 0), (3, 4, 1), (8, 8, 2), (40, 18, 3), (100, 8, 4),
-                           (128, 18, 5), (128, 2, 6)):
+                           (128, 18, 5), (128, 2, 6), (0, 2, 7), (1, 40, 9), (33, 3, 11),
+                           (33, 40, 12), (300, 40, 14), (1100, 8, 15), (1100, 40, 16)):
         rec = compare_qfair(f"random_{q_n}q_{r_n}r", qfair_fleet(q_n, r_n, seed, device),
                             q_n + 4)
         worst = max(worst, rec["max_abs_err"])
@@ -2079,6 +2342,7 @@ def reset_counts():
     from scheduler_tpu_torch.ops import step_kernel as sk
 
     from scheduler_tpu_torch.ops import place_scan_kernel as psk
+    from scheduler_tpu_torch.ops import xla_step as xs
 
     for route in allocate.routes:
         allocate.routes[route] = 0
@@ -2087,6 +2351,7 @@ def reset_counts():
     qf.launches = 0
     sk.launches = 0
     psk.launches = 0
+    xs.launches = 0
 
 
 def read_counts():
@@ -2097,10 +2362,11 @@ def read_counts():
     from scheduler_tpu_torch.ops import step_kernel as sk
 
     from scheduler_tpu_torch.ops import place_scan_kernel as psk
+    from scheduler_tpu_torch.ops import xla_step as xs
 
     return ({"mega_allocate": mk.launches, "static_predicate_mask": pk.launches,
              "placement_step": sk.launches, "qfair_solve": qf.launches,
-             "place_scan": psk.launches},
+             "place_scan": psk.launches, "xla_step": xs.launches},
             dict(allocate.routes))
 
 
@@ -2109,8 +2375,9 @@ def run_cycle(cache, conf_path, engine="mega", after_action=None):
     0 just before and read just after (``conf_path`` None: the default
     conf); the fused route must run ``engine``: one ``mega_allocate``
     launch, one ``placement_step`` launch a loop step and none of
-    ``mega_allocate`` (``step``), or the loop's XLA step arm, which launches
-    neither (``xla``); or, with ``engine`` ``device``, the device route
+    ``mega_allocate`` (``step``), or the loop's XLA step arm,
+    one ``xla_step`` launch a step and none of the others (``xla``); or,
+    with ``engine`` ``device``, the device route
     (the per-pop engine) must run once, with one ``place_scan`` launch a
     pop and no fused engine.  ``after_action(ssn)``, where given, reads the open
     session after each action.  Returns (record, launches); the record's
@@ -2149,20 +2416,23 @@ def run_cycle(cache, conf_path, engine="mega", after_action=None):
     if engine == "device":
         if not (routes["device"] == 1 and routes["fused"] == routes["host"] == 0
                 and launches["place_scan"] == evidence["pops"] > 0
-                and launches["mega_allocate"] == launches["placement_step"] == 0):
+                and launches["mega_allocate"] == launches["placement_step"]
+                == launches["xla_step"] == 0):
             raise SystemExit(f"the device route did not launch place_scan once a pop: "
                              f"{routes}, {launches}, {evidence}")
         return rec, launches
-    if engine == "mega" and launches["mega_allocate"] != 1:
+    if engine == "mega" and not (launches["mega_allocate"] == 1
+                                 and launches["xla_step"] == launches["placement_step"] == 0):
         raise SystemExit(f"the main path did not launch mega_allocate once: {launches}")
     if engine == "step" and not (0 < rec["steps"] == launches["placement_step"]
-                                 and launches["mega_allocate"] == 0):
+                                 and launches["mega_allocate"] == launches["xla_step"] == 0):
         raise SystemExit(f"the loop did not launch placement_step once a step: {launches}, "
                          f"{rec['steps']} steps")
-    if engine == "xla" and not (rec["steps"] > 0 and launches["placement_step"] == 0
+    if engine == "xla" and not (0 < rec["steps"] == launches["xla_step"]
+                                and launches["placement_step"] == 0
                                 and launches["mega_allocate"] == 0):
-        raise SystemExit(f"the loop's XLA step arm launched a kernel: {launches}, "
-                         f"{rec['steps']} steps")
+        raise SystemExit(f"the loop's XLA step arm did not launch xla_step once a step: "
+                         f"{launches}, {rec['steps']} steps")
     if routes["host"] != 0 or routes["fused"] < 1:
         raise SystemExit(f"the main path took the host route: {routes}")
     return rec, launches
@@ -2535,16 +2805,209 @@ def xla_step_bytes(n, r_dim, use_static, enforce_pod_count):
 
 
 def xla_arm_record(path, rec, kw):
-    """The XLA arm's numbers on a main path: steps, its summed event time and
-    per step, and the per-step bound by bytes."""
+    """The XLA arm's numbers on a main path: steps, its summed event time
+    (the kernel's launches) and host time (the C calls and their waits),
+    each also a step, and the per-step bound by bytes."""
     steps = rec["steps"]
     ev = rec["cohort"]
     nbytes = xla_step_bytes(kw["n"], kw["r_dim"], kw["use_static"], kw["enforce_pod_count"])
     return {"path": path, "steps": steps, "xla_ms": ev["xla_ms"],
-            "ms_per_step": ev["xla_ms"] / steps, "loop_ms": ev["loop_ms"],
+            "ms_per_step": ev["xla_ms"] / steps, "xla_host_ms": ev.get("xla_host_ms"),
+            "host_ms_per_step": ev.get("xla_host_ms", 0.0) / steps, "loop_ms": ev["loop_ms"],
             "loop_ms_per_step": ev["loop_ms"] / steps, "node_bucket": kw["n"],
             "bytes_per_step": nbytes, "bound_ms_per_step": 1e3 * nbytes / HBM_BYTES_PER_S,
             "bound_by": "bytes"}
+
+
+# The first steps of paths i and k that are replayed after the cycle: the
+# kernel held to its plain version at each, and both timed.
+XLA_CHECK_STEPS = 64
+# The whole loop's replay holds the kernel to its plain version at the
+# first step and every XLA_CHECK_EVERY-th.
+XLA_CHECK_EVERY = 200
+# The flags an ``XlaStep`` is bound with.
+XLA_FLAG_KEYS = ("weights", "use_static", "enforce_pod_count", "has_releasing", "batch_runs",
+                 "score_bound")
+
+
+class XlaCapture:
+    """The loop's XLA arm on a main path, recorded while the path runs
+    without any work on the card: the arguments the first arm was built
+    from (copies of the host's node arrays, the device operands by
+    reference), and that arm's first ``limit`` steps (task row, static row,
+    host cap; every step where ``limit`` is None) and their results.
+    ``xla_step_record`` replays them after the cycle, outside its clock."""
+
+    def __init__(self, limit=None):
+        self.limit = limit
+        self.args = self.flags = self.first = None
+        self.steps, self.results = [], []
+        self.arms = 0
+
+    def __enter__(self):
+        import numpy as np
+
+        from scheduler_tpu_torch.ops import xla_step
+
+        self._orig = orig = xla_step.XlaStep
+        cap = self
+
+        class Spy(orig):
+            def __init__(self, *args, **kw):
+                cap.arms += 1
+                if cap.args is None:
+                    cap.args = tuple(np.array(a) if isinstance(a, np.ndarray) else a
+                                     for a in args)
+                    cap.flags = {k: kw[k] for k in XLA_FLAG_KEYS}
+                    cap.first = self
+                super().__init__(*args, **kw)
+
+            def step(self, t_idx, s_idx, hi0):
+                result = super().step(t_idx, s_idx, hi0)
+                if self is cap.first and (cap.limit is None or len(cap.steps) < cap.limit):
+                    cap.steps.append((t_idx, s_idx, hi0))
+                    cap.results.append(result)
+                return result
+
+        xla_step.XlaStep = Spy
+        return self
+
+    def __exit__(self, *exc):
+        from scheduler_tpu_torch.ops import xla_step
+
+        xla_step.XlaStep = self._orig
+        self.first = None
+        return False
+
+    def arm(self, **kw):
+        """A fresh arm at the captured starting state."""
+        return self._orig(*self.args, **self.flags, **kw)
+
+
+def _replay(arm, steps):
+    """The steps through ``arm``; returns (results, host ms a step)."""
+    try:
+        t0 = time.perf_counter()
+        results = [arm.step(*c) for c in steps]
+        host_ms = 1e3 * (time.perf_counter() - t0) / len(steps)
+    finally:
+        arm.close()
+    return results, host_ms
+
+
+def xla_loop_check(path, cap):
+    """Every step of a main path's XLA arm (``cap``: an ``XlaCapture`` of
+    the whole loop) replayed from the arm's starting state: each result
+    must be the main path's, and the kernel is held to its plain version on
+    a clone of the node state (results and the node state it writes,
+    bitwise) at the first step and every ``XLA_CHECK_EVERY``-th."""
+    if cap.arms != 1:
+        raise SystemExit(f"{path}: {cap.arms} XLA arms in one cycle (one expected)")
+    arm = cap.arm(check_every=XLA_CHECK_EVERY)
+    t0 = time.perf_counter()
+    got, _ = _replay(arm, cap.steps)
+    rec = {"phase": "loop_parity", "case": path, "steps": len(got),
+           "checked_steps": arm.checked, "equal_to_main_path": got == cap.results,
+           "replay_s": time.perf_counter() - t0}
+    emit(rec)
+    if not rec["equal_to_main_path"]:
+        raise SystemExit(f"{path}: the replayed loop's results differ from the main path's")
+    if arm.checked != -(-len(got) // XLA_CHECK_EVERY):
+        raise SystemExit(f"{path}: only {arm.checked} loop steps were checked")
+    return rec
+
+
+def xla_step_record(path, cap):
+    """The XLA step kernel on a main path's first ``XLA_CHECK_STEPS`` steps
+    (``cap``: an ``XlaCapture``), replayed from the arm's starting state:
+    the kernel held to its plain version at every step on a clone of the
+    node state; its device time a step (profiler), the events around each
+    launch, the host round trip of a step; the plain version on the card
+    over the same steps; the bound by bytes."""
+    import torch
+
+    from scheduler_tpu_torch.ops import xla_step
+
+    steps = cap.steps[:XLA_CHECK_STEPS]
+    arm = cap.arm(check_every=1)
+    got, _ = _replay(arm, steps)
+    checked = arm.checked
+    arm = cap.arm()
+    again, round_trip_ms = _replay(arm, steps)
+    event_ms = arm.xla_ms / len(steps)
+    arm = cap.arm()
+    feed = iter(steps)
+    try:
+        device_ms, _ = device_ms_per_call(lambda: arm.step(*next(feed)), len(steps) - 1,
+                                          match="xla_step_kernel")
+    finally:
+        arm.close()
+    arm = cap.arm(plain=True)
+    plain, plain_host_ms = _replay(arm, steps)
+    plain_ms = arm.xla_ms / len(steps)
+    torch.cuda.synchronize()
+    alloc = cap.args[3]
+    n, r_dim = alloc.shape
+    nbytes = xla_step_bytes(n, r_dim, cap.flags["use_static"], cap.flags["enforce_pod_count"])
+    errs = [abs(a - b) for x, y in zip(got, plain) for a, b in zip(x, y)]
+    rec = {"phase": "kernel_vs_plain", "kernel": "xla_step", "case": f"{path}_first_steps",
+           "steps": len(steps), "checked_steps": checked,
+           "equal": got == plain == again == cap.results[:len(steps)],
+           "max_abs_err": float(max(errs, default=0)), "n": n, "r_dim": r_dim,
+           "plan": xla_step.step_plan(n).describe(), "flags": cap.flags,
+           "ms": device_ms if device_ms is not None else event_ms, "device_ms": device_ms,
+           "event_ms": event_ms, "round_trip_ms": round_trip_ms, "plain_ms": plain_ms,
+           "plain_host_ms": plain_host_ms, "bytes": nbytes,
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes", "library_ms": None,
+           "placed": sum(1 for r in got if r[2] or r[3])}
+    emit(rec)
+    if not rec["equal"] or checked != len(steps):
+        raise SystemExit(f"{path}: xla_step and its plain version disagree on the first steps")
+    return rec
+
+
+def phase_xla_step_cases(device, repeats=50, plain_repeats=10):
+    """xla_step against its plain version on the planted cases
+    (``XLA_STEP_PLANTS``, default plan): the first step's five results and
+    node state bitwise; then ``repeats`` steps of the same task on the
+    evolving state, timed by profiler device time, events and the host
+    round trip, beside the plain version's events over ``plain_repeats``."""
+    import torch
+
+    from scheduler_tpu_torch.ops import xla_step
+
+    recs = {}
+    for kind in sorted(XLA_STEP_PLANTS):
+        ops, flags, hi0, roles = xla_plant_case(kind)
+        failures = xla_plant_failures(kind, ops, flags, hi0, roles)
+        arm = xla_arm_on(ops, flags, device, check_every=1)
+        first, _ = _replay(arm, [(0, 0, hi0)])
+        arm = xla_arm_on(ops, flags, device)
+        _, round_trip_ms = _replay(arm, [(0, 0, hi0)] * repeats)
+        event_ms = arm.xla_ms / repeats
+        arm = xla_arm_on(ops, flags, device)
+        try:
+            device_ms, _ = device_ms_per_call(lambda: arm.step(0, 0, hi0), repeats,
+                                              match="xla_step_kernel")
+        finally:
+            arm.close()
+        arm = xla_arm_on(ops, flags, device, plain=True)
+        _replay(arm, [(0, 0, hi0)] * plain_repeats)
+        torch.cuda.synchronize()
+        n, r_dim = ops["allocatable"].shape
+        nbytes = xla_step_bytes(n, r_dim, flags["use_static"], flags["enforce_pod_count"])
+        rec = {"phase": "kernel_vs_plain", "kernel": "xla_step", "case": kind, "n": n,
+               "plan": xla_step.step_plan(n).describe(), "result": list(first[0]),
+               "roles": roles, "property_failures": failures, "equal": not failures,
+               "max_abs_err": 0.0, "ms": device_ms if device_ms is not None else event_ms,
+               "device_ms": device_ms, "event_ms": event_ms, "round_trip_ms": round_trip_ms,
+               "plain_ms": arm.xla_ms / plain_repeats,
+               "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes"}
+        emit(rec)
+        if failures:
+            raise SystemExit(f"xla_step planted case {kind}: {failures}")
+        recs[kind] = rec
+    return recs
 
 
 def loop_kw(eng):
@@ -3496,8 +3959,16 @@ class BackgroundChild:
     def __init__(self, out_dir, child, opts):
         self.child = child
         self.path = os.path.join(out_dir, f"{child}.json")
+        if os.path.exists(self.path + ".go"):
+            os.remove(self.path + ".go")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(child_argv(child, self.path, opts))
+
+    def go(self):
+        """Let a child that waits in ``wait_for_go`` go on."""
+        self.t_go = time.perf_counter()
+        with open(self.path + ".go", "w") as f:
+            f.write("go\n")
 
     def stop(self):
         """End the child process if it still runs (a phase failed first)."""
@@ -3511,6 +3982,15 @@ class BackgroundChild:
             raise SystemExit(f"the {self.child} process failed: rc {rc}")
         with open(self.path) as f:
             return json.load(f)
+
+
+def wait_for_go(path, limit_s=1200.0):
+    """In a child process: wait until the script calls ``go`` on it."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path + ".go"):
+        if time.perf_counter() - t0 > limit_s:
+            raise SystemExit(f"{path}: no go from the script in {limit_s} s")
+        time.sleep(0.2)
 
 
 def check_host_loop(twin, binds, config="config2_default_tiers"):
@@ -3531,7 +4011,8 @@ def check_host_loop(twin, binds, config="config2_default_tiers"):
 def child_main(child, path, opts) -> int:
     """``--child``: ``host_loop`` writes the host loop's binds on a config-2
     cluster under the default tiers (for ``check_host_loop``);
-    ``mq_ladder_plain`` writes ``phase_ladder_plain``'s record; each other
+    ``mq_ladder_plain`` writes K2's ladder check against its plain version,
+    ``kernel_cases_synthetic`` ``phase_kernel_synthetic``'s case count; each other
     child is one main path's cold cycle in a process of its own, after one
     config-1 cycle that warms the card, the kernel library and PyTorch up.
     ``Scheduler.run_once`` collects garbage at the head of every cycle: in
@@ -3627,12 +4108,29 @@ def child_main(child, path, opts) -> int:
         with open(path, "w") as f:
             json.dump(out, f)
         return 0
+    if child == "kernel_cases_synthetic":
+        import torch
+
+        with open(path, "w") as f:
+            json.dump({"cases": phase_kernel_synthetic(torch.device("cuda"))}, f)
+        return 0
     if child == "mq_ladder_plain":
+        # K2 in ladder mode against its plain version on the ladder
+        # flagship's operands (a cluster built as the main path's): codes
+        # and stats bitwise, and the plain version's time.  The cluster and
+        # the engine are host work (and the operands' upload), built at once
+        # beside the timed phases; the 100,001 steps run once the script
+        # says the last of those has ended.
         import torch
 
         cache = make_mq_ladder_cluster(LADDER_NODES, LADDER_PODS, LADDER_QUEUES,
                                        LADDER_VOCAB).cache
-        rec = phase_ladder_plain(cache, torch.device("cuda"))
+        _, eng = engine_for(cache, MULTIQ_CONF, torch.device("cuda"))
+        if not eng._mega_kw["qfair_ladder"]:
+            raise SystemExit(f"the ladder flagship declined the ladder: {eng.qfair_reason}")
+        wait_for_go(path)
+        rec = compare("mq_ladder_main_path_operands", eng._mega_args, eng._mega_kw,
+                      eng.st.nodes.count, len(eng.queue_uids))
         with open(path, "w") as f:
             json.dump(rec, f)
         return 0
@@ -3697,12 +4195,18 @@ def child_main(child, path, opts) -> int:
         out["launches"], out["outcome"], _ = phase_main_path_reclaim(cache, conf_path)
     elif child == "reclaim_aftermath_templates":
         out["codes"] = os.path.join(os.path.dirname(path), f"{child}_codes.npy")
-        out["launches"], out["outcome"], out["arm"] = phase_main_path_reclaim(
-            cache, conf_path, child, "xla", out["codes"])
+        with XlaCapture() as cap:
+            out["launches"], out["outcome"], out["arm"] = phase_main_path_reclaim(
+                cache, conf_path, child, "xla", out["codes"])
+        out["check"] = xla_loop_check(child, cap)
+        out["xla"] = xla_step_record(child, cap)
     elif child == "templates_default_tiers":
         out["codes"] = os.path.join(os.path.dirname(path), f"{child}_codes.npy")
-        out["launches"], out["arm"] = phase_main_path_tiers_templates(cache, conf_path,
-                                                                      out["codes"])
+        with XlaCapture() as cap:
+            out["launches"], out["arm"] = phase_main_path_tiers_templates(cache, conf_path,
+                                                                          out["codes"])
+        out["check"] = xla_loop_check(child, cap)
+        out["xla"] = xla_step_record(child, cap)
     elif child == "templates_multi_queue":
         out["launches"] = phase_main_path_mq_templates(cache, conf_path, opts)
         del cache
@@ -3721,8 +4225,44 @@ def child_main(child, path, opts) -> int:
     return 0
 
 
+def phase_kernel_synthetic(device):
+    """mega_allocate against its plain version on the synthetic operands
+    (no session: ``MEGA_SYNTHETIC``, ``MEGA_SYNTHETIC_MQ``,
+    ``MEGA_SYNTHETIC_LADDER``, ``MEGA_SYNTHETIC_REL``), untimed: the script
+    runs this in a child process beside ``phase_kernel_cases``.  Returns
+    the count of cases."""
+    from scheduler_tpu_torch.interop import mega_operands_from_numpy
+
+    count = 0
+    # Across the launch plans (r_dim 8 up to nb 32,768 on 16 CTAs, ties and
+    # second-best across CTAs, an infeasible chunk, config 2's j_pad with the
+    # job ledger on chip); multi-queue mode.
+    for case, spec in MEGA_SYNTHETIC.items():
+        args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
+        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"])
+        count += 1
+    for case, spec in MEGA_SYNTHETIC_MQ.items():
+        args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
+        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"], spec["queues"])
+        count += 1
+    # The qfair ladder in both instantiations.
+    for case, spec in MEGA_SYNTHETIC_LADDER.items():
+        args, kw = mega_operands_from_numpy(*ladder_operands(**spec), device)
+        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"], spec["queues"])
+        count += 1
+    # Releasing mode in the four instantiations up to the 16-CTA plan, ties,
+    # releasing-only winners and the pod-count gate.
+    for case, spec in MEGA_SYNTHETIC_REL.items():
+        args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
+        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"],
+                spec.get("queues", 0))
+        count += 1
+    return count
+
+
 def phase_kernel_cases(device):
-    """mega_allocate against its plain version on every small case.
+    """mega_allocate against its plain version on every small session (the
+    synthetic operands run in a child, ``phase_kernel_synthetic``).
     Returns the timed records of the full-recompute queue chain (no main
     path runs it)."""
     from scheduler_tpu_torch.harness import (
@@ -3731,7 +4271,6 @@ def phase_kernel_cases(device):
         make_reclaim_aftermath_cluster,
         make_synthetic_cluster,
     )
-    from scheduler_tpu_torch.interop import mega_operands_from_numpy
     from scheduler_tpu_torch.ops import megakernel as mk
 
     _, eng = engine_for(config1_cluster(), CONFIG1_CONF, device)
@@ -3759,17 +4298,8 @@ def phase_kernel_cases(device):
         raise SystemExit("the many-jobs case must put the job ledger in global scratch")
     compare("global_job_ledger", eng._mega_args, eng._mega_kw, eng.st.nodes.count)
 
-    # Synthetic operands across the launch plans (r_dim 8 up to nb 32,768 on
-    # 16 CTAs, ties and second-best across CTAs, an infeasible chunk, config
-    # 2's j_pad with the job ledger on chip).
-    for case, spec in MEGA_SYNTHETIC.items():
-        args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
-        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"])
-    # Multi-queue mode on synthetic operands, and on the 1:9 starvation
-    # session at one and four cohort chunks.
-    for case, spec in MEGA_SYNTHETIC_MQ.items():
-        args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
-        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"], spec["queues"])
+    # Multi-queue mode on the 1:9 starvation session at one and four cohort
+    # chunks.
     _, eng = engine_for(spec_cluster(multi_queue_spec((1, 9), 3)), MULTIQ_CONF, device)
     for cohort in (1, 4):
         compare(f"mq_starvation_cohort_{cohort}", eng._mega_args,
@@ -3779,12 +4309,8 @@ def phase_kernel_cases(device):
     full = {"starvation": compare("mq_starvation_full_recompute", eng._mega_args,
                                   dict(eng._mega_kw, queue_delta=False), eng.st.nodes.count,
                                   len(eng.queue_uids), timed=True)}
-    # The qfair ladder: synthetic operands in both instantiations, and the
-    # ladder flagship's shape at the size its plain version runs in seconds
-    # (also on the full-recompute chain).
-    for case, spec in MEGA_SYNTHETIC_LADDER.items():
-        args, kw = mega_operands_from_numpy(*ladder_operands(**spec), device)
-        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"], spec["queues"])
+    # The qfair ladder at the ladder flagship's shape, at the size its plain
+    # version runs in seconds (also on the full-recompute chain).
     _, eng = engine_for(make_mq_ladder_cluster(*LADDER_SMALL).cache, MULTIQ_CONF, device)
     if not eng._mega_kw["qfair_ladder"]:
         raise SystemExit(f"the small ladder session declined the ladder: {eng.qfair_reason}")
@@ -3794,13 +4320,8 @@ def phase_kernel_cases(device):
         case + "_full_recompute", eng._mega_args,
         dict(eng._mega_kw, qfair_ladder=False, queue_delta=False), eng.st.nodes.count,
         len(eng.queue_uids), timed=True)
-    # Releasing mode: synthetic operands in the four instantiations up to
-    # the 16-CTA plan, ties, releasing-only winners and the pod-count gate;
-    # the one-queue mid-evict session and config 4's aftermath at 2 %.
-    for case, spec in MEGA_SYNTHETIC_REL.items():
-        args, kw = mega_operands_from_numpy(*mega_operands(**spec), device)
-        compare(f"synthetic_{case}", args, kw, spec.get("n_nodes") or spec["nb"],
-                spec.get("queues", 0))
+    # Releasing mode: the one-queue mid-evict session and config 4's
+    # aftermath at 2 %.
     for case, cache, conf in (
             ("mid_evict", mid_evict_cluster(), FLAGSHIP_CONF),
             ("reclaim_aftermath_20_x_1000", make_reclaim_aftermath_cluster(0.02).cache,
@@ -3849,19 +4370,6 @@ def phase_ladder_full_size(cache, device):
     emit({"phase": "full_size", "case": case, "engine_init_s": init_s,
           "plan": recs["ladder"]["plan"], "qfair": eng.run_stats()["qfair"]})
     return recs, solve
-
-
-def phase_ladder_plain(cache, device):
-    """K2 in ladder mode against its plain version on the ladder flagship's
-    operands (``cache``: a cluster built as the main path's): codes and
-    stats bitwise, and the plain version's time.  Its 100,001 steps take
-    the plain version minutes of the host, so the script runs this in a
-    child process beside its untimed phases."""
-    _, eng = engine_for(cache, MULTIQ_CONF, device)
-    if not eng._mega_kw["qfair_ladder"]:
-        raise SystemExit(f"the ladder flagship declined the ladder: {eng.qfair_reason}")
-    return compare("mq_ladder_main_path_operands", eng._mega_args, eng._mega_kw,
-                   eng.st.nodes.count, len(eng.queue_uids))
 
 
 def phase_full_size(cache, conf_text, device, case):
@@ -3960,7 +4468,8 @@ def phase_e2e_small(conf_path):
             raise SystemExit(f"fused route and host loop disagree: {name}")
         ran = {"mega": launches["mega_allocate"] >= 1 and launches["placement_step"] == 0,
                "step": launches["mega_allocate"] == 0 and launches["placement_step"] > 0,
-               "xla": launches["mega_allocate"] == 0 and launches["placement_step"] == 0}
+               "xla": launches["mega_allocate"] == 0 and launches["placement_step"] == 0
+               and launches["xla_step"] > 0}
         if not ran[engine]:
             raise SystemExit(f"{name}: the fused route did not run the {engine} engine")
 
@@ -4035,8 +4544,33 @@ def qfair_entry(launches_by_path, solve, worst):
             "dims": solve["dims"], "ms": solve["ms"], "device_ms": solve["device_ms"],
             "event_ms": solve["event_ms"], "plain_ms": solve["plain_ms"],
             "bound_ms": solve["bound_ms"], "bound_by": solve["bound_by"], "library_ms": None,
-            "host_solve_ms": solve["host_solve_ms"],
+            "chain_floor_ms": solve["chain_floor_ms"], "rounds": solve["rounds"],
+            "dadd_ns": solve["dadd_ns"],
+            "plan": solve["plan"], "host_solve_ms": solve["host_solve_ms"],
             "device_solve_ms": solve["device_solve_ms"]}
+
+
+def xla_entry(launches_by_path, paths, planted, checks):
+    """The XLA step kernel's entry of the kernels line: its launches on each
+    main path that runs it, its time a step on path i's first steps
+    (``paths``: ``xla_step_record``'s records by path; k's beside it), the
+    planted cases' times, and the loop steps each path's check held to the
+    plain version."""
+    i = paths["templates_default_tiers"]
+    return {"name": "xla_step", "route": "cuda", "source": "scheduler_tpu_torch/csrc/xla_step.cu",
+            "replaces": "scheduler_tpu/ops/fused.py:704-864", "plan": i["plan"],
+            "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+            "max_abs_err": max([r["max_abs_err"] for r in paths.values()]
+                               + [r["max_abs_err"] for r in planted.values()]),
+            "ms": i["ms"], "device_ms": i["device_ms"], "event_ms": i["event_ms"],
+            "round_trip_ms": i["round_trip_ms"], "plain_ms": i["plain_ms"],
+            "bound_ms": i["bound_ms"], "bound_by": i["bound_by"], "library_ms": None,
+            "paths": {p: {k: r[k] for k in ("n", "steps", "ms", "device_ms", "event_ms",
+                                             "round_trip_ms", "plain_ms", "bound_ms", "plan")}
+                      for p, r in paths.items()},
+            "planted": {k: {f: r[f] for f in ("ms", "event_ms", "round_trip_ms", "plain_ms",
+                                              "bound_ms")} for k, r in planted.items()},
+            "checked_loop_steps": {c["case"]: c["checked_steps"] for c in checks}}
 
 
 def main() -> int:
@@ -4050,7 +4584,8 @@ def main() -> int:
     parser.add_argument("--template-tasks", type=int, default=20)
     parser.add_argument("--child", choices=("host_loop", "config3_multi_queue", "config5",
                                             "config2_default_tiers", "mq_ladder",
-                                            "mq_ladder_plain", "reclaim_aftermath",
+                                            "mq_ladder_plain", "kernel_cases_synthetic",
+                                            "reclaim_aftermath",
                                             "reclaim_host_loop", "templates_default_tiers",
                                             "templates_multi_queue",
                                             "reclaim_aftermath_templates",
@@ -4210,7 +4745,10 @@ def main() -> int:
         "config4_reclaim_cpu")]
     (host_twin, reclaim_twin, reclaim_tpl_twin, loop_twins, tiers_cpu,
      reclaim_tpl_cpu, reclaim_o_cpu) = twins
-    ladder_plain = default_twin = None
+    # K2's plain version on the ladder flagship's operands: its child builds
+    # the cluster now and waits for the last timed phase.
+    ladder_plain = BackgroundChild(out_dir, "mq_ladder_plain", opts)
+    default_twin = synthetic = None
 
     try:
         # The same operands again, from second clusters built the same way (K2
@@ -4237,11 +4775,13 @@ def main() -> int:
         pred_main, pred_wide, pred_err = phase_predicate_cases(eng2.st, device)
         eng3, parity = phase_loop_parity(templates_cluster(), device, check_every=200)
         step_recs = phase_step_kernel_cases(eng3, eng2, device)
+        xla_cases = phase_xla_step_cases(device)
         del eng2, eng3
         gc.collect()
         # After the last timed phase: K2's plain version on the ladder
         # flagship's operands, beside the untimed phases.
-        ladder_plain = BackgroundChild(out_dir, "mq_ladder_plain", opts)
+        ladder_plain.go()
+        synthetic = BackgroundChild(out_dir, "kernel_cases_synthetic", opts)
         full_chain = phase_kernel_cases(device)
         gc.collect()
         # Path m's cold twin beside the untimed phases that follow.
@@ -4257,17 +4797,16 @@ def main() -> int:
                                 "reclaim_aftermath_templates")
         check_loop_host_twins(loop_twins)
         check_default_conf_twin(default_twin, default_loop)
+        emit({"phase": "kernel_cases_synthetic", "cases": synthetic.result()["cases"],
+              "wall_s": time.perf_counter() - synthetic.t0})
         ladder_plain_rec = ladder_plain.result()
+        emit({"phase": "mq_ladder_plain", "wall_s": time.perf_counter() - ladder_plain.t0,
+              "after_go_s": time.perf_counter() - ladder_plain.t_go})
     finally:
-        for twin in twins + [ladder_plain, default_twin]:
+        for twin in twins + [ladder_plain, default_twin, synthetic]:
             if twin is not None:
                 twin.stop()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
-    # The loop's XLA step arm (no Pallas kernel: plain tensor operations on
-    # the card each step) on paths i and k.
-    emit({"xla_step_arm": {"replaces": "scheduler_tpu/ops/fused.py:704-864",
-                           "source": "scheduler_tpu_torch/ops/xla_step.py",
-                           "paths": [tiers_tpl["arm"], reclaim_tpl["arm"]]}})
 
     m_launches = {k: sum(c["launches"][k] for c in default_loop["cycles"])
                   for k in ("mega_allocate", "static_predicate_mask", "qfair_solve")}
@@ -4330,6 +4869,11 @@ def main() -> int:
         place_scan_entry({"production_conf": production["launches"]["place_scan"],
                           "config2_default_tiers_device": tiers_device["launches"]["place_scan"]},
                          production["scan"], tiers_device["scan"]),
+        xla_entry({"templates_default_tiers": tiers_tpl["launches"]["xla_step"],
+                   "reclaim_aftermath_templates": reclaim_tpl["launches"]["xla_step"]},
+                  {"templates_default_tiers": tiers_tpl["xla"],
+                   "reclaim_aftermath_templates": reclaim_tpl["xla"]},
+                  xla_cases, [tiers_tpl["check"], reclaim_tpl["check"]]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -25,8 +25,8 @@ the deserved and allocated rows of proportion's water-fill).  Its engines:
   step's selection is ONE launch of the placement-step kernel
   (``ops/step_kernel.py``, engine ``step``) where the JAX step-kernel gate
   admits the session, or else the loop's XLA step arm (``ops/xla_step.py``,
-  engine ``xla``: tensor operations on the device with the node state
-  resident there), which the JAX engine takes where the top-2 score bound
+  engine ``xla``: one launch of ``csrc/xla_step.cu`` a step with the node
+  state resident on the device), which the JAX engine takes where the top-2 score bound
   is live (runs batch under scorers other than binpack alone), where the
   node bucket is past 65,536, and for releasing capacity (the joint
   idle / releasing fit, pipelined codes).  The loop reads static rows by
@@ -349,6 +349,7 @@ def fused_allocate(
     host, bit for bit the JAX loop's, and ``{"arm": "step_kernel" or
     "xla", "steps", "chain_selects": job selections through the comparator
     chain, "k1_ms" / "xla_ms": the arm's summed event time (CUDA only),
+    "xla_host_ms": the host clock around the XLA arm's steps,
     "delta_updates" / "full_recomputes" / "ladder_lookups": the queue
     chain's refreshes, one a pop}`` plus, with ``check_every``, the count
     of kernel-versus-plain checks.
@@ -357,9 +358,10 @@ def fused_allocate(
     (``_K1Arm``: a CUDA launch on CUDA operands, its plain version on CPU
     operands or with ``plain_step``) where ``step_kernel`` holds and the
     session has neither releasing capacity nor a live top-2 score bound;
-    otherwise the XLA step arm (``ops/xla_step.py``: tensor operations on
-    the operands' device, with the joint idle / releasing fit and the
-    pipelined codes).  Job selection (the cursor; the comparator chain over
+    otherwise the XLA step arm (``ops/xla_step.py``: one ``xla_step`` launch
+    a step on CUDA operands, its plain version on CPU operands or with
+    ``plain_step``; the joint idle / releasing fit and the pipelined
+    codes).  Job selection (the cursor; the comparator chain over
     dirty jobs; in multi-queue and unsorted sessions the queue pop by
     proportion's share and overused gate with the delta, full-recompute or
     ladder chain, then the job chain in the winning queue), batch caps, the
@@ -367,9 +369,10 @@ def fused_allocate(
     IEEE operations in the JAX loop's order give its bits.  The JAX
     ``window`` unrolling is left out: it changes no result (a micro-step
     past the end is a no-op), and here the loop simply stops when the JAX
-    liveness condition fails.  ``check_every`` > 0 holds the kernel to its
-    plain version (all four outputs, bitwise) at the first step and every
-    ``check_every``-th one."""
+    liveness condition fails.  ``check_every`` > 0 holds the arm's kernel to
+    its plain version (all its outputs, bitwise; the XLA arm's on a clone of
+    the node state, and the node state it writes) at the first step and
+    every ``check_every``-th one."""
     if set(comparators) - set(_KNOWN_JOB_ORDER):
         raise ValueError(f"unknown job-order comparators {comparators}")
     if set(queue_comparators) - {"proportion"}:
@@ -585,7 +588,8 @@ def fused_allocate(
                       init_resreq, resreq, static_mask, static_score,
                       weights=weights, use_static=use_static,
                       enforce_pod_count=enforce_pod_count, has_releasing=has_releasing,
-                      batch_runs=batch_runs, score_bound=score_bound)
+                      batch_runs=batch_runs, score_bound=score_bound, plain=plain_step,
+                      check_every=check_every)
     cur, cursor, n_dirty, steps, last_q = -1, 0, 0, 0, 0
     n_elig = n_real  # eligible jobs: pending tasks left, no failure yet
     if not cursor_mode:
@@ -687,9 +691,10 @@ def fused_allocate(
         arm.close()
     stats = {"arm": "step_kernel" if step_kernel else "xla", "steps": steps,
              "k1_ms": arm.loop.k1_ms if step_kernel else None,
-             "xla_ms": None if step_kernel else arm.xla_ms, **counts}
-    if check_every and step_kernel:
-        stats["checked"] = arm.loop.checked
+             "xla_ms": None if step_kernel else arm.xla_ms,
+             "xla_host_ms": None if step_kernel else arm.host_ms, **counts}
+    if check_every:
+        stats["checked"] = arm.loop.checked if step_kernel else arm.checked
     return torch.from_numpy(out[:t_cap].copy()), stats
 
 
@@ -2038,7 +2043,7 @@ class FusedAllocator:
         if isinstance(raw, dict):
             out["steps"] = raw["steps"]
             out["chain_selects"] = raw["chain_selects"]
-            for key in ("k1_ms", "xla_ms"):
+            for key in ("k1_ms", "xla_ms", "xla_host_ms"):
                 if raw[key] is not None:
                     out[key] = raw[key]
             if "queue_chain" in out:

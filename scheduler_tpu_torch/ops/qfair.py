@@ -69,14 +69,33 @@ def qfair_iters() -> int:
 
 def _entry():
     fn = cuda_build.load().qfair_solve_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 # Dims a launch takes: the kernel keeps remaining, increased and decreased
-# (24 bytes a dim) in its 48 KB of static-size shared memory.
+# (24 bytes a dim) in shared memory beside the delta tile.
 MAX_DIMS = 2048
+# The launch plan's constants (csrc/qfair_solve.cu): threads of the one CTA,
+# and the shared memory a block can use on the H100.
+THREADS = 1024
+MIN_THREADS = 64
+SMEM_LIMIT = 232_448 - 1024  # less the kernel's static scalars
+
+
+def qfair_plan(q_n: int, r_n: int) -> Tuple[int, bool, int]:
+    """The launch: ``(threads, on_chip, smem_bytes)``.  A warp a queue up to
+    ``THREADS`` (and at least a warp a fold of each dim beside the weight
+    fold's warp); the [Q, R] delta tile and the queue list in shared
+    memory where they fit (``on_chip``), else in a global scratch tile."""
+    want = max(32 * q_n, 2 * r_n + 32, MIN_THREADS)
+    threads = min(THREADS, -(-want // 32) * 32)
+    pool = 24 * r_n
+    tile = 8 * q_n * r_n + 4 * q_n
+    on_chip = pool + tile <= SMEM_LIMIT
+    return threads, on_chip, pool + (tile if on_chip else 0)
 
 
 def qfair_solve(weights, request, total, req_hs, total_hs, mins, *, iters: int):
@@ -110,14 +129,19 @@ def _launch(weights, request, total, req_hs, total_hs, mins, *, iters):
         if not t.is_contiguous():
             raise ValueError(f"qfair_solve: {name} must be contiguous")
     dev = request.device
+    threads, on_chip, smem = qfair_plan(q_n, r_n)
     deserved = torch.empty((q_n, r_n), dtype=f64, device=dev)
     met = torch.empty(q_n, dtype=torch.bool, device=dev)
     d_hs = torch.empty(q_n, dtype=torch.bool, device=dev)  # scratch
     qf_raw = torch.empty(2, dtype=torch.int32, device=dev)
+    # The global arm's delta tile and queue list.
+    delta = None if on_chip else torch.empty((q_n, r_n), dtype=f64, device=dev)
+    order = None if on_chip else torch.empty(q_n, dtype=torch.int32, device=dev)
     rc = _entry()(weights.data_ptr(), request.data_ptr(), total.data_ptr(), req_hs.data_ptr(),
                   mins.data_ptr(), d_hs.data_ptr(), int(bool(total_hs)), q_n, r_n, int(iters),
                   deserved.data_ptr(), met.data_ptr(), qf_raw.data_ptr(),
-                  torch.cuda.current_stream(dev).cuda_stream)
+                  None if on_chip else delta.data_ptr(), None if on_chip else order.data_ptr(),
+                  threads, int(on_chip), smem, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qfair_solve launch failed: CUDA error {rc}")
     launches += 1

@@ -1,14 +1,16 @@
 """The XLA step arm of the ``fused_allocate`` loop: one step's selection,
-batch sizing and node-row update as plain PyTorch operations on the device.
+batch sizing and node-row update as ONE CUDA launch.
 
 The JAX loop (``scheduler_tpu/ops/fused.py:175-1030``) takes this arm where
 the placement-step kernel is gated off: the session has releasing capacity
 (the pipeline arm needs each node's idle and releasing fit), the top-2
 score bound is live (runs batch under scorers other than binpack alone:
-the bound needs the whole masked score vector), or the node state outgrows
-the kernel's budget.  There it is XLA code outside any Pallas kernel, so
-here it is tensor operations on the engine's device, each JAX operation
-one PyTorch operation in the same order:
+the bound needs the whole masked score vector), or the node state
+outgrows the kernel's budget.  There it is XLA code inside the loop's one
+device program (``fused.py:704-864``); here it is the hand-written kernel
+``csrc/xla_step.cu``, built with the port's other kernels at first use
+(``ops/cuda_build.py``) and bound through plain C entry points with
+``ctypes``.  A step computes:
 
 * the epsilon fit ``init < avail | |avail - init| < min`` on every dim,
   against idle alone or jointly against idle and releasing
@@ -25,23 +27,276 @@ one PyTorch operation in the same order:
   pipe`` on releasing, the placed copies on the task count (``:846-864``).
 
 The node state ``[N, 2R + 1]`` (idle | releasing | task count) stays on
-the device for the whole loop.  Each step reads back five integers in one
-copy: the winner, whether it was feasible, whether it was allocated or
-pipelined, and the copies placed.  Everything else of the loop (job and
-queue selection, the job ledger, the codes) is the host's
-(``ops/fused.py``).  On CUDA the events around each step's device work
-are summed into ``xla_ms``.
+the device for the whole loop, and the kernel adds the winner's row in
+place.  Everything else of the loop (job and queue selection, the job
+ledger, the codes) is the host's (``ops/fused.py``).
+
+* ``XlaStep`` — the arm bound for one loop.  On CUDA operands each
+  ``step`` is one C call: one launch (the task's rows in its parameters)
+  and a wait; the kernel writes its five results to mapped pinned host
+  memory.  Each launch adds one to ``launches``.  CUDA events recorded by
+  the entry point around each launch are summed into ``xla_ms``, the host
+  clock around each step into ``host_ms`` (both None on the CPU).  On CPU operands, or with
+  ``plain``, each step is ``xla_step_reference``.
+* ``xla_step_reference`` — the plain PyTorch version: the JAX arm's
+  operations in its order, each one PyTorch operation, and one readback.
+* ``step_plan`` — the kernel's launch plan: one CTA of up to 1,024
+  threads, a node a thread where the node count fits and strided over the
+  nodes past that, so any node count (past the placement-step kernel's
+  65,536-node budget too) and any resource dim count.  A plan the card
+  cannot run makes the arm raise; nothing falls back.
 """
 
 from __future__ import annotations
 
+import ctypes
+import time
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
 import torch
 
+from scheduler_tpu_torch.ops import cuda_build
 from scheduler_tpu_torch.ops.scoring import dynamic_score
 
 # Upper bound on placements a step (``ops/fused.py`` MAX_BATCH).
 MAX_BATCH = 128
 
+# Launches of the CUDA kernel (the CPU path and the plain version never count).
+launches = 0
+
+# The kernel's limits (csrc/xla_step.cu): threads of its one CTA (the
+# candidate grid needs MAX_BATCH of them).
+THREADS = 1024
+MIN_THREADS = 128
+
+
+@dataclass(frozen=True)
+class StepPlan:
+    """A launch of the kernel: one CTA of ``threads`` threads, each taking
+    every ``threads``-th node, ``strides`` nodes at most."""
+
+    threads: int
+    strides: int
+
+    def describe(self) -> dict:
+        return {"threads": self.threads, "strides": self.strides}
+
+
+def step_plan(n: int, threads: Optional[int] = None) -> StepPlan:
+    """The plan for ``n`` nodes: by default ``n`` threads rounded up to a
+    warp (at least ``MIN_THREADS``, at most ``THREADS``, strided past
+    that); ``threads`` forces the thread count."""
+    if n < 1:
+        raise ValueError(f"xla_step: {n} nodes (at least 1)")
+    if threads is None:
+        threads = THREADS if n >= THREADS else max(MIN_THREADS, -(-n // 32) * 32)
+    if threads % 32 or not MIN_THREADS <= threads <= THREADS:
+        raise ValueError(f"xla_step: {threads} threads a CTA (a multiple of 32 in "
+                         f"{MIN_THREADS}..{THREADS})")
+    return StepPlan(threads, -(-n // threads))
+
+
+# -- the plain PyTorch version ---------------------------------------------------
+
+class PlainConsts(NamedTuple):
+    """The plain version's loop-invariant tensors, made once an arm."""
+
+    safe_alloc: torch.Tensor
+    pods_limit_f: torch.Tensor
+    lanes: torch.Tensor
+    js: torch.Tensor
+    js_f: torch.Tensor
+    neg_inf: torch.Tensor
+    false: torch.Tensor
+    one: torch.Tensor
+
+
+def plain_consts(allocatable: torch.Tensor, pods_limit: torch.Tensor) -> PlainConsts:
+    dev = allocatable.device
+    js = torch.arange(1, MAX_BATCH + 1, dtype=torch.int32, device=dev)
+    return PlainConsts(
+        torch.where(allocatable > 0, allocatable, 1.0), pods_limit.to(torch.float32),
+        torch.arange(allocatable.shape[0], device=dev), js, (js - 1).to(torch.float32),
+        torch.tensor(float("-inf"), dtype=torch.float32, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev),
+        torch.ones((), dtype=torch.int32, device=dev))
+
+
+def _fit(init_req, avail, mins):
+    """The epsilon fit of ``init_req`` [R] against avail [..., R] on every
+    dim (``scheduler_tpu/ops/predicates.py:20-27``)."""
+    return ((init_req < avail) | ((avail - init_req).abs() < mins)).all(dim=-1)
+
+
+def xla_step_reference(node_state, allocatable, pods_limit, node_gate, mins, init_resreq,
+                       resreq, static_mask, static_score, t_idx: int, s_idx: int, hi0: int,
+                       **kw):
+    """One step in plain PyTorch on the operands' device: task row
+    ``t_idx``, static row ``s_idx``, the host's batch cap ``hi0`` (read only
+    with ``batch_runs``; a cap of 1 places one copy without the grid).
+    Adds the winner's row to ``node_state`` in place and returns ``(best,
+    feasible, alloc_here, pipe_here, m)`` as Python values (one readback).
+    Keywords: the arm's flags (``weights``, ``use_static``,
+    ``enforce_pod_count``, ``has_releasing``, ``batch_runs``,
+    ``score_bound``), ``consts`` (``plain_consts``, made once an arm) and
+    ``detail``, a dict that receives the step's intermediates (``masked``,
+    ``second``, ``second_idx``, ``ok_js``, ``ok_s``, ``hi``, ``fit_count``)
+    for the tests' planted cases."""
+    packed = step_tensors(node_state, allocatable, pods_limit, node_gate, mins, init_resreq,
+                          resreq, static_mask, static_score, t_idx, s_idx, hi0, **kw)
+    best_i, ok, alloc_i, pipe_i, m_i = packed.tolist()
+    return best_i, bool(ok), bool(alloc_i), bool(pipe_i), m_i
+
+
+def step_tensors(node_state, allocatable, pods_limit, node_gate, mins, init_resreq, resreq,
+                 static_mask, static_score, t_idx: int, s_idx: int, hi0: int, *, weights,
+                 use_static, enforce_pod_count, has_releasing, batch_runs, score_bound,
+                 consts: Optional[PlainConsts] = None, detail: Optional[dict] = None):
+    """``xla_step_reference``'s device work: the five results packed in an
+    int32 [5] tensor on the operands' device, not read back."""
+    c = consts if consts is not None else plain_consts(allocatable, pods_limit)
+    weights = tuple(float(w) for w in weights)
+    r_dim = allocatable.shape[1]
+    ns = node_state
+    init_req, req = init_resreq[t_idx], resreq[t_idx]
+    idle = ns[:, :r_dim]
+    if has_releasing:
+        # Joint fit against idle and releasing in one op chain.
+        avail2 = ns[:, : 2 * r_dim].reshape(-1, 2, r_dim)
+        ok2 = _fit(init_req, avail2, mins)
+        fit_idle, fit_rel = ok2[:, 0], ok2[:, 1]
+        feasible = (fit_idle | fit_rel) & node_gate
+    else:
+        fit_idle = fit_rel = None
+        feasible = _fit(init_req, idle, mins) & node_gate
+    if use_static:
+        feasible = feasible & static_mask[s_idx]
+    if enforce_pod_count:
+        feasible = feasible & (ns[:, 2 * r_dim] < c.pods_limit_f)
+    score = dynamic_score(req, idle, allocatable, *weights, safe_alloc=c.safe_alloc)
+    if use_static:
+        score = score + static_score[s_idx]
+    masked = torch.where(feasible, score, c.neg_inf)
+    best = torch.argmax(masked)
+    any_feasible = masked[best] > c.neg_inf
+    if has_releasing:
+        alloc_here = any_feasible & fit_idle[best]
+        pipe_here = any_feasible & ~fit_idle[best] & fit_rel[best]
+    else:
+        alloc_here = any_feasible
+        pipe_here = c.false
+    if detail is not None:
+        others = torch.where(c.lanes == best, c.neg_inf, masked)
+        detail.update(masked=masked, second=float(others.max()),
+                      second_idx=int(torch.argmax(others)))
+    if batch_runs and hi0 > 1:
+        # (With a host cap of 1 the grid's answer is 1 whatever it holds:
+        # the batch block is skipped.)
+        if enforce_pod_count:
+            tc_best = ns[best, 2 * r_dim]
+            room = pods_limit[best] - tc_best.to(torch.int32)
+            hi = torch.clamp(torch.clamp(room, max=hi0), min=1)
+        else:
+            hi = max(hi0, 1)
+        idle_b = idle[best]
+        avail = idle_b[None, :] - c.js_f[:, None] * req[None, :]
+        ok_js = _fit(init_req, avail, mins)
+        if detail is not None:
+            detail["ok_js"] = ok_js.tolist()
+        if score_bound:
+            # Top-2 bound: placement j still picks best while its score
+            # after j - 1 placements beats the runner-up (lowest index on
+            # ties); a prefix, since non-binpack scores are not monotone.
+            others = torch.where(c.lanes == best, c.neg_inf, masked)
+            second = others.max()
+            second_idx = torch.argmax(others)
+            alloc_b = allocatable[best][None, :].expand(MAX_BATCH, r_dim)
+            safe_b = c.safe_alloc[best][None, :].expand(MAX_BATCH, r_dim)
+            s_js = dynamic_score(req, avail, alloc_b, *weights, safe_alloc=safe_b)
+            if use_static:
+                s_js = s_js + static_score[s_idx, best]
+            ok_s = (s_js > second) | ((s_js == second) & (best < second_idx))
+            if detail is not None:
+                detail["ok_s"] = ok_s.tolist()
+            ok_js = ok_js & (torch.cumprod(ok_s.to(torch.int32), 0, dtype=torch.int32) > 0)
+        fit_count = torch.where(ok_js & (c.js <= hi), c.js, 1).max()
+        if detail is not None:
+            detail.update(hi=int(hi), fit_count=int(fit_count))
+        m = torch.where(alloc_here, fit_count, 1).to(torch.int32)
+    else:
+        m = c.one
+    # The winner's node row: idle -= req * m if allocated, releasing -=
+    # req if pipelined, task count += the copies placed.
+    m_f = m.to(torch.float32)
+    copies = torch.where(alloc_here, m, 1)
+    row = torch.cat([
+        -req * (alloc_here * m_f),
+        -req * pipe_here,
+        ((alloc_here | pipe_here) * copies).to(torch.float32)[None],
+    ])
+    ns.index_add_(0, best.reshape(1), row[None, :])
+    return torch.stack([best.to(torch.int32), any_feasible.to(torch.int32),
+                        alloc_here.to(torch.int32), pipe_here.to(torch.int32), m])
+
+
+# -- bind ------------------------------------------------------------------------
+
+class XlaStepParams(ctypes.Structure):
+    """Mirror of ``struct XlaStepParams`` in ``csrc/xla_step.cu``."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in ("ns", "alloc", "plim", "gate", "smask", "sscore", "initq", "req", "mins",
+                     "out")
+    ] + [
+        (name, ctypes.c_int)
+        for name in ("n", "r", "cpu_idx", "mem_idx", "use_static", "enforce_pod_count",
+                     "has_releasing", "batch_runs", "score_bound", "hi0")
+    ] + [(name, ctypes.c_float) for name in ("w_lr", "w_bal", "w_bp")]
+
+
+class XlaLoop(ctypes.Structure):
+    """Mirror of ``struct XlaLoop`` in ``csrc/xla_step.cu``."""
+
+    _fields_ = [
+        ("p", XlaStepParams),
+        ("out_host", ctypes.c_void_p),
+        ("ev0", ctypes.c_void_p),
+        ("ev1", ctypes.c_void_p),
+        ("xla_ms", ctypes.c_double),
+        ("steps", ctypes.c_longlong),
+        ("s_stride", ctypes.c_longlong),
+        ("t_rows", ctypes.c_int),
+        ("s_rows", ctypes.c_int),
+        ("threads", ctypes.c_int),
+    ]
+
+
+_lib = None
+
+
+def _library():
+    """The port's CUDA library, with the argument types of this kernel's
+    entry points set once."""
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load()
+        for name in ("xla_step_loop_begin", "xla_step_loop_end", "xla_step_loop_step",
+                     "xla_step_loop_size"):
+            getattr(lib, name).restype = ctypes.c_int
+        lib.xla_step_loop_begin.argtypes = [ctypes.c_void_p]
+        lib.xla_step_loop_end.argtypes = [ctypes.c_void_p]
+        lib.xla_step_loop_step.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+        lib.xla_step_loop_size.argtypes = []
+        if lib.xla_step_loop_size() != ctypes.sizeof(XlaLoop):
+            raise RuntimeError("xla_step: the library's XlaLoop differs from the wrapper's")
+        _lib = lib
+    return _lib
+
+
+# -- the arm -----------------------------------------------------------------------
 
 class XlaStep:
     """The arm bound for one loop: the node state staged on ``allocatable``'s
@@ -54,11 +309,19 @@ class XlaStep:
     ``MAX_BATCH`` and the gang room; read only with ``batch_runs``, and a
     cap of 1 places one copy without the candidate grid) and
     returns ``(best, feasible, alloc_here, pipe_here, m)`` as Python
-    values, after adding the winner's row to the node state."""
+    values, after adding the winner's row to the node state.
+
+    On CUDA operands the step is the kernel (``plan``: default
+    ``step_plan``'s), or raises; with ``plain`` it is the plain version on
+    the card.  With ``check_every`` > 0 the kernel is held to the plain
+    version, run first on a clone of the node state, at the first step and
+    every ``check_every``-th one (the five results and the whole node
+    state, bitwise; ``checked`` counts them); a disagreement raises."""
 
     def __init__(self, idle, releasing, task_count, allocatable, pods_limit, node_gate, mins,
                  init_resreq, resreq, static_mask, static_score, *, weights, use_static,
-                 enforce_pod_count, has_releasing, batch_runs, score_bound):
+                 enforce_pod_count, has_releasing, batch_runs, score_bound, plain=False,
+                 check_every=0, plan: Optional[StepPlan] = None):
         dev = allocatable.device
         f32 = torch.float32
         self.device = dev
@@ -70,118 +333,144 @@ class XlaStep:
             torch.as_tensor(task_count).to(f32).reshape(n, 1),
         ], dim=1).to(dev).contiguous()
         self.allocatable = allocatable
-        self.safe_alloc = torch.where(allocatable > 0, allocatable, 1.0)
         self.pods_limit = pods_limit
-        self.pods_limit_f = pods_limit.to(f32)
         self.node_gate = node_gate
         self.mins = mins
         self.init_resreq, self.resreq = init_resreq, resreq
         self.static_mask, self.static_score = static_mask, static_score
-        self.weights = tuple(float(w) for w in weights)
-        self.use_static = use_static
-        self.enforce_pod_count = enforce_pod_count
-        self.has_releasing = has_releasing
-        self.batch_runs = batch_runs
-        self.score_bound = score_bound
-        self.lanes = torch.arange(n, device=dev)
-        self.js = torch.arange(1, MAX_BATCH + 1, dtype=torch.int32, device=dev)
-        self.js_f = (self.js - 1).to(f32)
-        self.neg_inf = torch.tensor(float("-inf"), dtype=f32, device=dev)
-        self.false = torch.zeros((), dtype=torch.bool, device=dev)
-        self.one = torch.ones((), dtype=torch.int32, device=dev)
+        self.flags = dict(weights=tuple(float(w) for w in weights), use_static=use_static,
+                          enforce_pod_count=enforce_pod_count, has_releasing=has_releasing,
+                          batch_runs=batch_runs, score_bound=score_bound)
+        self.consts = plain_consts(allocatable, pods_limit)
         self.cuda = dev.type == "cuda"
+        self.kernel = self.cuda and not plain
+        self.check_every = check_every if self.kernel else 0
+        self.checked = 0
         self.xla_ms = 0.0 if self.cuda else None
+        self.host_ms = 0.0 if self.cuda else None
         self.steps = 0
-        if self.cuda:
+        self.plan = None
+        self._addr = None
+        if self.kernel:
+            self.plan = plan or step_plan(n)
+            self._bind()
+        elif self.cuda:
             self._ev = (torch.cuda.Event(enable_timing=True),
                         torch.cuda.Event(enable_timing=True))
 
-    def _fit(self, init_req, avail):
-        """The epsilon fit of ``init_req`` [R] against avail [..., R] on
-        every dim (``scheduler_tpu/ops/predicates.py:20-27``)."""
-        return ((init_req < avail) | ((avail - init_req).abs() < self.mins)).all(dim=-1)
+    def _bind(self) -> None:
+        n, r_dim, plan = self.n, self.r_dim, self.plan
+        if r_dim < 2:
+            raise ValueError(f"xla_step: {r_dim} resource dims (cpu and memory at least)")
+        f32 = torch.float32
+        t_rows = self.resreq.shape[0]
+        for name, t, dtype, shape in (
+            ("allocatable", self.allocatable, f32, (n, r_dim)),
+            ("pods_limit", self.pods_limit, torch.int32, (n,)),
+            ("node_gate", self.node_gate, torch.bool, (n,)),
+            ("mins", self.mins, f32, (r_dim,)),
+            ("init_resreq", self.init_resreq, f32, (t_rows, r_dim)),
+            ("resreq", self.resreq, f32, (t_rows, r_dim)),
+        ):
+            if t.device != self.device or t.dtype != dtype or tuple(t.shape) != shape:
+                raise ValueError(f"xla_step: {name} must be a {dtype} tensor of shape {shape} "
+                                 f"on {self.device}")
+        use_static = self.flags["use_static"]
+        if use_static and (self.static_mask.shape[1] != n or self.static_score.shape[1] != n
+                           or self.static_mask.shape[0] != self.static_score.shape[0]
+                           or self.static_mask.dtype != torch.bool
+                           or self.static_score.dtype != f32):
+            raise ValueError("xla_step: static rows must be bool / float32 [S, N]")
+        # The kernel reads these in place: contiguous copies where they are not.
+        for name in ("allocatable", "pods_limit", "node_gate", "mins", "init_resreq", "resreq",
+                     "static_mask", "static_score"):
+            setattr(self, name, getattr(self, name).contiguous())
+        self._lib = _library()
+        args = XlaLoop()
+        p = args.p
+        p.ns, p.alloc, p.plim, p.gate = (self.node_state.data_ptr(), self.allocatable.data_ptr(),
+                                         self.pods_limit.data_ptr(), self.node_gate.data_ptr())
+        p.smask, p.sscore = self.static_mask.data_ptr(), self.static_score.data_ptr()
+        p.initq, p.req, p.mins = (self.init_resreq.data_ptr(), self.resreq.data_ptr(),
+                                  self.mins.data_ptr())
+        p.n, p.r = n, r_dim
+        p.cpu_idx, p.mem_idx = 0, 1  # api/vocab.py CPU, MEMORY
+        for key in ("use_static", "enforce_pod_count", "has_releasing", "batch_runs",
+                    "score_bound"):
+            setattr(p, key, int(bool(self.flags[key])))
+        p.w_lr, p.w_bal, p.w_bp = self.flags["weights"]
+        args.s_stride = n
+        args.t_rows = t_rows
+        args.s_rows = self.static_mask.shape[0] if use_static else 0
+        args.threads = plan.threads
+        self._args = args
+        self._addr = ctypes.addressof(args)
+        self._stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = self._lib.xla_step_loop_begin(self._addr)
+        if rc != 0:
+            self._lib.xla_step_loop_end(self._addr)
+            self._addr = None
+            raise RuntimeError(f"xla_step: plan, mapped result or event setup failed: "
+                               f"CUDA error {rc} ({plan})")
+        # The kernel's five results, in mapped pinned host memory.
+        self._res = (ctypes.c_int32 * 8).from_address(args.out_host)
+
+    def plain_step(self, node_state, t_idx: int, s_idx: int, hi0: int, detail=None):
+        """The plain version of one step on ``node_state`` (this arm's, or
+        a clone of it), with the arm's other operands."""
+        return xla_step_reference(node_state, self.allocatable, self.pods_limit, self.node_gate,
+                                  self.mins, self.init_resreq, self.resreq, self.static_mask,
+                                  self.static_score, t_idx, s_idx, hi0, consts=self.consts,
+                                  detail=detail, **self.flags)
 
     def step(self, t_idx: int, s_idx: int, hi0: int):
-        if self.cuda:
-            self._ev[0].record()
-        r_dim, ns = self.r_dim, self.node_state
-        init_req, req = self.init_resreq[t_idx], self.resreq[t_idx]
-        idle = ns[:, :r_dim]
-        if self.has_releasing:
-            # Joint fit against idle and releasing in one op chain.
-            avail2 = ns[:, : 2 * r_dim].reshape(-1, 2, r_dim)
-            ok2 = self._fit(init_req, avail2)
-            fit_idle, fit_rel = ok2[:, 0], ok2[:, 1]
-            feasible = (fit_idle | fit_rel) & self.node_gate
-        else:
-            fit_idle = fit_rel = None
-            feasible = self._fit(init_req, idle) & self.node_gate
-        if self.use_static:
-            feasible = feasible & self.static_mask[s_idx]
-        if self.enforce_pod_count:
-            feasible = feasible & (ns[:, 2 * r_dim] < self.pods_limit_f)
-        score = dynamic_score(req, idle, self.allocatable, *self.weights,
-                              safe_alloc=self.safe_alloc)
-        if self.use_static:
-            score = score + self.static_score[s_idx]
-        masked = torch.where(feasible, score, self.neg_inf)
-        best = torch.argmax(masked)
-        any_feasible = masked[best] > self.neg_inf
-        if self.has_releasing:
-            alloc_here = any_feasible & fit_idle[best]
-            pipe_here = any_feasible & ~fit_idle[best] & fit_rel[best]
-        else:
-            alloc_here = any_feasible
-            pipe_here = self.false
-        if self.batch_runs and hi0 > 1:
-            # (With a host cap of 1 the grid's answer is 1 whatever it
-            # holds: the batch block is skipped.)
-            if self.enforce_pod_count:
-                tc_best = ns[best, 2 * r_dim]
-                room = self.pods_limit[best] - tc_best.to(torch.int32)
-                hi = torch.clamp(torch.clamp(room, max=hi0), min=1)
-            else:
-                hi = max(hi0, 1)
-            idle_b = idle[best]
-            avail = idle_b[None, :] - self.js_f[:, None] * req[None, :]
-            ok_js = self._fit(init_req, avail)
-            if self.score_bound:
-                # Top-2 bound: placement j still picks best while its score
-                # after j - 1 placements beats the runner-up (lowest index on
-                # ties); a prefix, since non-binpack scores are not monotone.
-                others = torch.where(self.lanes == best, self.neg_inf, masked)
-                second = others.max()
-                second_idx = torch.argmax(others)
-                alloc_b = self.allocatable[best][None, :].expand(MAX_BATCH, r_dim)
-                safe_b = self.safe_alloc[best][None, :].expand(MAX_BATCH, r_dim)
-                s_js = dynamic_score(req, avail, alloc_b, *self.weights, safe_alloc=safe_b)
-                if self.use_static:
-                    s_js = s_js + self.static_score[s_idx, best]
-                ok_s = (s_js > second) | ((s_js == second) & (best < second_idx))
-                ok_js = ok_js & (torch.cumprod(ok_s.to(torch.int32), 0, dtype=torch.int32) > 0)
-            fit_count = torch.where(ok_js & (self.js <= hi), self.js, 1).max()
-            m = torch.where(alloc_here, fit_count, 1).to(torch.int32)
-        else:
-            m = self.one
-        # The winner's node row: idle -= req * m if allocated, releasing -=
-        # req if pipelined, task count += the copies placed.
-        m_f = m.to(torch.float32)
-        copies = torch.where(alloc_here, m, 1)
-        row = torch.cat([
-            -req * (alloc_here * m_f),
-            -req * pipe_here,
-            ((alloc_here | pipe_here) * copies).to(torch.float32)[None],
-        ])
-        ns.index_add_(0, best.reshape(1), row[None, :])
-        packed = torch.stack([best.to(torch.int32), any_feasible.to(torch.int32),
-                              alloc_here.to(torch.int32), pipe_here.to(torch.int32), m])
-        if self.cuda:
-            self._ev[1].record()
-        best_i, ok, alloc_i, pipe_i, m_i = packed.tolist()
-        if self.cuda:
-            self.xla_ms += self._ev[0].elapsed_time(self._ev[1])
+        global launches
         self.steps += 1
-        return best_i, bool(ok), bool(alloc_i), bool(pipe_i), m_i
+        if not self.kernel:
+            t0 = time.perf_counter()
+            if self.cuda:
+                self._ev[0].record()
+            packed = step_tensors(self.node_state, self.allocatable, self.pods_limit,
+                                  self.node_gate, self.mins, self.init_resreq, self.resreq,
+                                  self.static_mask, self.static_score, t_idx, s_idx, hi0,
+                                  consts=self.consts, **self.flags)
+            if self.cuda:
+                self._ev[1].record()
+            best_i, ok, alloc_i, pipe_i, m_i = packed.tolist()
+            if self.cuda:
+                self.xla_ms += self._ev[0].elapsed_time(self._ev[1])
+                self.host_ms += 1e3 * (time.perf_counter() - t0)
+            return best_i, bool(ok), bool(alloc_i), bool(pipe_i), m_i
+        check = self.check_every and (self.steps - 1) % self.check_every == 0
+        if check:
+            twin = self.node_state.clone()
+            want = self.plain_step(twin, t_idx, s_idx, hi0)
+        t0 = time.perf_counter()
+        rc = self._lib.xla_step_loop_step(self._addr, t_idx,
+                                          s_idx if self.flags["use_static"] else 0, hi0,
+                                          self._stream)
+        if rc != 0:
+            raise RuntimeError(f"xla_step launch failed: CUDA error {rc} ({self.plan})")
+        launches += 1
+        res = self._res
+        result = res[0], res[1] != 0, res[2] != 0, res[3] != 0, res[4]
+        self.host_ms += 1e3 * (time.perf_counter() - t0)
+        if check:
+            self.checked += 1
+            same_state = torch.equal(self.node_state.view(torch.int32), twin.view(torch.int32))
+            if result != want or not same_state:
+                raise RuntimeError(f"xla_step: kernel {result} != plain {want} (node state "
+                                   f"equal: {same_state}) at loop step {self.steps}, task row "
+                                   f"{t_idx}")
+        return result
 
     def close(self) -> None:
-        """Nothing to release: the node state is dropped with the arm."""
+        """Release the events and the mapped result; keep the kernel's
+        summed time."""
+        if self._addr is not None:
+            self._res = None
+            rc = self._lib.xla_step_loop_end(self._addr)
+            self.xla_ms = float(self._args.xla_ms)
+            self._addr = None
+            if rc != 0:
+                raise RuntimeError(f"xla_step: CUDA error {rc}")

@@ -21,9 +21,12 @@ out of a pop and pad node columns, 10,000 nodes and a pop of 100),
 ``placement_step`` (all four outputs; node counts across its
 cluster, ties across CTAs, a pushed column) and the ``fused_allocate``
 loop with it (codes, against the loop with the plain version on the
-card; in cursor mode and with the multi-queue pop).  The loop's XLA step
-arm (plain tensor operations, no kernel) runs on the card against the
-same arm on the CPU: equal codes, its node state on the card.
+card; in cursor mode and with the multi-queue pop), ``xla_step`` (the five
+results and the node state it writes; the planted cases of
+``chip_smoke.XLA_STEP_PLANTS`` under several plans, node counts around the
+plan's thresholds, 40 and 100 resource dims) and the loop with it (each step checked, codes against
+the loop with the plain arm on the card, and against the same arm on the
+CPU).
 """
 
 import numpy as np
@@ -47,6 +50,7 @@ from scheduler_tpu_torch.ops import place_scan_kernel as psk
 from scheduler_tpu_torch.ops import predicate_kernel as pk
 from scheduler_tpu_torch.ops import qfair
 from scheduler_tpu_torch.ops import step_kernel as sk
+from scheduler_tpu_torch.ops import xla_step
 
 
 def _card() -> torch.device:
@@ -265,7 +269,13 @@ def test_cuda_kernel_ladder_session(conf):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_n,r_n,seed", [(1, 2, 0), (3, 4, 1), (8, 8, 2), (40, 18, 3),
-                                          (100, 8, 4), (128, 18, 5), (128, 2, 6)])
+                                          (100, 8, 4), (128, 18, 5), (128, 2, 6),
+                                          # the kernel's tiling: a warp a queue, a
+                                          # thread a dim and a fold; more queues than
+                                          # threads; past shared memory (the global arm)
+                                          (1, 40, 9), (33, 2, 10), (33, 3, 11), (33, 40, 12),
+                                          (300, 3, 13), (300, 40, 14), (1100, 8, 15),
+                                          (1100, 40, 16)])
 def test_qfair_solve_matches_plain_version(q_n, r_n, seed):
     """``qfair_solve`` on the card against its plain version on random
     fleets (``chip_smoke.qfair_fleet``), capped and uncapped (tolerance:
@@ -279,6 +289,21 @@ def test_qfair_solve_matches_plain_version(q_n, r_n, seed):
     assert torch.equal(got[0].view(torch.int64), ref[0].view(torch.int64))
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
     assert int(got[2][1]) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_n,r_n,seed,iters", [(0, 2, 0, 4), (0, 3, 1, 0), (33, 3, 15, 1),
+                                                (300, 40, 16, 2), (1100, 8, 17, 1)])
+def test_qfair_solve_empty_fleet_or_cut_budget(q_n, r_n, seed, iters):
+    """No queue (converged at round 0; no round at all with a budget of 0),
+    or a round budget that runs out before the fixed point
+    (``converged_at`` -1): the kernel against its plain version, bitwise."""
+    ops = smoke.qfair_fleet(q_n, r_n, seed, _card())
+    got = qfair.qfair_solve(*ops, iters=iters)
+    ref = qfair.qfair_solve_reference(*ops, iters=iters)
+    assert torch.equal(got[0].view(torch.int64), ref[0].view(torch.int64))
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    assert int(got[2][1]) == (-1 if q_n else (0 if iters else -1))
 
 
 @pytest.mark.cuda
@@ -635,8 +660,8 @@ XLA_CASES = {
 def test_xla_arm_on_the_card_matches_the_cpu(case):
     """The loop's XLA step arm on the card against the same arm on the CPU,
     on the operands of one engine per device built from twin clusters:
-    equal codes, no kernel launched, the node state on the card."""
-    from scheduler_tpu_torch.ops import xla_step
+    equal codes, one ``xla_step`` launch a step and no other loop kernel,
+    the node state on the card."""
 
     device = _card()
     build, conf, engine, overrides = XLA_CASES[case]
@@ -655,11 +680,14 @@ def test_xla_arm_on_the_card_matches_the_cpu(case):
         xla_step.XlaStep.__init__ = spy
         try:
             before = (sk.launches, mk.launches)
+            before_x = xla_step.launches
             codes[dev.type], stats = fused_mod.fused_allocate(*eng.args, **kw)
         finally:
             xla_step.XlaStep.__init__ = init
         assert (sk.launches, mk.launches) == before
         assert stats["arm"] == "xla" and stats["steps"] > 0
+        if dev.type == "cuda":
+            assert xla_step.launches == before_x + stats["steps"]
         assert seen and seen[0].node_state.device.type == dev.type
         if dev.type == "cuda":
             assert stats["xla_ms"] > 0
@@ -668,6 +696,119 @@ def test_xla_arm_on_the_card_matches_the_cpu(case):
     assert int(placed.sum()) > 0
     if "releas" in case or "reclaim" in case:
         assert int((codes["cuda"] <= fused_mod._PIPE_BASE).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(XLA_CASES))
+def test_xla_loop_matches_loop_with_plain_arm(case):
+    """``fused_allocate`` on the card with the ``xla_step`` kernel, each step
+    held to the plain version on a clone of the node state (results and
+    the node state it writes), against the same loop with the plain arm on
+    the card: equal codes."""
+    device = _card()
+    build, conf, engine, overrides = XLA_CASES[case]
+    _, eng = smoke.engine_for(build(), conf, device, engine=engine)
+    eng.use_mega = False
+    args, kw = eng.args, dict(eng._allocate_kw(), **overrides)
+    before = xla_step.launches
+    codes, stats = fused_mod.fused_allocate(*args, **kw, check_every=1)
+    assert stats["arm"] == "xla"
+    assert xla_step.launches == before + stats["steps"] and stats["checked"] == stats["steps"]
+    plain, plain_stats = fused_mod.fused_allocate(*args, **kw, plain_step=True)
+    assert xla_step.launches == before + stats["steps"]
+    assert torch.equal(codes, plain) and plain_stats["steps"] == stats["steps"]
+    assert stats["xla_ms"] > 0 and stats["xla_host_ms"] > 0
+
+
+# The XLA step kernel's launch plans: the default (1,024 threads at the
+# planted cases' 3,000 nodes, three strides) and forced thread counts.
+XLA_PLANS = [None, 128, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", XLA_PLANS)
+@pytest.mark.parametrize("kind", sorted(smoke.XLA_STEP_PLANTS))
+def test_xla_step_planted_case_matches_plain(kind, threads):
+    """Each planted case (``chip_smoke.XLA_STEP_PLANTS``, its nodes placed by
+    the plan's thread count) under a forced plan: one launch, whose five
+    results and written node state equal the plain version's on a clone."""
+    device = _card()
+    n = smoke.XLA_STEP_PLANTS[kind][0]
+    plan = None if threads is None else xla_step.step_plan(n, threads)
+    ops, flags, hi0, roles = smoke.xla_plant_case(kind, plan)
+    arm = smoke.xla_arm_on(ops, flags, device, plan=plan, check_every=1)
+    before = xla_step.launches
+    try:
+        got = arm.step(0, 0, hi0)
+    finally:
+        arm.close()
+    torch.cuda.synchronize()
+    assert xla_step.launches == before + 1 and arm.checked == 1
+    if "best" in roles:
+        assert got[0] == roles["best"]
+    assert (got[1] is False) == (kind == "infeasible")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 1024, 1025, 16_384, 70_000])
+def test_xla_step_node_counts(n):
+    """Random operands at node counts around the plan's thresholds (one
+    node a thread, then strided, past the placement-step kernel's 65,536
+    nodes too), 24 steps of rotating task rows, static rows and caps, each
+    held to the plain version on a clone."""
+    device = _card()
+    ops = smoke.xla_step_operands(n % 97, n, 3)
+    ops["resreq"][:, :2] = ops["init_resreq"][:, :2] = np.floor(ops["resreq"][:, :2] / 16)
+    arm = smoke.xla_arm_on(ops, smoke.XLA_STEP_FLAGS, device, check_every=1)
+    try:
+        seen = [arm.step(k % 4, k % 3, (1, 2, 128)[k % 3]) for k in range(24)]
+    finally:
+        arm.close()
+    assert arm.checked == 24 and arm.xla_ms > 0
+    assert any(ok for _, ok, _, _, _ in seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_dim,threads", [(40, None), (100, 128)])
+def test_xla_step_many_dims(r_dim, threads):
+    """More resource dims than a warp's lanes (40), and a node row wider
+    than the CTA (100 dims, 201 columns, on 128 threads): 24 steps, each
+    held to the plain version on a clone."""
+    device = _card()
+    n = 3000
+    ops = smoke.xla_step_operands(r_dim, n, r_dim)
+    ops["resreq"][:, :2] = ops["init_resreq"][:, :2] = np.floor(ops["resreq"][:, :2] / 16)
+    ops["resreq"][:, 2:] = ops["init_resreq"][:, 2:] = 0.0
+    ops["resreq"][:, [2, -1]] = ops["init_resreq"][:, [2, -1]] = 1.0
+    plan = None if threads is None else xla_step.step_plan(n, threads)
+    arm = smoke.xla_arm_on(ops, smoke.XLA_STEP_FLAGS, device, plan=plan, check_every=1)
+    try:
+        seen = [arm.step(k % 4, k % 3, (1, 2, 128)[k % 3]) for k in range(24)]
+    finally:
+        arm.close()
+    assert arm.checked == 24
+    assert any(ok for _, ok, _, _, _ in seen)
+
+
+@pytest.mark.cuda
+def test_xla_step_plan_the_card_cannot_run_raises():
+    """A plan outside the kernel's thread counts, or a task row outside the
+    operands, is refused: nothing falls back."""
+    device = _card()
+    ops = smoke.xla_step_operands(1, 3000, 2)
+    before = xla_step.launches
+    for bad in (xla_step.StepPlan(100, 30), xla_step.StepPlan(2048, 2)):
+        with pytest.raises(RuntimeError):
+            smoke.xla_arm_on(ops, smoke.XLA_STEP_FLAGS, device, plan=bad)
+    arm = smoke.xla_arm_on(ops, smoke.XLA_STEP_FLAGS, device)
+    try:
+        with pytest.raises(RuntimeError):
+            arm.step(len(ops["resreq"]), 0, 1)
+        with pytest.raises(RuntimeError):
+            arm.step(0, len(ops["static_mask"]), 1)
+    finally:
+        arm.close()
+    assert xla_step.launches == before
 
 
 # -- the resident engine across cycles (ops/engine_cache.py) ------------------------

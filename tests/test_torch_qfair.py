@@ -61,9 +61,13 @@ def random_fleet(rng, q_n, r_n):
     }
 
 
+# The kernel's tiling (csrc/qfair_solve.cu: a warp a queue, a thread a dim
+# and a fold): one queue, a warp's worth and one more, more queues than one
+# CTA has warps; two, three and forty dims (past a warp's lanes).
 @pytest.mark.parametrize("q_n,r_n,seed", [
     (1, 2, 0), (2, 2, 1), (3, 4, 2), (5, 3, 3), (8, 8, 4), (17, 6, 5), (40, 18, 6),
     (100, 8, 7), (128, 3, 8),
+    (1, 40, 9), (33, 2, 10), (33, 3, 11), (33, 40, 12), (300, 3, 13), (300, 40, 14),
 ])
 def test_solve_matches_jax_device_solve(q_n, r_n, seed):
     fleet = random_fleet(np.random.default_rng(seed), q_n, r_n)
@@ -74,6 +78,23 @@ def test_solve_matches_jax_device_solve(q_n, r_n, seed):
     for key in ("iterations", "converged_at", "converged"):
         assert got[key] == want[key], key
     assert got["iterations"] == q_n + 4 and got["converged"]
+
+
+@pytest.mark.parametrize("q_n,r_n,seed,iters", [(33, 3, 15, 1), (300, 40, 16, 2)])
+def test_solve_budget_cut_matches_jax_device_solve(monkeypatch, q_n, r_n, seed, iters):
+    """A round budget that runs out before the fixed point (both packages'
+    ``*_QFAIR_ITERS``): the partial deserved rows, met flags and evidence
+    equal, ``converged_at`` -1."""
+    monkeypatch.setenv("SCHEDULER_TPU_QFAIR_ITERS", str(iters))
+    monkeypatch.setenv("SCHEDULER_TORCH_QFAIR_ITERS", str(iters))
+    fleet = random_fleet(np.random.default_rng(seed), q_n, r_n)
+    want = jax_qfair.solve_deserved(**fleet)
+    got = qfair.solve_deserved(**fleet, device="cpu")
+    np.testing.assert_array_equal(bits(got["deserved"]), bits(want["deserved"]))
+    np.testing.assert_array_equal(got["met"], want["met"])
+    for key in ("iterations", "converged_at", "converged"):
+        assert got[key] == want[key], key
+    assert got["iterations"] == iters and got["converged_at"] == -1 and not got["converged"]
 
 
 # -- through proportion, in both packages ----------------------------------------------
