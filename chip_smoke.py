@@ -10,11 +10,11 @@ What it does, one JSON line per phase:
 
 1. device: the card, the CUDA version, and the one build of every kernel of
    the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path, sixteen times, each on a freshly built cluster that no other
-   session has touched, through ``Scheduler.run_once`` on the card, with
-   every kernel's launch count set to 0 just before and read just after:
-   a to k and n to o a cold cycle each (a scheduler's first cycle after
-   start-up), l and m the cycles after it (the engine resident across
+2. main_path, eighteen times, each on a freshly built cluster that no
+   other session has touched, through ``Scheduler.run_once`` on the card,
+   with every kernel's launch count set to 0 just before and read just
+   after: a to k and n to p a cold cycle each (a scheduler's first cycle
+   after start-up), l and m the cycles after it (the engine resident across
    cycles):
    a. BASELINE config 2, the kubemark density scenario (priority, gang, drf,
       predicates, nodeorder; 1,000 nodes x 5,000 bare pods, half of them
@@ -153,6 +153,26 @@ What it does, one JSON line per phase:
       victims' (``reclaim_invariants``), allocate's one ``mega_allocate``
       launch; later the evictions in order, binds and statuses equal to the
       same cycle on the CPU (a child beside the untimed phases).
+   o'. o's cluster built anew, with ``SCHEDULER_TORCH_EVICT=device``: the
+      eviction engine (``ops/evict.py::EvictEngine``) plans every hunt
+      (1,000 evictions) and the action replays the plans; then K2 as in o.
+      Checks: the engine engaged, o's checks, the evictions in order, binds
+      and statuses equal to o's; prints ``action:reclaim`` beside o's and
+      the engine's phase split (score, mask, plan, replay).  It runs in o's
+      twin, after the go, beside the untimed phases.
+   p. the backfill wave (``harness.backfill_wave.BackfillWaveConfig()``:
+      2,048 nodes of pod limit 22 with 14 running pods each, 20,000
+      BestEffort pods, every third one zone-pinned, seed 0) through
+      backfill over the predicates plugin with
+      ``SCHEDULER_TORCH_BACKFILL=device``: K3 builds the class rows of the
+      engine (``ops/backfill.py::BackfillEngine``), which fills the runs
+      and replays them.  Checks: engaged on 5 classes, 16,384 binds, no
+      node past its pod limit, every pinned pod in its zone, 3,616 pods
+      left pending with a FitErrors each, one K3 launch; K3 on the wave's
+      signature operands against its plain version (timed); the two
+      flavors on an eighth of the wave (256 nodes, 2,500 pods) on the card:
+      binds, FitErrors strings and counters equal.  In a child beside the
+      untimed phases.
    Each prints the phase seconds and the engine's time from CUDA events
    (the kernel's; for i and k the ``xla_step`` launches summed, and per
    step, beside the host time of the arm's C calls);
@@ -161,9 +181,13 @@ What it does, one JSON line per phase:
    config-1 cycle there (``--child``, ``child_main``), so that the garbage
    collection at the head of the cycle walks that path's cluster alone.
    Then the preempt storms (``STORM_CASES``: ``tests/test_evict_parity.py``'s
-   storm clusters, ``storm_spec``, through reclaim and preempt), in a child,
-   each on the card and on the CPU: evictions in order, statuses and binds
-   equal.
+   storm clusters, ``storm_spec``, through reclaim and preempt, and the JAX
+   bench's saturated storm, ``PreemptStormConfig()``, through allocate and
+   preempt), in a child, each on the card and on the CPU in both flavors
+   of the victim hunt (``SCHEDULER_TORCH_EVICT``): evictions in order,
+   statuses and binds equal, the device flavor engaged.  A flavor set to
+   ``device`` whose engine declines where the script expects it to engage
+   fails the run.
 3. kernel_vs_plain: each kernel's wrapper against its plain PyTorch version
    on the same CUDA tensors, bitwise.  ``mega_allocate`` (codes and stats):
    BASELINE config 1, a 1,000 x 10,000 flagship session, a case with
@@ -217,7 +241,7 @@ What it does, one JSON line per phase:
    with both, on the loop's releasing arm).
 
 Then the ``kernels`` line (with each kernel's launches on every path that
-runs it, l's to o's included; ``place_scan``'s entry below the TPU
+runs it, l's to p's included; ``place_scan``'s entry below the TPU
 kernels' from paths n and n', with its launch plan; ``xla_step``'s from
 paths i and k and the planted cases; ``qfair_solve``'s with its chain
 floor), the card's name and power
@@ -3823,7 +3847,7 @@ def phase_config4_reclaim(conf_path):
     nothing pipelined past what its node's victims free; then allocate's
     one ``mega_allocate`` launch; later the evictions in order, the binds
     and the statuses equal to the same cycle on the CPU (``--child
-    config4_reclaim_cpu``)."""
+    config4_reclaim_twin``)."""
     from scheduler_tpu_torch.harness import make_reclaim_cluster
 
     t0 = time.perf_counter()
@@ -3844,23 +3868,68 @@ def phase_config4_reclaim(conf_path):
 
 def check_config4_reclaim_twin(twin, card):
     """Path o against the same cycle on the CPU (``--child
-    config4_reclaim_cpu``): evictions in order, binds and statuses."""
-    cpu = twin.result()
+    config4_reclaim_twin``): evictions in order, binds and statuses; then
+    path o', which the twin ran on the card after the go, against o: the
+    same outcome, ``action:reclaim`` beside o's.  Returns o''s record."""
+    res = twin.result()
+    cpu, dev = res, res["device_flavor"]
     equal = {k: cpu["outcome"][k] == card["outcome"][k] for k in card["outcome"]}
     emit({"phase": "cpu_parity", "config": "config4_reclaim", **equal,
           "cpu_cycle_s": cpu["record"]["cycle_s"], "wall_s": time.perf_counter() - twin.t0})
     if not all(equal.values()):
         raise SystemExit(f"path o differs from its CPU run: {equal}")
+    equal = {k: dev["outcome"][k] == card["outcome"][k] for k in card["outcome"]}
+    emit({"phase": "evict_flavors", "config": "config4_reclaim", **equal,
+          "reclaim_s": {"host": card["record"]["phases_s"].get("action:reclaim"),
+                        "device": dev["record"]["phases_s"].get("action:reclaim")},
+          "cycle_s": {"host": card["record"]["cycle_s"], "device": dev["record"]["cycle_s"]},
+          "engine": evict_summary(dev["record"]["evict"])})
+    if not all(equal.values()):
+        raise SystemExit(f"path o' differs from path o: {equal}")
+    return dev
 
 
-def storm_run(seed, n_queues, device):
-    """One session of ``STORM_CONF`` on ``storm_spec(seed, n_queues)`` on
-    ``device`` (None: the card): the evictions in commit order (captured at
-    the cache), the task statuses and nodes, the binds, the launches."""
+class env_flag:
+    """Set environment variable ``name`` to ``value`` for a block."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.name, None)
+        else:
+            os.environ[self.name] = self.old
+
+
+# The evidence counters of an engaged eviction engine that the script prints.
+EVICT_COUNTERS = ("hunts", "planned_nodes", "evictions", "pipelined", "segments")
+
+
+def check_engaged(evidence, path, kinds):
+    """Fail when a flavor set to ``device`` did not engage its engine on a
+    path that expects it to (``evidence``: the ``evict`` note, by kind):
+    the run is not a quiet host run."""
+    for kind in kinds:
+        stats = (evidence or {}).get(kind) or {}
+        if not stats.get("engaged"):
+            raise SystemExit(f"{path}: the {kind} eviction engine did not engage: "
+                             f"{stats.get('reason', 'no evidence')}")
+
+
+def evict_session(cache, conf_text, device, flavor="host"):
+    """One session of ``conf_text``'s actions on ``cache`` under the victim
+    hunt's ``flavor`` (``SCHEDULER_TORCH_EVICT``) on ``device`` (None: the
+    card): the evictions in commit order (captured at the cache), the task
+    statuses and nodes, the binds, the launches and the ``evict`` note."""
     from scheduler_tpu_torch.conf import parse_scheduler_conf
     from scheduler_tpu_torch.framework import close_session, get_action, open_session
+    from scheduler_tpu_torch.utils import phases
 
-    cache = spec_cluster(storm_spec(seed, n_queues))
     evlog = []
     evict, evict_bulk = cache.evict, cache.evict_bulk
 
@@ -3874,39 +3943,288 @@ def storm_run(seed, n_queues, device):
         return out
 
     cache.evict, cache.evict_bulk = one, bulk
-    conf = parse_scheduler_conf(STORM_CONF)
-    reset_counts()
-    ssn = open_session(cache, conf.tiers, device=device)
-    for name in conf.actions:
-        get_action(name).execute(ssn)
-    statuses = sorted([t.name, t.status.name, t.node_name]
-                      for job in ssn.jobs.values() for t in job.tasks.values())
-    close_session(ssn)
-    launches, _ = read_counts()
+    conf = parse_scheduler_conf(conf_text)
+    with env_flag("SCHEDULER_TORCH_EVICT", flavor):
+        reset_counts()
+        phases.begin()
+        t0 = time.perf_counter()
+        ssn = open_session(cache, conf.tiers, device=device)
+        for name in conf.actions:
+            get_action(name).execute(ssn)
+        session_s = time.perf_counter() - t0
+        statuses = sorted([t.name, t.status.name, t.node_name]
+                          for job in ssn.jobs.values() for t in job.tasks.values())
+        close_session(ssn)
+        evidence = phases.take_notes().get("evict") or {}
+        phases.end()
+        launches, _ = read_counts()
     return {"evictions": evlog, "statuses": statuses, "binds": dict(cache.binder.binds),
-            "launches": launches}
+            "launches": launches, "evict": evidence, "session_s": session_s}
+
+
+def storm_run(seed, n_queues, device, flavor="host"):
+    """One session of ``STORM_CONF`` on ``storm_spec(seed, n_queues)``
+    (``evict_session``)."""
+    return evict_session(spec_cluster(storm_spec(seed, n_queues)), STORM_CONF, device, flavor)
+
+
+def saturated_storm_run(device, flavor):
+    """The JAX bench's own storm, ``PreemptStormConfig()``: 32 saturated
+    nodes, 256 filler pods in gangs of 8 with minMember 4, and its 96
+    SLA-tiered arrivals, through ``PREEMPT_CONF`` (allocate, preempt)
+    (``evict_session``)."""
+    from scheduler_tpu_torch.harness import preempt_storm
+
+    cfg = preempt_storm.PreemptStormConfig()
+    cache = preempt_storm.seed_saturated_cache(cfg)
+    preempt_storm.add_storm(cache, cfg)
+    return evict_session(cache, preempt_storm.PREEMPT_CONF, device, flavor)
+
+
+def evict_summary(evidence):
+    """The engine's counters and phase split, by kind, for a JSON line."""
+    return {kind: {**{k: stats.get(k) for k in EVICT_COUNTERS}, "phase": stats.get("phase")}
+            for kind, stats in (evidence or {}).items()}
 
 
 def phase_preempt_storms():
     """The preempt phase: every ``STORM_CASES`` storm through reclaim and
-    preempt on the card and on the CPU; evictions (in order), statuses and
-    binds must be equal.  Returns the card's launches summed."""
+    preempt on the card and on the CPU, in each flavor of the victim hunt
+    (``SCHEDULER_TORCH_EVICT``); then the JAX bench's saturated storm
+    (``saturated_storm_run``) in both flavors on the card and in the device
+    flavor on the CPU.  Evictions (in commit order), statuses and binds
+    must be equal: the card's device flavor to its host flavor and to the
+    CPU's device flavor (and the card's host flavor to the CPU's), with
+    the engine engaged for every kind.  Returns the card's launches
+    summed."""
     total = {}
-    for seed, n_queues in STORM_CASES:
-        card = storm_run(seed, n_queues, None)
-        cpu = storm_run(seed, n_queues, "cpu")
-        equal = all(card[k] == cpu[k] for k in ("evictions", "statuses", "binds"))
-        pipelined = sum(1 for _, s, _ in card["statuses"] if s == "PIPELINED")
-        emit({"phase": "preempt_storm", "seed": seed, "queues": n_queues,
-              "evictions": len(card["evictions"]),
-              "evicted_by": sorted({r for _, r in card["evictions"]}),
-              "pipelined": pipelined, "equal_to_cpu": equal, "launches": card["launches"]})
-        if not equal:
-            raise SystemExit(f"storm seed {seed}, {n_queues} queues: the card's run differs "
-                             f"from the CPU's")
-        for k, v in card["launches"].items():
+    keys = ("evictions", "statuses", "binds")
+
+    def add(launches):
+        for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+
+    runs = [(f"storm seed {seed}, {n_queues} queues", ("reclaim", "preempt"),
+             lambda dev, fl, seed=seed, q=n_queues: storm_run(seed, q, dev, fl),
+             {"seed": seed, "queues": n_queues}) for seed, n_queues in STORM_CASES]
+    runs.append(("the saturated storm", ("preempt",), saturated_storm_run,
+                 {"config": "PreemptStormConfig()"}))
+    for name, kinds, run, ident in runs:
+        card = run(None, "host")
+        card_dev = run(None, "device")
+        cpu_dev = run("cpu", "device")
+        check_engaged(card_dev["evict"], name, kinds)
+        equal = {"device_equal_to_host": all(card_dev[k] == card[k] for k in keys),
+                 "device_equal_to_cpu": all(card_dev[k] == cpu_dev[k] for k in keys)}
+        if "seed" in ident:
+            cpu = run("cpu", "host")
+            equal["equal_to_cpu"] = all(card[k] == cpu[k] for k in keys)
+        pipelined = sum(1 for _, s, _ in card["statuses"] if s == "PIPELINED")
+        emit({"phase": "preempt_storm", **ident, "evictions": len(card["evictions"]),
+              "evicted_by": sorted({r for _, r in card["evictions"]}),
+              "pipelined": pipelined, **equal, "launches": card["launches"],
+              "device_launches": card_dev["launches"],
+              "session_s": {"host": card["session_s"], "device": card_dev["session_s"]},
+              "evict": evict_summary(card_dev["evict"])})
+        if not all(equal.values()):
+            raise SystemExit(f"{name}: the runs differ: {equal}")
+        if "seed" not in ident and not card["evictions"]:
+            raise SystemExit(f"{name}: no evictions")
+        add(card["launches"])
+        add(card_dev["launches"])
     return total
+
+
+# -- path o': config 4's reclaim planned by the eviction engine -------------------------
+
+def phase_config4_reclaim_device(conf_path, host):
+    """Path o': o's cluster (``harness.make_reclaim_cluster``, built anew)
+    through ``reclaim, allocate`` with ``SCHEDULER_TORCH_EVICT=device``: the
+    eviction engine plans every hunt (about 1,000 evictions), then
+    ``mega_allocate``.  Checks: the engine engaged; o's checks
+    (``reclaim_invariants``, K2's one launch); the evictions in order, binds
+    and statuses equal to the host hunt's (``host``: o's record, of the
+    card or the CPU).  Prints the engine's phase split."""
+    from scheduler_tpu_torch.harness import make_reclaim_cluster
+
+    t0 = time.perf_counter()
+    built = make_reclaim_cluster()
+    emit({"phase": "cluster", "config": "config4_reclaim_device", "nodes": built.n_nodes,
+          "pods": built.n_pods, "build_s": time.perf_counter() - t0})
+    with env_flag("SCHEDULER_TORCH_EVICT", "device"):
+        rec, launches, outcome, wrong = reclaim_cycle(built.cache, conf_path, None)
+    check_engaged(rec["evict"], "path o'", ("reclaim",))
+    equal = {k: outcome[k] == host["outcome"][k] for k in outcome}
+    emit({"phase": "main_path", "config": "config4_reclaim_device", "launches": launches,
+          **rec, "equal_to_host_hunt": equal, "engine": evict_summary(rec["evict"])})
+    if rec["evictions"] < 1 or rec["pipelined_by_reclaim"] < 1:
+        wrong.append(f"reclaim evicted {rec['evictions']}, pipelined "
+                     f"{rec['pipelined_by_reclaim']}")
+    if launches["mega_allocate"] != 1 or rec["engine"] != "mega" or launches["qfair_solve"] < 1:
+        wrong.append(f"allocate after reclaim: engine {rec['engine']}, launches {launches}")
+    if not all(equal.values()):
+        wrong.append(f"the device hunt differs from o's host hunt: {equal}")
+    if wrong:
+        raise SystemExit(f"path o': {'; '.join(wrong[:5])}")
+    return {"launches": launches, "record": rec, "outcome": outcome}
+
+
+# -- path p: the backfill wave --------------------------------------------------------
+
+BACKFILL_EIGHTH = {"nodes": 256, "wave_pods": 2500}
+
+
+class MaskCapture:
+    """Within the block, keeps the snapshot tensors and class
+    representatives of every ``BackfillEngine`` class mask built."""
+
+    def __enter__(self):
+        from scheduler_tpu_torch.ops.backfill import BackfillEngine
+
+        self.calls = []
+        self.orig = orig = BackfillEngine._task_mask
+
+        def capture(engine, st, rep_rows):
+            self.calls.append((st, rep_rows))
+            return orig(engine, st, rep_rows)
+
+        BackfillEngine._task_mask = capture
+        return self
+
+    def __exit__(self, *exc):
+        from scheduler_tpu_torch.ops.backfill import BackfillEngine
+
+        BackfillEngine._task_mask = self.orig
+
+
+def backfill_cycle(cache, conf_path, device, flavor):
+    """One ``Scheduler.run_once`` of ``conf_path`` on ``cache`` under
+    backfill's ``flavor`` (``SCHEDULER_TORCH_BACKFILL``) on ``device``
+    (None: the card), reading the session after backfill: the FitErrors
+    strings of the tasks left pending, each node's pods against its limit,
+    the zone of every pinned pod's node.  Returns (record, launches,
+    outcome, problems)."""
+    import torch
+
+    from scheduler_tpu_torch.scheduler import Scheduler
+    from scheduler_tpu_torch.utils import phases
+
+    seen = {}
+    sched = Scheduler(cache, scheduler_conf=conf_path, device=device)
+    sched._load_conf()
+    for action in sched.actions:
+        def execute(ssn, run=action.execute, name=action.name()):
+            run(ssn)
+            if name != "backfill":
+                return
+            wrong, fes, pending = [], {}, 0
+            for node in ssn.nodes.values():
+                if len(node.tasks) > node.pods_limit:
+                    wrong.append(f"{node.name}: {len(node.tasks)} pods past {node.pods_limit}")
+            for job in ssn.jobs.values():
+                for t in job.tasks.values():
+                    zone = t.pod.node_selector.get("zone") if t.pod is not None else None
+                    if t.node_name and zone is not None and \
+                            ssn.nodes[t.node_name].node.labels.get("zone") != zone:
+                        wrong.append(f"{t.name} on {t.node_name} outside zone {zone}")
+                    if t.status.name == "PENDING":
+                        pending += 1
+                        if t.uid in job.nodes_fit_errors:
+                            fes[t.name] = job.nodes_fit_errors[t.uid].error()
+            seen.update(wrong=wrong, fit_errors=fes, pending=pending)
+
+        action.execute = execute
+    with env_flag("SCHEDULER_TORCH_BACKFILL", flavor):
+        reset_counts()
+        phases.begin()
+        t0 = time.perf_counter()
+        sched.run_once()
+        if device is None:
+            torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        notes = phases.take_notes()
+        spent = phases.end()
+        launches, _ = read_counts()
+    rec = {"cycle_s": cycle_s, "phases_s": spent, "binds": len(cache.binder.binds),
+           "pending": seen["pending"], "with_fit_errors": len(seen["fit_errors"]),
+           "backfill": notes.get("backfill")}
+    outcome = {"binds": dict(cache.binder.binds), "fit_errors": seen["fit_errors"]}
+    return rec, launches, outcome, seen["wrong"]
+
+
+def phase_backfill_wave(conf_path):
+    """Path p: the JAX bench's backfill wave, ``BackfillWaveConfig()``
+    (2,048 nodes of pod limit 22 with 14 running pods each; 20,000
+    BestEffort pods, every third one zone-pinned, seed 0) through
+    ``BACKFILL_CONF`` with ``SCHEDULER_TORCH_BACKFILL=device``: one cycle on
+    a fresh cache, so the predicates' mask memo is empty and K3 builds the
+    class rows.  Checks: the engine engaged on its 5 classes, 16,384 binds
+    (the room), no node past its pod limit, every pinned pod in its zone,
+    3,616 pods left pending, each with a FitErrors, K3 launched.  Then K3 on
+    the wave's signature operands against its plain version (bitwise,
+    timed), and the two flavors on an eighth of the wave (256 nodes, 2,500
+    pods, the same seed and shape) on the card: binds, FitErrors strings
+    and the evidence counters equal."""
+    import torch
+
+    from scheduler_tpu_torch.harness.backfill_wave import BackfillWaveConfig, seed_wave_cache
+
+    cfg = BackfillWaveConfig()
+    t0 = time.perf_counter()
+    cache = seed_wave_cache(cfg)
+    emit({"phase": "cluster", "config": "backfill_wave", "nodes": cfg.nodes,
+          "pods": cfg.nodes * cfg.fill_per_node + cfg.wave_pods,
+          "build_s": time.perf_counter() - t0})
+    with MaskCapture() as cap:
+        rec, launches, _, wrong = backfill_cycle(cache, conf_path, None, "device")
+    bf = rec["backfill"] or {}
+    emit({"phase": "main_path", "config": "backfill_wave", "launches": launches, **rec})
+    if not bf.get("engaged"):
+        raise SystemExit(f"path p: the backfill engine did not engage: "
+                         f"{bf.get('reason', 'no evidence')}")
+    unplaced = cfg.wave_pods - cfg.capacity
+    if rec["binds"] != cfg.capacity or rec["pending"] != unplaced or \
+            rec["with_fit_errors"] != unplaced:
+        wrong.append(f"binds {rec['binds']}, pending {rec['pending']}, with FitErrors "
+                     f"{rec['with_fit_errors']} (want {cfg.capacity}, {unplaced}, {unplaced})")
+    if bf.get("classes") != 5 or bf.get("unplaceable") != unplaced:
+        wrong.append(f"classes {bf.get('classes')}, unplaceable {bf.get('unplaceable')}")
+    if launches["static_predicate_mask"] < 1 or len(cap.calls) != 1:
+        wrong.append(f"K3 launches {launches['static_predicate_mask']}, class masks "
+                     f"{len(cap.calls)}")
+    if wrong:
+        raise SystemExit(f"path p: {'; '.join(wrong[:5])}")
+    st, rep_rows = cap.calls[0]
+    k3 = compare_predicate("backfill_wave_main_path_operands",
+                           predicate_operands(st, torch.device("cuda")), timed=True)
+    del cache, cap, st
+    gc.collect()
+    # The two flavors on an eighth of the wave, on the card.
+    small = {}
+    for flavor in ("host", "device"):
+        c = seed_wave_cache(BackfillWaveConfig(**BACKFILL_EIGHTH))
+        r, l, o, w = backfill_cycle(c, conf_path, None, flavor)
+        if w:
+            raise SystemExit(f"path p, an eighth, {flavor}: {'; '.join(w[:5])}")
+        b = r["backfill"] or {}
+        counters = {"tasks": b.get("tasks"), "unplaceable": b.get("unplaceable"),
+                    "binds": (b.get("device_binds") or 0) + (b.get("host_binds") or 0)}
+        small[flavor] = {"outcome": o, "counters": counters, "record": r, "launches": l}
+    equal = {"binds": small["device"]["outcome"]["binds"] == small["host"]["outcome"]["binds"],
+             "fit_errors": small["device"]["outcome"]["fit_errors"]
+             == small["host"]["outcome"]["fit_errors"],
+             "counters": small["device"]["counters"] == small["host"]["counters"]}
+    emit({"phase": "backfill_flavors", "config": "backfill_wave_eighth", **BACKFILL_EIGHTH,
+          **equal, "counters": small["device"]["counters"],
+          "cycle_s": {f: small[f]["record"]["cycle_s"] for f in small},
+          "backfill_s": {f: small[f]["record"]["phases_s"].get("backfill") for f in small},
+          "predicate_calls_host": {f: (small[f]["record"]["backfill"] or {}).get(
+              "predicate_calls_host") for f in small},
+          "device_launches": small["device"]["launches"]})
+    if not all(equal.values()):
+        raise SystemExit(f"path p, an eighth: the flavors differ: {equal}")
+    return {"launches": launches, "record": rec, "k3": k3,
+            "eighth_launches": small["device"]["launches"]}
 
 
 def place_scan_entry(launches_by_path, scan, small):
@@ -4069,7 +4387,10 @@ def child_main(child, path, opts) -> int:
         with open(path, "w") as f:
             json.dump(out, f)
         return 0
-    if child == "config4_reclaim_cpu":
+    if child == "config4_reclaim_twin":
+        # o's twin: o's cycle on the CPU; then, once the script says go
+        # (beside the untimed phases), path o' on the card after one
+        # config-1 cycle there.
         from scheduler_tpu_torch.harness import make_reclaim_cluster
 
         conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
@@ -4078,8 +4399,17 @@ def child_main(child, path, opts) -> int:
         rec, _, outcome, wrong = reclaim_cycle(make_reclaim_cluster().cache, conf_path, "cpu")
         if wrong:
             raise SystemExit(f"path o on the CPU: {'; '.join(wrong[:5])}")
+        out = {"outcome": outcome, "record": rec}
+        gc.collect()
+        wait_for_go(path)
+        warm_conf = os.path.join(os.path.dirname(path), f"{child}_warm_conf.yaml")
+        with open(warm_conf, "w") as f:
+            f.write(CONFIG1_CONF)
+        run_cycle(config1_cluster(), warm_conf)
+        gc.collect()
+        out["device_flavor"] = phase_config4_reclaim_device(conf_path, out)
         with open(path, "w") as f:
-            json.dump({"outcome": outcome, "record": rec}, f)
+            json.dump(out, f)
         return 0
     if child == "preempt_storm":
         with open(path, "w") as f:
@@ -4105,6 +4435,22 @@ def child_main(child, path, opts) -> int:
             with open(conf_path, "w") as f:
                 f.write(RECLAIM_ALLOCATE_CONF)
             out = phase_config4_reclaim(conf_path)
+        with open(path, "w") as f:
+            json.dump(out, f)
+        return 0
+    if child == "backfill_wave":
+        # Path p, after one config-1 cycle that warms the card, the kernel
+        # library and PyTorch up.
+        from scheduler_tpu_torch.harness.backfill_wave import BACKFILL_CONF
+
+        conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
+        with open(conf_path, "w") as f:
+            f.write(CONFIG1_CONF)
+        run_cycle(config1_cluster(), conf_path)
+        gc.collect()
+        with open(conf_path, "w") as f:
+            f.write(BACKFILL_CONF)
+        out = phase_backfill_wave(conf_path)
         with open(path, "w") as f:
             json.dump(out, f)
         return 0
@@ -4595,8 +4941,8 @@ def main() -> int:
                                             "loop_host_twins", "config3_steady",
                                             "default_conf_loop", "default_conf_cold",
                                             "production_conf", "config2_default_tiers_device",
-                                            "config4_reclaim", "config4_reclaim_cpu",
-                                            "preempt_storm"),
+                                            "config4_reclaim", "config4_reclaim_twin",
+                                            "preempt_storm", "backfill_wave"),
                         help="run only this child process of the script (child_main) and "
                              "write its result to --out")
     parser.add_argument("--out", metavar="PATH")
@@ -4742,13 +5088,13 @@ def main() -> int:
     twins = [BackgroundChild(out_dir, child, opts) for child in (
         "host_loop", "reclaim_host_loop", "reclaim_templates_host_loop", "loop_host_twins",
         "templates_default_tiers_cpu", "reclaim_aftermath_templates_cpu",
-        "config4_reclaim_cpu")]
+        "config4_reclaim_twin")]
     (host_twin, reclaim_twin, reclaim_tpl_twin, loop_twins, tiers_cpu,
-     reclaim_tpl_cpu, reclaim_o_cpu) = twins
+     reclaim_tpl_cpu, reclaim_o_twin) = twins
     # K2's plain version on the ladder flagship's operands: its child builds
     # the cluster now and waits for the last timed phase.
     ladder_plain = BackgroundChild(out_dir, "mq_ladder_plain", opts)
-    default_twin = synthetic = None
+    default_twin = synthetic = wave = None
 
     try:
         # The same operands again, from second clusters built the same way (K2
@@ -4787,9 +5133,13 @@ def main() -> int:
         # Path m's cold twin beside the untimed phases that follow.
         default_twin = BackgroundChild(out_dir, "default_conf_cold", opts)
         phase_e2e_small(conf_path)
+        # Path o' (in o's twin, on the card) and path p (the backfill wave),
+        # host-bound, now that most host-loop twins have ended: beside the
+        # checks, the ladder's plain check and the longest twin.
+        reclaim_o_twin.go()
+        wave = BackgroundChild(out_dir, "backfill_wave", opts)
         check_host_loop(host_twin, tiers_binds)
         check_host_loop(host_twin, tiers_device["binds"], "config2_default_tiers_device")
-        check_config4_reclaim_twin(reclaim_o_cpu, reclaim_o)
         check_reclaim_host_loop(reclaim_twin, reclaim["outcome"])
         check_cpu_codes(tiers_cpu, tiers_tpl["codes"], "templates_default_tiers")
         check_cpu_codes(reclaim_tpl_cpu, reclaim_tpl["codes"], "reclaim_aftermath_templates")
@@ -4799,11 +5149,14 @@ def main() -> int:
         check_default_conf_twin(default_twin, default_loop)
         emit({"phase": "kernel_cases_synthetic", "cases": synthetic.result()["cases"],
               "wall_s": time.perf_counter() - synthetic.t0})
+        o_dev = check_config4_reclaim_twin(reclaim_o_twin, reclaim_o)
+        wave_rec = wave.result()
+        emit({"phase": "backfill_wave", "wall_s": time.perf_counter() - wave.t0})
         ladder_plain_rec = ladder_plain.result()
         emit({"phase": "mq_ladder_plain", "wall_s": time.perf_counter() - ladder_plain.t0,
               "after_go_s": time.perf_counter() - ladder_plain.t_go})
     finally:
-        for twin in twins + [ladder_plain, default_twin, synthetic]:
+        for twin in twins + [ladder_plain, default_twin, synthetic, wave]:
             if twin is not None:
                 twin.stop()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -4814,7 +5167,8 @@ def main() -> int:
     # releasing capacity at allocate (its pipelines take what they free).
     o_mode = ("multi_queue_releasing"
               if reclaim_o["record"]["releasing_nodes_at_allocate"] else "multi_queue")
-    o_k2 = reclaim_o["launches"]["mega_allocate"]
+    o_k2 = {"config4_reclaim": reclaim_o["launches"]["mega_allocate"],
+            "config4_reclaim_device": o_dev["launches"]["mega_allocate"]}
     emit({"kernels": [
         mega_entry("cursor", flagship_launches["mega_allocate"], cursor_full, by_path={
             "config3": flagship_launches["mega_allocate"],
@@ -4826,7 +5180,7 @@ def main() -> int:
         mega_entry("multi_queue", mq_launches["mega_allocate"], mq_full,
                    "config3_multi_queue", by_path={
                        "config3_multi_queue": mq_launches["mega_allocate"],
-                       **({"config4_reclaim": o_k2} if o_mode == "multi_queue" else {})}),
+                       **(o_k2 if o_mode == "multi_queue" else {})}),
         mega_entry("multi_queue_static", tiers_launches["mega_allocate"], tiers_full,
                    "config2_default_tiers", by_path={
                        "config2_default_tiers": tiers_launches["mega_allocate"],
@@ -4835,7 +5189,7 @@ def main() -> int:
         mega_entry("multi_queue_releasing", reclaim["launches"]["mega_allocate"], reclaim_full,
                    "config4_reclaim_aftermath", by_path={
                        "config4_reclaim_aftermath": reclaim["launches"]["mega_allocate"],
-                       **({"config4_reclaim": o_k2} if o_mode != "multi_queue" else {})}),
+                       **(o_k2 if o_mode != "multi_queue" else {})}),
         # The full-recompute chain is the kill-switch: no main path runs it.
         mega_entry("multi_queue_full", 0, full_chain["ladder_small"],
                    "ladder_{}_x_{}_{}q kernel case".format(*LADDER_SMALL)),
@@ -4846,6 +5200,7 @@ def main() -> int:
                      "production_conf": production["launches"]["qfair_solve"],
                      "config2_default_tiers_device": tiers_device["launches"]["qfair_solve"],
                      "config4_reclaim": reclaim_o["launches"]["qfair_solve"],
+                     "config4_reclaim_device": o_dev["launches"]["qfair_solve"],
                      "preempt_storm": storms["launches"]["qfair_solve"]},
                     ladder_solve, qfair_err),
         {"name": "static_predicate_mask", "route": "cuda",
@@ -4859,10 +5214,13 @@ def main() -> int:
              "default_conf_loop": m_launches["static_predicate_mask"],
              "production_conf": production["launches"]["static_predicate_mask"],
              "config2_default_tiers_device":
-                 tiers_device["launches"]["static_predicate_mask"]},
-         "max_abs_err": pred_err,
+                 tiers_device["launches"]["static_predicate_mask"],
+             "backfill_wave": wave_rec["launches"]["static_predicate_mask"],
+             "backfill_wave_eighth": wave_rec["eighth_launches"]["static_predicate_mask"]},
+         "max_abs_err": max(pred_err, wave_rec["k3"]["max_abs_err"]),
          **{k: pred_main[k] for k in PREDICATE_TIMES},
-         "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K") + PREDICATE_TIMES}},
+         "wide": {k: pred_wide[k] for k in ("S", "N", "L", "K") + PREDICATE_TIMES},
+         "backfill_wave": {k: wave_rec["k3"][k] for k in ("S", "N", "L", "K") + PREDICATE_TIMES}},
         step_entry({"config3_templates": templates_launches["placement_step"],
                     "templates_multi_queue": mq_tpl["launches"]["placement_step"]},
                    step_recs[0], step_recs, [parity, mq_tpl["parity"]]),

@@ -18,11 +18,11 @@ last success of the signature, capped at the first node whose bind failed
 fast-started sweep finds nothing sweeps the skipped prefix too, into the
 same FitErrors, so the record stays the reference's.
 
-The JAX package also carries a device flavor (``SCHEDULER_TPU_BACKFILL=
-device``, its ``ops/backfill.py`` class engine running the static mask
-kernel on backfill's classes).  This package has no switch for it yet: the
-host sweep always runs, and the ``backfill`` evidence records the JAX
-engine's decline reason for the host flavor, ``flavor host``.
+Two flavors: ``SCHEDULER_TORCH_BACKFILL=host`` (default) runs the sweep
+above; ``device`` consults ``ops/backfill.py``, the batched class engine
+(the static-predicate kernel on backfill's signature classes), and falls
+back here, with its decline reason in the ``backfill`` evidence, whenever
+the session leaves the engine's modeled domain.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from scheduler_tpu_torch.api.types import TaskStatus
 from scheduler_tpu_torch.api.unschedule_info import FitErrors
 from scheduler_tpu_torch.apis.objects import PodGroupPhase
 from scheduler_tpu_torch.framework.interface import Action
+from scheduler_tpu_torch.ops import backfill as backfill_ops
 from scheduler_tpu_torch.utils import phases
 from scheduler_tpu_torch.utils.scheduler_helper import get_node_list
 from scheduler_tpu_torch.utils.sweep import static_predicate_sig
@@ -81,12 +82,17 @@ class BackfillAction(Action):
         return None, first_bind_fail
 
     def _execute(self, ssn) -> None:
+        engine = backfill_ops.BackfillEngine(ssn)
+        if engine.active:
+            engine.run()
+            backfill_ops.note_evidence(engine.stats())
+            return
+        stats = engine.stats()
         self._pred_calls = 0
-        stats = {"flavor": "host", "engaged": False, "reason": "flavor host",
-                 "lp_noop": False}
-        stats.update(self._execute_host(ssn))
-        stats["predicate_calls_host"] = self._pred_calls
-        phases.note("backfill", stats)
+        host = self._execute_host(ssn)
+        host["predicate_calls_host"] = self._pred_calls
+        stats.update(host)
+        backfill_ops.note_evidence(stats)
 
     def _execute_host(self, ssn) -> dict:
         nodes = None  # built at the first BestEffort task

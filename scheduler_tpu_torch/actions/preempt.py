@@ -7,9 +7,12 @@ the preemptor job is gang-pipelined, otherwise everything rolls back.  Phase 2:
 intra-job task preemption (higher-priority pending tasks of a job evict its own
 lower-priority running tasks), committed per task.
 
-The hunt is the reference per-node walk (the JAX package's default host
-flavor), with the sweep memo (``utils/sweep.py``), the victim pre-gate
-(``ops/victims.py``) and the live gang floor (``ops/evict.py``).
+The hunt is the reference per-node walk (the default ``host`` flavor), with
+the sweep memo (``utils/sweep.py``), the victim pre-gate (``ops/victims.py``)
+and the live gang floor (``ops/evict.py``).  Under
+``SCHEDULER_TORCH_EVICT=device`` the eviction engine (``ops/evict.py``)
+plans each hunt batched and the Statement replays the plan, with the same
+evictions and binds as the host walk.
 """
 
 from __future__ import annotations
@@ -46,8 +49,12 @@ class PreemptAction(Action):
         # O(1)-per-task sweep memoization + the victim pre-gate: one masked
         # reduction over the running tasks admits exactly the nodes that can
         # still yield a victim; the per-node dispatch below stays exact.
+        # An active eviction engine replaces the per-node hunt with a batched
+        # victim plan the Statement replays; the pre-gate then stands down
+        # (the engine's masks subsume it).
         sweep = SweepCache(ssn)
-        gate = VictimGate(ssn, "preempt")
+        engine = evict_ops.EvictEngine(ssn, "preempt")
+        gate = None if engine.active else VictimGate(ssn, "preempt")
         builtin_order = task_order_builtin(ssn)
         use_priority = "priority" in enabled_task_order_chain(ssn)
 
@@ -74,13 +81,20 @@ class PreemptAction(Action):
                     ssn, job, builtin_order, use_priority
                 )
 
-        if preemptor_tasks:
-            # Snapshot BEFORE the first Statement: a build inside an open
-            # statement would see temporarily-low gang occupancy that a
-            # rollback later restores (ops/victims.py docstring).
-            gate.prime()
-        else:
-            gate = None
+        if gate is not None:
+            if preemptor_tasks:
+                # Snapshot BEFORE the first Statement: a build inside an open
+                # statement would see temporarily-low gang occupancy that a
+                # rollback later restores (ops/victims.py docstring).
+                gate.prime()
+            else:
+                gate = None
+        if engine.active and preemptor_tasks:
+            # Same capture rule as the gate: the victim table must see the
+            # action's start state (prime can still deactivate the engine —
+            # scalar resources in play — and then the host walk below runs
+            # ungated for this action).
+            engine.prime()
 
         # Phase 1: preemption between jobs within a queue.
         for queue in queues.values():
@@ -120,18 +134,31 @@ class PreemptAction(Action):
                                 node.name, j
                             )
                         ),
+                        engine=engine,
+                        preemptor_job=preemptor_job,
+                        same_job=False,
                     ):
                         assigned = True
 
                     if ssn.job_pipelined(preemptor_job):
                         # Gate counts drop per ACCEPTED evict (a failed evict
                         # RPC restores the victim, which stays offerable).
+                        ops = list(stmt.operations)
                         stmt.commit(
                             on_evicted=None if gate is None else gate.note_evicted_task
                         )
+                        if engine.active:
+                            # Failed evict RPCs restored their victims at the
+                            # END of the node map; re-sync the captured
+                            # candidate order.
+                            engine.note_commit(ops)
                         break
 
                 if not ssn.job_pipelined(preemptor_job):
+                    if engine.active:
+                        # BEFORE discard: the rollback re-appends restored
+                        # victims at the end of their node maps.
+                        engine.note_discard(stmt)
                     stmt.discard()
                     continue
 
@@ -163,12 +190,18 @@ class PreemptAction(Action):
                         if gate is None
                         else lambda node, j=job: gate.admits_own_job(node.name, j)
                     ),
+                    engine=engine,
+                    preemptor_job=job,
+                    same_job=True,
                 )
+                ops = list(stmt.operations)
                 stmt.commit(on_evicted=None if gate is None else gate.note_evicted_task)
+                if engine.active:
+                    engine.note_commit(ops)
                 if not assigned:
                     break
 
-        evict_ops.note_evidence("preempt", evict_ops.host_stats("preempt"))
+        evict_ops.note_evidence("preempt", engine.stats())
         VictimGate.note_evidence("preempt", gate)
 
     def _preempt(
@@ -179,6 +212,9 @@ class PreemptAction(Action):
         task_filter: Optional[Callable[[TaskInfo], bool]],
         sweep=None,
         node_gate: Optional[Callable] = None,
+        engine=None,
+        preemptor_job=None,
+        same_job: bool = False,
     ) -> bool:
         """One preemptor's hunt for a node (reference preempt.go:180-260).
 
@@ -186,8 +222,11 @@ class PreemptAction(Action):
         ordering per task signature; ``node_gate`` skips nodes the gate
         proved to hold no candidate Running tasks.  Both are exact filters —
         when either declines (None / dynamic task), the reference's per-task
-        sweep runs unchanged."""
-        from scheduler_tpu_torch.ops.evict import FloorGuard
+        sweep runs unchanged.  An ACTIVE ``engine`` (``ops/evict.py``,
+        ``SCHEDULER_TORCH_EVICT=device``) runs the whole hunt as a batched
+        victim plan instead; a task outside its modeled domain (scalar
+        requests) falls back to this host walk."""
+        from scheduler_tpu_torch.ops.evict import FloorGuard, _FallbackHunt
         from scheduler_tpu_torch.utils.sweep import full_sweep
 
         assigned = False
@@ -195,6 +234,12 @@ class PreemptAction(Action):
         pod_count_live = sweep is not None and ordered is not None
         if ordered is None:
             ordered = full_sweep(ssn, preemptor, ssn.predicate_fn)
+        if engine is not None and engine.active and preemptor_job is not None:
+            try:
+                return engine.hunt_preempt(stmt, preemptor, preemptor_job, ordered, sweep,
+                                           pod_count_live, same_job)
+            except _FallbackHunt:
+                pass  # scalar request: the host walk below stays exact
 
         # The live gang floor: one hunt's sufficiency prefix must never
         # strand a cohort below min_member.

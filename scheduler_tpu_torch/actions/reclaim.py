@@ -7,9 +7,12 @@ queue must stay >= its deserved share; gang: victim's gang must survive) picks
 victims, which are evicted directly — no Statement — then the task pipelines
 onto the freed resources.
 
-The hunt is the reference per-node walk (the JAX package's default host
-flavor), with the sweep memo (``utils/sweep.py``), the victim pre-gate
-(``ops/victims.py``) and the live gang floor (``ops/evict.py``).
+The hunt is the reference per-node walk (the default ``host`` flavor), with
+the sweep memo (``utils/sweep.py``), the victim pre-gate (``ops/victims.py``)
+and the live gang floor (``ops/evict.py``).  Under
+``SCHEDULER_TORCH_EVICT=device`` the eviction engine (``ops/evict.py``)
+plans each hunt batched and this action replays the plan, with the same
+evictions and pipelines as the host walk.
 """
 
 from __future__ import annotations
@@ -44,8 +47,12 @@ class ReclaimAction(Action):
         # O(1)-per-task sweep memoization + the victim pre-gate: one masked
         # reduction over the running tasks admits exactly the nodes that can
         # still yield a victim; the per-node dispatch below stays exact.
+        # An active eviction engine plans the whole hunt batched and this
+        # action replays it; the pre-gate then stands down (the engine's
+        # masks subsume it).
         sweep = SweepCache(ssn)
-        gate = VictimGate(ssn, "reclaim")
+        engine = evict_ops.EvictEngine(ssn, "reclaim")
+        gate = None if engine.active else VictimGate(ssn, "reclaim")
         builtin_order = task_order_builtin(ssn)
         use_priority = "priority" in enabled_task_order_chain(ssn)
 
@@ -74,10 +81,13 @@ class ReclaimAction(Action):
                     ssn, job, builtin_order, use_priority
                 )
 
-        if preemptor_tasks:
-            gate.prime()  # snapshot BEFORE any eviction mutates state
-        else:
-            gate = None
+        if gate is not None:
+            if preemptor_tasks:
+                gate.prime()  # snapshot BEFORE any eviction mutates state
+            else:
+                gate = None
+        if engine.active and preemptor_tasks:
+            engine.prime()  # same capture rule: the action's start state
 
         while not queues.empty():
             queue = queues.pop()
@@ -102,10 +112,21 @@ class ReclaimAction(Action):
             pod_count_live = ordered is not None
             if ordered is None:
                 ordered = get_node_list(ssn.nodes)
-            if self._hunt_host(ssn, gate, task, job, ordered, sweep, pod_count_live):
+            if engine.active:
+                try:
+                    assigned = self._hunt_device(
+                        ssn, engine, task, job, ordered, sweep, pod_count_live)
+                except evict_ops._FallbackHunt:
+                    # Scalar request: outside the engine's modeled domain,
+                    # the host walk stays exact for this task.
+                    assigned = self._hunt_host(
+                        ssn, gate, task, job, ordered, sweep, pod_count_live)
+            else:
+                assigned = self._hunt_host(ssn, gate, task, job, ordered, sweep, pod_count_live)
+            if assigned:
                 queues.push(queue)
 
-        evict_ops.note_evidence("reclaim", evict_ops.host_stats("reclaim"))
+        evict_ops.note_evidence("reclaim", engine.stats())
         VictimGate.note_evidence("reclaim", gate)
 
     def _hunt_host(self, ssn, gate, task, job, ordered, sweep, pod_count_live) -> bool:
@@ -215,6 +236,54 @@ class ReclaimAction(Action):
                     logger.exception("failed to pipeline %s on %s", task.uid, node.name)
                 return True
         return False
+
+    def _hunt_device(self, ssn, engine, task, job, ordered, sweep, pod_count_live) -> bool:
+        """Replay the eviction engine's victim plans: per planned node, one
+        bulk eviction of the sufficiency prefix, the partial-failure top-up
+        from the remaining kept victims, then the pipeline — the host walk's
+        choreography, driven by batched masks instead of per-node
+        dispatches.  An unsatisfied node loops back into the engine, which
+        re-plans on the live ledgers."""
+        import time
+
+        start = 0
+        while True:
+            found = engine.next_reclaim_node(task, job, ordered, start, sweep, pod_count_live)
+            if found is None:
+                return False
+            node, views, prefix, start = found
+            resreq = task.init_resreq.clone()
+            reclaimed = ResourceVec.empty(resreq.vocab)
+            chosen = views[:prefix]
+            for reclaimee in chosen:
+                logger.info("reclaiming task %s for %s (device plan)", reclaimee.uid, task.uid)
+            t0 = time.perf_counter()
+            try:
+                evicted = ssn.evict_bulk(chosen, "reclaim")
+            except Exception:
+                logger.exception("bulk reclaim failed on node %s", node.name)
+                evicted = []
+            engine.note_evictions(len(evicted))
+            for reclaimee in evicted:
+                reclaimed.add(reclaimee.resreq)
+            if len(evicted) < len(chosen):
+                for reclaimee in views[prefix:]:
+                    if resreq.less_equal(reclaimed):
+                        break
+                    try:
+                        ssn.evict(reclaimee, "reclaim")
+                    except Exception:
+                        logger.exception("failed to reclaim %s", reclaimee.uid)
+                        continue
+                    engine.note_evictions(1)
+                    reclaimed.add(reclaimee.resreq)
+            engine.phase["replay"] += time.perf_counter() - t0
+            if task.init_resreq.less_equal(reclaimed):
+                try:
+                    ssn.pipeline(task, node.name)
+                except Exception:
+                    logger.exception("failed to pipeline %s on %s", task.uid, node.name)
+                return True
 
 
 def new() -> ReclaimAction:

@@ -1211,52 +1211,18 @@ class FusedAllocator:
         )
 
     def _static_signature_ids(self, ssn) -> Optional[np.ndarray]:
-        """Dense per-task STATIC-signature ids: tasks sharing (selector row,
-        toleration row, unknown flag, affinity spec) share one [N] static
-        mask/score row, so the mega kernel keeps a small per-signature table
-        instead of the [T, N] matrices.  Sound only for the builtin device
-        builders (predicates/nodeorder), whose contributions are pure
-        functions of exactly those columns — any other builder returns None
-        and the session closes the mega gate."""
+        """Dense per-task STATIC-signature ids (``ops/backfill.py``
+        ``_static_signature_ids``), so the mega kernel keeps a small
+        per-signature table instead of the [T, N] matrices.  Any device
+        builder but predicates/nodeorder returns None and the session
+        closes the mega gate."""
         if (set(ssn.device_predicates) | set(ssn.device_scorers)) - {
             "predicates", "nodeorder"
         }:
             return None
-        st = self.st
-        t = self.flat_count
-        sel = st.tasks.selector[:t]
-        tol = st.tasks.tolerated[:t]
-        hu = st.tasks.has_unknown_selector[:t]
-        req_aff = st.tasks.req_aff[:t]
-        pref_aff = st.tasks.pref_aff[:t]
-        cols = [hu[:, None]]
-        if sel.shape[1]:
-            cols.insert(0, sel)
-        if tol.shape[1]:
-            cols.append(tol)
-        from scheduler_tpu_torch.api.job_info import unique_row_codes
+        from scheduler_tpu_torch.ops.backfill import _static_signature_ids
 
-        codes, _ = unique_row_codes(np.hstack(cols).astype(np.uint8))
-        _, base_ids = np.unique(codes, return_inverse=True)
-        aff_rows = req_aff | pref_aff
-        if not aff_rows.any():
-            return base_ids.astype(np.int32)
-        # Only affinity-carrying rows need the Python walk (their static rows
-        # depend on the affinity SPEC, keyed by value-based dataclass repr);
-        # everything else is the vectorized dense id above.
-        combined = base_ids.astype(np.int64)
-        offset = int(base_ids.max()) + 1
-        key_of: dict = {}
-        cores = st.tasks.cores
-        for i in np.nonzero(aff_rows)[0].tolist():
-            pod = cores[i].pod
-            key = (int(base_ids[i]), repr(pod.affinity) if pod is not None else "")
-            sid = key_of.get(key)
-            if sid is None:
-                sid = key_of[key] = offset + len(key_of)
-            combined[i] = sid
-        _, sids = np.unique(combined, return_inverse=True)  # densify
-        return sids.astype(np.int32)
+        return _static_signature_ids(self.st, self.flat_count)
 
     def _prepare_mega(self, policy, scale, nb, tb, r,
                       offsets, nums, deficits, gang_order, priorities,
@@ -1511,8 +1477,9 @@ class FusedAllocator:
     def _delta_compatible(self, ssn) -> bool:
         """Cheap structural re-checks guarding the delta path
         (``scheduler_tpu/ops/fused.py:2220-2324`` but the mesh, LP, signature
-        compression, eviction, backfill and tenant regimes, which this
-        package does not carry).  The cache key and the layout token pin all
+        compression and tenant regimes, which this package does not carry,
+        and the eviction and backfill flavors, which never change this
+        engine's program).  The cache key and the layout token pin all
         of them in the cached flow; these re-checks cover direct callers."""
         if _session_device(ssn) != self.device:
             return False

@@ -97,3 +97,15 @@ def job_scratch_rows(multi_queue: bool, use_qdelta: bool) -> int:
     if multi_queue:
         return JOB_SCRATCH.SHARE
     return JOB_SCRATCH.QUEUE_ALLOC
+
+
+class SIG_CLASS:
+    """Signature-class key columns (``ops/sig_compress.py::derive_classes``):
+    the [T, 4] i64 key matrix whose unique rows define the classes that
+    compress a [T, N] static mask to [S, N].  REQ_SIG is the cohort request
+    signature id (``ops/megakernel.request_signature_ids``)."""
+
+    REQ_SIG = 0     # cohort request-signature id (request + init rows)
+    STATIC_SIG = 1  # per-task static-signature id (0 when no static rows)
+    QUEUE = 2       # queue index of the task's job
+    PRIORITY = 3    # PriorityClass value of the task's job

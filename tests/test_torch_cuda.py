@@ -26,7 +26,11 @@ results and the node state it writes; the planted cases of
 ``chip_smoke.XLA_STEP_PLANTS`` under several plans, node counts around the
 plan's thresholds, 40 and 100 resource dims) and the loop with it (each step checked, codes against
 the loop with the plain arm on the card, and against the same arm on the
-CPU).
+CPU).  The two batched engines, the eviction hunt
+(``SCHEDULER_TORCH_EVICT=device``) on storms and backfill's class engine
+(``SCHEDULER_TORCH_BACKFILL=device``) on small waves, on the card equal to
+their CPU runs and to the host flavors; K3 on a wave's class rows bitwise
+its plain version.
 """
 
 import numpy as np
@@ -1115,3 +1119,99 @@ def test_place_scan_launch_refuses_cpu_tensors():
     state_dev = [x.to(device) for x in state]
     with pytest.raises(ValueError):
         psk.place_scan(*state_dev, *rest)
+
+
+# -- the two batched engines of preempt/reclaim and backfill on the card --------------
+
+EVICT_STORMS = {"storm-7-2q": (7, 2), "storm-42-1q": (42, 1), "saturated": None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EVICT_STORMS))
+def test_evict_engine_on_card_equals_cpu(case):
+    """``SCHEDULER_TORCH_EVICT=device`` on the card: a storm's evictions in
+    commit order, statuses and binds equal to the same flavor on the CPU
+    and to the host walk on the card, the engine engaged with the CPU
+    run's counters."""
+    _card()
+    spec = EVICT_STORMS[case]
+
+    def run(device, flavor):
+        if spec is None:
+            return smoke.saturated_storm_run(device, flavor)
+        return smoke.storm_run(*spec, device, flavor)
+
+    card, cpu, host = run(None, "device"), run("cpu", "device"), run(None, "host")
+    for key in ("evictions", "statuses", "binds"):
+        assert card[key] == cpu[key] == host[key], key
+    kinds = ("preempt",) if spec is None else ("reclaim", "preempt")
+    smoke.check_engaged(card["evict"], case, kinds)
+    strip = {k: {n: v for n, v in s.items() if n != "phase"} for k, s in card["evict"].items()}
+    assert strip == {k: {n: v for n, v in s.items() if n != "phase"}
+                     for k, s in cpu["evict"].items()}
+
+
+def _wave_run(tmp_path, device, flavor, **cfg):
+    from scheduler_tpu_torch.harness.backfill_wave import (
+        BACKFILL_CONF,
+        BackfillWaveConfig,
+        seed_wave_cache,
+    )
+
+    conf = tmp_path / "backfill.yaml"
+    conf.write_text(BACKFILL_CONF)
+    with smoke.MaskCapture() as cap:
+        rec, launches, outcome, wrong = smoke.backfill_cycle(
+            seed_wave_cache(BackfillWaveConfig(**cfg)), str(conf), device, flavor)
+    assert not wrong
+    return rec, launches, outcome, cap.calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nodes,pods", [(64, 600), (16, 400)])
+def test_backfill_engine_on_card_equals_cpu(tmp_path, nodes, pods):
+    """``SCHEDULER_TORCH_BACKFILL=device`` on the card on a small wave:
+    binds and FitErrors strings equal to the same flavor on the CPU and to
+    the host sweep on the card; K3 built the class rows (one launch), the
+    evidence counters equal the CPU run's."""
+    _card()
+    card, launches, out, _ = _wave_run(tmp_path, None, "device", nodes=nodes, wave_pods=pods)
+    cpu, _, cpu_out, _ = _wave_run(tmp_path, "cpu", "device", nodes=nodes, wave_pods=pods)
+    _, _, host_out, _ = _wave_run(tmp_path, None, "host", nodes=nodes, wave_pods=pods)
+    assert out == cpu_out == host_out
+    assert card["backfill"]["engaged"] and launches["static_predicate_mask"] == 1
+    strip = {k: v for k, v in card["backfill"].items() if k != "phase"}
+    assert strip == {k: v for k, v in cpu["backfill"].items() if k != "phase"}
+
+
+@pytest.mark.cuda
+def test_backfill_class_rows_bitwise(tmp_path):
+    """K3 on a wave's signature operands equals its plain version bitwise,
+    and the engine's class rows built on the card equal those built on the
+    CPU."""
+    from scheduler_tpu_torch.conf import parse_scheduler_conf
+    from scheduler_tpu_torch.framework import close_session, open_session
+    from scheduler_tpu_torch.harness.backfill_wave import (
+        BACKFILL_CONF,
+        BackfillWaveConfig,
+        seed_wave_cache,
+    )
+    from scheduler_tpu_torch.ops.backfill import BackfillEngine
+    from scheduler_tpu_torch.plugins.predicates import signature_rows
+
+    device = _card()
+    _, _, _, calls = _wave_run(tmp_path, None, "device", nodes=128, wave_pods=1200)
+    (st, rep_rows), = calls
+    ops = smoke.predicate_operands(st, device)
+    assert torch.equal(pk.static_predicate_mask(*ops), pk.static_predicate_mask_reference(*ops))
+    assert signature_rows(st)[1].shape[0] == 5
+    rows = {}
+    for dev in (None, "cpu"):
+        cache = seed_wave_cache(BackfillWaveConfig(nodes=128, wave_pods=1200))
+        ssn = open_session(cache, parse_scheduler_conf(BACKFILL_CONF).tiers, device=dev)
+        engine = BackfillEngine(ssn)
+        engine._enabled = ("predicates",)
+        rows[dev] = engine._task_mask(st, rep_rows)
+        close_session(ssn)
+    assert rows[None].shape == (rep_rows.shape[0], 128)
+    np.testing.assert_array_equal(rows[None], rows["cpu"])
