@@ -48,10 +48,11 @@ What it does, one JSON line per phase:
    g. the qfair ladder flagship (``bench.py``'s multi-queue family at the
       widest and deepest shape the ladder admits,
       ``harness.make_mq_ladder_cluster``: 10,000 nodes, 100 queues of
-      weights 1..100, 100,000 single-pod jobs, one request class a queue,
-      r_dim 8; the multi-queue conf): proportion's water-fill as one
+      weights 1..100, one request class a queue, r_dim 8; the multi-queue
+      conf; at half the flagship's depth, ``LADDER_PATH_PODS``: 50,000
+      single-pod jobs, 500 a queue): proportion's water-fill as one
       ``qfair_solve`` launch, then ``mega_allocate`` in multi-queue mode
-      with the qfair ladder.  Checks: the ladder engaged (1,001 rungs, 100
+      with the qfair ladder.  Checks: the ladder engaged (501 rungs, 100
       classes, a converged solve), one rung lookup a placement, no node
       overcommitted in any of its 8 dims or past 110 pods; then, on a
       session of the same cluster, the device water-fill's deserved rows
@@ -173,6 +174,31 @@ What it does, one JSON line per phase:
       flavors on an eighth of the wave (256 nodes, 2,500 pods) on the card:
       binds, FitErrors strings and counters equal.  In a child beside the
       untimed phases.
+   q. the daemon over the wire (``daemon_config2``): a's cluster as
+      ``kubectl``-shaped documents (``harness.kubemark_density_documents``)
+      in the port's mock API server, a process of its own; then
+      ``scheduler_tpu_torch.cli.main`` in the child's main thread with
+      ``--api-server``, the k8s wires in and out (one bind POST a pod), the
+      CUDA default device and a 0.5 s schedule period, until a watcher
+      thread sees every pod bound on the server (300 s at most), reads
+      ``/healthz``, ``/metrics`` and ``/debug/cycles`` and sends SIGTERM.
+      Checks: 5,000 binds, K3 and K2 launched, ``main`` returned, the binds
+      those of one ``Scheduler.run_once`` on the same documents preloaded
+      through ``cli.load_cluster_state`` in the server's LIST order (a's
+      checks on them).  Prints the seconds to the first cycle, its time and
+      phases, the seconds to the last bind, bind POSTs, retries, resyncs,
+      K3's and K2's launches and device ms.
+   q'. the churn rig (``harness.churn.run_churn_bench``) on the daemon's
+      event loop: k8s LIST+WATCH in, the batched legacy dialect out,
+      ``CHURN_CONF`` (K2 in cursor mode through the engine cache), at
+      ``CHURN_CARD`` (1,000 nodes, 10,000 placed pods in gangs of 50, 32
+      pending, 16 lanes, 1,000 arrivals/s for 8 s after a 1.5 s warmup,
+      4x bursts of 0.25 s every 2 s, seed 0).  Checks: drained, K2
+      launched, no node overcommitted, no pending pod that fits.  Prints
+      p50, p99 and max cycle ms, the sustained rate, events a cycle, the
+      engine cache's outcomes and the dirty counts.  q and q' run in one
+      child (``--child daemon_wire``) started after ``e2e_small``, beside
+      the kernel cases and the checks.
    Each prints the phase seconds and the engine's time from CUDA events
    (the kernel's; for i and k the ``xla_step`` launches summed, and per
    step, beside the host time of the arm's C calls);
@@ -205,10 +231,10 @@ What it does, one JSON line per phase:
    and the operands of the main paths a to f and h that run it at full
    size from second clusters built the same way (timed: profiler device
    time and events, µs a step, the launch plan).
-   The ladder flagship's operands (100 queues of 1,000 job lanes): the
-   ladder against the delta chain on the same operands, equal codes, each
-   timed three times in turns; and against its plain version (timed; its
-   100,001 steps take minutes, so in a child process of the script,
+   Path g's operands (100 queues of 500 job lanes): the ladder against the
+   delta chain on the same operands, equal codes, each timed three times in
+   turns; and against its plain version on the same operands (timed; its
+   50,001 steps take minutes, so in a child process of the script,
    ``--child mq_ladder_plain``, which builds its cluster and engine beside
    the timed phases and runs the kernel and its plain version beside the
    untimed ones, as do the
@@ -325,6 +351,11 @@ LADDER_NODES = 10_000
 LADDER_PODS = 100_000
 LADDER_QUEUES = 100
 LADDER_VOCAB = 6
+# Path g runs the ladder flagship at its width and half its depth (the same
+# nodes and queues, 500 jobs a queue: 50,001 steps), and K2's plain check
+# runs on path g's own operands: at the full depth the 100,001 plain steps
+# took 488 s beside the daemon child, past the script's limit.
+LADDER_PATH_PODS = LADDER_PODS // 2
 # The ladder session at the size its plain version runs in seconds.
 LADDER_SMALL = (1000, 4000, 20, 6)
 
@@ -2547,7 +2578,7 @@ def check_declined_qfair(qf, launches, path):
 def phase_main_path_ladder(cache, conf_path):
     """The qfair ladder flagship: proportion's device water-fill, then the
     mega kernel in multi-queue mode with the ladder.  Checks: the ladder
-    engaged with 1,001 rungs and 100 classes after a converged solve, one
+    engaged with 501 rungs and 100 classes after a converged solve, one
     rung lookup a placement, no node overcommitted in any of its 8 dims or
     past 110 pods."""
     rec, launches = run_cycle(cache, conf_path)
@@ -2556,9 +2587,9 @@ def phase_main_path_ladder(cache, conf_path):
     qf = evidence.get("qfair") or {}
     chain = evidence.get("queue_chain") or {}
     emit({"phase": "main_path", "config": "mq_ladder", "nodes": LADDER_NODES,
-          "pods": LADDER_PODS, "queues": LADDER_QUEUES, "binds": binds,
+          "pods": LADDER_PATH_PODS, "queues": LADDER_QUEUES, "binds": binds,
           "most_pods_on_a_node": most, "queue_chain": chain, "qfair": qf, **rec})
-    rungs = LADDER_PODS // LADDER_QUEUES + 1
+    rungs = LADDER_PATH_PODS // LADDER_QUEUES + 1
     wrong = []
     if qf.get("flavor") != "device" or qf.get("engaged") is not True:
         wrong.append("the ladder did not engage on the device flavor")
@@ -4227,6 +4258,264 @@ def phase_backfill_wave(conf_path):
             "eighth_launches": small["device"]["launches"]}
 
 
+class LaunchTimer:
+    """Within the block, CUDA events around every launch of K3's kernel
+    (``predicate_kernel._launch``, its C entry point resolved beforehand, so
+    that the first launch's events hold no symbol lookup); ``ms()`` is
+    their summed time."""
+
+    def __enter__(self):
+        from scheduler_tpu_torch.ops import predicate_kernel as pk
+
+        pk._entry()
+        self.pairs = []
+        self.orig = orig = pk._launch
+
+        def timed(*args):
+            import torch
+
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            out = orig(*args)
+            stop.record()
+            self.pairs.append((start, stop))
+            return out
+
+        pk._launch = timed
+        return self
+
+    def __exit__(self, *exc):
+        from scheduler_tpu_torch.ops import predicate_kernel as pk
+
+        pk._launch = self.orig
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+class _NoTimer:
+    """``LaunchTimer``'s stand-in where no kernel launches (the CPU)."""
+
+    pairs = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+def daemon_config2(n_nodes, n_pods, work_dir, device=None, limit_s=300.0):
+    """Path q: BASELINE config 2 (``kubemark_density_documents``: 1,000
+    nodes x 5,000 bare pods at full size, half of them selecting a zone) in
+    the port's mock API server, a process of its own, in ``kubectl``
+    shapes; then the daemon, ``scheduler_tpu_torch.cli.main`` in this
+    thread, with ``--api-server``, the default k8s wires in and out (one
+    bind POST a pod), ``--device`` left at its CUDA default (``device``:
+    the tests' ``cpu``), a 0.5 s schedule period and config 2's conf.  A
+    watcher thread polls the server until every pod carries a node (or
+    ``limit_s`` runs out, which fails the path), reads the daemon's
+    ``/healthz``, ``/metrics`` and ``/debug/cycles`` once, and sends SIGTERM
+    to this process: ``main`` must return.  Then the same documents, in the
+    server's LIST order, preloaded through ``cli.load_cluster_state`` into
+    a cache of this process, and one ``Scheduler.run_once`` on the same
+    device: its binds must be the daemon's, pod for pod, and pass config
+    2's checks (``check_config2_binds``).  Both caches stamp shadow
+    PodGroups under one ``ObjectClock``.  Returns the record."""
+    import signal
+    import threading
+
+    import scheduler_tpu_torch.apis.objects as objects_mod
+    from scheduler_tpu_torch import cli
+    from scheduler_tpu_torch.cache.cache import SchedulerCache
+    from scheduler_tpu_torch.harness import kubemark_density_documents
+    from scheduler_tpu_torch.harness.wire_rig import (
+        ObjectClock, free_port, http_json, post_documents, server_node_name,
+        spawn_mock_server)
+    from scheduler_tpu_torch.scheduler import Scheduler
+    from scheduler_tpu_torch.utils import obs
+
+    docs = kubemark_density_documents(n_nodes, n_pods)
+    conf_path = os.path.join(work_dir, "daemon_config2_conf.yaml")
+    with open(conf_path, "w") as f:
+        f.write(CONFIG2_CONF)
+    proc, base = spawn_mock_server()
+    try:
+        t0 = time.perf_counter()
+        post_documents(base, docs, threads=8)
+        seed_s = time.perf_counter() - t0
+        listed = http_json(base, "/state")  # the server's LIST order
+        port = free_port()
+        watched = {"polls": 0}
+
+        def watch():
+            deadline = time.perf_counter() + limit_s
+            try:
+                # The bind log is the cheap poll (a /state read serializes
+                # the whole store under the server's lock); the store
+                # confirms once.
+                while time.perf_counter() < deadline:
+                    if len(http_json(base, "/bind-log")["binds"]) >= n_pods:
+                        watched["all_bound_s"] = time.perf_counter() - t_start
+                        pods = http_json(base, "/state")["pods"]
+                        watched["polls"] += 1
+                        if all(server_node_name(p) for p in pods):
+                            break
+                    time.sleep(0.25)
+                else:
+                    watched["timeout"] = True
+                daemon = f"http://127.0.0.1:{port}"
+                import urllib.request
+
+                with urllib.request.urlopen(daemon + "/healthz", timeout=10) as resp:
+                    watched["healthz"] = resp.read().decode()
+                with urllib.request.urlopen(daemon + "/metrics", timeout=30) as resp:
+                    watched["metrics"] = resp.read().decode()
+                watched["cycles"] = http_json(daemon, "/debug/cycles")["cycles"]
+            except Exception as exc:  # reported below; the daemon must stop all the same
+                watched["error"] = repr(exc)
+            finally:
+                # Only once main's handler is in place (a SIGTERM before it,
+                # or after main has restored ours, is a no-op).
+                while signal.getsignal(signal.SIGTERM) is ignore and not done.is_set():
+                    time.sleep(0.05)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        argv = ["--api-server", base, "--scheduler-conf", conf_path,
+                "--schedule-period", "0.5", "--listen-address", f"127.0.0.1:{port}"]
+        if device is not None:
+            argv += ["--device", str(device)]
+        obs.reset()
+        reset_counts()
+        done = threading.Event()
+
+        def ignore(signum, frame):
+            pass
+
+        watcher = threading.Thread(target=watch, name="daemon-watcher", daemon=True)
+        previous = signal.signal(signal.SIGTERM, ignore)
+        try:
+            with ObjectClock(objects_mod), LaunchTimer() if device is None else \
+                _NoTimer() as k3_timer:
+                t_start, t_wall = time.perf_counter(), time.time()
+                watcher.start()
+                try:
+                    cli.main(argv)
+                finally:
+                    done.set()
+                main_s = time.perf_counter() - t_start
+            watcher.join(timeout=60)
+        finally:
+            signal.signal(signal.SIGTERM, previous)
+        launches, routes = read_counts()
+        k3_ms = k3_timer.ms() if device is None and k3_timer.pairs else None
+        stats = http_json(base, "/stats")
+        daemon_binds = {b["pod"]: b["node"] for b in http_json(base, "/bind-log")["binds"]}
+        applied = len(http_json(base, "/bind-log")["binds"])
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    if watched.get("timeout") or "error" in watched:
+        raise SystemExit(f"path q: not every pod bound in {limit_s} s "
+                         f"({watched.get('error', 'timeout')})")
+    cycles = watched["cycles"]
+    first = cycles[0] if cycles else {}
+    k2_ms = [((c.get("notes") or {}).get("cohort") or {}).get("kernel_ms") for c in cycles]
+    metrics_ok = "volcano_binds_total" in watched["metrics"] and \
+        "volcano_e2e_scheduling_latency_milliseconds" in watched["metrics"]
+    # The twin: the same documents, preloaded in the server's LIST order.
+    state_path = os.path.join(work_dir, "daemon_config2_state.json")
+    with open(state_path, "w") as f:
+        json.dump({k: listed[k] for k in ("queues", "nodes", "podGroups", "pods")}, f)
+    twin = SchedulerCache(async_io=False)
+    with ObjectClock(objects_mod):
+        cli.load_cluster_state(twin, state_path)
+    Scheduler(twin, conf_path, device=device).run_once()
+    twin_binds = dict(twin.binder.binds)
+    n_binds, most = check_config2_binds(twin)
+    rec = {"nodes": n_nodes, "pods": n_pods, "seed_s": seed_s,
+           "sync_s": first["ts"] - t_wall if first else None,
+           "first_cycle_s": first.get("s"), "first_cycle_phases": first.get("phases"),
+           "cycles": len(cycles), "all_bound_s": watched["all_bound_s"], "main_s": main_s,
+           "bind_posts": stats["bind_calls"], "binds_applied": applied,
+           "retries": stats["bind_calls"] - applied, "resync_gets": stats["get_calls"],
+           # The LISTs and relists the daemon paid (the watcher's polls and
+           # the twin's LIST are /state reads too).
+           "lists": stats["list_calls"] - watched["polls"] - 1, "k8s_calls": stats["k8s_calls"],
+           "legacy_calls": stats["legacy_calls"], "launches": launches, "routes": routes,
+           "k3_ms": k3_ms, "k2_ms": [ms for ms in k2_ms if ms is not None],
+           "healthz": watched["healthz"], "metrics_families_ok": metrics_ok,
+           "binds": len(daemon_binds), "twin_binds": n_binds,
+           "most_pods_on_a_node": most, "equal_to_twin": daemon_binds == twin_binds}
+    wrong = []
+    if len(daemon_binds) != n_pods:
+        wrong.append(f"{len(daemon_binds)} of {n_pods} pods bound")
+    if not rec["equal_to_twin"]:
+        differ = sum(1 for k in set(daemon_binds) | set(twin_binds)
+                     if daemon_binds.get(k) != twin_binds.get(k))
+        wrong.append(f"{differ} binds differ from the preloaded run_once's")
+    if device is None and (launches["static_predicate_mask"] < 1
+                           or launches["mega_allocate"] < 1):
+        wrong.append(f"launches {launches}")
+    if watched["healthz"] != "ok" or not metrics_ok:
+        wrong.append("the daemon's /healthz or /metrics did not answer as expected")
+    if stats["k8s_calls"] < n_pods or stats["legacy_calls"]:
+        wrong.append(f"the binds did not cross as k8s calls: {stats}")
+    if wrong:
+        raise SystemExit(f"path q: {'; '.join(wrong)}")
+    return rec
+
+
+# Path q': the churn rig on a 1,000-node cluster.  The arrival rate is 1,000
+# a second, the highest that drains: the rig runs its mock server, replay,
+# reflectors and scheduler in one interpreter, and at 2,000 its replay falls
+# behind its own history and the scheduler does not drain
+# (``scripts/churn_rates.py``).
+CHURN_CARD = dict(seed=0, nodes=1000, placed_pods=10_000, tasks_per_job=50, pending_pods=32,
+                  lanes=16, rate=1000.0, duration_s=8.0, warm_s=1.5, burst_every_s=2.0,
+                  burst_len_s=0.25, burst_factor=4.0)
+
+
+def phase_churn(cfg_kw=None, device=None):
+    """Path q': ``harness.churn.run_churn_bench`` with the port's daemon
+    loop on ``device`` (None: the card): the event trigger, the k8s
+    LIST+WATCH wire in, the batched legacy dialect out (the JAX churn
+    bench's), ``CHURN_CONF`` (K2 in cursor mode through the engine cache
+    each cycle), at ``CHURN_CARD``.  Checks: cycles measured, the scheduler
+    drained, the server's store (``wire_rig.churn_state``).  Returns the record."""
+    from scheduler_tpu_torch.connector.mock_server import MockState
+    from scheduler_tpu_torch.harness.churn import ChurnConfig, run_churn_bench
+    from scheduler_tpu_torch.harness.wire_rig import churn_state
+
+    cfg = ChurnConfig(**(cfg_kw or CHURN_CARD))
+    state = MockState()
+    reset_counts()
+    t0 = time.perf_counter()
+    doc = run_churn_bench(cfg, wire="k8s", device=device, state=state)
+    wall_s = time.perf_counter() - t0
+    launches, routes = read_counts()
+    d = doc["detail"]
+    if not d["cycles_measured"]:
+        raise SystemExit("path q': the scheduler never drained the measured traffic")
+    if device is None and launches["mega_allocate"] < 1:
+        raise SystemExit(f"path q': mega_allocate was not launched: {launches}")
+    faults, bound, pending = churn_state(state)
+    if faults:
+        raise SystemExit(f"path q': {'; '.join(faults)}")
+    return {"wall_s": wall_s, "p50_ms": d["p50_ms"], "p99_ms": d["p99_ms"],
+            "max_ms": d["max_ms"], "rate_target": d["rate_target"],
+            "rate_sustained": d["rate_sustained"], "replay": d["replay"],
+            "cycles_measured": d["cycles_measured"], "events_per_cycle": d["events_per_cycle"],
+            "fallback_cycles": d["fallback_cycles"], "engine_cache": d["engine_cache"],
+            "hit_rate": d["hit_rate"], "dirty": d["dirty"], "trigger": d["trigger"],
+            "ingest": d["ingest"], "launches": launches, "routes": routes,
+            "server_bound": bound, "server_pending": pending}
+
+
 def place_scan_entry(launches_by_path, scan, small):
     """place_scan's entry of the kernels line (no TPU Pallas kernel: it
     replaces the JAX package's XLA scan): launches on each path that runs
@@ -4454,6 +4743,22 @@ def child_main(child, path, opts) -> int:
         with open(path, "w") as f:
             json.dump(out, f)
         return 0
+    if child == "daemon_wire":
+        # Paths q and q', after one config-1 cycle that warms the card, the
+        # kernel library and PyTorch up.
+        conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
+        with open(conf_path, "w") as f:
+            f.write(CONFIG1_CONF)
+        run_cycle(config1_cluster(), conf_path)
+        gc.collect()
+        q = daemon_config2(opts.config2_nodes, opts.config2_pods, os.path.dirname(path))
+        emit({"phase": "main_path", "config": "daemon_config2", **q})
+        gc.collect()
+        churn = phase_churn()
+        emit({"phase": "main_path", "config": "daemon_churn", **churn})
+        with open(path, "w") as f:
+            json.dump({"q": q, "churn": churn}, f)
+        return 0
     if child == "kernel_cases_synthetic":
         import torch
 
@@ -4461,15 +4766,15 @@ def child_main(child, path, opts) -> int:
             json.dump({"cases": phase_kernel_synthetic(torch.device("cuda"))}, f)
         return 0
     if child == "mq_ladder_plain":
-        # K2 in ladder mode against its plain version on the ladder
-        # flagship's operands (a cluster built as the main path's): codes
-        # and stats bitwise, and the plain version's time.  The cluster and
-        # the engine are host work (and the operands' upload), built at once
-        # beside the timed phases; the 100,001 steps run once the script
-        # says the last of those has ended.
+        # K2 in ladder mode against its plain version on path g's operands
+        # (a cluster built as the main path's): codes and stats bitwise,
+        # and the plain version's time.  The cluster and the engine are
+        # host work (and the operands' upload), built at once beside the
+        # timed phases; the 50,001 steps run once the script says the last
+        # of those has ended.
         import torch
 
-        cache = make_mq_ladder_cluster(LADDER_NODES, LADDER_PODS, LADDER_QUEUES,
+        cache = make_mq_ladder_cluster(LADDER_NODES, LADDER_PATH_PODS, LADDER_QUEUES,
                                        LADDER_VOCAB).cache
         _, eng = engine_for(cache, MULTIQ_CONF, torch.device("cuda"))
         if not eng._mega_kw["qfair_ladder"]:
@@ -4501,9 +4806,9 @@ def child_main(child, path, opts) -> int:
         cache = make_gpu_topology_cluster(CONFIG5_NODES, CONFIG5_GANGS).cache
         nodes, pods = CONFIG5_NODES, 8 * CONFIG5_GANGS
     elif child == "mq_ladder":
-        cache = make_mq_ladder_cluster(LADDER_NODES, LADDER_PODS, LADDER_QUEUES,
+        cache = make_mq_ladder_cluster(LADDER_NODES, LADDER_PATH_PODS, LADDER_QUEUES,
                                        LADDER_VOCAB).cache
-        nodes, pods = LADDER_NODES, LADDER_PODS
+        nodes, pods = LADDER_NODES, LADDER_PATH_PODS
     elif child in ("reclaim_aftermath", "reclaim_aftermath_templates"):
         thin = RECLAIM_THIN_REQUESTS if child == "reclaim_aftermath_templates" else 0
         built = make_reclaim_aftermath_cluster(thin_requests=thin)
@@ -4942,7 +5247,7 @@ def main() -> int:
                                             "default_conf_loop", "default_conf_cold",
                                             "production_conf", "config2_default_tiers_device",
                                             "config4_reclaim", "config4_reclaim_twin",
-                                            "preempt_storm", "backfill_wave"),
+                                            "preempt_storm", "backfill_wave", "daemon_wire"),
                         help="run only this child process of the script (child_main) and "
                              "write its result to --out")
     parser.add_argument("--out", metavar="PATH")
@@ -5026,9 +5331,9 @@ def main() -> int:
     def ladder_cluster():
         return timed_build(
             "mq_ladder",
-            lambda: make_mq_ladder_cluster(LADDER_NODES, LADDER_PODS, LADDER_QUEUES,
+            lambda: make_mq_ladder_cluster(LADDER_NODES, LADDER_PATH_PODS, LADDER_QUEUES,
                                            LADDER_VOCAB).cache,
-            LADDER_NODES, LADDER_PODS)
+            LADDER_NODES, LADDER_PATH_PODS)
 
     def reclaim_cluster():
         return timed_build("config4_reclaim_aftermath",
@@ -5091,10 +5396,10 @@ def main() -> int:
         "config4_reclaim_twin")]
     (host_twin, reclaim_twin, reclaim_tpl_twin, loop_twins, tiers_cpu,
      reclaim_tpl_cpu, reclaim_o_twin) = twins
-    # K2's plain version on the ladder flagship's operands: its child builds
+    # K2's plain version on the ladder flagship's shape: its child builds
     # the cluster now and waits for the last timed phase.
     ladder_plain = BackgroundChild(out_dir, "mq_ladder_plain", opts)
-    default_twin = synthetic = wave = None
+    default_twin = synthetic = wave = daemon = None
 
     try:
         # The same operands again, from second clusters built the same way (K2
@@ -5128,16 +5433,18 @@ def main() -> int:
         # flagship's operands, beside the untimed phases.
         ladder_plain.go()
         synthetic = BackgroundChild(out_dir, "kernel_cases_synthetic", opts)
+        phase_e2e_small(conf_path)
+        # Path o' (in o's twin, on the card), path p (the backfill wave) and
+        # paths q and q' (the daemon over the wire), host-bound: beside the
+        # kernel cases, the checks, the ladder's plain check and the
+        # longest twin.
+        reclaim_o_twin.go()
+        wave = BackgroundChild(out_dir, "backfill_wave", opts)
+        daemon = BackgroundChild(out_dir, "daemon_wire", opts)
         full_chain = phase_kernel_cases(device)
         gc.collect()
         # Path m's cold twin beside the untimed phases that follow.
         default_twin = BackgroundChild(out_dir, "default_conf_cold", opts)
-        phase_e2e_small(conf_path)
-        # Path o' (in o's twin, on the card) and path p (the backfill wave),
-        # host-bound, now that most host-loop twins have ended: beside the
-        # checks, the ladder's plain check and the longest twin.
-        reclaim_o_twin.go()
-        wave = BackgroundChild(out_dir, "backfill_wave", opts)
         check_host_loop(host_twin, tiers_binds)
         check_host_loop(host_twin, tiers_device["binds"], "config2_default_tiers_device")
         check_reclaim_host_loop(reclaim_twin, reclaim["outcome"])
@@ -5152,11 +5459,13 @@ def main() -> int:
         o_dev = check_config4_reclaim_twin(reclaim_o_twin, reclaim_o)
         wave_rec = wave.result()
         emit({"phase": "backfill_wave", "wall_s": time.perf_counter() - wave.t0})
+        daemon_rec = daemon.result()
+        emit({"phase": "daemon_wire", "wall_s": time.perf_counter() - daemon.t0})
         ladder_plain_rec = ladder_plain.result()
         emit({"phase": "mq_ladder_plain", "wall_s": time.perf_counter() - ladder_plain.t0,
               "after_go_s": time.perf_counter() - ladder_plain.t_go})
     finally:
-        for twin in twins + [ladder_plain, default_twin, synthetic, wave]:
+        for twin in twins + [ladder_plain, default_twin, synthetic, wave, daemon]:
             if twin is not None:
                 twin.stop()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -5173,9 +5482,11 @@ def main() -> int:
         mega_entry("cursor", flagship_launches["mega_allocate"], cursor_full, by_path={
             "config3": flagship_launches["mega_allocate"],
             "config3_steady": steady["launches"]["mega_allocate"],
-            "config3_churn": steady["churn_launches"]}),
+            "config3_churn": steady["churn_launches"],
+            "daemon_churn": daemon_rec["churn"]["launches"]["mega_allocate"]}),
         mega_entry("static", config2_launches["mega_allocate"], static_full,
-                   by_path={"config2": config2_launches["mega_allocate"]}),
+                   by_path={"config2": config2_launches["mega_allocate"],
+                            "daemon_config2": daemon_rec["q"]["launches"]["mega_allocate"]}),
         mega_entry("static", config5_launches["mega_allocate"], config5_full, "config5"),
         mega_entry("multi_queue", mq_launches["mega_allocate"], mq_full,
                    "config3_multi_queue", by_path={
@@ -5209,6 +5520,7 @@ def main() -> int:
          "launches": config2_launches["static_predicate_mask"],
          "launches_by_path": {
              "config2": config2_launches["static_predicate_mask"],
+             "daemon_config2": daemon_rec["q"]["launches"]["static_predicate_mask"],
              "config5": config5_launches["static_predicate_mask"],
              "config2_default_tiers": tiers_launches["static_predicate_mask"],
              "default_conf_loop": m_launches["static_predicate_mask"],

@@ -9,13 +9,16 @@ drift self-heals on the next cycle.
 
 Bind/evict mutate local state synchronously, then fire the Binder/Evictor
 asynchronously; failures roll the local mutation back (the standalone analogue of
-the reference's errTasks resync queue, ``cache.go:559-581``).
+the reference's errTasks resync queue, ``cache.go:559-581``).  A cache
+wired to an API server (``connector.connect_cache``) re-fetches a failed
+pod from its system of record first (``client()``, the syncTask seam).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
@@ -38,6 +41,7 @@ from scheduler_tpu_torch.apis.objects import (
 )
 from scheduler_tpu_torch.cache.fakes import FakeBinder, FakeEvictor, FakeStatusUpdater, FakeVolumeBinder
 from scheduler_tpu_torch.cache.interface import Binder, Cache, Evictor, StatusUpdater, VolumeBinder
+from scheduler_tpu_torch.utils import obs
 
 logger = logging.getLogger("scheduler_tpu_torch.cache")
 
@@ -109,6 +113,14 @@ class SchedulerCache(Cache):
         self._job_dirty_floor = 0
         self._queue_dirty_floor = 0
 
+        # Time-to-bind and pending-age clock (utils/obs.py): when a pod is
+        # first seen unbound, a monotonic stamp records its arrival.  Bind
+        # commits peek a window-tail sample a batch (the seam stays
+        # O(window)); pod delete is the one cleanup point.  Updates (delete
+        # and add with gc=False) keep the entry, so a watch echo never
+        # resets a pod's pending age.
+        self._pending_since: Dict[str, float] = {}
+
         self.binder = binder if binder is not None else FakeBinder()
         self.evictor = evictor if evictor is not None else FakeEvictor()
         self.status_updater = status_updater if status_updater is not None else FakeStatusUpdater()
@@ -130,10 +142,44 @@ class SchedulerCache(Cache):
         self._running = True
 
     def stop(self) -> None:
+        self.binder.close()
         if self._io_pool is not None:
             self._io_pool.shutdown(wait=True)
             self._io_pool = None
         self._running = False
+
+    def client(self):
+        """The backing API client (the reference's ``Cache.Client()``); None
+        unless ``connector.connect_cache`` wired one."""
+        return None
+
+    def obs_serving_snapshot(self) -> dict:
+        """Scrape-time serving state for ``/metrics``: per-queue pending
+        depth and the ages of pending tasks (at most ``obs.TTB_WINDOW`` a
+        queue).  One mutex hold a scrape, on the HTTP thread."""
+        now = time.monotonic()
+        depth: Dict[str, int] = {}
+        ages: Dict[str, list] = {}
+        pending_val = int(TaskStatus.PENDING)
+        with self.mutex:
+            for job in self.jobs.values():
+                store = job.store
+                if store.n == 0:
+                    continue
+                mask = store.status[: store.n] == pending_val
+                count = int(mask.sum())
+                if not count:
+                    continue
+                depth[job.queue] = depth.get(job.queue, 0) + count
+                bucket = ages.setdefault(job.queue, [])
+                room = obs.TTB_WINDOW - len(bucket)
+                if room <= 0:
+                    continue
+                for uid in store.uids[: store.n][mask][:room].tolist():
+                    since = self._pending_since.get(uid)
+                    if since is not None:
+                        bucket.append(max(0.0, now - since))
+        return {"queue_depth": depth, "pending_ages": ages}
 
     def _submit_io(self, fn, *args) -> None:
         if self._io_pool is not None:
@@ -241,9 +287,15 @@ class SchedulerCache(Cache):
         if pod.node_name:
             self._get_or_create_node(pod.node_name).add_task(task)
             self._mark_dirty("node", (pod.node_name,))
+            self._pending_since.pop(task.uid, None)
+        else:
+            # setdefault: an update echo must not reset the pending clock.
+            self._pending_since.setdefault(task.uid, time.monotonic())
 
     def update_pod(self, pod: PodSpec) -> None:
         with self.mutex:
+            if self._bind_unechoed_locked(pod):
+                return
             # gc=False: an update is delete+add in one breath — GC'ing a
             # shadow job in between would re-synthesize its PodGroup with a
             # fresh creation timestamp on every watch echo, destabilizing
@@ -251,17 +303,37 @@ class SchedulerCache(Cache):
             self._delete_pod_locked(pod, gc=False)
             self._add_pod_locked(pod)
 
+    def _job_of_pod_locked(self, pod: PodSpec):
+        job_id = job_id_for_pod(pod)
+        if not job_id:
+            # May have been adopted via a shadow PodGroup.
+            job_id = f"{pod.namespace}/{shadow_pod_group_name(pod)}"
+        return self.jobs.get(job_id)
+
+    def _bind_unechoed_locked(self, pod: PodSpec) -> bool:
+        """True when ``pod`` is an unbound view of a task whose bind was sent
+        and whose echo has not come back: a relist's LIST or a watch event
+        from before the server applied the bind.  Such a view keeps the
+        task where it is; the bind's own outcome moves it (its echo, or its
+        failure's resync).  Undoing it here would free room that the server
+        fills once the bind lands, and let the next cycle place the pod a
+        second time.  The JAX package's cache undoes it."""
+        if pod.node_name:
+            return False
+        job = self._job_of_pod_locked(pod)
+        row = job.store.row_of.get(pod.uid) if job is not None else None
+        return row is not None and job.view_for_row(row).status == TaskStatus.BINDING
+
     def delete_pod(self, pod: PodSpec) -> None:
         with self.mutex:
             self._delete_pod_locked(pod)
 
     def _delete_pod_locked(self, pod: PodSpec, gc: bool = True) -> None:
-        job_id = job_id_for_pod(pod)
-        if not job_id:
-            # May have been adopted via a shadow PodGroup.
-            job_id = f"{pod.namespace}/{shadow_pod_group_name(pod)}"
-        job = self.jobs.get(job_id)
+        job = self._job_of_pod_locked(pod)
         self._pod_cond_last.pop(pod.uid, None)
+        if gc:
+            # A real delete ends the pending clock; the update path keeps it.
+            self._pending_since.pop(pod.uid, None)
         if job is not None:
             self._mark_dirty("job", (job.uid,))
             row = job.store.row_of.get(pod.uid)
@@ -360,6 +432,76 @@ class SchedulerCache(Cache):
         with self.mutex:
             self.priority_classes.pop(name, None)
 
+    # -- relist reconciliation --------------------------------------------------
+
+    def prune_absent(
+        self,
+        pod_uids: Optional[set] = None,
+        node_names: Optional[set] = None,
+        podgroup_keys: Optional[set] = None,
+        queue_names: Optional[set] = None,
+        priority_class_names: Optional[set] = None,
+        pod_scope: Optional[str] = None,
+    ) -> int:
+        """Delete every cached object absent from a full LIST of the system
+        of record (client-go's store Replace): an object deleted while the
+        watch horizon was lost must not stay a ghost holding node resources.
+        Shadow PodGroups are local and never pruned (their pods are).
+
+        A ``None`` survivor set leaves that kind untouched (the k8s wire
+        relists one resource at a time).  ``pod_scope`` narrows the pod
+        prune to one ``spec.nodeName`` partition, ``"assigned"`` or
+        ``"unassigned"``: a partition LIST says nothing of the other one.
+        A pod with a bind in flight is in neither.  Returns the number of
+        objects removed."""
+        removed = 0
+
+        def in_scope(task) -> bool:
+            if pod_scope is None:
+                return True
+            if task.status == TaskStatus.BINDING:
+                return False
+            return bool(task.node_name) == (pod_scope == "assigned")
+
+        with self.mutex:
+            if pod_uids is not None or podgroup_keys is not None:
+                for job in list(self.jobs.values()):
+                    if pod_uids is not None:
+                        ghost_pods = [
+                            task.pod
+                            for task in list(job.tasks.values())
+                            if task.pod.uid not in pod_uids and in_scope(task)
+                        ]
+                        for pod in ghost_pods:
+                            self._delete_pod_locked(pod)
+                            removed += 1
+                    pg = job.pod_group
+                    if podgroup_keys is not None and pg is not None \
+                            and not pg.shadow and \
+                            f"{pg.namespace}/{pg.name}" not in podgroup_keys:
+                        self.delete_pod_group(pg)
+                        removed += 1
+            if node_names is not None:
+                for name in list(self.nodes):
+                    if name not in node_names:
+                        self.node_generation += 1
+                        del self.nodes[name]
+                        self.node_ledger.detach(name)
+                        self._mark_dirty("node", (name,))
+                        removed += 1
+            if queue_names is not None:
+                for name in list(self.queues):
+                    if name not in queue_names:
+                        del self.queues[name]
+                        self._mark_dirty("queue", (name,))
+                        removed += 1
+            if priority_class_names is not None:
+                for name in list(self.priority_classes):
+                    if name not in priority_class_names:
+                        del self.priority_classes[name]
+                        removed += 1
+        return removed
+
     # -- snapshot (cache.go:584-654) -------------------------------------------
 
     def snapshot(self) -> ClusterInfo:
@@ -439,6 +581,10 @@ class SchedulerCache(Cache):
             node.add_task(task)
             self._mark_dirty("node", (hostname,))
             self._mark_dirty("job", (job.uid,))
+            age = self._pending_age_peek(task.uid)
+        obs.binds_committed(
+            [(job.queue, 1, [age] if age is not None else [])]
+        )
 
         self._submit_io(self._bind_one, task, hostname)
 
@@ -550,6 +696,15 @@ class SchedulerCache(Cache):
                 self.nodes[hostname].bulk_add_tasks(node_tasks, agg=agg)
             self._mark_dirty("job", by_job)
             self._mark_dirty("node", by_node)
+            batches = [
+                self._ttb_batch(
+                    pairs[0][0].queue,
+                    [task.uid for _, task in pairs[-obs.TTB_WINDOW:]],
+                    count=len(pairs),
+                )
+                for pairs in by_job.values()
+            ] if obs.enabled() else []
+        obs.binds_committed(batches)
 
         def bind_chunk(chunk) -> None:
             from scheduler_tpu_torch.cache.interface import BulkBindError
@@ -588,10 +743,47 @@ class SchedulerCache(Cache):
         for start in range(0, len(resolved), chunk_size):
             self._submit_io(bind_chunk, resolved[start : start + chunk_size])
 
+    def _pending_age_peek(self, uid: str) -> Optional[float]:
+        """A task's pending age (seconds since first seen unbound), a
+        time-to-bind sample at bind commit.  Peek, not pop: the entry must
+        survive a failed bind RPC so the eventual bind samples the full
+        wait.  None when the task was never registered pending."""
+        since = self._pending_since.get(uid)
+        if since is None:
+            return None
+        return max(0.0, time.monotonic() - since)
+
+    def _ttb_batch(self, queue: str, uids, count: Optional[int] = None) -> tuple:
+        """One ``(queue, count, ages)`` bind batch for ``obs.binds_committed``:
+        ages from at most the window tail of ``uids`` (the reservoir holds
+        ``obs.TTB_WINDOW`` a queue).  ``count`` overrides the bind count when
+        ``uids`` is already the window tail."""
+        if count is None:
+            count = len(uids)
+        tail = uids[-obs.TTB_WINDOW:] if len(uids) > obs.TTB_WINDOW else uids
+        ages = []
+        now = time.monotonic()
+        for uid in tail:
+            since = self._pending_since.get(uid)
+            if since is not None:
+                ages.append(max(0.0, now - since))
+        return (queue, count, ages)
+
+    def _sync_pod_via_client(self, namespace: str, name: str) -> bool:
+        """The reference syncTask seam (event_handlers.go:96-114): re-fetch
+        one pod from the system of record and rebuild its task.  False when
+        no client is wired or the GET failed: callers then revert locally."""
+        client = self.client()
+        if client is not None and hasattr(client, "sync_pod"):
+            return bool(client.sync_pod(namespace, name))
+        return False
+
     def _resync_failed_bind(self, ti: TaskInfo, hostname: str) -> None:
-        """A failed bind reverts locally: the task goes back to pending and
-        its node gives the resources back (this package has no system of
-        record to re-fetch the pod from)."""
+        """A failed bind reverts locally (the task goes back to pending and
+        its node gives the resources back), then re-fetches the pod from the
+        system of record where there is one.  The revert comes first: it
+        ends the task's Binding status, which shields it from unbound views
+        (``_bind_unechoed_locked``), the re-fetch's among them."""
         with self.mutex:
             try:
                 job, task = self._find_job_and_task(ti)
@@ -602,8 +794,13 @@ class SchedulerCache(Cache):
                 node.remove_task(task)
             task.node_name = ""
             job.update_task_status(task, TaskStatus.PENDING)
+            # Back to pending: the arrival entry is still there (bind
+            # commits peek, never pop); setdefault covers a task never
+            # registered.
+            self._pending_since.setdefault(task.uid, time.monotonic())
             self._mark_dirty("node", (hostname,))
             self._mark_dirty("job", (job.uid,))
+        self._sync_pod_via_client(ti.namespace, ti.name)
 
     # -- columnar commit hooks (device-engine extension) --------------------------
 
@@ -669,6 +866,16 @@ class SchedulerCache(Cache):
             for cjob, rows, names, _ids in resolved:
                 cjob.set_node_names_rows(rows, names)
             self._mark_dirty("job", (cjob.uid for cjob, *_ in resolved))
+            if obs.enabled():
+                # O(window) a job, never O(rows).
+                obs.binds_committed([
+                    self._ttb_batch(
+                        cjob.queue,
+                        cjob.store.uids[rows[-obs.TTB_WINDOW:]].tolist(),
+                        count=len(rows),
+                    )
+                    for cjob, rows, _names, _ids in resolved
+                ])
             # Per-node batches via ONE stable integer argsort across the whole
             # batch; each group's name resolves from its first member.
             ids_all = (
@@ -793,7 +1000,8 @@ class SchedulerCache(Cache):
         bookkeeping — per-job status-row writes, one releasing-add per node —
         then the eviction RPCs dispatch in worker-sized chunks with a single
         batched Evict event emission per chunk.  Per-RPC failure keeps
-        ``do_evict``'s exact semantics: restore RUNNING locally.  Returns the input tasks
+        ``do_evict``'s exact semantics: resync the pod from the system of
+        record, else restore RUNNING locally.  Returns the input tasks
         that were found in the cache (RPC failures self-repair async, as the
         reference's fire-and-forget eviction goroutines do)."""
         found = []
@@ -839,6 +1047,7 @@ class SchedulerCache(Cache):
                     if task.uid in node.tasks:
                         node.update_task(task)
                         self._mark_dirty("node", (task.node_name,))
+        obs.evictions_committed(len(found))
         if not found:
             return []
         chunk = max(16, min(self._BIND_CHUNK, -(-len(found) // self._IO_WORKERS)))
@@ -856,6 +1065,8 @@ class SchedulerCache(Cache):
                     self.evictor.evict(task.pod)
                 except Exception:
                     logger.exception("evict of %s failed; resyncing", task.uid)
+                    if self._sync_pod_via_client(task.namespace, task.name):
+                        continue
                     with self.mutex:
                         try:
                             job2, task2 = self._find_job_and_task(ti)
@@ -889,12 +1100,15 @@ class SchedulerCache(Cache):
                 if task.uid in node.tasks:
                     node.update_task(task)
                     self._mark_dirty("node", (task.node_name,))
+        obs.evictions_committed(1)
 
         def do_evict() -> None:
             try:
                 self.evictor.evict(task.pod)
             except Exception:
                 logger.exception("evict of %s failed; resyncing", task.uid)
+                if self._sync_pod_via_client(task.namespace, task.name):
+                    return
                 with self.mutex:
                     try:
                         job2, task2 = self._find_job_and_task(ti)
@@ -987,4 +1201,3 @@ class SchedulerCache(Cache):
 
     def bind_volumes(self, task: TaskInfo) -> None:
         self.volume_binder.bind_volumes(task)
-

@@ -59,6 +59,10 @@ class Binder(abc.ABC):
         columnar path."""
         self.bind_bulk(list(zip(pods, hostnames)))
 
+    def close(self) -> None:
+        """The cache is stopping: a bind that waits on an answer gives up
+        (the wire binders resend an unanswered bind until then)."""
+
 
 class Evictor(abc.ABC):
     @abc.abstractmethod

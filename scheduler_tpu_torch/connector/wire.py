@@ -1,6 +1,5 @@
-"""Wire codecs: the JSON object schemas of the cluster-state file (the
-parsing half of the JAX package's connector codecs; the connector itself is
-not part of this package).
+"""Wire codecs: the JSON object schemas shared by the cluster-state file, the
+API-server connector, and the mock server.
 
 TWO dialects, one parser surface:
 
@@ -232,6 +231,49 @@ def parse_affinity(a: Optional[Dict]) -> Optional[Affinity]:
     )
 
 
+def encode_affinity(a: Optional[Affinity]) -> Optional[Dict]:
+    """Inverse of ``parse_affinity`` (used by workload drivers and tests)."""
+    if a is None:
+        return None
+    return {
+        "nodeAffinity": {
+            "required": [
+                [{"key": r.key, "operator": r.operator, "values": list(r.values)}
+                 for r in group]
+                for group in a.node_required
+            ],
+            "preferred": [
+                {"weight": w,
+                 "terms": [{"key": r.key, "operator": r.operator, "values": list(r.values)}
+                           for r in reqs]}
+                for w, reqs in a.node_preferred
+            ],
+        },
+        "podAffinity": [
+            {"labelSelector": dict(t.label_selector), "topologyKey": t.topology_key,
+             "namespaces": list(t.namespaces)}
+            for t in a.pod_affinity
+        ],
+        "podAntiAffinity": [
+            {"labelSelector": dict(t.label_selector), "topologyKey": t.topology_key,
+             "namespaces": list(t.namespaces)}
+            for t in a.pod_anti_affinity
+        ],
+        "podPreferred": [
+            {"weight": w,
+             "term": {"labelSelector": dict(t.label_selector),
+                      "topologyKey": t.topology_key, "namespaces": list(t.namespaces)}}
+            for w, t in a.pod_preferred
+        ],
+        "podAntiPreferred": [
+            {"weight": w,
+             "term": {"labelSelector": dict(t.label_selector),
+                      "topologyKey": t.topology_key, "namespaces": list(t.namespaces)}}
+            for w, t in a.pod_anti_preferred
+        ],
+    }
+
+
 def _parse_pg_condition(c: Dict):
     """One wire PodGroup condition.  Fidelity matters: the scheduler's OWN
     status pushes echo back through the watch stream, and a lossy parse
@@ -458,6 +500,72 @@ def parse_pod(p: Dict, default_scheduler: str = "volcano") -> PodSpec:
     return pod
 
 
+# -- k8s LIST+WATCH wire tables (inbound reflector protocol) ------------------
+
+# The CRD group the reference registers its PodGroup/Queue types under
+# (pkg/apis/scheduling/v1alpha1/register.go:32).  Outbound status PATCHes
+# (client.py) and the inbound reflector (reflector.py) MUST speak the same
+# group — one resource, one API path.
+CRD_PREFIX = "/apis/scheduling.incubator.k8s.io/v1alpha1"
+
+# Collection path + item Kind per cache kind, in the dependency order the
+# initial sync seeds them (queues/priority classes before groups before pods,
+# matching the journal protocol's list_and_seed order).  These paths are the
+# LIST endpoints (``GET {path}``) and, with ``?watch=1&resourceVersion=RV``,
+# the WATCH streams — exactly client-go's per-resource reflector surface
+# (reference cache/cache.go:256-336 builds one informer per type).
+LIST_RESOURCES = (
+    ("queue", CRD_PREFIX + "/queues", "Queue"),
+    ("priorityclass", "/apis/scheduling.k8s.io/v1/priorityclasses",
+     "PriorityClass"),
+    ("node", "/api/v1/nodes", "Node"),
+    ("podgroup", CRD_PREFIX + "/podgroups", "PodGroup"),
+    ("pod", "/api/v1/pods", "Pod"),
+)
+
+# k8s watch-event types -> the cache's event-handler ops.  BOOKMARK and ERROR
+# are protocol-level (cursor advance / stream status) and deliberately absent:
+# they never reach the cache.
+WATCH_OPS = {"ADDED": "add", "MODIFIED": "update", "DELETED": "delete"}
+
+
+def object_path(kind: str, key: str) -> str:
+    """Single-object GET path for the k8s wire (the syncTask re-fetch shape):
+    namespaced kinds take ``ns/name`` keys, cluster-scoped kinds bare names."""
+    if kind == "pod":
+        ns, name = key.split("/", 1)
+        return f"/api/v1/namespaces/{ns}/pods/{name}"
+    if kind == "podgroup":
+        ns, name = key.split("/", 1)
+        return f"{CRD_PREFIX}/namespaces/{ns}/podgroups/{name}"
+    if kind == "node":
+        return f"/api/v1/nodes/{key}"
+    if kind == "queue":
+        return f"{CRD_PREFIX}/queues/{key}"
+    if kind == "priorityclass":
+        return f"/apis/scheduling.k8s.io/v1/priorityclasses/{key}"
+    raise ValueError(f"unknown kind {kind!r}")
+
+
+def obj_rv(obj: Dict) -> Optional[int]:
+    """The wire resourceVersion of an object, in either dialect — the cursor
+    the reflector advances on every applied event and bookmark.  Like
+    ``pod_uid`` above, this is THE one identity-adjacent rule both the client
+    and the servers must share: a server stamping RVs where the client does
+    not look would freeze the cursor and replay the whole stream after every
+    reconnect.  k8s envelope: ``metadata.resourceVersion``; compact dialect:
+    top-level ``resourceVersion``.  Absent or malformed == None (the caller
+    keeps its cursor)."""
+    meta = obj.get("metadata")
+    raw = (meta if isinstance(meta, dict) else obj).get("resourceVersion")
+    if raw is None:
+        return None
+    try:
+        return int(raw)
+    except (TypeError, ValueError):
+        return None
+
+
 def pod_key(obj: Dict) -> str:
     meta = obj.get("metadata")
     if isinstance(meta, dict):
@@ -466,8 +574,18 @@ def pod_key(obj: Dict) -> str:
 
 
 def pod_uid(obj: Dict) -> str:
-    """The wire identity of a pod: the server's uid, else namespace/name."""
+    """The wire identity rule, shared by ``parse_pod`` and the relist diff —
+    the two MUST agree or a relist would prune live pods as ghosts."""
     meta = obj.get("metadata")
     if isinstance(meta, dict):
         return meta["uid"] if meta.get("uid") else pod_key(obj)
     return obj["uid"] if obj.get("uid") else pod_key(obj)
+
+
+def obj_name(obj: Dict) -> str:
+    """Name of a wire object in either dialect (nodes/queues/priority
+    classes key on bare names)."""
+    meta = obj.get("metadata")
+    if isinstance(meta, dict):
+        return meta["name"]
+    return obj["name"]

@@ -135,9 +135,9 @@ def _seed_objects(cfg: BackfillWaveConfig) -> Dict[str, Dict[str, dict]]:
 
 def seed_wave_cache(cfg: BackfillWaveConfig, vocab=None):
     """The cluster and the wave straight into a SchedulerCache (no wire),
-    through the wire parsers (``harness/wire.py``)."""
+    through the wire parsers (``connector/wire.py``)."""
     from scheduler_tpu_torch.cache.cache import SchedulerCache
-    from scheduler_tpu_torch.harness.wire import (
+    from scheduler_tpu_torch.connector.wire import (
         parse_node, parse_pod, parse_pod_group, parse_queue,
     )
 

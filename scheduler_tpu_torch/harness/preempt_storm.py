@@ -209,9 +209,9 @@ def _seed_objects(cfg: PreemptStormConfig) -> Dict[str, Dict[str, dict]]:
 
 def seed_saturated_cache(cfg: PreemptStormConfig, vocab=None):
     """The saturated cluster straight into a SchedulerCache (no wire),
-    through the wire parsers (``harness/wire.py``)."""
+    through the wire parsers (``connector/wire.py``)."""
     from scheduler_tpu_torch.cache.cache import SchedulerCache
-    from scheduler_tpu_torch.harness.wire import (
+    from scheduler_tpu_torch.connector.wire import (
         parse_node, parse_pod, parse_pod_group, parse_queue,
     )
 
@@ -231,9 +231,9 @@ def seed_saturated_cache(cfg: PreemptStormConfig, vocab=None):
 def add_storm(cache, cfg: PreemptStormConfig, tag: str = "storm",
               count: Optional[int] = None) -> int:
     """Add ``make_storm(cfg, tag, count)``'s arrivals to ``cache`` as
-    pending pods (through ``harness/wire.py::parse_pod``), in arrival
+    pending pods (through ``connector/wire.py::parse_pod``), in arrival
     order; returns how many."""
-    from scheduler_tpu_torch.harness.wire import parse_pod
+    from scheduler_tpu_torch.connector.wire import parse_pod
 
     events = make_storm(cfg, tag, count)
     for ev in events:

@@ -247,6 +247,43 @@ def make_kubemark_density_cluster(n_nodes: int, n_pods: int, seed: int = 0) -> S
     )
 
 
+def kubemark_density_documents(n_nodes: int, n_pods: int, seed: int = 0) -> Dict[str, list]:
+    """``make_kubemark_density_cluster``'s cluster as ``kubectl``-shaped API
+    documents (``{"queues", "nodes", "podGroups", "pods"}``, the schema of
+    ``cli.load_cluster_state``), for a mock API server: the same nodes,
+    bare pods, requests (the same draws from the seed), selectors and pod
+    creation times.  The shadow PodGroups are the cache's to make."""
+    import datetime
+
+    import numpy as np
+
+    def stamp(ts: float) -> str:
+        return datetime.datetime.fromtimestamp(ts, datetime.timezone.utc).strftime(
+            "%Y-%m-%dT%H:%M:%S.%fZ")
+
+    rng = np.random.default_rng(seed)
+    queues = [{"apiVersion": "scheduling.incubator.k8s.io/v1alpha1", "kind": "Queue",
+               "metadata": {"name": "default"}, "spec": {"weight": 1}}]
+    nodes = [{"apiVersion": "v1", "kind": "Node",
+              "metadata": {"name": f"hollow-{i:05d}", "labels": {"zone": f"z{i % 4}"}},
+              "status": {"allocatable": {"cpu": "16", "memory": "64Gi", "pods": "110"}}}
+             for i in range(n_nodes)]
+    pods = []
+    for t in range(n_pods):
+        cpu = int(rng.choice([100, 200, 500]))
+        mem = int(rng.choice([1, 2]))
+        spec = {"schedulerName": "volcano", "containers": [
+            {"name": "sleep", "resources": {"requests": {"cpu": f"{cpu}m",
+                                                         "memory": f"{mem}Gi"}}}]}
+        if t % 2 == 0:
+            spec["nodeSelector"] = {"zone": f"z{t % 4}"}
+        pods.append({"apiVersion": "v1", "kind": "Pod",
+                     "metadata": {"name": f"sleep-{t:05d}", "namespace": "d",
+                                  "creationTimestamp": stamp(KUBEMARK_TS0 + t * 1e-6)},
+                     "spec": spec, "status": {"phase": "Pending"}})
+    return {"queues": queues, "nodes": nodes, "podGroups": [], "pods": pods}
+
+
 GPU = "nvidia.com/gpu"
 
 

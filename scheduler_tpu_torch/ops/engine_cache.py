@@ -47,6 +47,12 @@ _ENV_KEYS = (
     "SCHEDULER_TORCH_QFAIR_ITERS",
     "SCHEDULER_TORCH_QUEUE_DELTA",
     "SCHEDULER_TORCH_DIRTY_DELTA",
+    # The inbound wire (connector/client.py ``wire_from_env``): never read
+    # by a build, but a resident engine stays pinned to the ingestion
+    # protocol it served, as in the JAX package: the journal and k8s wires
+    # are bind-identical, and a flip mid-process must not hide a violation
+    # of that behind a warm engine.
+    "SCHEDULER_TORCH_WIRE",
 )
 
 # Resident engines (each holds a whole host layout and its device tensors;

@@ -1,4 +1,5 @@
-"""Hardened environment-flag parsing (``PANIC_ON_ERROR``).
+"""Hardened environment-flag parsing (``PANIC_ON_ERROR``, the
+``SCHEDULER_TORCH_*`` flags).
 
 A malformed flag value must not crash a scheduling cycle: an operator typo
 in a deployment manifest degrades to the default instead.  This module is
@@ -14,6 +15,7 @@ returns the DEFAULT instead of silently counting as "on".
 from __future__ import annotations
 
 import logging
+import math
 import os
 from typing import Optional
 
@@ -78,6 +80,38 @@ def env_int(
     return val
 
 
+def env_float(
+    name: str,
+    default: float,
+    *,
+    minimum: Optional[float] = None,
+    maximum: Optional[float] = None,
+) -> float:
+    """Float env flag (rate limits, intervals): malformed values warn and
+    yield ``default``; ``minimum``/``maximum`` clamp silently, like
+    ``env_int``.  Non-finite values (nan/inf parse as floats) count as
+    malformed: a rate limiter fed ``inf`` must degrade to the default, not
+    divide by it."""
+    raw = os.environ.get(name)
+    if raw is None:
+        val = default
+    else:
+        try:
+            val = float(raw.strip())
+        except (ValueError, AttributeError):
+            _warn_once(name, raw, default)
+            val = default
+        else:
+            if not math.isfinite(val):
+                _warn_once(name, raw, default)
+                val = default
+    if minimum is not None and val < minimum:
+        val = minimum
+    if maximum is not None and val > maximum:
+        val = maximum
+    return val
+
+
 def env_str(name: str, default: str, choices: Optional[tuple] = None) -> str:
     """String env flag with an optional closed choice set (warn + default on
     anything outside it)."""
@@ -89,3 +123,13 @@ def env_str(name: str, default: str, choices: Optional[tuple] = None) -> str:
         _warn_once(name, raw, default)
         return default
     return v
+
+
+def env_path(name: str, default: str = "") -> str:
+    """Filesystem-path env flag (trace and profile directories): unlike
+    ``env_str`` it keeps the case and only strips whitespace.  A bad path
+    surfaces at the first write, where the consumer degrades and logs."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.strip()

@@ -1,70 +1,58 @@
 """Per-cycle phase accounting: named wall-clock blocks and notes.
 
 A measurement protocol calls ``begin()``, runs a cycle, and reads the
-``{phase: seconds}`` map from ``end()`` and the non-time annotations from
-``take_notes()``.  Outside ``begin()``/``end()`` every call is a no-op.  The
-JAX package routes the same API into its flight recorder; this package keeps
-only the accounting.  Not thread-safe: cycles are single-threaded.
+non-time annotations from ``take_notes()`` and the ``{phase: seconds}`` map
+from ``end()``.  Outside a record every call is a no-op.  This is the
+measurement frontend of the flight recorder (``utils/obs.py``): the
+scheduler loop opens a record for every cycle, and a cycle run inside a
+record the protocol opened records into it.  Not thread-safe: cycles are
+single-threaded.
 """
 
 from __future__ import annotations
 
-import contextlib
-import time
-from typing import Dict, Optional
+from typing import Dict
 
-_phases: Optional[Dict[str, float]] = None
-_notes: Dict[str, object] = {}
+from scheduler_tpu_torch.utils import obs
 
 
 def begin() -> None:
     """Start collecting phases for one cycle."""
-    global _phases
-    _phases = {}
-    _notes.clear()
+    obs.begin()
 
 
 def end() -> Dict[str, float]:
-    """Stop collecting; return {phase: seconds} accumulated since begin()."""
-    global _phases
-    out, _phases = _phases or {}, None
-    return out
+    """Stop collecting; return {phase: seconds} accumulated since begin().
+    The closed record also lands in the flight-recorder ring
+    (``/debug/cycles``) unless ``SCHEDULER_TORCH_OBS=0``."""
+    return obs.end()
 
 
 def take_notes() -> Dict[str, object]:
     """Non-time annotations recorded during the cycle.  Read before ``end()``."""
-    out = dict(_notes)
-    _notes.clear()
-    return out
+    return obs.take_notes()
 
 
 def active() -> bool:
     """True between ``begin()`` and ``end()``."""
-    return _phases is not None
+    return obs.active()
 
 
 def get_note(name: str):
     """The note ``name`` recorded so far in this cycle (None if none),
     without taking the notes."""
-    return _notes.get(name)
+    return obs.get_note(name)
 
 
 def add(name: str, secs: float) -> None:
-    if _phases is not None:
-        _phases[name] = _phases.get(name, 0.0) + secs
+    obs.add(name, secs)
 
 
 def note(name: str, value) -> None:
     """Attach a non-time annotation to the cycle being measured."""
-    if _phases is not None:
-        _notes[name] = value
+    obs.note(name, value)
 
 
-@contextlib.contextmanager
-def phase(name: str):
-    """Time one named block into the cycle record."""
-    start = time.perf_counter()
-    try:
-        yield
-    finally:
-        add(name, time.perf_counter() - start)
+# Time one named block into the cycle record; also a trace span when
+# SCHEDULER_TORCH_TRACE armed the cycle (utils/trace.py).
+phase = obs.phase

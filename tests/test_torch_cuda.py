@@ -30,7 +30,8 @@ CPU).  The two batched engines, the eviction hunt
 (``SCHEDULER_TORCH_EVICT=device``) on storms and backfill's class engine
 (``SCHEDULER_TORCH_BACKFILL=device``) on small waves, on the card equal to
 their CPU runs and to the host flavors; K3 on a wave's class rows bitwise
-its plain version.
+its plain version.  The daemon over the wire on a small config-2 cluster:
+K3 and K2 launched, binds equal to ``Scheduler.run_once``'s.
 """
 
 import numpy as np
@@ -1215,3 +1216,17 @@ def test_backfill_class_rows_bitwise(tmp_path):
         close_session(ssn)
     assert rows[None].shape == (rep_rows.shape[0], 128)
     np.testing.assert_array_equal(rows[None], rows["cpu"])
+
+
+@pytest.mark.cuda
+def test_daemon_over_the_wire_binds_as_run_once(tmp_path):
+    """The port's daemon (``cli.main`` with ``--api-server``, on the card)
+    over its mock API server on a small config-2 cluster: every pod bound,
+    K3 and K2 launched, the binds those of ``Scheduler.run_once`` on the
+    same documents preloaded in this process (``chip_smoke.daemon_config2``,
+    path q at 64 nodes x 600 pods)."""
+    _card()
+    rec = smoke.daemon_config2(64, 600, str(tmp_path), limit_s=120)
+    assert rec["launches"]["static_predicate_mask"] >= 1
+    assert rec["launches"]["mega_allocate"] >= 1
+    assert rec["binds"] == 600 and rec["equal_to_twin"]
