@@ -8,14 +8,17 @@ the CUDA toolkit:
 
 What it does, one JSON line per phase:
 
-1. device: the card, the CUDA version, and the one build of every kernel of
-   the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per thread).
-2. main_path, eighteen times, each on a freshly built cluster that no
+1. device: the card, the CUDA version, the one build of every kernel of
+   the port from ``scheduler_tpu_torch/csrc`` (seconds, registers per
+   thread), and the host commit's C++ library
+   (``scheduler_tpu_torch/native``, built with ``$CXX``), which must build
+   and load.
+2. main_path, on paths a to r', each on a freshly built cluster that no
    other session has touched, through ``Scheduler.run_once`` on the card,
    with every kernel's launch count set to 0 just before and read just
-   after: a to k and n to p a cold cycle each (a scheduler's first cycle
-   after start-up), l and m the cycles after it (the engine resident across
-   cycles):
+   after: a to k, n to p and r, r' a cold cycle each (a scheduler's first
+   cycle after start-up), l and m the cycles after it (the engine resident
+   across cycles), q and q' the daemon's:
    a. BASELINE config 2, the kubemark density scenario (priority, gang, drf,
       predicates, nodeorder; 1,000 nodes x 5,000 bare pods, half of them
       selecting a zone): ``static_predicate_mask`` builds the selector mask
@@ -96,8 +99,9 @@ What it does, one JSON line per phase:
       card: equal codes.  At 0.1 scale its fused route and host loop are
       compared and the binds that differ counted (the JAX package's fused
       route and host loop disagree on such sessions too).
-   k. config 4's aftermath whose 50,000 thin pods ask 5,000 distinct
-      requests (``RECLAIM_THIN_REQUESTS``): the mega gate closes and the
+   k. config 4's aftermath at half scale (``RECLAIM_TEMPLATES_SCALE``: 500
+      nodes) whose 25,000 thin pods ask 5,000 distinct requests
+      (``RECLAIM_THIN_REQUESTS``): the mega gate closes and the
       loop runs its releasing arm on the XLA step arm (``xla_step``).
       Checks as for h, one ``xla_step`` launch a step, the replays as for
       i; later the codes bitwise the CPU loop's, and
@@ -112,7 +116,10 @@ What it does, one JSON line per phase:
       100,000 pods in whole gangs, and its bind map's digest is b's; each
       churn cycle rebuilds with one K2 launch; no node overcommitted.
       Prints the steady cycle's phases, uploads and K2's events ms, and
-      the churn cycles' p50 and p99 seconds.
+      the churn cycles' p50 and p99 seconds.  Then the steady hit again on
+      a fresh cluster with ``SCHEDULER_TORCH_NATIVE=0`` (the numpy halves of
+      the host commit): the same binds, its ``apply`` beside the native
+      run's (``native_ab``).
    m. the JAX default conf's loop: six cycles of ``Scheduler.run_once``
       with no conf (enqueue, allocate, backfill over the default tiers) on
       config 2's cluster plus 1,000 BestEffort pods and a backlog of gangs
@@ -147,8 +154,10 @@ What it does, one JSON line per phase:
       Prints the same split as n, and replays and times its first
       ``SCAN_CHECK_POPS`` pops the same way (one-task pops: the small-n
       plan, one CTA on the global arm).
-   o. BASELINE config 4 before its reclaim (``harness.make_reclaim_cluster``)
-      through ``reclaim, allocate`` over priority, gang, proportion.
+   o. BASELINE config 4 before its reclaim (``harness.make_reclaim_cluster``,
+      at half scale, ``RECLAIM_O_SCALE``: 500 nodes, 12,500
+      running fat pods, 25,000 pending thin ones) through ``reclaim,
+      allocate`` over priority, gang, proportion.
       Checks: evictions only from the queue overused when reclaim began, no
       gang below its floor, on every node the pipelined requests within its
       victims' (``reclaim_invariants``), allocate's one ``mega_allocate``
@@ -156,19 +165,20 @@ What it does, one JSON line per phase:
       same cycle on the CPU (a child beside the untimed phases).
    o'. o's cluster built anew, with ``SCHEDULER_TORCH_EVICT=device``: the
       eviction engine (``ops/evict.py::EvictEngine``) plans every hunt
-      (1,000 evictions) and the action replays the plans; then K2 as in o.
+      (about 500 evictions) and the action replays the plans; then K2 as in o.
       Checks: the engine engaged, o's checks, the evictions in order, binds
       and statuses equal to o's; prints ``action:reclaim`` beside o's and
       the engine's phase split (score, mask, plan, replay).  It runs in o's
       twin, after the go, beside the untimed phases.
-   p. the backfill wave (``harness.backfill_wave.BackfillWaveConfig()``:
-      2,048 nodes of pod limit 22 with 14 running pods each, 20,000
-      BestEffort pods, every third one zone-pinned, seed 0) through
+   p. the backfill wave (``harness.backfill_wave.BackfillWaveConfig()`` at
+      half its size, ``BACKFILL_WAVE``: 1,024 nodes of pod limit 22 with 14
+      running pods each, 10,000 BestEffort pods, every third one
+      zone-pinned, seed 0) through
       backfill over the predicates plugin with
       ``SCHEDULER_TORCH_BACKFILL=device``: K3 builds the class rows of the
       engine (``ops/backfill.py::BackfillEngine``), which fills the runs
-      and replays them.  Checks: engaged on 5 classes, 16,384 binds, no
-      node past its pod limit, every pinned pod in its zone, 3,616 pods
+      and replays them.  Checks: engaged on 5 classes, 8,192 binds, no
+      node past its pod limit, every pinned pod in its zone, 1,808 pods
       left pending with a FitErrors each, one K3 launch; K3 on the wave's
       signature operands against its plain version (timed); the two
       flavors on an eighth of the wave (256 nodes, 2,500 pods) on the card:
@@ -199,6 +209,31 @@ What it does, one JSON line per phase:
       engine cache's outcomes and the dirty counts.  q and q' run in one
       child (``--child daemon_wire``) started after ``e2e_small``, beside
       the kernel cases and the checks.
+   r. the flagship under the LP flavor: b's cluster and conf with
+      ``SCHEDULER_TORCH_ALLOCATOR=lp`` and signature classes (the default
+      ``auto``): ``lp_relax`` iterates over the class rows, then the repair,
+      the ``fused_allocate`` loop on its XLA step arm with the marginals as
+      its static score, one ``xla_step`` launch a step.  Checks: one
+      ``lp_relax`` launch, classes engaged (their count printed), no node
+      overcommitted, every gang whole or unbound, binds at least (1 -
+      ``LP_BIND_TOLERANCE``) x b's, the ``lp`` quality block printed; the
+      kernel on r's own operands against its plain version (the
+      marginals within ``LP_KERNEL_RTOL`` of the plain version's plus
+      ``LP_KERNEL_ATOL``; pref and evidence equal; two launches bitwise;
+      all-zero marginals fail the same check), timed beside
+      ``torch.matmul`` for the load product.
+   r'. config 2 under the LP flavor task by task (a's cluster and conf,
+      ``SCHEDULER_TORCH_SIG_COMPRESS=off``: [8,192 x 1,024] rows, K3's
+      mask rows as the static mask).  Checks: a's, binds at least (1 -
+      ``LP_BIND_TOLERANCE``) x a's, K3 launched, two cycles on twin
+      clusters give the same codes; the kernel on r''s operands as for r.
+      On r and r' no node's load passes its capacity, so the projection
+      never binds (``converged_at`` 0); the kernel is therefore also held
+      to its plain version on ``lp_operands`` at r''s shape and capacity
+      columns with requests of twice the cluster (``LP_TIGHT_SEED``): the
+      projection must bind there, and the first iteration's marginals (no
+      projection) must fail the check.
+      r and r' run in one child (``--child lp_paths``) after the storms.
    Each prints the phase seconds and the engine's time from CUDA events
    (the kernel's; for i and k the ``xla_step`` launches summed, and per
    step, beside the host time of the arm's C calls);
@@ -230,7 +265,11 @@ What it does, one JSON line per phase:
    gate), the one-queue mid-evict session and config 4's aftermath at 2 %,
    and the operands of the main paths a to f and h that run it at full
    size from second clusters built the same way (timed: profiler device
-   time and events, µs a step, the launch plan).
+   time and events, µs a step, the launch plan; their plain
+   versions run on third clusters built the same way in a child,
+   ``--child full_size_plain``, which builds them beside the timed phases
+   and runs the plain K2 after the script's go, and the timed kernel's
+   stats must equal its twin's).
    Path g's operands (100 queues of 500 job lanes): the ladder against the
    delta chain on the same operands, equal codes, each timed three times in
    turns; and against its plain version on the same operands (timed; its
@@ -270,7 +309,8 @@ Then the ``kernels`` line (with each kernel's launches on every path that
 runs it, l's to p's included; ``place_scan``'s entry below the TPU
 kernels' from paths n and n', with its launch plan; ``xla_step``'s from
 paths i and k and the planted cases; ``qfair_solve``'s with its chain
-floor), the card's name and power
+floor; ``lp_relax``'s from paths r' and r, a solve and a kernel launch),
+the card's name and power
 limit as nvidia-smi prints them, and as the last line ``{"ok": true,
 "device": {...}}``.  Any
 failure exits non-zero; with no CUDA device, or without the port beside
@@ -374,6 +414,15 @@ TIERS_TEMPLATES_TWIN = (100, 5000, 2)
 MQ_TEMPLATES_TWIN = (1000, 5000, 2)
 # Path k: config 4's aftermath with 5,000 distinct thin requests.
 RECLAIM_THIN_REQUESTS = 5000
+# Path k at half config 4's scale (500 nodes, 25,000 pending thin pods of
+# the 5,000 requests), with its CPU and host-loop twins: the host loop's twin
+# bounded the script's time.
+RECLAIM_TEMPLATES_SCALE = 0.5
+# Paths o and o' (and o's CPU twin) at half config 4's scale: 500 nodes,
+# 12,500 running fat pods, 25,000 pending thin pods, about 500 evictions.
+RECLAIM_O_SCALE = 0.5
+# Path p at half the JAX bench's wave: 1,024 nodes, 10,000 BestEffort pods.
+BACKFILL_WAVE = {"nodes": 1024, "wave_pods": 10_000}
 
 # BASELINE config 4 after its reclaim (``harness.make_reclaim_aftermath_cluster``):
 # the next cycle's allocate over config 4's plugins.
@@ -396,6 +445,9 @@ RECLAIM_ALLOCATE_CONF = RECLAIM_CONF.replace('actions: "allocate"',
 PRODUCTION_CONF = os.path.join("deploy", "scheduler-conf.yaml")
 # Path n's first pops whose operands hold place_scan to its plain version.
 SCAN_CHECK_POPS = 64
+# The LP flavor's quality gate: its binds at least (1 - this) x greedy's
+# (``scripts/bench_gate.py`` LP_BIND_TOLERANCE, docs/LP_PLACEMENT.md).
+LP_BIND_TOLERANCE = 0.02
 
 # tests/test_evict_parity.py's storm clusters (seed, queues) through its
 # full conf's tiers, reclaim then preempt: the preempt phase.
@@ -440,14 +492,28 @@ tiers:
 """
 
 # Config 2's plugins with the memory-pressure gate on.
+# tests/test_lp_place.py's STATIC_CONF: the predicates' static rows under
+# nodeorder, no proportion.
+PREDICATES_LP_CONF = """
+actions: "allocate"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: predicates
+  - name: nodeorder
+"""
 PRESSURE_CONF = CONFIG2_CONF.replace(
     "  - name: predicates\n",
     "  - name: predicates\n    arguments:\n      predicate.MemoryPressureEnable: \"true\"\n",
 )
 
 
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+def emit(obj, stamp=True) -> None:
+    """One JSON line of the script's output, stamped with the wall clock
+    (``time``, seconds since the epoch: the children's lines share it) but
+    the contract's ``kernels`` and last lines."""
+    print(json.dumps(dict(obj, time=round(time.time(), 3)) if stamp else obj), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -592,6 +658,124 @@ def step_operands(seed, n, r_dim, *, infeasible=False, ties=False, exact=False):
     smask = (rng.random((1, n)) < 0.8) | ties
     sscore = (rng.integers(0, 5, (1, n)) * (0 if ties else 1)).astype(np.float32)
     return [ns, alloc, smask, sscore, gate, plim, initq, req, mins]
+
+
+def lp_operands(seed, rows, n, r_dim=2, *, pod_count=True, static=True, classes=False,
+                tight=True):
+    """The LP relaxation's session operands (``ops/lp_place.py::lp_relax``),
+    as numpy arrays drawn from ``numpy.random.default_rng(seed)`` in the
+    device units: ``rows`` request rows over ``n`` nodes (a tenth of the
+    nodes gated off, pod limits against task counts, static mask rows with
+    a few all-infeasible rows and static scores), ``r_dim`` resource dims.
+    With ``tight`` the requests ask about twice what the cluster holds, so
+    the projection scales nodes down.  With ``classes`` the rows are
+    signature classes and ``class_count`` (f32, the last eighth 0: pad
+    classes) weights their load.  Returns a dict of the keyword names of
+    ``lp_relax``'s operands."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alloc = np.zeros((n, r_dim), np.float32)
+    alloc[:, 0] = rng.choice([4000, 16000, 64000], n) - rng.integers(0, 1000, n)
+    alloc[:, 1] = rng.choice([8000, 64000, 262144], n) - rng.integers(0, 4000, n)
+    if r_dim > 2:
+        alloc[:, 2:] = rng.integers(0, 8, (n, r_dim - 2))
+    idle = (alloc * rng.random((n, r_dim))).astype(np.float32)
+    req = np.zeros((rows, r_dim), np.float32)
+    req[:, 0] = rng.integers(100, 3000, rows)
+    req[:, 1] = rng.integers(100, 9000, rows)
+    if r_dim > 2:
+        req[:, 2:] = rng.integers(0, 2, (rows, r_dim - 2))
+    count = None
+    if classes:
+        count = rng.integers(1, 400, rows).astype(np.float32)
+        count[rows - rows // 8:] = 0.0
+    if tight:
+        # Scale the requests (to at most half the largest idle cpu a node
+        # has) and then the class counts so that the rows ask about twice
+        # the cluster's idle cpu.
+        mult = count if count is not None else np.ones(rows, np.float32)
+        goal = 2.0 * float(idle[:, 0].sum())
+        factor = min(goal / max(float(mult @ req[:, 0]), 1.0),
+                     0.5 * float(idle[:, 0].max()) / float(req[:, 0].max()))
+        req[:, :2] = np.floor(req[:, :2] * np.float32(factor)) + 1.0
+        if count is not None:
+            count[count > 0] = np.ceil(
+                count[count > 0] * max(goal / float(count @ req[:, 0]), 1.0))
+    mask = rng.random((rows, n)) < 0.85
+    mask[rng.random(rows) < 0.05] = False
+    return dict(
+        idle=idle, allocatable=alloc,
+        task_count=rng.integers(0, 30, n).astype(np.int32),
+        pods_limit=rng.integers(20, 40, n).astype(np.int32),
+        node_gate=rng.random(n) < 0.9,
+        static_mask=mask if static else np.ones((1, n), bool),
+        static_score=(rng.integers(0, 5, (rows, n)).astype(np.float32) if static
+                      else np.zeros((1, n), np.float32)),
+        mins=np.asarray([10.0, 10.0] + [0.1] * (r_dim - 2), np.float32),
+        init_resreq=req.copy(), resreq=req, class_count=count,
+        flags=dict(weights=(1.0, 0.0, 2.0), enforce_pod_count=pod_count, use_static=static),
+    )
+
+
+def lp_iterate_operands(ops, device, tau=0.25):
+    """``(logits, cap, req_aug)`` of ``lp_operands`` on ``device``: the
+    iteration's operands as ``lp_relax`` builds them."""
+    import torch
+
+    from scheduler_tpu_torch.ops import lp_place
+
+    t = {k: torch.as_tensor(v, device=device) for k, v in ops.items()
+         if k not in ("flags", "class_count")}
+    flags = ops["flags"]
+    logits, _ = lp_place.logits_and_feasibility(
+        t["idle"], t["allocatable"], t["task_count"], t["pods_limit"], t["node_gate"],
+        t["static_mask"], t["static_score"], t["mins"], t["init_resreq"], t["resreq"],
+        tau=tau, **flags)
+    cap, req_aug = lp_place.capacity(t["idle"], t["task_count"], t["pods_limit"], t["resreq"],
+                                     flags["enforce_pod_count"])
+    if ops["class_count"] is not None:
+        req_aug = req_aug * torch.as_tensor(ops["class_count"], device=device)[:, None]
+    return logits, cap.contiguous(), req_aug.contiguous()
+
+
+# The lp_relax kernel against its plain version on the card: the row sums and
+# the load sums run in other orders (a block tree and chunks of rows in the
+# kernel, torch's reductions and matmul in the plain version), so a
+# projection differs in the last bits and 200 iterations carry them into
+# log_v, which scales a marginal: the error is relative.  A marginal may be
+# as small as 1 / nodes (10,000 equal nodes give 1e-4), so the limit is
+# relative, with an absolute floor far under any marginal that counts.
+# pref and the evidence row are equal.
+LP_KERNEL_RTOL = 1e-4
+LP_KERNEL_ATOL = 1e-8
+
+# The seed of the tight operands at r''s shape (``lp_operands``).
+LP_TIGHT_SEED = 16
+
+
+def lp_marginal_errors(x, ref) -> dict:
+    """The kernel's marginals ``x`` against the plain version's ``ref``: the
+    largest absolute error and the largest error over its limit
+    (``over_tol``, passing at most 1: |x - ref| <= LP_KERNEL_RTOL * |ref| +
+    LP_KERNEL_ATOL in every cell)."""
+    d = (x - ref).abs()
+    limit = LP_KERNEL_RTOL * ref.abs() + LP_KERNEL_ATOL
+    return {"max_abs_err": float(d.max()), "over_tol": float((d / limit).max())}
+
+# Kernel cases: (seed, rows, n, r_dim, classes, pod_count, static, tight, iters),
+# across the launch shape (one chunk and several, a node block and many,
+# every capacity column count up to r_dim 8 plus the pod count).
+LP_KERNEL_CASES = {
+    "one_row": (27, 1, 5, 2, False, True, True, True, 200),
+    "small": (1, 16, 64, 2, False, True, True, False, 200),
+    "chunks": (2, 600, 300, 2, False, True, True, True, 200),
+    "classes": (3, 40, 2000, 3, True, True, False, True, 200),
+    "wide": (4, 8, 20_000, 2, True, False, False, True, 200),
+    "dims9": (5, 64, 128, 8, False, True, True, True, 200),
+    "one_iteration": (6, 300, 257, 2, False, True, True, True, 1),
+    "two_iterations": (7, 300, 257, 4, True, True, True, True, 2),
+}
 
 
 def scan_operands(seed, n, t, r_dim=2, *, exact=False, score=True, infeasible=False,
@@ -1289,6 +1473,30 @@ def static_spec():
     return {"nodes": nodes, "groups": groups, "pods": pods}
 
 
+def lp_spec(n_nodes=8, node_cpu=4000, n_gangs=4, gang_size=5, req_cpu=900,
+            queues=("default",), unique_reqs=False, selectors=False, pods_cap=20):
+    """``tests/test_lp_place.py`` / ``tests/test_sig_compress.py``
+    ``_cluster``: ``n_nodes`` nodes of ``node_cpu`` millicores and 64 GiB,
+    ``n_gangs`` gangs of ``gang_size`` pods (minMember the gang size,
+    priority alternating 0 / 1) dealt round-robin to ``queues`` (weight the
+    length of the name).  ``unique_reqs`` gives every pod its own cpu
+    request; ``selectors`` labels the nodes with zones and pins odd gangs to
+    ``za``, even ones to ``zb``."""
+    nodes = [(f"n{i:02d}", {"cpu": float(node_cpu), "memory": 64 * GIB, "pods": pods_cap},
+              {"labels": {"zone": "za" if i % 2 else "zb"}} if selectors else {})
+             for i in range(n_nodes)]
+    groups, pods, flat = [], [], 0
+    for g in range(n_gangs):
+        groups.append((f"g{g}", gang_size, queues[g % len(queues)]))
+        for i in range(gang_size):
+            cpu = req_cpu + 10 * flat if unique_reqs else req_cpu
+            extra = {"node_selector": {"zone": "za" if g % 2 else "zb"}} if selectors else {}
+            pods.append((f"g{g}-{i}", f"g{g}", {"cpu": float(cpu), "memory": GIB}, g % 2, extra))
+            flat += 1
+    return {"queues": [(q, len(q)) for q in queues], "nodes": nodes, "groups": groups,
+            "pods": pods}
+
+
 def selector_bound_spec():
     """tests/test_megakernel.py:215-244: identical-request gangs, each
     selecting one of four zones, under nodeorder scoring: runs batch and the
@@ -1648,7 +1856,7 @@ def events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
 
-def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
+def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3, plain=True):
     """mega_allocate and its plain version on the same CUDA operands: codes
     and stats must be bitwise equal; the record carries the kernel's launch
     plan.  ``n_queues``: the queue count, as the engine passes it (multi-queue
@@ -1656,7 +1864,10 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
     profiler trace (``device_ms``, also ``ms``) beside CUDA events around
     ``repeats`` launches (``event_ms``), with ``us_per_step`` = ms /
     STATS.STEPS.  The plain version is timed with events (``plain_ms``),
-    and the record carries the run's bound (``mega_bound_ms``)."""
+    and the record carries the run's bound (``mega_bound_ms``).  Without
+    ``plain`` the plain version does not run here (the ``full_size_plain``
+    child holds the kernel to it on twin operands): the record has no
+    ``equal``, ``max_abs_err`` or ``plain_ms``."""
     import torch
 
     from scheduler_tpu_torch.ops import megakernel as mk
@@ -1664,25 +1875,27 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
     codes_k, stats_k = mk.mega_allocate(*args, n_queues=n_queues, **kw)
     torch.cuda.synchronize()
     start, stop = events()
-    start.record()
-    codes_r, stats_r = mk.mega_allocate_reference(*args, **kw)
-    stop.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(stop)
-    equal = bool(torch.equal(codes_k, codes_r) and torch.equal(stats_k, stats_r))
-    max_abs_err = int((codes_k.long() - codes_r.long()).abs().max()) if codes_k.numel() else 0
     rec = {
         "phase": "kernel_vs_plain", "kernel": "mega_allocate", "case": case,
-        "mode": mega_mode(kw), "equal": equal,
-        "max_abs_err": max_abs_err, "plain_ms": plain_ms,
+        "mode": mega_mode(kw),
         "placed": int((codes_k >= 0).sum()), "pipelined": int((codes_k <= -3).sum()),
-        "stats": stats_k.tolist(), "plain_stats": stats_r.tolist(),
+        "stats": stats_k.tolist(),
         "nb": int(args[0].shape[1]), "t_pad": int(codes_k.numel()),
         "static_rows": int(args[18].shape[0]) if kw["use_static"] else 0,
         "cohort": kw["cohort"], "score_bound": kw["score_bound"],
         "enforce_pod_count": kw["enforce_pod_count"],
         "plan": mk.plan_for(args, kw, n_queues).summary(),
     }
+    if plain:
+        start.record()
+        codes_r, stats_r = mk.mega_allocate_reference(*args, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        rec["equal"] = bool(torch.equal(codes_k, codes_r) and torch.equal(stats_k, stats_r))
+        rec["max_abs_err"] = (int((codes_k.long() - codes_r.long()).abs().max())
+                              if codes_k.numel() else 0)
+        rec["plain_ms"] = start.elapsed_time(stop)
+        rec["plain_stats"] = stats_r.tolist()
     rec["bound_ms"], rec["bound_by"] = mega_bound_ms(args, kw, codes_k, stats_k, n_real, n_queues)
     if timed:
         start.record()
@@ -1697,7 +1910,7 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3):
         rec["ms"] = rec["device_ms"] if rec["device_ms"] is not None else rec["event_ms"]
         rec["us_per_step"] = 1e3 * rec["ms"] / max(1, int(stats_k[0]))
     emit(rec)
-    if not equal:
+    if plain and not rec["equal"]:
         raise SystemExit(f"kernel and plain version disagree: {case}")
     return rec
 
@@ -2383,10 +2596,20 @@ def phase_device():
         elif "registers" in ln and entry is not None:
             by_entry[entry] = int(ln.split("Used")[1].split()[0])
             entry = None
+    # The host commit's C++ library (scheduler_tpu_torch/native), built
+    # with $CXX at first use: it must build and load (the flag is on).
+    from scheduler_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = {"path": native.build(), "loaded": native.available(), "enabled": native.enabled(),
+           "build_s": time.perf_counter() - t0}
+    if not (lib["loaded"] and lib["enabled"]):
+        raise SystemExit(f"the native library did not build and load: {lib}")
     emit({"phase": "device", "gpu": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "sources": info["sources"],
-          "build_s": info["seconds"], "ptxas": regs, "registers": by_entry})
+          "build_s": info["seconds"], "ptxas": regs, "registers": by_entry,
+          "native": lib})
 
 
 def reset_counts():
@@ -2396,11 +2619,13 @@ def reset_counts():
     from scheduler_tpu_torch.ops import qfair as qf
     from scheduler_tpu_torch.ops import step_kernel as sk
 
+    from scheduler_tpu_torch.ops import lp_place as lp
     from scheduler_tpu_torch.ops import place_scan_kernel as psk
     from scheduler_tpu_torch.ops import xla_step as xs
 
     for route in allocate.routes:
         allocate.routes[route] = 0
+    lp.launches = 0
     mk.launches = 0
     pk.launches = 0
     qf.launches = 0
@@ -2416,12 +2641,13 @@ def read_counts():
     from scheduler_tpu_torch.ops import qfair as qf
     from scheduler_tpu_torch.ops import step_kernel as sk
 
+    from scheduler_tpu_torch.ops import lp_place as lp
     from scheduler_tpu_torch.ops import place_scan_kernel as psk
     from scheduler_tpu_torch.ops import xla_step as xs
 
     return ({"mega_allocate": mk.launches, "static_predicate_mask": pk.launches,
              "placement_step": sk.launches, "qfair_solve": qf.launches,
-             "place_scan": psk.launches, "xla_step": xs.launches},
+             "place_scan": psk.launches, "xla_step": xs.launches, "lp_relax": lp.launches},
             dict(allocate.routes))
 
 
@@ -2476,6 +2702,10 @@ def run_cycle(cache, conf_path, engine="mega", after_action=None):
             raise SystemExit(f"the device route did not launch place_scan once a pop: "
                              f"{routes}, {launches}, {evidence}")
         return rec, launches
+    if engine == "lp" and not (launches["lp_relax"] == 1 and 0 < rec["steps"] == launches["xla_step"]
+                               and launches["mega_allocate"] == launches["placement_step"] == 0):
+        raise SystemExit(f"the LP flavor did not launch lp_relax once and xla_step once a "
+                         f"repair step: {launches}, {rec['steps']} steps")
     if engine == "mega" and not (launches["mega_allocate"] == 1
                                  and launches["xla_step"] == launches["placement_step"] == 0):
         raise SystemExit(f"the main path did not launch mega_allocate once: {launches}")
@@ -2502,7 +2732,7 @@ def phase_main_path_config2(cache, conf_path, n_nodes, n_pods):
         raise SystemExit("the config-2 main path did not launch static_predicate_mask")
     if binds < 1:
         raise SystemExit("the config-2 main path bound nothing")
-    return launches
+    return launches, binds
 
 
 def binds_digest(binds) -> str:
@@ -2513,7 +2743,7 @@ def binds_digest(binds) -> str:
 
 
 def phase_main_path_flagship(cache, conf_path, n_nodes, n_pods, tasks_per_job):
-    """Path b, a cold cycle.  Returns (launches, the binds' digest)."""
+    """Path b, a cold cycle.  Returns (launches, the binds' digest, binds)."""
     rec, launches = run_cycle(cache, conf_path)
     binds, gangs = check_binds(cache, n_nodes, n_pods, tasks_per_job)
     digest = binds_digest(cache.binder.binds)
@@ -2521,7 +2751,7 @@ def phase_main_path_flagship(cache, conf_path, n_nodes, n_pods, tasks_per_job):
           "binds": binds, "gangs_bound": gangs, "binds_digest": digest, **rec})
     if binds < 1:
         raise SystemExit("the main path bound nothing")
-    return launches, digest
+    return launches, digest, binds
 
 
 def phase_main_path_templates(cache, conf_path, n_nodes, n_jobs, tasks_per_job):
@@ -2649,7 +2879,7 @@ def pending_outcome(ssn, pending):
             for job in ssn.jobs.values() for t in job.tasks.values() if t.name in pending}
 
 
-def reclaim_host_loop(thin_requests=0):
+def reclaim_host_loop(thin_requests=0, scale=1.0):
     """The port's host loop (``AllocateAction._heap_loop``) on the CPU on
     config 4's aftermath (``harness.make_reclaim_aftermath_cluster``, with
     ``thin_requests`` distinct thin requests): the pending tasks' statuses
@@ -2659,7 +2889,7 @@ def reclaim_host_loop(thin_requests=0):
     from scheduler_tpu_torch.framework import close_session, open_session
     from scheduler_tpu_torch.harness import make_reclaim_aftermath_cluster
 
-    cache = make_reclaim_aftermath_cluster(thin_requests=thin_requests).cache
+    cache = make_reclaim_aftermath_cluster(scale, thin_requests=thin_requests).cache
     pending = {t.name for job in cache.jobs.values() for t in job.tasks.values()
                if t.status.name == "PENDING"}
     ssn = open_session(cache, parse_scheduler_conf(RECLAIM_CONF).tiers, device="cpu")
@@ -3404,8 +3634,35 @@ def phase_steady_flagship(opts):
                  "p50_s": float(np.percentile(churn_s, 50)),
                  "p99_s": float(np.percentile(churn_s, 99)), "placed_live": placed}
     emit({"phase": "churn", "config": "config3_steady", **churn_rec})
+    native_ab = steady_native_ab(opts, conf, steady)
     return {"launches": launches, "churn_launches": churn_launches, "digest": digest,
-            "steady": steady, "churn": churn_rec}
+            "steady": steady, "churn": churn_rec, "native_ab": native_ab}
+
+
+def steady_native_ab(opts, conf, steady):
+    """Path l's steady hit again on a fresh cluster with
+    ``SCHEDULER_TORCH_NATIVE=0`` (the numpy halves of the host commit):
+    the same binds, and its ``apply`` and cycle seconds beside the native
+    run's."""
+    from scheduler_tpu_torch.harness import config3_churn
+    from scheduler_tpu_torch.harness.measure import steady_cycle_phases
+    from scheduler_tpu_torch.ops import engine_cache
+
+    engine_cache.clear()
+    gc.collect()
+    cache = config3_churn(opts.nodes, opts.pods, opts.tasks_per_job)[0]()
+    with env_flag("SCHEDULER_TORCH_NATIVE", "0"):
+        cycle_s, rec = steady_cycle_phases(cache, conf, ("allocate",))
+    digest = binds_digest(cache.binder.binds)
+    ab = {"native": {"cycle_s": steady["cycle_s"], "apply_s": steady["phases_s"].get("apply"),
+                     "decode_s": steady["phases_s"].get("decode")},
+          "numpy": {"cycle_s": cycle_s, "apply_s": rec.get("apply"), "decode_s": rec.get("decode"),
+                    "engine_cache": rec["notes"].get("engine_cache")},
+          "binds_digest_equal": digest == steady["binds_digest"]}
+    emit({"phase": "native_ab", "config": "config3_steady", **ab})
+    if not ab["binds_digest_equal"]:
+        raise SystemExit("path l: the numpy commit bound differently from the native one")
+    return ab
 
 
 def phase_default_conf_loop(opts):
@@ -3882,7 +4139,7 @@ def phase_config4_reclaim(conf_path):
     from scheduler_tpu_torch.harness import make_reclaim_cluster
 
     t0 = time.perf_counter()
-    built = make_reclaim_cluster()
+    built = make_reclaim_cluster(RECLAIM_O_SCALE)
     emit({"phase": "cluster", "config": "config4_reclaim", "nodes": built.n_nodes,
           "pods": built.n_pods, "build_s": time.perf_counter() - t0})
     rec, launches, outcome, wrong = reclaim_cycle(built.cache, conf_path, None)
@@ -4071,7 +4328,8 @@ def phase_preempt_storms():
 def phase_config4_reclaim_device(conf_path, host):
     """Path o': o's cluster (``harness.make_reclaim_cluster``, built anew)
     through ``reclaim, allocate`` with ``SCHEDULER_TORCH_EVICT=device``: the
-    eviction engine plans every hunt (about 1,000 evictions), then
+    eviction engine plans every hunt (about 500 evictions at
+    ``RECLAIM_O_SCALE``), then
     ``mega_allocate``.  Checks: the engine engaged; o's checks
     (``reclaim_invariants``, K2's one launch); the evictions in order, binds
     and statuses equal to the host hunt's (``host``: o's record, of the
@@ -4079,7 +4337,7 @@ def phase_config4_reclaim_device(conf_path, host):
     from scheduler_tpu_torch.harness import make_reclaim_cluster
 
     t0 = time.perf_counter()
-    built = make_reclaim_cluster()
+    built = make_reclaim_cluster(RECLAIM_O_SCALE)
     emit({"phase": "cluster", "config": "config4_reclaim_device", "nodes": built.n_nodes,
           "pods": built.n_pods, "build_s": time.perf_counter() - t0})
     with env_flag("SCHEDULER_TORCH_EVICT", "device"):
@@ -4185,13 +4443,14 @@ def backfill_cycle(cache, conf_path, device, flavor):
 
 def phase_backfill_wave(conf_path):
     """Path p: the JAX bench's backfill wave, ``BackfillWaveConfig()``
-    (2,048 nodes of pod limit 22 with 14 running pods each; 20,000
+    at half its size (``BACKFILL_WAVE``: 1,024 nodes of pod limit 22 with 14
+    running pods each; 10,000
     BestEffort pods, every third one zone-pinned, seed 0) through
     ``BACKFILL_CONF`` with ``SCHEDULER_TORCH_BACKFILL=device``: one cycle on
     a fresh cache, so the predicates' mask memo is empty and K3 builds the
-    class rows.  Checks: the engine engaged on its 5 classes, 16,384 binds
+    class rows.  Checks: the engine engaged on its 5 classes, 8,192 binds
     (the room), no node past its pod limit, every pinned pod in its zone,
-    3,616 pods left pending, each with a FitErrors, K3 launched.  Then K3 on
+    1,808 pods left pending, each with a FitErrors, K3 launched.  Then K3 on
     the wave's signature operands against its plain version (bitwise,
     timed), and the two flavors on an eighth of the wave (256 nodes, 2,500
     pods, the same seed and shape) on the card: binds, FitErrors strings
@@ -4200,7 +4459,7 @@ def phase_backfill_wave(conf_path):
 
     from scheduler_tpu_torch.harness.backfill_wave import BackfillWaveConfig, seed_wave_cache
 
-    cfg = BackfillWaveConfig()
+    cfg = BackfillWaveConfig(**BACKFILL_WAVE)
     t0 = time.perf_counter()
     cache = seed_wave_cache(cfg)
     emit({"phase": "cluster", "config": "backfill_wave", "nodes": cfg.nodes,
@@ -4538,6 +4797,33 @@ def place_scan_entry(launches_by_path, scan, small):
             "config2_default_tiers_device": {k: small[k] for k in keys}}
 
 
+def lp_entry(lp_paths):
+    """lp_relax's entry of the kernels line (no TPU Pallas kernel: it
+    replaces the JAX package's XLA iteration): launches on paths r and r',
+    its error against the plain version on each path's own operands and on
+    the tight operands at r''s shape (the largest of the three, absolute
+    and over the limit, on top; each path's below), and r''s times (a solve, a kernel launch) beside its bound, the plain
+    version's and ``torch.matmul``'s for the load product; r's below."""
+    keys = ("rows", "n", "cols", "iters", "ms", "launch_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "iteration_bytes_ms", "max_abs_err", "over_tol")
+    main, flag = lp_paths["r'"]["kernel"], lp_paths["r"]["kernel"]
+    tight = lp_paths["r'_tight"]["kernel"]
+    return {"name": "lp_relax", "route": "cuda",
+            "source": "scheduler_tpu_torch/csrc/lp_relax.cu",
+            "replaces": "scheduler_tpu/ops/lp_place.py:212-265",
+            "launches": lp_paths["r'"]["launches"]["lp_relax"],
+            "launches_by_path": {"config2_lp": lp_paths["r'"]["launches"]["lp_relax"],
+                                 "config3_lp": lp_paths["r"]["launches"]["lp_relax"]},
+            **{k: main[k] for k in keys[3:]},
+            "max_abs_err": max(main["max_abs_err"], flag["max_abs_err"], tight["max_abs_err"]),
+            "over_tol": max(main["over_tol"], flag["over_tol"], tight["over_tol"]),
+            "rtol": LP_KERNEL_RTOL, "atol": LP_KERNEL_ATOL,
+            "rows": main["rows"], "n": main["n"], "cols": main["cols"],
+            "config3_lp": {k: flag[k] for k in keys},
+            "config2_lp_tight": {**{k: tight[k] for k in keys}, "evidence": tight["evidence"],
+                                 "faults_over_tol": tight["faults_over_tol"]}}
+
+
 def child_argv(child, path, opts):
     """The command line of this script's child process ``child`` (see
     ``--child``), writing its result to ``path``."""
@@ -4551,9 +4837,11 @@ def run_child(out_dir, child, opts):
     """Run child process ``child`` to its end (its JSON lines go to this
     script's standard output) and return the result it wrote."""
     path = os.path.join(out_dir, f"{child}.json")
+    t0 = time.perf_counter()
     rc = subprocess.run(child_argv(child, path, opts)).returncode
     if rc != 0:
         raise SystemExit(f"the {child} process failed: rc {rc}")
+    emit({"phase": "child_wall", "child": child, "wall_s": time.perf_counter() - t0})
     with open(path) as f:
         return json.load(f)
 
@@ -4584,9 +4872,13 @@ class BackgroundChild:
             self.proc.wait()
 
     def result(self):
+        t0 = time.perf_counter()
         rc = self.proc.wait()
         if rc != 0:
             raise SystemExit(f"the {self.child} process failed: rc {rc}")
+        emit({"phase": "child_wall", "child": self.child, "background": True,
+              "wall_s": time.perf_counter() - self.t0, "waited_s": time.perf_counter() - t0,
+              "ended": os.path.getmtime(self.path)})
         with open(self.path) as f:
             return json.load(f)
 
@@ -4615,6 +4907,197 @@ def check_host_loop(twin, binds, config="config2_default_tiers"):
         raise SystemExit(f"{config}: binds differ from the host loop's")
 
 
+# -- paths r and r': the LP-relaxed allocator ---------------------------------------
+
+class LpCapture:
+    """Within the ``with`` block, keeps a copy of every ``lp_iterate`` call's
+    operands (``calls``: logits, cap, req_aug, iters, tol), the relaxation's
+    operands as the main path gave them to the kernel."""
+
+    def __enter__(self):
+        from scheduler_tpu_torch.ops import lp_place
+
+        self.mod, self.orig = lp_place, lp_place.lp_iterate
+        self.calls = []
+
+        def lp_iterate(logits, cap, req_aug, *, iters, tol, plain=False, orig=self.orig):
+            self.calls.append((logits.clone(), cap.clone(), req_aug.clone(), iters, tol))
+            return orig(logits, cap, req_aug, iters=iters, tol=tol, plain=plain)
+
+        lp_place.lp_iterate = lp_iterate
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lp_iterate = self.orig
+
+
+def lp_bound_ms(rows, n, r, iters):
+    """The least time of one solve: its bytes (the logits, capacity and
+    request columns read once, the marginals and preferred nodes written
+    once) at the memory rate, against its float32 operations (a cell an
+    iteration: the row pass's add, subtract, exponential and sum; the column
+    pass's add, subtract, exponential, product and a multiply-add a
+    capacity column, but the last iteration's) at the float32 rate.  Also
+    the model of reading the logits twice an iteration
+    (``iteration_bytes_ms``)."""
+    nbytes = 4 * (2 * rows * n + n * r + rows * r + rows) + 8
+    ops = rows * n * (4 * iters + (4 + 2 * r) * (iters - 1) + 4)
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": ops,
+            "iteration_bytes_ms": 1e3 * iters * 8 * rows * n / HBM_BYTES_PER_S}
+
+
+def lp_kernel_record(path, call, repeats=5, binds=False, case="main_path_operands"):
+    """``lp_relax`` on a main path's own operands (``LpCapture``), or on
+    operands made for the check: the kernel twice (bitwise equal) and its
+    plain version on the card, the marginals held by ``lp_marginal_errors``
+    (pref and the evidence row equal), and all-zero marginals must fail
+    that check.  With ``binds`` the projection must bind (``converged_at``
+    not 0) and the first iteration's marginals, before any projection,
+    must fail it too.  Then timed by events, a solve (``ms``) and a kernel
+    launch (``launch_ms``), beside the plain version's solve and
+    ``torch.matmul``'s time for the load product ``x^T @ req_aug`` at the
+    same shape (``library_ms``)."""
+    import torch
+
+    from scheduler_tpu_torch.ops import lp_place
+
+    logits, cap, req_aug, iters, tol = call
+    rows, n = logits.shape
+    got = lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=tol)
+    again = lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=tol)
+    start, stop = events()
+    start.record()
+    ref = lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=tol, plain=True)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    errs = lp_marginal_errors(got[0], ref[0])
+    bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(got, again))
+    equal = torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    faults = {"zero_marginals": lp_marginal_errors(torch.zeros_like(ref[0]), ref[0])["over_tol"]}
+    if binds:
+        first = lp_place.lp_iterate(logits, cap, req_aug, iters=1, tol=tol, plain=True)[0]
+        faults["unprojected"] = lp_marginal_errors(first, ref[0])["over_tol"]
+    converged_at = int(got[2][1])
+    if not (bitwise and equal and errs["over_tol"] <= 1.0
+            and all(v > 1.0 for v in faults.values()) and (converged_at != 0 or not binds)):
+        raise SystemExit(f"path {path}: lp_relax against its plain version: bitwise "
+                         f"{bitwise}, pref and evidence equal {equal}, {errs}, faults' error "
+                         f"over the limit {faults} (each must pass 1), converged_at "
+                         f"{converged_at} (binds {binds})")
+    start.record()
+    for _ in range(repeats):
+        lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=tol)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / repeats
+    x = got[0]
+    torch.matmul(x.T, req_aug)
+    start.record()
+    for _ in range(20):
+        torch.matmul(x.T, req_aug)
+    stop.record()
+    torch.cuda.synchronize()
+    rec = {"case": f"{path}_{case}", "rows": rows, "n": n, "cols": cap.shape[1],
+           "iters": iters, "ms": ms, "launch_ms": ms / lp_place.kernel_launches(iters),
+           "plain_ms": plain_ms, "library_ms": start.elapsed_time(stop) / 20,
+           "library": "torch.matmul(x.T, req_aug), one iteration's load product",
+           **errs, "rtol": LP_KERNEL_RTOL, "atol": LP_KERNEL_ATOL,
+           "faults_over_tol": faults, "pref_equal": True, "bitwise_rerun": True,
+           "evidence": got[2].tolist(), **lp_bound_ms(rows, n, cap.shape[1], iters)}
+    emit({"phase": "kernel_vs_plain", "kernel": "lp_relax", **rec})
+    return rec
+
+
+def lp_cycle(cache, conf_path, path):
+    """One cold LP cycle through ``run_cycle`` (engine ``lp``), its
+    relaxation's operands captured and its codes kept: (record, launches,
+    the capture, codes)."""
+    with LpCapture() as cap, ReadbackSpy() as spy:
+        rec, launches = run_cycle(cache, conf_path, engine="lp")
+    cohort = rec["cohort"]
+    lp, sig = cohort.get("lp") or {}, cohort.get("sig") or {}
+    if len(cap.calls) != 1 or lp.get("iterations") != cap.calls[0][3]:
+        raise SystemExit(f"path {path}: {len(cap.calls)} relaxations, evidence {lp}")
+    return rec, launches, cap, spy.codes
+
+
+def phase_lp_paths(opts, out_dir):
+    """Paths r and r': the LP flavor (``SCHEDULER_TORCH_ALLOCATOR=lp``) on
+    b's cluster and conf with signature classes (``auto``), then on a's with
+    none (``off``), each one cold cycle on a fresh cluster; checks in the
+    module docstring."""
+    from scheduler_tpu_torch.harness import make_kubemark_density_cluster, make_synthetic_cluster
+
+    os.environ["SCHEDULER_TORCH_ALLOCATOR"] = "lp"
+    conf_path = os.path.join(out_dir, "lp_paths_conf.yaml")
+    out = {}
+    # r: the flagship, on classes.
+    with open(conf_path, "w") as f:
+        f.write(FLAGSHIP_CONF)
+    t0 = time.perf_counter()
+    cache = make_synthetic_cluster(opts.nodes, opts.pods, tasks_per_job=opts.tasks_per_job).cache
+    emit({"phase": "cluster", "config": "config3_lp", "nodes": opts.nodes, "pods": opts.pods,
+          "build_s": time.perf_counter() - t0})
+    rec, launches, cap, _ = lp_cycle(cache, conf_path, "r")
+    binds, gangs = check_binds(cache, opts.nodes, opts.pods, opts.tasks_per_job)
+    cohort = rec["cohort"]
+    if not (cohort.get("sig") or {}).get("engaged"):
+        raise SystemExit(f"path r: signature classes did not engage: {cohort.get('sig')}")
+    emit({"phase": "main_path", "config": "config3_lp", "nodes": opts.nodes, "pods": opts.pods,
+          "binds": binds, "gangs_bound": gangs, "classes": cohort["sig"]["classes"],
+          "lp": cohort["lp"], "sig": cohort["sig"], "lp_ms": cohort.get("lp_ms"), **rec})
+    out["r"] = {"launches": launches, "binds": binds, "lp": cohort["lp"], "sig": cohort["sig"],
+                "phases_s": rec["phases_s"], "cycle_s": rec["cycle_s"],
+                "kernel": lp_kernel_record("config3_lp", cap.calls[0])}
+    del cache, cap
+    gc.collect()
+    # r': config 2, task by task, twice on twin clusters.
+    os.environ["SCHEDULER_TORCH_SIG_COMPRESS"] = "off"
+    with open(conf_path, "w") as f:
+        f.write(CONFIG2_CONF)
+    codes = []
+    for twin in range(2):
+        cache = make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache
+        rec2, launches2, cap2, c = lp_cycle(cache, conf_path, "r'")
+        binds2, most = check_config2_binds(cache)
+        codes.append(c)
+        if twin == 0:
+            cohort2 = rec2["cohort"]
+            if "sig" in cohort2 or launches2["static_predicate_mask"] < 1:
+                raise SystemExit(f"path r': classes {cohort2.get('sig')}, K3 "
+                                 f"{launches2['static_predicate_mask']}")
+            emit({"phase": "main_path", "config": "config2_lp", "nodes": opts.config2_nodes,
+                  "pods": opts.config2_pods, "binds": binds2, "most_pods_on_a_node": most,
+                  "lp": cohort2["lp"], "lp_ms": cohort2.get("lp_ms"), **rec2})
+            out["r'"] = {"launches": launches2, "binds": binds2, "lp": cohort2["lp"],
+                         "phases_s": rec2["phases_s"], "cycle_s": rec2["cycle_s"],
+                         "kernel": lp_kernel_record("config2_lp", cap2.calls[0])}
+            shape, iters, tol = cap2.calls[0][0].shape, cap2.calls[0][3], cap2.calls[0][4]
+            cols = cap2.calls[0][1].shape[1]
+        del cache, cap2
+        gc.collect()
+    if codes[0] is None or codes[1] is None or not (codes[0] == codes[1]).all():
+        raise SystemExit("path r': two cycles on twin clusters gave different codes")
+    emit({"phase": "lp_twin_cycles", "config": "config2_lp", "codes_equal": True,
+          "tasks": int(codes[0].shape[0])})
+    # r''s shape with requests of twice the cluster: the projection binds.
+    import torch
+
+    ops = lp_operands(LP_TIGHT_SEED, shape[0], shape[1], cols - 1, tight=True)
+    call = (*lp_iterate_operands(ops, torch.device("cuda")), iters, tol)
+    if call[1].shape[1] != cols:
+        raise SystemExit(f"path r': the tight operands have {call[1].shape[1]} capacity "
+                         f"columns, r' {cols}")
+    out["r'_tight"] = {"kernel": lp_kernel_record("config2_lp", call, binds=True,
+                                                  case="tight_operands")}
+    return out
+
+
 def child_main(child, path, opts) -> int:
     """``--child``: ``host_loop`` writes the host loop's binds on a config-2
     cluster under the default tiers (for ``check_host_loop``);
@@ -4634,6 +5117,22 @@ def child_main(child, path, opts) -> int:
         make_synthetic_cluster,
     )
 
+    if child == "full_size_plain":
+        out = phase_full_size_plain(path, opts)
+        with open(path, "w") as f:
+            json.dump(out, f)
+        return 0
+    if child == "lp_paths":
+        # Paths r and r', after one config-1 cycle that warms the card up.
+        conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
+        with open(conf_path, "w") as f:
+            f.write(CONFIG1_CONF)
+        run_cycle(config1_cluster(), conf_path)
+        gc.collect()
+        out = phase_lp_paths(opts, os.path.dirname(path))
+        with open(path, "w") as f:
+            json.dump(out, f)
+        return 0
     if child == "host_loop":
         binds = host_loop_binds(
             make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache,
@@ -4642,9 +5141,10 @@ def child_main(child, path, opts) -> int:
             json.dump(binds, f)
         return 0
     if child in ("reclaim_host_loop", "reclaim_templates_host_loop"):
-        thin = RECLAIM_THIN_REQUESTS if child == "reclaim_templates_host_loop" else 0
+        args = ((RECLAIM_THIN_REQUESTS, RECLAIM_TEMPLATES_SCALE)
+                if child == "reclaim_templates_host_loop" else ())
         with open(path, "w") as f:
-            json.dump(reclaim_host_loop(thin), f)
+            json.dump(reclaim_host_loop(*args), f)
         return 0
     if child == "loop_host_twins":
         with open(path, "w") as f:
@@ -4654,7 +5154,8 @@ def child_main(child, path, opts) -> int:
         if child == "templates_default_tiers_cpu":
             cache, conf_text = template_cluster(*TIERS_TEMPLATES), DEFAULT_TIERS_CONF
         else:
-            cache = make_reclaim_aftermath_cluster(thin_requests=RECLAIM_THIN_REQUESTS).cache
+            cache = make_reclaim_aftermath_cluster(RECLAIM_TEMPLATES_SCALE,
+                                                   thin_requests=RECLAIM_THIN_REQUESTS).cache
             conf_text = RECLAIM_CONF
         codes = path[:-len(".json")] + ".npy"
         out = dict(cpu_loop_codes(cache, conf_text, codes), codes=codes)
@@ -4685,7 +5186,8 @@ def child_main(child, path, opts) -> int:
         conf_path = os.path.join(os.path.dirname(path), f"{child}_conf.yaml")
         with open(conf_path, "w") as f:
             f.write(RECLAIM_ALLOCATE_CONF)
-        rec, _, outcome, wrong = reclaim_cycle(make_reclaim_cluster().cache, conf_path, "cpu")
+        rec, _, outcome, wrong = reclaim_cycle(make_reclaim_cluster(RECLAIM_O_SCALE).cache,
+                                               conf_path, "cpu")
         if wrong:
             raise SystemExit(f"path o on the CPU: {'; '.join(wrong[:5])}")
         out = {"outcome": outcome, "record": rec}
@@ -4810,8 +5312,9 @@ def child_main(child, path, opts) -> int:
                                        LADDER_VOCAB).cache
         nodes, pods = LADDER_NODES, LADDER_PATH_PODS
     elif child in ("reclaim_aftermath", "reclaim_aftermath_templates"):
-        thin = RECLAIM_THIN_REQUESTS if child == "reclaim_aftermath_templates" else 0
-        built = make_reclaim_aftermath_cluster(thin_requests=thin)
+        built = (make_reclaim_aftermath_cluster(RECLAIM_TEMPLATES_SCALE,
+                                                thin_requests=RECLAIM_THIN_REQUESTS)
+                 if child == "reclaim_aftermath_templates" else make_reclaim_aftermath_cluster())
         cache, nodes, pods = built.cache, built.n_nodes, built.n_pods
     elif child == "templates_default_tiers":
         cache = template_cluster(*TIERS_TEMPLATES)
@@ -5023,16 +5526,89 @@ def phase_ladder_full_size(cache, device):
     return recs, solve
 
 
+# The main paths whose K2 operands are timed again at full size (from a
+# second cluster built as the main path's was), with their confs; the
+# ``full_size_plain`` child holds K2 to its plain version on a third twin
+# of each after the timed phases.
+FULL_SIZE_CASES = (
+    ("config2_main_path_operands", "config2", CONFIG2_CONF),
+    ("main_path_operands", "config3", FLAGSHIP_CONF),
+    ("multi_queue_main_path_operands", "config3_multi_queue", MULTIQ_CONF),
+    ("config5_main_path_operands", "config5", CONFIG2_CONF),
+    ("config2_default_tiers_main_path_operands", "config2_default_tiers", DEFAULT_TIERS_CONF),
+    ("reclaim_aftermath_main_path_operands", "config4_reclaim_aftermath", RECLAIM_CONF),
+)
+
+
+def full_size_cluster(config, opts):
+    """A cluster of main path ``config`` (``FULL_SIZE_CASES``), built as the
+    main path's was."""
+    from scheduler_tpu_torch.harness import (
+        make_gpu_topology_cluster,
+        make_kubemark_density_cluster,
+        make_reclaim_aftermath_cluster,
+        make_synthetic_cluster,
+    )
+
+    if config in ("config2", "config2_default_tiers"):
+        return make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache
+    if config == "config3":
+        return make_synthetic_cluster(opts.nodes, opts.pods,
+                                      tasks_per_job=opts.tasks_per_job).cache
+    if config == "config3_multi_queue":
+        return make_synthetic_cluster(opts.nodes, opts.pods, tasks_per_job=opts.tasks_per_job,
+                                      queues=MQ_QUEUES, queue_weights=MQ_WEIGHTS).cache
+    if config == "config5":
+        return make_gpu_topology_cluster(CONFIG5_NODES, CONFIG5_GANGS).cache
+    return make_reclaim_aftermath_cluster().cache
+
+
+def phase_full_size_plain(path, opts):
+    """The ``full_size_plain`` child: K2 against its plain version on the
+    operands of each ``FULL_SIZE_CASES`` path (a cluster built as the main
+    path's), codes and stats bitwise, the plain version timed.  The
+    clusters and engines are host work, built at once beside the timed
+    phases; the plain runs wait for the script's go (after the last timed
+    phase).  Returns the records by case."""
+    import torch
+
+    engines = []
+    for case, config, conf_text in FULL_SIZE_CASES:
+        _, eng = engine_for(full_size_cluster(config, opts), conf_text, torch.device("cuda"))
+        engines.append((case, eng))
+    wait_for_go(path)
+    out = {}
+    for case, eng in engines:
+        rec = compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count,
+                      len(eng.queue_uids))
+        out[case] = {k: rec[k] for k in ("mode", "stats", "equal", "max_abs_err", "plain_ms")}
+    return out
+
+
+def merge_plain(recs, plain):
+    """The timed full-size records with the plain version's check on their
+    twins (``full_size_plain``): the same mode and kernel stats, the codes
+    and stats equal to the plain version's, and its time."""
+    for rec in recs:
+        other = plain[rec["case"]]
+        if other["mode"] != rec["mode"] or other["stats"] != rec["stats"] or not other["equal"]:
+            raise SystemExit(f"{rec['case']}: the plain check's twin ran {other['mode']} "
+                             f"{other['stats']} (equal {other['equal']}), the timed kernel "
+                             f"{rec['mode']} {rec['stats']}")
+        rec.update(max_abs_err=other["max_abs_err"], plain_ms=other["plain_ms"])
+
+
 def phase_full_size(cache, conf_text, device, case):
     """A main path's operands (a session opened on a cluster built as the
-    main path's was): kernel against plain, timed."""
+    main path's was): the kernel timed (its plain version runs on a twin in
+    the ``full_size_plain`` child, ``merge_plain``)."""
     from scheduler_tpu_torch.ops import megakernel as mk
 
     t0 = time.perf_counter()
     _, eng = engine_for(cache, conf_text, device)
     init_s = time.perf_counter() - t0
     rec = compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count, len(eng.queue_uids),
-                  timed=True)
+                  timed=True, plain=False)
     emit({"phase": "full_size", "case": case, "engine_init_s": init_s, "plan": rec["plan"],
           "covered_nodes": mk.covered_nodes(dict(zip(mk.OPERAND_NAMES, eng._mega_args))["gate"])})
     return rec, eng
@@ -5247,7 +5823,8 @@ def main() -> int:
                                             "default_conf_loop", "default_conf_cold",
                                             "production_conf", "config2_default_tiers_device",
                                             "config4_reclaim", "config4_reclaim_twin",
-                                            "preempt_storm", "backfill_wave", "daemon_wire"),
+                                            "preempt_storm", "backfill_wave", "daemon_wire",
+                                            "lp_paths", "full_size_plain"),
                         help="run only this child process of the script (child_main) and "
                              "write its result to --out")
     parser.add_argument("--out", metavar="PATH")
@@ -5270,13 +5847,7 @@ def main() -> int:
 
     if opts.child:
         return child_main(opts.child, opts.out, opts)
-    from scheduler_tpu_torch.harness import (
-        make_gpu_topology_cluster,
-        make_kubemark_density_cluster,
-        make_mq_ladder_cluster,
-        make_reclaim_aftermath_cluster,
-        make_synthetic_cluster,
-    )
+    from scheduler_tpu_torch.harness import make_mq_ladder_cluster
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5297,36 +5868,26 @@ def main() -> int:
         return cache
 
     def config2_cluster():
-        return timed_build(
-            "config2",
-            lambda: make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache,
-            opts.config2_nodes, opts.config2_pods)
+        return timed_build("config2", lambda: full_size_cluster("config2", opts),
+                           opts.config2_nodes, opts.config2_pods)
 
     def flagship_cluster():
-        return timed_build(
-            "config3",
-            lambda: make_synthetic_cluster(opts.nodes, opts.pods,
-                                           tasks_per_job=opts.tasks_per_job).cache,
-            opts.nodes, opts.pods)
+        return timed_build("config3", lambda: full_size_cluster("config3", opts),
+                           opts.nodes, opts.pods)
 
     def mq_flagship_cluster():
-        return timed_build(
-            "config3_multi_queue",
-            lambda: make_synthetic_cluster(
-                opts.nodes, opts.pods, tasks_per_job=opts.tasks_per_job, queues=MQ_QUEUES,
-                queue_weights=MQ_WEIGHTS).cache,
-            opts.nodes, opts.pods)
+        return timed_build("config3_multi_queue",
+                           lambda: full_size_cluster("config3_multi_queue", opts),
+                           opts.nodes, opts.pods)
 
     def config5_cluster():
-        return timed_build(
-            "config5", lambda: make_gpu_topology_cluster(CONFIG5_NODES, CONFIG5_GANGS).cache,
-            CONFIG5_NODES, 8 * CONFIG5_GANGS)
+        return timed_build("config5", lambda: full_size_cluster("config5", opts),
+                           CONFIG5_NODES, 8 * CONFIG5_GANGS)
 
     def default_tiers_cluster():
-        return timed_build(
-            "config2_default_tiers",
-            lambda: make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache,
-            opts.config2_nodes, opts.config2_pods)
+        return timed_build("config2_default_tiers",
+                           lambda: full_size_cluster("config2_default_tiers", opts),
+                           opts.config2_nodes, opts.config2_pods)
 
     def ladder_cluster():
         return timed_build(
@@ -5337,7 +5898,8 @@ def main() -> int:
 
     def reclaim_cluster():
         return timed_build("config4_reclaim_aftermath",
-                           lambda: make_reclaim_aftermath_cluster().cache, 1000, 75_000)
+                           lambda: full_size_cluster("config4_reclaim_aftermath", opts),
+                           1000, 75_000)
 
     def templates_cluster():
         return timed_build(
@@ -5349,12 +5911,12 @@ def main() -> int:
     # one cold cycle each, as a scheduler's first cycle after start-up.
     with open(conf_path, "w") as f:
         f.write(CONFIG2_CONF)
-    config2_launches = phase_main_path_config2(config2_cluster(), conf_path,
-                                               opts.config2_nodes, opts.config2_pods)
+    config2_launches, config2_binds = phase_main_path_config2(
+        config2_cluster(), conf_path, opts.config2_nodes, opts.config2_pods)
     gc.collect()
     with open(conf_path, "w") as f:
         f.write(FLAGSHIP_CONF)
-    flagship_launches, flagship_digest = phase_main_path_flagship(
+    flagship_launches, flagship_digest, flagship_binds = phase_main_path_flagship(
         flagship_cluster(), conf_path, opts.nodes, opts.pods, opts.tasks_per_job)
     gc.collect()
     templates_launches, _ = phase_main_path_templates(
@@ -5388,6 +5950,15 @@ def main() -> int:
     tiers_device = run_child(out_dir, "config2_default_tiers_device", opts)
     reclaim_o = run_child(out_dir, "config4_reclaim", opts)
     storms = run_child(out_dir, "preempt_storm", opts)
+    # The LP flavor on b's cluster with signature classes (r) and on a's
+    # task by task (r'), each bound within LP_BIND_TOLERANCE of greedy.
+    lp_paths = run_child(out_dir, "lp_paths", opts)
+    for path, greedy in (("r", flagship_binds), ("r'", config2_binds)):
+        got = lp_paths[path]["binds"]
+        emit({"phase": "lp_quality_gate", "path": path, "lp_binds": got, "greedy_binds": greedy,
+              "ratio": got / max(greedy, 1), "tolerance": LP_BIND_TOLERANCE})
+        if got < (1.0 - LP_BIND_TOLERANCE) * greedy:
+            raise SystemExit(f"path {path}: the LP flavor bound {got}, greedy {greedy}")
     # After the timed cycles: the host loops' and the CPU loops' twins,
     # beside the kernel phases.
     twins = [BackgroundChild(out_dir, child, opts) for child in (
@@ -5399,6 +5970,8 @@ def main() -> int:
     # K2's plain version on the ladder flagship's shape: its child builds
     # the cluster now and waits for the last timed phase.
     ladder_plain = BackgroundChild(out_dir, "mq_ladder_plain", opts)
+    # K2's plain version on twins of the full-size operands below, likewise.
+    full_plain = BackgroundChild(out_dir, "full_size_plain", opts)
     default_twin = synthetic = wave = daemon = None
 
     try:
@@ -5430,17 +6003,19 @@ def main() -> int:
         del eng2, eng3
         gc.collect()
         # After the last timed phase: K2's plain version on the ladder
-        # flagship's operands, beside the untimed phases.
+        # flagship's operands and on the full-size twins, beside the untimed
+        # phases.
         ladder_plain.go()
+        full_plain.go()
         synthetic = BackgroundChild(out_dir, "kernel_cases_synthetic", opts)
-        phase_e2e_small(conf_path)
         # Path o' (in o's twin, on the card), path p (the backfill wave) and
         # paths q and q' (the daemon over the wire), host-bound: beside the
-        # kernel cases, the checks, the ladder's plain check and the
-        # longest twin.
+        # small cases, the kernel cases, the checks, the plain checks and
+        # the longest twin.
         reclaim_o_twin.go()
         wave = BackgroundChild(out_dir, "backfill_wave", opts)
         daemon = BackgroundChild(out_dir, "daemon_wire", opts)
+        phase_e2e_small(conf_path)
         full_chain = phase_kernel_cases(device)
         gc.collect()
         # Path m's cold twin beside the untimed phases that follow.
@@ -5464,8 +6039,10 @@ def main() -> int:
         ladder_plain_rec = ladder_plain.result()
         emit({"phase": "mq_ladder_plain", "wall_s": time.perf_counter() - ladder_plain.t0,
               "after_go_s": time.perf_counter() - ladder_plain.t_go})
+        merge_plain([static_full, cursor_full, mq_full, config5_full, tiers_full, reclaim_full],
+                    full_plain.result())
     finally:
-        for twin in twins + [ladder_plain, default_twin, synthetic, wave, daemon]:
+        for twin in twins + [ladder_plain, full_plain, default_twin, synthetic, wave, daemon]:
             if twin is not None:
                 twin.stop()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -5544,11 +6121,12 @@ def main() -> int:
                   {"templates_default_tiers": tiers_tpl["xla"],
                    "reclaim_aftermath_templates": reclaim_tpl["xla"]},
                   xla_cases, [tiers_tpl["check"], reclaim_tpl["check"]]),
-    ]})
+        lp_entry(lp_paths),
+    ]}, stamp=False)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": torch.cuda.device_count()}}, stamp=False)
     return 0
 
 

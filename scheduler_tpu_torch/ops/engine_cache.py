@@ -47,6 +47,16 @@ _ENV_KEYS = (
     "SCHEDULER_TORCH_QFAIR_ITERS",
     "SCHEDULER_TORCH_QUEUE_DELTA",
     "SCHEDULER_TORCH_DIRTY_DELTA",
+    # The allocator flavor selects the program a build stages (greedy, or the
+    # LP relaxation and its repair); the LP knobs set the relaxation and its
+    # admission gate; the signature-class mode its rows and the LP working
+    # set.  The class table itself is layout-derived (the layout token).
+    "SCHEDULER_TORCH_ALLOCATOR",
+    "SCHEDULER_TORCH_LP_ITERS",
+    "SCHEDULER_TORCH_LP_TAU",
+    "SCHEDULER_TORCH_LP_TOL",
+    "SCHEDULER_TORCH_LP_LIMIT",
+    "SCHEDULER_TORCH_SIG_COMPRESS",
     # The inbound wire (connector/client.py ``wire_from_env``): never read
     # by a build, but a resident engine stays pinned to the ingestion
     # protocol it served, as in the JAX package: the journal and k8s wires

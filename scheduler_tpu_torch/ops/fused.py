@@ -41,8 +41,15 @@ loop on the CPU.  A multi-queue session keeps its queue shares by the
 delta chain, by the full-recompute chain
 (``SCHEDULER_TORCH_QUEUE_DELTA=0``) or, where the JAX engine admits it, by
 the qfair class ladder (``ops/qfair.py``; ``SCHEDULER_TORCH_QFAIR=host``
-turns off both the ladder and proportion's device water-fill).  The LP
-flavor and the mesh have no switch in this package.
+turns off both the ladder and proportion's device water-fill).
+
+The LP flavor (``SCHEDULER_TORCH_ALLOCATOR=lp``, ``ops/lp_place.py``) takes
+the place of the greedy engines where its gate admits the session: the
+relaxation (``csrc/lp_relax.cu`` on the card) over the whole rows x nodes
+tensor, on signature classes where tasks repeat (``ops/sig_compress.py``),
+then the repair, the loop above on its XLA step arm with the marginals as
+the static score, the open-state feasibility as the static mask and zero
+dynamic weights.  The mesh has no switch in this package.
 
 The result is ONE int32[T] array encoding the whole action:
   >= 0: allocated on that node   |   -1: never reached (left pending)
@@ -732,6 +739,19 @@ class FusedAllocator:
         self.cohort_spill = False  # some cohort must split across nodes
         self.cohort_chunks = _cohort_chunks(self.device)
         self.cohort_effective = 1  # chunks the kernel actually runs
+        # Allocator flavor (ops/lp_place.py): resolved once a build; whether
+        # the LP flavor runs (``use_lp``) waits for its admission gate.
+        from scheduler_tpu_torch.ops.lp_place import allocator_flavor
+
+        self.allocator = allocator_flavor()
+        self.use_lp = False
+        self.lp_reason = None         # why lp fell back to greedy, if it did
+        self._lp_stats_host = None    # (pref, lp_raw) of the last run, on the host
+        self._lp_static = None        # the relaxation's static rows ([S] or [T], N)
+        self.lp_phase = {}            # lp_iterate / lp_repair wall seconds of the last run
+        self.lp_ms = None             # the relaxation's device time (CUDA events)
+        self._req_sigs = None         # (scaled requests, signature ids, unique rows)
+        self._req_init = None         # the scaled init requests beside them
         vocab = next(iter(ssn.nodes.values())).vocab
         policy = DevicePolicy(vocab)
         r = vocab.size
@@ -1020,6 +1040,12 @@ class FusedAllocator:
         self.batch_runs = merge_any
         self.has_releasing = bool(np.any(st.nodes.releasing))
         self.enforce_pod_count = "pod_count" in ssn.device_dynamic_gates
+        # Static rows by static signature: one [N] mask and score row per
+        # signature, for the mega kernel's static-row mode and the loop.
+        static_sids = (self._static_signature_ids(ssn)
+                       if self.use_static and t_total > 0 else None)
+        with phases.phase("engine_init.sig_classes"):
+            self._stage_classes(static_sids, queues_idx, priorities, scale, tb, r)
 
         # --- the queue chain: proportion's deserved / allocated rows --------
         # (scheduler_tpu/ops/fused.py:1551-1571), in queue-rank order, scaled
@@ -1032,7 +1058,6 @@ class FusedAllocator:
         self.qfair_reason = None    # why it was not
         self._qfair = {}            # proportion's evidence block
         self._ladder_host = None    # (share f32 [qb, K], overused bool [qb, K])
-        self._req_sigs = None       # (scaled requests, signature ids, unique rows)
         queue_deserved = np.zeros((len(queue_names), r), dtype=np.float64)
         queue_alloc = np.zeros((len(queue_names), r), dtype=np.float64)
         if self.queue_comparators or self.overused_gate:
@@ -1043,6 +1068,25 @@ class FusedAllocator:
             self._build_qfair_ladder(policy, queue_deserved, queue_alloc, queues_idx,
                                      bucket(len(queue_names)), r, scale)
         self._host_queue_fair = (queue_deserved, queue_alloc)
+
+        # --- the LP flavor's admission (scheduler_tpu/ops/fused.py:1626-1662) -
+        # Releasing sessions and working sets past the limit keep greedy
+        # (logged once a build).  Where it engages, neither single-step
+        # kernel runs: the relaxation is the data-parallel stage and the
+        # repair runs the loop's XLA step arm.
+        if self.allocator == "lp":
+            from scheduler_tpu_torch.ops import lp_place
+
+            self.use_lp, self.lp_reason = lp_place.lp_supported(
+                self.flat_count, self.has_releasing, self._sig_bucket, nb)
+            if self.use_lp:
+                self._stage_lp_static(static_mask_dev, static_score_dev)
+            else:
+                # An empty pending set is an idle scheduler, not a degraded
+                # configuration.
+                log = logger.debug if self.flat_count == 0 else logger.warning
+                log("SCHEDULER_TORCH_ALLOCATOR=lp unavailable (%s); falling back to greedy",
+                    self.lp_reason)
 
         # --- engines: the mega kernel and the loop with K1 --------------------
         binpack_only = (
@@ -1058,15 +1102,12 @@ class FusedAllocator:
         # budget.
         r8 = -(-r // 8) * 8
         self.step_kernel = bool(
-            not self.has_releasing
+            not self.use_lp
+            and not self.has_releasing
             and not score_bound
             and (2 * r8 + 12) * nb * 4 <= 8 * 1024 * 1024
         )
         mins_f32 = np.asarray(policy.scaled_mins(r), dtype=np.float32)
-        # Static rows by static signature: one [N] mask and score row per
-        # signature, for the mega kernel's static-row mode and the loop.
-        static_sids = (self._static_signature_ids(ssn)
-                       if self.use_static and t_total > 0 else None)
         # The loop's operands, staged lazily (``args``): a session that runs
         # the mega kernel never builds them.
         self._args = None
@@ -1081,7 +1122,7 @@ class FusedAllocator:
         # Multi-queue sessions run the kernel's queue-chain mode: proportion
         # is the only queue chain it knows (scheduler_tpu/ops/fused.py:1709).
         mq_ok = not single_queue and set(self.queue_comparators) <= {"proportion"}
-        mega_ok = _mk.mega_supported(
+        mega_ok = not self.use_lp and _mk.mega_supported(
             has_releasing=self.has_releasing,
             use_static=False,
             score_bound=score_bound,
@@ -1124,7 +1165,78 @@ class FusedAllocator:
                 scale_columns(self.st.tasks.init_resreq[:t], scale), dtype=np.float32)
             inverse, uniq_rows = _mk.request_signature_ids(req_s, init_s)
             self._req_sigs = (req_s, inverse, uniq_rows)
+            self._req_init = init_s
         return self._req_sigs
+
+    def _stage_classes(self, static_sids, queues_idx, priorities, scale, tb: int,
+                       r: int) -> None:
+        """Signature classes (``scheduler_tpu/ops/fused.py:1469-1550``):
+        ``sig_of_task``, ``class_count``, the row bucket of the staged rows
+        (``_sig_bucket``: ``bucket(S)`` under classes, else the task
+        bucket) and the ``[S]``-class LP operands padded to ``bucket(S)``
+        with zero count, so pad classes carry no load.  The decisions and
+        reasons are the JAX engine's.  The greedy engines keep reading
+        static rows by static signature, so classes change no greedy
+        operand."""
+        from scheduler_tpu_torch.ops import sig_compress as _sc
+
+        t_total = self.flat_count
+        self.sig_mode = _sc.sig_compress_mode()
+        self.sig_compress = False
+        self.sig_reason = None
+        self.sig_classes = 0
+        self.sig_of_task = None      # np i32 [T] class id per flat task
+        self.class_count = None      # np i32 [S] tasks per class
+        self._sig_bucket = tb        # row bucket of the LP rows
+        self._lp_sig_host = None     # (init_c, req_c, count_c) [sb] class operands
+        self._lp_sig_dev = None      # their device twins (staged at the first LP run)
+        self._lp_rep_rows = None     # i64 [sb] each class row's representative task
+        if self.sig_mode == "off" or t_total == 0:
+            return
+        if self.use_static and static_sids is None:
+            self.sig_reason = "unknown static builders (no per-task static signature)"
+            return
+        req_s, inverse, _ = self._request_signatures(scale)
+        init_s = self._req_init
+        jidx = self.st.tasks.job_idx[:t_total]
+        sig_of_task, class_count, rep_rows = _sc.derive_classes(
+            inverse, static_sids, queues_idx[jidx], priorities[jidx])
+        s_count = class_count.shape[0]
+        if self.sig_mode == "auto" and s_count >= t_total:
+            # auto pays the indirection only where something dedupes; "on"
+            # forces the degenerate S == T shape.
+            self.sig_reason = "no repeated signatures (S == T)"
+            return
+        self.sig_compress = True
+        self.sig_classes = s_count
+        self.sig_of_task = sig_of_task
+        self.class_count = class_count
+        sb = bucket(s_count)
+        self._sig_bucket = sb
+        init_c = np.zeros((sb, r), dtype=np.float32)
+        init_c[:s_count] = init_s[rep_rows]
+        req_c = np.zeros((sb, r), dtype=np.float32)
+        req_c[:s_count] = req_s[rep_rows]
+        count_c = np.zeros(sb, dtype=np.float32)
+        count_c[:s_count] = class_count
+        self._lp_sig_host = (init_c, req_c, count_c)
+        # Pad class rows repeat class 0's static rows (never read: their
+        # count is 0), as gather_signature_rows pads them.
+        self._lp_rep_rows = np.concatenate(
+            [rep_rows, np.full(sb - s_count, rep_rows[0], dtype=np.int64)])
+
+    def _stage_lp_static(self, static_mask_dev, static_score_dev) -> None:
+        """The relaxation's static rows: the per-task [T, N] rows (pad task
+        rows infeasible), or one row a class under classes; ``None`` without
+        static rows."""
+        if static_mask_dev is None:
+            return
+        if self.sig_compress:
+            rep = torch.as_tensor(self._lp_rep_rows, device=self.device)
+            self._lp_static = (static_mask_dev[rep].contiguous(),
+                               static_score_dev[rep].contiguous())
+        else:
+            self._lp_static = (static_mask_dev, static_score_dev)
 
     def _build_qfair_ladder(self, policy, queue_deserved, queue_alloc, queues_idx, qb, r,
                             scale) -> None:
@@ -1431,7 +1543,9 @@ class FusedAllocator:
         try:
             self._dev = self._dev_stats = self._stats_raw = self._encoded = None
             self._events = None
-            self.kernel_ms = self.loop_ms = None
+            self.kernel_ms = self.loop_ms = self.lp_ms = None
+            self._lp_stats_host = None
+            self.lp_phase = {}
             if eager_dispatch:
                 # The dispatch reads only the staged operands, never the jobs.
                 self.dispatch()
@@ -1476,10 +1590,9 @@ class FusedAllocator:
 
     def _delta_compatible(self, ssn) -> bool:
         """Cheap structural re-checks guarding the delta path
-        (``scheduler_tpu/ops/fused.py:2220-2324`` but the mesh, LP, signature
-        compression and tenant regimes, which this package does not carry,
-        and the eviction and backfill flavors, which never change this
-        engine's program).  The cache key and the layout token pin all
+        (``scheduler_tpu/ops/fused.py:2220-2324`` but the mesh and tenant
+        regimes, which this package does not carry, and the eviction and
+        backfill flavors, which never change this engine's program).  The cache key and the layout token pin all
         of them in the cached flow; these re-checks cover direct callers."""
         if _session_device(ssn) != self.device:
             return False
@@ -1518,6 +1631,15 @@ class FusedAllocator:
         from scheduler_tpu_torch.ops.qfair import qfair_flavor
 
         if self.qfair_flavor != qfair_flavor():
+            return False
+        from scheduler_tpu_torch.ops.lp_place import allocator_flavor
+        from scheduler_tpu_torch.ops.sig_compress import sig_compress_mode
+
+        # The flavor selects which program this engine staged, and the mode
+        # its class rows and the LP program's class weighting.
+        if self.allocator != allocator_flavor():
+            return False
+        if self.sig_mode != sig_compress_mode():
             return False
         queue_names = sorted(
             ssn.queues, key=lambda q: (ssn.queues[q].creation_timestamp, q)
@@ -1812,10 +1934,12 @@ class FusedAllocator:
     def engine(self) -> str:
         """``"mega"`` (one launch of the whole loop), ``"step"`` (the loop
         with one placement-step launch a step), ``"xla"`` (the loop's XLA
-        step arm: tensor operations on the device each step) or ``"none"``
-        (nothing pending)."""
+        step arm: tensor operations on the device each step), ``"lp"`` (the
+        LP relaxation and its repair) or ``"none"`` (nothing pending)."""
         if self.flat_count == 0:
             return "none"
+        if self.use_lp:
+            return "lp"
         if self.use_mega:
             return "mega"
         return "step" if self.step_kernel else "xla"
@@ -1927,7 +2051,9 @@ class FusedAllocator:
             self._events = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
             self._events[0].record()
-        if self.use_mega:
+        if self.use_lp:
+            self._dispatch_lp()
+        elif self.use_mega:
             # The session's queue count bounds the queue indices: the launch
             # need not read them back from the device.
             self._dev, self._dev_stats = _mk.mega_allocate(
@@ -1936,6 +2062,99 @@ class FusedAllocator:
             self._dev, self._dev_stats = fused_allocate(*self.args, **self._allocate_kw())
         if self._events is not None:
             self._events[1].record()
+
+    def _lp_kw(self) -> dict:
+        """The relaxation's static arguments (the JAX ``_lp_kw`` but the mesh)."""
+        from scheduler_tpu_torch.ops import lp_place
+
+        return dict(iters=lp_place.lp_iters(), tau=lp_place.lp_tau(), tol=lp_place.lp_tol(),
+                    weights=self.weights, enforce_pod_count=self.enforce_pod_count,
+                    use_static=self.use_static)
+
+    def _lp_class_dev(self):
+        """The [S]-class LP operands on the engine's device (request rows,
+        init request rows and the f32 task count a class), staged once a
+        build: the class table is layout-derived, so a hit keeps them."""
+        if self._lp_sig_dev is None:
+            self._lp_sig_dev = tuple(_to_device(a, np.float32, device=self.device)
+                                     for a in self._lp_sig_host)
+        return self._lp_sig_dev
+
+    def _lp_operands(self):
+        """The relaxation's operands from the loop's staged ``args``
+        (``scheduler_tpu/ops/fused.py:2966-2988``): the open node state, the
+        static rows and the request rows of the tasks, or of the classes
+        with their counts."""
+        args = self.args
+        dev = self.device
+        idle = torch.as_tensor(args[0], device=dev)
+        task_count = torch.as_tensor(args[2], device=dev)
+        smask, sscore = self._lp_static if self._lp_static is not None else (None, None)
+        if self.sig_compress:
+            init_c, req_c, count_c = self._lp_class_dev()
+            rows = (init_c, req_c, count_c)
+        else:
+            rows = (args[7], args[8], None)
+        return (idle, args[3], task_count, args[4], args[5], smask, sscore, args[6]) + rows
+
+    def _dispatch_lp(self) -> None:
+        """The LP flavor's run (``scheduler_tpu/ops/fused.py:2949-3020``):
+        the relaxation (``lp_place.lp_relax``: ``csrc/lp_relax.cu`` on CUDA
+        tensors), then the repair, the loop with the marginals as its static
+        score and the open-state feasibility as its static mask, zero
+        dynamic weights, no releasing arm and no step kernel, so it takes
+        the XLA step arm, with the session's own job and queue chain.  Rows
+        are classes under signature compression (the loop reads them
+        through ``sig_of_task``), tasks otherwise.  The wall split is
+        ``lp_phase`` (``lp_iterate``: the relaxation up to its evidence on
+        the host; ``lp_repair``: the loop), also recorded as phases."""
+        import time as _time
+
+        from scheduler_tpu_torch.ops import lp_place
+
+        args = self.args
+        t0 = _time.perf_counter()
+        ev = None
+        if self.device.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        marginals, feas, pref, lp_raw = lp_place.lp_relax(*self._lp_operands(),
+                                                          **self._lp_kw())
+        if ev is not None:
+            ev[1].record()
+        self._lp_stats_host = (pref.cpu().numpy().astype(np.int32), lp_raw.cpu().numpy())
+        if ev is not None:
+            self.lp_ms = ev[0].elapsed_time(ev[1])
+        t1 = _time.perf_counter()
+        a = list(args)
+        a[FUSED_OPERAND_NAMES.index("static_mask")] = feas
+        a[FUSED_OPERAND_NAMES.index("static_score")] = marginals
+        if self.sig_compress:
+            sig_lp = np.zeros(self._t_bucket, dtype=np.int32)
+            sig_lp[:self.flat_count] = self.sig_of_task
+            a[FUSED_OPERAND_NAMES.index("sig_of_task")] = sig_lp
+        self._dev, self._dev_stats = fused_allocate(
+            *a,
+            comparators=self.comparators,
+            queue_comparators=self.queue_comparators,
+            overused_gate=self.overused_gate,
+            use_static=True,
+            n_queues=len(self.queue_uids),
+            weights=(0.0, 0.0, 0.0),
+            enforce_pod_count=self.enforce_pod_count,
+            batch_runs=self.batch_runs,
+            sorted_jobs=True,
+            has_releasing=False,
+            step_kernel=False,
+            queue_delta=self.queue_delta,
+            sig_compress=self.sig_compress,
+            qfair_ladder=self.qfair_ladder,
+        )
+        t2 = _time.perf_counter()
+        self.lp_phase = {"lp_iterate": t1 - t0, "lp_repair": t2 - t1}
+        if phases.active():
+            phases.add("lp_iterate", t1 - t0)
+            phases.add("lp_repair", t2 - t1)
 
     def readback(self) -> np.ndarray:
         """Blocking collect of the dispatched run's placement codes
@@ -2006,6 +2225,10 @@ class FusedAllocator:
         if enc is not None:
             codes = enc[: self.flat_count]
             out["placed"] = int(((codes >= 0) | (codes <= _PIPE_BASE)).sum())
+        if self.use_lp:
+            out["lp"] = self._lp_block(enc)
+        if self.sig_mode != "off" and self.flat_count > 0:
+            out["sig"] = self._sig_block()
         raw = self._stats_raw
         if isinstance(raw, dict):
             out["steps"] = raw["steps"]
@@ -2035,7 +2258,46 @@ class FusedAllocator:
             out["kernel_ms"] = self.kernel_ms
         if self.loop_ms is not None:
             out["loop_ms"] = self.loop_ms
+        if self.lp_ms is not None:
+            out["lp_ms"] = self.lp_ms
         return out
+
+    def _lp_block(self, enc) -> dict:
+        """The LP quality block (``scheduler_tpu/ops/fused.py:3355-3383``):
+        the temperature, the relaxation's evidence and the repaired
+        solution's quality (``lp_place.lp_quality``), the class preference
+        expanded to tasks through ``sig_of_task``."""
+        from scheduler_tpu_torch.ops import lp_place
+
+        lp: dict = {"tau": lp_place.lp_tau()}
+        if self._lp_stats_host is not None:
+            pref, lp_raw = self._lp_stats_host
+            lp.update(lp_place.lp_stats_dict(lp_raw))
+            if enc is not None:
+                t = self.flat_count
+                pref_t = pref[self.sig_of_task] if self.sig_compress else pref[:t]
+                lp.update(lp_place.lp_quality(
+                    enc[:t], pref_t, self.st.tasks.resreq[:t], self.st.nodes.idle,
+                    self.st.tasks.job_idx[:t], self.st.nodes.allocatable))
+        return lp
+
+    def _sig_block(self) -> dict:
+        """The signature-class evidence (``scheduler_tpu/ops/fused.py:
+        3384-3400``): classes, tasks, the compression factor and the bytes
+        the class rows save against the [T, N] rows (16 a cell under LP, 5
+        with static rows), or why classes did not engage."""
+        from scheduler_tpu_torch.ops import sig_compress as _sc
+
+        if not self.sig_compress:
+            sig = {"engaged": False}
+            if self.sig_reason:
+                sig["reason"] = self.sig_reason
+            return sig
+        per_elem = 16 if self.use_lp else (5 if self.use_static else 0)
+        saved = max(self._t_bucket - self._sig_bucket, 0) * self.n_bucket * per_elem
+        sig = _sc.sig_stats(self.sig_classes, self.flat_count, saved)
+        sig["engaged"] = True
+        return sig
 
     def run_columnar(self):
         """Execute the kernel (once) and decode WITHOUT task objects.

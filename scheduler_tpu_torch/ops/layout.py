@@ -55,6 +55,16 @@ class QFAIR_STATS:
                       # budget ran out, and proportion falls back to the host)
 
 
+class LP_STATS:
+    """The LP relaxation's evidence row (``ops/lp_place.py``, i32[2]),
+    decoded by ``lp_place.lp_stats_dict`` into the ``lp`` block of
+    ``FusedAllocator.run_stats()``."""
+
+    ITERATIONS = 0    # fixed-point iterations run (always the knob)
+    CONVERGED_AT = 1  # first iteration whose projection update fell under
+                      # SCHEDULER_TORCH_LP_TOL (-1: never)
+
+
 class JOB_STATE:
     """The ``fused_allocate`` loop's per-job state columns (``ops/fused.py``
     job_state, [J, 3 + r_dim]): the loop's twin of ``JOB_SCRATCH`` rows

@@ -1,0 +1,377 @@
+"""LP-relaxed batch placement on one device (``scheduler_tpu/ops/lp_place.py``).
+
+The greedy engines place one task (or one cohort) a step.  This flavor
+solves the RELAXED assignment over the whole rows x nodes score tensor with
+a fixed number of data-parallel fixed-point iterations, then repairs the
+fractional solution to integrality through the greedy loop's own capacity
+accounting (``ops/fused.py``: the loop with the marginals as its static
+score and the open-state feasibility as its static mask, zero dynamic
+weights), so binds never oversubscribe a node and the gang and queue
+semantics are greedy's.
+
+Relaxation.  ``X[t, n] >= 0`` with ``sum_n X[t, n] <= 1`` a row and, a node,
+``sum_t X[t, n] * req[t, r] <= cap[n, r]`` (the pod-count room as one more
+column where the pod-count gate is live); the entropy-smoothed objective
+``max sum X * score - tau * sum X * log X`` over the session's own scorer
+mix.  Each iteration:
+
+1. ``z = logits + log_v``; a row's max ``m``, its lowest-index argmax and
+   ``s = sum exp(z - m)``; the row's mass gate ``m > NEG / 2``;
+2. ``x = exp(z - m) * ((exp(m - m) * mass) / s)``;
+3. ``load = x^T @ req_aug``; a node's ``ratio = min_r cap / max(load,
+   1e-9)`` over the dims with ``load > 1e-9`` (+inf where none);
+4. ``log_v += log(clip(min(ratio, 1), 1e-6, 1))``; ``max |update|`` feeds
+   the next iteration's ``converged_at`` test (the ``i - 1`` rule).
+
+On CUDA tensors the iteration is ONE call of the hand-written kernel
+``csrc/lp_relax.cu`` (``lp_iterate``; the JAX package leaves it to XLA);
+on CPU tensors, or with ``lp_iterate``'s ``plain``, it is
+``lp_iterate_reference``, the PyTorch operations of the JAX body.  Under signature classes
+(``ops/sig_compress.py``) the rows are classes and ``req_aug`` is weighted
+by each class's task count.
+
+The knobs twin the JAX package's: ``SCHEDULER_TORCH_ALLOCATOR`` (``greedy``
+or ``lp``), ``SCHEDULER_TORCH_LP_ITERS``, ``_LP_TAU``, ``_LP_TOL`` and
+``_LP_LIMIT``, each in ``ops/engine_cache._ENV_KEYS``.  The JAX package's
+``shard_map`` twins wait for the mesh.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from scheduler_tpu_torch.api.vocab import CPU, MEMORY
+from scheduler_tpu_torch.ops import cuda_build
+from scheduler_tpu_torch.ops.layout import LP_STATS
+
+# Finite "never" logit of an infeasible (row, node) pair: the row softmax of
+# an all-infeasible row stays NaN-free, and its mass gate zeroes it.
+NEG = -1e9
+
+# Solves launched on the card (one C call a solve; the CPU path never counts).
+launches = 0
+
+# The kernel's limits and launch shape (csrc/lp_relax.cu).
+MAX_COLS = 16          # capacity columns (r_dim, plus one for the pod count)
+NODE_THREADS = 256     # nodes of a projection CTA (one max |update| a CTA)
+CHUNK_ROWS = 256       # rows a column pass thread sums, in ascending order
+
+
+# -- knobs (all in engine_cache._ENV_KEYS) -----------------------------------------
+
+def allocator_flavor() -> str:
+    """``SCHEDULER_TORCH_ALLOCATOR``: ``greedy`` (default: the sequential
+    engines) or ``lp`` (this module's relaxation and repair)."""
+    from scheduler_tpu_torch.utils.envflags import env_str
+
+    return env_str("SCHEDULER_TORCH_ALLOCATOR", "greedy", choices=("greedy", "lp"))
+
+
+def lp_iters() -> int:
+    """Fixed-point iterations of the relaxation (a fixed count keeps the
+    output deterministic)."""
+    from scheduler_tpu_torch.utils.envflags import env_int
+
+    return env_int("SCHEDULER_TORCH_LP_ITERS", 200, minimum=1, maximum=10_000)
+
+
+def lp_tau() -> float:
+    """Softmax temperature: lower is sharper."""
+    from scheduler_tpu_torch.utils.envflags import env_float
+
+    return env_float("SCHEDULER_TORCH_LP_TAU", 0.25, minimum=1e-4)
+
+
+def lp_tol() -> float:
+    """Convergence tolerance on max |delta log_v|: evidence only (the
+    iteration count stays fixed)."""
+    from scheduler_tpu_torch.utils.envflags import env_float
+
+    return env_float("SCHEDULER_TORCH_LP_TOL", 1e-3, minimum=0.0)
+
+
+def lp_limit_bytes() -> int:
+    """The admission gate's working-set limit in bytes (default 256 MiB)."""
+    from scheduler_tpu_torch.utils.envflags import env_int
+
+    return env_int("SCHEDULER_TORCH_LP_LIMIT", 256 * 1024 * 1024, minimum=1)
+
+
+def lp_working_set_bytes(row_bucket: int, n_bucket: int) -> int:
+    """The gate's working-set model on one device: about four row-by-node
+    f32 temporaries (logits, exponentials, marginals, feasibility), 16
+    bytes a cell."""
+    return 16 * row_bucket * max(n_bucket, 1)
+
+
+def lp_supported(flat_count: int, has_releasing: bool, row_bucket: int,
+                 n_bucket: int) -> Tuple[bool, Optional[str]]:
+    """Admission gate of the LP flavor: ``(ok, reason when not)``, the JAX
+    gate's decisions and reasons, the flag named the port's.  Releasing capacity has no
+    fractional analogue; the working set (``row_bucket``: the class bucket
+    under signature classes, else the task bucket) must fit the limit."""
+    if flat_count == 0:
+        return False, "no pending tasks"
+    if has_releasing:
+        return False, "releasing capacity (pipelined placements) not modeled"
+    per_shard = lp_working_set_bytes(row_bucket, n_bucket)
+    limit = lp_limit_bytes()
+    if per_shard > limit:
+        return False, (
+            f"[rows={row_bucket}, N={n_bucket}] working set "
+            f"~{per_shard // (1024 * 1024)}MB/shard exceeds "
+            f"SCHEDULER_TORCH_LP_LIMIT={limit // (1024 * 1024)}MB"
+        )
+    return True, None
+
+
+# -- the operands --------------------------------------------------------------------
+
+def _dynamic_score_rows(resreq, idle, allocatable, w_lr: float, w_bal: float,
+                        w_bp: float) -> torch.Tensor:
+    """``ops/scoring.dynamic_score`` for every request row at once: f32
+    [rows, N], the same operations in the same order, over the cpu and
+    memory columns the scorers read."""
+    rows, n = resreq.shape[0], idle.shape[0]
+    score = torch.zeros((rows, n), dtype=torch.float32, device=idle.device)
+    if not (w_lr or w_bal or w_bp):
+        return score
+    cols = [CPU, MEMORY]
+    alloc = allocatable[:, cols]
+    requested = (alloc - idle[:, cols])[None, :, :] + resreq[:, None, cols]
+    safe = torch.where(alloc > 0, alloc, 1.0)[None]
+    if w_lr:
+        frac = torch.clamp((alloc[None] - requested) / safe, 0.0, 1.0)
+        score = score + w_lr * (((frac[..., 0] + frac[..., 1]) / 2.0) * 10.0)
+    if w_bal or w_bp:
+        frac = torch.clamp(requested / safe, 0.0, 1.0)
+        if w_bal:
+            score = score + w_bal * ((1.0 - (frac[..., 0] - frac[..., 1]).abs()) * 10.0)
+        if w_bp:
+            score = score + w_bp * (((frac[..., 0] + frac[..., 1]) / 2.0) * 10.0)
+    return score
+
+
+def logits_and_feasibility(idle, allocatable, task_count, pods_limit, node_gate,
+                           static_mask, static_score, mins, init_resreq, resreq, *,
+                           weights, tau, enforce_pod_count, use_static):
+    """Open-state feasibility and the scaled score logits, ``(logits f32
+    [rows, N], feas bool [rows, N])``: the epsilon fit of the init request
+    against idle, the node gate, the pod-count room and the static mask;
+    the dynamic scorer mix at the open ledgers plus the static score,
+    divided by ``tau``, ``NEG`` where infeasible."""
+    fit = ((init_resreq[:, None, :] < idle[None, :, :])
+           | ((idle[None, :, :] - init_resreq[:, None, :]).abs() < mins[None, None, :])
+           ).all(dim=-1)
+    feas = fit & node_gate[None, :]
+    if enforce_pod_count:
+        feas = feas & (task_count < pods_limit)[None, :]
+    score = _dynamic_score_rows(resreq, idle, allocatable, *weights)
+    if use_static:
+        feas = feas & static_mask
+        score = score + static_score
+    logits = torch.where(feas, score / np.float32(tau), np.float32(NEG))
+    return logits.contiguous(), feas
+
+
+def capacity(idle, task_count, pods_limit, resreq, enforce_pod_count):
+    """The projection's per-node capacity columns and per-row request
+    columns; the pod-count room rides as one more column (each assignment
+    takes one pod slot)."""
+    if enforce_pod_count:
+        cap = torch.cat([idle, (pods_limit - task_count).to(idle.dtype)[:, None]], dim=1)
+        req = torch.cat([resreq, torch.ones((resreq.shape[0], 1), dtype=resreq.dtype,
+                                            device=resreq.device)], dim=1)
+        return cap, req
+    return idle, resreq
+
+
+# -- the iteration: plain version and kernel ----------------------------------------------
+
+def lp_iterate_reference(logits, cap, req_aug, *, iters: int, tol: float):
+    """The fixed-point loop as PyTorch operations in the JAX body's order
+    (``scheduler_tpu/ops/lp_place.py:223-256``), on one device: ``(x f32
+    [rows, N], pref i32 [rows], lp_raw i32 [2])``, the marginals and the
+    preferred nodes of the last iteration."""
+    dev = logits.device
+    log_v = torch.zeros(logits.shape[1], dtype=torch.float32, device=dev)
+    gupd = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    conv = torch.tensor(-1, dtype=torch.int32, device=dev)
+    x = pref = None
+    for i in range(iters):
+        z = logits + log_v[None, :]
+        m = z.max(dim=1).values
+        e = torch.exp(z - m[:, None])
+        s = e.sum(dim=1)
+        pref = torch.argmax(z, dim=1)
+        mass = (m > np.float32(NEG * 0.5)).to(torch.float32)
+        x = e * (torch.exp(m - m) * mass / s)[:, None]
+        if i > 0:
+            conv = torch.where((gupd < np.float32(tol)) & (conv < 0),
+                               torch.tensor(i - 1, dtype=torch.int32, device=dev), conv)
+        if i == iters - 1:
+            break
+        load = x.T @ req_aug
+        ratio = torch.where(load > np.float32(1e-9),
+                            cap / torch.clamp(load, min=np.float32(1e-9)),
+                            torch.tensor(float("inf"), device=dev)).min(dim=1).values
+        scale = torch.clamp(torch.clamp(ratio, max=1.0), np.float32(1e-6), 1.0)
+        upd = torch.log(scale)
+        log_v = log_v + upd
+        gupd = upd.abs().max()
+    lp_raw = torch.zeros(2, dtype=torch.int32, device=dev)
+    lp_raw[LP_STATS.ITERATIONS] = iters
+    lp_raw[LP_STATS.CONVERGED_AT] = conv
+    return x, pref.to(torch.int32), lp_raw
+
+
+def kernel_launches(iters: int) -> int:
+    """Kernel launches of one solve: the init, four an iteration (row pass,
+    column pass, projection, update max) and two in the last."""
+    return 1 + 4 * (iters - 1) + 2
+
+
+_entry_fn = None
+
+
+def _entry():
+    global _entry_fn
+    if _entry_fn is None:
+        fn = cuda_build.load().lp_relax_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _entry_fn = fn
+    return _entry_fn
+
+
+def lp_iterate(logits, cap, req_aug, *, iters: int, tol: float, plain: bool = False):
+    """The fixed-point loop: ``(x f32 [rows, N], pref i32 [rows], lp_raw i32
+    [2])``.  CPU tensors, or ``plain``, run ``lp_iterate_reference``; CUDA
+    tensors launch ``csrc/lp_relax.cu`` (one C call, ``launches`` + 1) or
+    raise."""
+    if plain or logits.device.type == "cpu":
+        return lp_iterate_reference(logits, cap, req_aug, iters=iters, tol=tol)
+    return _launch(logits, cap, req_aug, iters=iters, tol=tol)
+
+
+def _launch(logits, cap, req_aug, *, iters, tol):
+    global launches
+    rows, n = logits.shape
+    r = cap.shape[1]
+    dev = logits.device
+    f32 = torch.float32
+    if r < 1 or r > MAX_COLS:
+        raise ValueError(f"lp_relax: {r} capacity columns (1 to {MAX_COLS})")
+    if iters < 1:
+        raise ValueError("lp_relax: iters must be at least 1")
+    for name, t, shape in (("logits", logits, (rows, n)), ("cap", cap, (n, r)),
+                           ("req_aug", req_aug, (rows, r))):
+        if t.device.type != "cuda" or t.device != dev or t.dtype != f32 \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"lp_relax: {name} must be a CUDA float32 tensor of shape {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"lp_relax: {name} must be contiguous")
+    # The column pass sums CHUNK_ROWS rows a thread into one partial load a
+    # chunk; the projection's CTAs write one max |update| each.
+    chunks = -(-rows // CHUNK_ROWS)
+    x = torch.empty((rows, n), dtype=f32, device=dev)
+    pref = torch.empty(rows, dtype=torch.int32, device=dev)
+    lp_raw = torch.empty(2, dtype=torch.int32, device=dev)
+    log_v = torch.empty(n, dtype=f32, device=dev)
+    mrow = torch.empty(rows, dtype=f32, device=dev)
+    coef = torch.empty(rows, dtype=f32, device=dev)
+    partial = torch.empty((chunks, n, r), dtype=f32, device=dev)
+    blockmax = torch.empty(-(-n // NODE_THREADS), dtype=f32, device=dev)
+    gupd = torch.empty(1, dtype=f32, device=dev)
+    rc = _entry()(logits.data_ptr(), cap.data_ptr(), req_aug.data_ptr(), rows, n, r, int(iters),
+                  float(tol), CHUNK_ROWS, chunks,
+                  log_v.data_ptr(), mrow.data_ptr(), coef.data_ptr(), partial.data_ptr(),
+                  blockmax.data_ptr(), gupd.data_ptr(), x.data_ptr(), pref.data_ptr(),
+                  lp_raw.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lp_relax launch failed: CUDA error {rc}")
+    launches += 1
+    return x, pref, lp_raw
+
+
+def lp_relax(idle, allocatable, task_count, pods_limit, node_gate, static_mask, static_score,
+             mins, init_resreq, resreq, class_count=None, *, iters: int, tau: float,
+             tol: float, weights, enforce_pod_count: bool, use_static: bool):
+    """Solve the relaxed assignment on one device (the single-device branch
+    of ``scheduler_tpu/ops/lp_place.py::lp_relax``).  Returns
+    ``(marginals f32 [rows, N], feasibility bool [rows, N], pref i32 [rows],
+    lp_raw i32 [2])``: the rows slot into the repair's static positions.
+    ``class_count`` f32 [rows]: the rows are signature classes and each
+    row's load in the projection is weighted by its task count (a marginal
+    row stays a per-task distribution)."""
+    logits, feas = logits_and_feasibility(
+        idle, allocatable, task_count, pods_limit, node_gate, static_mask, static_score,
+        mins, init_resreq, resreq, weights=weights, tau=tau,
+        enforce_pod_count=enforce_pod_count, use_static=use_static)
+    cap, req_aug = capacity(idle, task_count, pods_limit, resreq, enforce_pod_count)
+    if class_count is not None:
+        req_aug = req_aug * class_count[:, None]
+    x, pref, lp_raw = lp_iterate(logits, cap.contiguous(), req_aug.contiguous(), iters=iters,
+                                 tol=tol)
+    return x, feas, pref, lp_raw
+
+
+# -- host-side evidence ------------------------------------------------------------
+
+def lp_stats_dict(lp_raw: np.ndarray) -> dict:
+    """Decode the evidence row (``converged_at`` -1: the projection never
+    fell under the tolerance)."""
+    return {
+        "iterations": int(lp_raw[LP_STATS.ITERATIONS]),
+        "converged_at": int(lp_raw[LP_STATS.CONVERGED_AT]),
+    }
+
+
+def lp_quality(codes: np.ndarray, pref: np.ndarray, resreq: np.ndarray,
+               idle_open: np.ndarray, job_idx: np.ndarray, allocatable: np.ndarray) -> dict:
+    """The cycle's quality block (``scheduler_tpu/ops/lp_place.py:530-582``):
+    ``binds``; ``repair_fallbacks``, placed pods whose node differs from
+    their preferred node; ``fragmentation``, 1 - (copies of the mean placed
+    request that fit node by node after the cycle) / (copies if the same
+    leftover were consolidated); ``drf_distance``, max minus mean of the
+    placed jobs' dominant shares of this cycle's placements."""
+    placed = codes >= 0
+    binds = int(placed.sum())
+    out = {
+        "binds": binds,
+        "repair_fallbacks": int((placed & (codes != pref)).sum()),
+    }
+    n, r = idle_open.shape
+    load = np.zeros((n, r))
+    if binds:
+        np.add.at(load, codes[placed], resreq[placed])
+    idle_after = np.maximum(idle_open - load, 0.0)
+    ref_req = resreq[placed].mean(axis=0) if binds else (
+        resreq.mean(axis=0) if resreq.shape[0] else np.zeros(r)
+    )
+    pos = ref_req > 0
+    if pos.any() and n:
+        per_node = np.floor(np.min(idle_after[:, pos] / ref_req[pos][None, :], axis=1))
+        ideal = np.floor(np.min(idle_after[:, pos].sum(axis=0) / ref_req[pos]))
+        out["fragmentation"] = (
+            round(float(1.0 - per_node.sum() / ideal), 4) if ideal > 0 else 0.0
+        )
+    else:
+        out["fragmentation"] = 0.0
+    totals = allocatable.sum(axis=0) if n else np.zeros(r)
+    safe = np.where(totals > 0, totals, 1.0)
+    if binds and job_idx.size:
+        nj = int(job_idx.max()) + 1
+        job_load = np.zeros((nj, r))
+        np.add.at(job_load, job_idx[placed], resreq[placed])
+        dom = (job_load / safe[None, :] * (totals > 0)[None, :]).max(axis=1)
+        dom = dom[np.unique(job_idx[placed])]
+        out["drf_distance"] = round(float(dom.max() - dom.mean()), 6)
+    else:
+        out["drf_distance"] = 0.0
+    return out

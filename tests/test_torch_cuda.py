@@ -1230,3 +1230,94 @@ def test_daemon_over_the_wire_binds_as_run_once(tmp_path):
     assert rec["launches"]["static_predicate_mask"] >= 1
     assert rec["launches"]["mega_allocate"] >= 1
     assert rec["binds"] == 600 and rec["equal_to_twin"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(smoke.LP_KERNEL_CASES))
+def test_lp_relax_matches_plain_version(case):
+    """``lp_relax`` on the card against its plain version on the same CUDA
+    operands (``chip_smoke.lp_operands``): the marginals within
+    ``chip_smoke.lp_marginal_errors``' limit (relative, the sums run in
+    other orders), ``pref`` and the evidence row equal; one launch
+    counted."""
+    from scheduler_tpu_torch.ops import lp_place
+
+    seed, rows, n, r_dim, classes, pod_count, static, tight, iters = smoke.LP_KERNEL_CASES[case]
+    ops = smoke.lp_operands(seed, rows, n, r_dim, classes=classes, pod_count=pod_count,
+                            static=static, tight=tight)
+    logits, cap, req_aug = smoke.lp_iterate_operands(ops, _card())
+    before = lp_place.launches
+    x, pref, raw = lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=1e-3)
+    torch.cuda.synchronize()
+    assert lp_place.launches == before + 1
+    x_p, pref_p, raw_p = lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=1e-3,
+                                             plain=True)
+    assert lp_place.launches == before + 1
+    assert x.shape == x_p.shape and x.dtype == torch.float32
+    errs = smoke.lp_marginal_errors(x, x_p)
+    assert errs["over_tol"] <= 1.0, errs
+    assert torch.equal(pref, pref_p)
+    assert torch.equal(raw, raw_p) and int(raw[0]) == iters
+
+
+@pytest.mark.cuda
+def test_lp_relax_two_launches_bitwise():
+    from scheduler_tpu_torch.ops import lp_place
+
+    ops = smoke.lp_operands(2, 600, 300, 3, classes=True)
+    logits, cap, req_aug = smoke.lp_iterate_operands(ops, _card())
+    a = lp_place.lp_iterate(logits, cap, req_aug, iters=200, tol=1e-3)
+    b = lp_place.lp_iterate(logits, cap, req_aug, iters=200, tol=1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+@pytest.mark.cuda
+def test_lp_relax_refuses_bad_operands():
+    from scheduler_tpu_torch.ops import lp_place
+
+    ops = smoke.lp_operands(0, 16, 64, 2)
+    logits, cap, req_aug = smoke.lp_iterate_operands(ops, _card())
+    with pytest.raises(ValueError):
+        lp_place.lp_iterate(logits, cap.double(), req_aug, iters=3, tol=1e-3)
+    with pytest.raises(ValueError):
+        lp_place.lp_iterate(logits.t(), cap, req_aug, iters=3, tol=1e-3)
+    wide = torch.zeros((64, lp_place.MAX_COLS + 1), device=logits.device)
+    with pytest.raises(ValueError):
+        lp_place.lp_iterate(logits, wide, torch.zeros((16, lp_place.MAX_COLS + 1),
+                                                      device=logits.device), iters=3, tol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", ["off", "on"])
+def test_lp_cycle_on_the_card_is_feasible(sig, monkeypatch, tmp_path):
+    """The LP flavor through ``Scheduler.run_once`` on the card (tight
+    gangs, zone selectors under the predicates' static rows): the
+    relaxation launched once, the repair on the XLA step arm, every gang
+    bound whole or not at all, every bind in its zone, no node past its
+    cpu."""
+    from scheduler_tpu_torch.ops import lp_place
+    from scheduler_tpu_torch.scheduler import Scheduler
+
+    _card()
+    monkeypatch.setenv("SCHEDULER_TORCH_ALLOCATOR", "lp")
+    monkeypatch.setenv("SCHEDULER_TORCH_SIG_COMPRESS", sig)
+    spec = smoke.lp_spec(n_nodes=6, n_gangs=6, gang_size=4, req_cpu=1500, selectors=True)
+    cache = smoke.spec_cluster(spec)
+    conf = tmp_path / "lp.yaml"
+    conf.write_text(smoke.PREDICATES_LP_CONF)
+    before = (lp_place.launches, xla_step.launches)
+    Scheduler(cache, scheduler_conf=str(conf)).run_once()
+    assert lp_place.launches == before[0] + 1 and xla_step.launches > before[1]
+    binds = dict(cache.binder.binds)
+    assert binds
+    per_gang, cpu = {}, {}
+    zone = {name: extra["labels"]["zone"] for name, _, extra in spec["nodes"]}
+    for pod, node in binds.items():
+        gang = int(pod.split("/")[-1].split("-")[0][1:])
+        per_gang[gang] = per_gang.get(gang, 0) + 1
+        assert zone[node] == ("za" if gang % 2 else "zb")
+        cpu[node] = cpu.get(node, 0.0) + 1500.0
+    assert all(count == 4 for count in per_gang.values())
+    assert all(used <= 4000.0 for used in cpu.values())

@@ -107,9 +107,8 @@ def run_once(pkg, build, conf_path, monkeypatch):
 def common_stats(stats):
     """The evidence both packages report for a loop run: the engine (in the
     JAX engine's words), cohorts, chunks, the queue chain's mode, the qfair
-    block but the wall time, the placements."""
+    block but the wall time, the placements, the signature classes."""
     out = copy.deepcopy(stats)
-    out.pop("sig", None)  # the JAX engine's signature classes
     out["qfair"].pop("solve_ms")
     for key in ("steps", "chain_selects", "tasks_per_step", "k1_ms", "xla_ms", "kernel_ms",
                 "loop_ms"):

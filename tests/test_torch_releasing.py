@@ -365,9 +365,8 @@ def test_aftermath_allocate_matches_jax():
 def test_aftermath_run_once_matches_jax(tmp_path, monkeypatch):
     """``Scheduler.run_once`` on the config 4 aftermath in each package:
     binds, the cache's task statuses and node ledgers after the cycle, and
-    the engine's ``run_stats()`` key for key (but proportion's wall time;
-    the JAX engine's signature-class evidence has no counterpart, the port
-    having no signature-class compression)."""
+    the engine's ``run_stats()`` key for key, the signature-class evidence
+    (``sig``) included (but proportion's wall time)."""
     conf = tmp_path / "conf.yaml"
     conf.write_text(smoke.RECLAIM_CONF)
     stats, result = {}, {}
@@ -394,7 +393,7 @@ def test_aftermath_run_once_matches_jax(tmp_path, monkeypatch):
     assert result["scheduler_tpu_torch"] == result["scheduler_tpu"]
     assert len(result["scheduler_tpu_torch"][0]) == 20
     jax_stats, port_stats = stats["scheduler_tpu"], stats["scheduler_tpu_torch"]
-    jax_stats.pop("sig")
+    assert port_stats["sig"]["engaged"]
     for block in (jax_stats, port_stats):
         block["qfair"].pop("solve_ms")
     assert port_stats == jax_stats
