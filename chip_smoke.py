@@ -52,10 +52,10 @@ What it does, one JSON line per phase:
       widest and deepest shape the ladder admits,
       ``harness.make_mq_ladder_cluster``: 10,000 nodes, 100 queues of
       weights 1..100, one request class a queue, r_dim 8; the multi-queue
-      conf; at half the flagship's depth, ``LADDER_PATH_PODS``: 50,000
-      single-pod jobs, 500 a queue): proportion's water-fill as one
+      conf; at a quarter of the flagship's depth, ``LADDER_PATH_PODS``:
+      25,000 single-pod jobs, 250 a queue): proportion's water-fill as one
       ``qfair_solve`` launch, then ``mega_allocate`` in multi-queue mode
-      with the qfair ladder.  Checks: the ladder engaged (501 rungs, 100
+      with the qfair ladder.  Checks: the ladder engaged (251 rungs, 100
       classes, a converged solve), one rung lookup a placement, no node
       overcommitted in any of its 8 dims or past 110 pods; then, on a
       session of the same cluster, the device water-fill's deserved rows
@@ -270,10 +270,10 @@ What it does, one JSON line per phase:
    ``--child full_size_plain``, which builds them beside the timed phases
    and runs the plain K2 after the script's go, and the timed kernel's
    stats must equal its twin's).
-   Path g's operands (100 queues of 500 job lanes): the ladder against the
+   Path g's operands (100 queues of 250 job lanes): the ladder against the
    delta chain on the same operands, equal codes, each timed three times in
    turns; and against its plain version on the same operands (timed; its
-   50,001 steps take minutes, so in a child process of the script,
+   25,001 steps take minutes, so in a child process of the script,
    ``--child mq_ladder_plain``, which builds its cluster and engine beside
    the timed phases and runs the kernel and its plain version beside the
    untimed ones, as do the
@@ -290,9 +290,16 @@ What it does, one JSON line per phase:
    step with a push, 200 launches each): the templates loop's first step,
    config 2's operands, a random case at 65,536 nodes and an all-infeasible
    one; and
-   loop_parity: the templates loop on a second cluster, once with the
-   kernel (held to its plain version at the first step and every 200th)
-   and once with the plain version on the card, equal codes.  ``xla_step``
+   loop_parity (``--child loop_parity``, after the last timed phase): the
+   templates loops of c and j on second clusters, once with the kernel
+   (held to its plain version at the first step and every 200th) and once
+   with the plain version on the card, equal codes.  The node mesh's arms,
+   timed on the main paths' operands: K2's mesh mode on b's (its plain
+   check in ``full_size_plain``), K1 on the first of four node blocks of
+   c's first step, the XLA arm's shard mode at i's shape
+   (``xla_shard_record``, each shard held to its plain version) and
+   ``lp_relax`` over four blocks of r''s logits (in ``lp_paths``, held to
+   its plain version and to the one-device kernel).  ``xla_step``
    (the five results and the node state): the planted cases
    (``XLA_STEP_PLANTS``: ties across threads and strides, the winner and
    runner-up on stride edges, a runner-up tie, nothing feasible, pod room 0 and 1, a
@@ -304,12 +311,25 @@ What it does, one JSON line per phase:
    clusters, bind for bind (one of them, 4,200 single-pod jobs of distinct
    requests, on the loop route with K1; one with releasing capacity; one
    with both, on the loop's releasing arm).
+5. mesh paths s-v (``--child mesh_paths``, after the last timed phase): the
+   node mesh (``SCHEDULER_TORCH_MESH``) over four copies of the card, each
+   path a cold ``Scheduler.run_once`` on a fresh cluster whose codes must
+   equal one device's on the same cluster and whose engine must run on the
+   mesh (``_mesh`` engaged, four devices): s. b on ``4`` (K2's mesh mode;
+   also b's binds); t. c on ``2x2`` (the loop's K1 on every shard, each
+   held to its plain version every 200th step) and on ``4``; u. i and k
+   on ``4`` (the XLA arm's shard mode, checked likewise); v. r' on ``4``
+   (``lp_relax`` over node blocks, held to its plain version and to one
+   device).  Then the saturated storm under the device eviction flavor and
+   p's eighth under the device backfill flavor, on ``4`` and on one device:
+   equal evictions, statuses and binds.
 
 Then the ``kernels`` line (with each kernel's launches on every path that
 runs it, l's to p's included; ``place_scan``'s entry below the TPU
 kernels' from paths n and n', with its launch plan; ``xla_step``'s from
 paths i and k and the planted cases; ``qfair_solve``'s with its chain
-floor; ``lp_relax``'s from paths r' and r, a solve and a kernel launch),
+floor; ``lp_relax``'s from paths r' and r, a solve and a kernel launch;
+then the mesh arms' entries with their launches on paths s-v),
 the card's name and power
 limit as nvidia-smi prints them, and as the last line ``{"ok": true,
 "device": {...}}``.  Any
@@ -391,11 +411,13 @@ LADDER_NODES = 10_000
 LADDER_PODS = 100_000
 LADDER_QUEUES = 100
 LADDER_VOCAB = 6
-# Path g runs the ladder flagship at its width and half its depth (the same
-# nodes and queues, 500 jobs a queue: 50,001 steps), and K2's plain check
-# runs on path g's own operands: at the full depth the 100,001 plain steps
-# took 488 s beside the daemon child, past the script's limit.
-LADDER_PATH_PODS = LADDER_PODS // 2
+# Path g runs the ladder flagship at its width and a quarter of its depth
+# (the same nodes and queues, 250 jobs a queue: 25,001 steps), and K2's
+# plain check runs on path g's own operands: at the full depth the 100,001
+# plain steps took 488 s beside the daemon child, past the script's limit,
+# and at half depth the 50,001 bounded the script's tail beside the mesh
+# paths' children.
+LADDER_PATH_PODS = LADDER_PODS // 4
 # The ladder session at the size its plain version runs in seconds.
 LADDER_SMALL = (1000, 4000, 20, 6)
 
@@ -1063,6 +1085,30 @@ def xla_arm_on(ops, flags, device, **kw):
                             t["allocatable"], t["pods_limit"], t["node_gate"], t["mins"],
                             t["init_resreq"], t["resreq"], t["static_mask"], t["static_score"],
                             **flags, **kw)
+
+
+def xla_shard_arm_on(ops, flags, mesh, **kw):
+    """An ``XlaShardStep`` over ``mesh`` bound to ``xla_step_operands``-style
+    numpy arrays, the node operands split into the mesh's blocks
+    (keywords: ``plan``, ``plain``, ``check_every``)."""
+    import numpy as np
+    import torch
+
+    from scheduler_tpu_torch.ops import xla_step
+    from scheduler_tpu_torch.ops.mesh import Sharded, family_on
+
+    t = {k: torch.from_numpy(np.array(v)).to(mesh.first) for k, v in ops.items()
+         if k != "node_state"}
+    for k in ("allocatable", "pods_limit", "node_gate"):
+        t[k] = Sharded.split(mesh, t[k], 0, family_on(mesh, "node_major"))
+    for k in ("static_mask", "static_score"):
+        t[k] = Sharded.split(mesh, t[k], 1, family_on(mesh, "node_trailing"))
+    ns = ops["node_state"]
+    r_dim = ops["allocatable"].shape[1]
+    return xla_step.XlaShardStep(mesh, ns[:, :r_dim], ns[:, r_dim:2 * r_dim], ns[:, 2 * r_dim],
+                                 t["allocatable"], t["pods_limit"], t["node_gate"], t["mins"],
+                                 t["init_resreq"], t["resreq"], t["static_mask"],
+                                 t["static_score"], **flags, **kw)
 
 
 def plant_scan(ops, kind, slices):
@@ -1856,7 +1902,8 @@ def events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
 
-def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3, plain=True):
+def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3, plain=True,
+            mesh=None):
     """mega_allocate and its plain version on the same CUDA operands: codes
     and stats must be bitwise equal; the record carries the kernel's launch
     plan.  ``n_queues``: the queue count, as the engine passes it (multi-queue
@@ -1867,7 +1914,9 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3, plain=Tr
     and the record carries the run's bound (``mega_bound_ms``).  Without
     ``plain`` the plain version does not run here (the ``full_size_plain``
     child holds the kernel to it on twin operands): the record has no
-    ``equal``, ``max_abs_err`` or ``plain_ms``."""
+    ``equal``, ``max_abs_err`` or ``plain_ms``.  With ``mesh`` (and
+    ``plain``) the kernel also runs in mesh mode on the same operands, held
+    to the same plain run (``rec["mesh"]``)."""
     import torch
 
     from scheduler_tpu_torch.ops import megakernel as mk
@@ -1896,6 +1945,19 @@ def compare(case, args, kw, n_real, n_queues=0, timed=False, repeats=3, plain=Tr
                               if codes_k.numel() else 0)
         rec["plain_ms"] = start.elapsed_time(stop)
         rec["plain_stats"] = stats_r.tolist()
+        if mesh is not None:
+            codes_m, stats_m = mk.mega_allocate(*args, n_queues=n_queues,
+                                                **dict(kw, mesh=mesh))
+            torch.cuda.synchronize()
+            rec["mesh"] = {
+                "shards": mesh.size,
+                "equal": bool(torch.equal(codes_m, codes_r) and torch.equal(stats_m, stats_r)),
+                "max_abs_err": (int((codes_m.long() - codes_r.long()).abs().max())
+                                if codes_m.numel() else 0)}
+            if not rec["mesh"]["equal"]:
+                emit(rec)
+                raise SystemExit(f"mega_allocate's mesh mode and the plain version disagree: "
+                                 f"{case}")
     rec["bound_ms"], rec["bound_by"] = mega_bound_ms(args, kw, codes_k, stats_k, n_real, n_queues)
     if timed:
         start.record()
@@ -2626,12 +2688,14 @@ def reset_counts():
     for route in allocate.routes:
         allocate.routes[route] = 0
     lp.launches = 0
+    lp.block_launches = 0
     mk.launches = 0
     pk.launches = 0
     qf.launches = 0
     sk.launches = 0
     psk.launches = 0
     xs.launches = 0
+    xs.shard_launches = 0
 
 
 def read_counts():
@@ -2647,11 +2711,12 @@ def read_counts():
 
     return ({"mega_allocate": mk.launches, "static_predicate_mask": pk.launches,
              "placement_step": sk.launches, "qfair_solve": qf.launches,
-             "place_scan": psk.launches, "xla_step": xs.launches, "lp_relax": lp.launches},
+             "place_scan": psk.launches, "xla_step": xs.launches, "lp_relax": lp.launches,
+             "xla_step_shards": xs.shard_launches, "lp_relax_blocks": lp.block_launches},
             dict(allocate.routes))
 
 
-def run_cycle(cache, conf_path, engine="mega", after_action=None):
+def run_cycle(cache, conf_path, engine="mega", after_action=None, shards=1):
     """One ``Scheduler.run_once`` on the card with the launch counts set to
     0 just before and read just after (``conf_path`` None: the default
     conf); the fused route must run ``engine``: one ``mega_allocate``
@@ -2661,7 +2726,11 @@ def run_cycle(cache, conf_path, engine="mega", after_action=None):
     with ``engine`` ``device``, the device route
     (the per-pop engine) must run once, with one ``place_scan`` launch a
     pop and no fused engine.  ``after_action(ssn)``, where given, reads the open
-    session after each action.  Returns (record, launches); the record's
+    session after each action.  With ``shards`` > 1 the engine runs on a
+    node mesh of that many shards (``ops/mesh.py``): K1 launches once a
+    shard a step, the XLA arm's shard mode (``xla_step_shards``) in place of
+    ``xla_step``, the LP relaxation over node blocks (``lp_relax_blocks``)
+    in place of ``lp_relax``; K2's mesh mode launches once.  Returns (record, launches); the record's
     ``notes`` hold the engine cache's outcome, the ``dirty`` refresh
     evidence and backfill's evidence."""
     import torch
@@ -2702,22 +2771,29 @@ def run_cycle(cache, conf_path, engine="mega", after_action=None):
             raise SystemExit(f"the device route did not launch place_scan once a pop: "
                              f"{routes}, {launches}, {evidence}")
         return rec, launches
-    if engine == "lp" and not (launches["lp_relax"] == 1 and 0 < rec["steps"] == launches["xla_step"]
+    xla_key, lp_key = (("xla_step_shards", "lp_relax_blocks") if shards > 1
+                       else ("xla_step", "lp_relax"))
+    other_xla = "xla_step" if shards > 1 else "xla_step_shards"
+    if launches[other_xla] or launches["lp_relax" if shards > 1 else "lp_relax_blocks"]:
+        raise SystemExit(f"the main path ran an arm of another mesh: {launches} ({shards} "
+                         f"shards)")
+    if engine == "lp" and not (launches[lp_key] == 1
+                               and 0 < rec["steps"] * shards == launches[xla_key]
                                and launches["mega_allocate"] == launches["placement_step"] == 0):
-        raise SystemExit(f"the LP flavor did not launch lp_relax once and xla_step once a "
-                         f"repair step: {launches}, {rec['steps']} steps")
+        raise SystemExit(f"the LP flavor did not launch {lp_key} once and {xla_key} once a "
+                         f"repair step and shard: {launches}, {rec['steps']} steps")
     if engine == "mega" and not (launches["mega_allocate"] == 1
                                  and launches["xla_step"] == launches["placement_step"] == 0):
         raise SystemExit(f"the main path did not launch mega_allocate once: {launches}")
-    if engine == "step" and not (0 < rec["steps"] == launches["placement_step"]
-                                 and launches["mega_allocate"] == launches["xla_step"] == 0):
-        raise SystemExit(f"the loop did not launch placement_step once a step: {launches}, "
-                         f"{rec['steps']} steps")
-    if engine == "xla" and not (0 < rec["steps"] == launches["xla_step"]
+    if engine == "step" and not (0 < rec["steps"] * shards == launches["placement_step"]
+                                 and launches["mega_allocate"] == launches[xla_key] == 0):
+        raise SystemExit(f"the loop did not launch placement_step once a step and shard: "
+                         f"{launches}, {rec['steps']} steps, {shards} shards")
+    if engine == "xla" and not (0 < rec["steps"] * shards == launches[xla_key]
                                 and launches["placement_step"] == 0
                                 and launches["mega_allocate"] == 0):
-        raise SystemExit(f"the loop's XLA step arm did not launch xla_step once a step: "
-                         f"{launches}, {rec['steps']} steps")
+        raise SystemExit(f"the loop's XLA step arm did not launch {xla_key} once a step and "
+                         f"shard: {launches}, {rec['steps']} steps, {shards} shards")
     if routes["host"] != 0 or routes["fused"] < 1:
         raise SystemExit(f"the main path took the host route: {routes}")
     return rec, launches
@@ -2808,7 +2884,8 @@ def check_declined_qfair(qf, launches, path):
 def phase_main_path_ladder(cache, conf_path):
     """The qfair ladder flagship: proportion's device water-fill, then the
     mega kernel in multi-queue mode with the ladder.  Checks: the ladder
-    engaged with 501 rungs and 100 classes after a converged solve, one
+    engaged with a rung a placement of a queue plus one (251) and 100
+    classes after a converged solve, one
     rung lookup a placement, no node overcommitted in any of its 8 dims or
     past 110 pods."""
     rec, launches = run_cycle(cache, conf_path)
@@ -4824,6 +4901,521 @@ def lp_entry(lp_paths):
                                  "faults_over_tol": tight["faults_over_tol"]}}
 
 
+# -- paths s-v: the node mesh on the one card ------------------------------------------
+#
+# The node mesh (ops/mesh.py) over MESH_SHARDS copies of the one card: the
+# shards are real node blocks with real offsets and the real merge, but they
+# share the card, so their times are not those of MESH_SHARDS cards.  Each
+# path runs on a fresh cluster built as the path it shadows, first on one
+# device (the engine alone, nothing committed), then on the mesh through
+# ``Scheduler.run_once``; the codes must be equal.
+
+MESH_SHARDS = 4
+MESH_CHECK_EVERY = 200
+
+
+def mesh_of(shards, spec=None):
+    """The port's mesh of ``shards`` copies of the card (``spec``: the 2-D
+    spec; default 1-D), built as ``get_mesh`` builds it."""
+    import torch
+
+    from scheduler_tpu_torch.ops import mesh as M
+
+    shape = {"nodes": shards}
+    if spec and "x" in spec:
+        r, c = M.parse_2d_spec(spec)
+        shape = {"replica": r, "nodes": c}
+    return M.NodeMesh([torch.device("cuda", 0)] * shards, shape)
+
+
+def mesh_set(spec):
+    """``SCHEDULER_TORCH_MESH=spec`` over ``MESH_SHARDS`` copies of the card;
+    the mesh ``get_mesh`` then gives (None for ``1``).  A spec that degrades
+    fails the run."""
+    import torch
+
+    from scheduler_tpu_torch.ops import mesh as M
+
+    os.environ["SCHEDULER_TORCH_MESH"] = spec
+    M.set_mesh_devices([torch.device("cuda", 0)] * MESH_SHARDS)
+    mesh = M.get_mesh()
+    if spec != "1" and (mesh is None or mesh.size != MESH_SHARDS):
+        raise SystemExit(f"mesh {spec}: got {mesh} over {MESH_SHARDS} copies of the card")
+    return mesh
+
+
+def check_mesh_engine(eng, path, spec):
+    """The engine ran on the mesh ``spec``: ``_mesh`` engaged, its topology
+    ``MESH_SHARDS`` devices, the node operands split.  Returns the
+    topology."""
+    from scheduler_tpu_torch.ops.mesh import mesh_topology
+
+    if eng is None or eng._mesh is None:
+        raise SystemExit(f"path {path}: the engine ran without the mesh {spec}")
+    topo = mesh_topology(eng._mesh)
+    stats = eng.run_stats().get("mesh") or {}
+    if topo["devices"] != MESH_SHARDS or topo["spec"] != spec or not stats.get("sharded"):
+        raise SystemExit(f"path {path}: the mesh is {topo}, {stats}")
+    return topo
+
+
+def engine_codes(cache, conf_text, engine, check_every=0):
+    """The fused engine on a session of ``cache`` on the card (nothing is
+    committed; the session is closed after): ``(codes, run_stats, the
+    engine)``.  The engine must choose ``engine``; with ``check_every`` its
+    loop holds its arm to the plain version at every ``check_every``-th
+    step (``fused_allocate``'s check)."""
+    import torch
+
+    from scheduler_tpu_torch.framework import close_session
+    from scheduler_tpu_torch.ops import fused as fused_mod
+
+    ssn, eng = engine_for(cache, conf_text, torch.device("cuda"), engine)
+    if check_every:
+        codes, stats = fused_mod.fused_allocate(*eng.args, **eng._allocate_kw(),
+                                                check_every=check_every)
+        codes = codes.numpy()[:eng.flat_count]
+        if stats["checked"] < 10:
+            raise SystemExit(f"only {stats['checked']} loop steps were checked")
+    else:
+        codes = eng.readback().copy()[:eng.flat_count]
+        stats = eng.run_stats()
+    close_session(ssn)
+    return codes, stats, eng
+
+
+def codes_equal(path, spec, got, want):
+    import numpy as np
+
+    equal = got is not None and got.shape == want.shape and bool(np.array_equal(got, want))
+    placed = int(((want >= 0) | (want <= -3)).sum())
+    emit({"phase": "mesh_parity", "path": path, "spec": spec, "tasks": int(want.shape[0]),
+          "placed": placed, "equal": equal})
+    if not equal:
+        raise SystemExit(f"path {path}: the codes on mesh {spec} differ from one device's")
+    if placed < 1:
+        raise SystemExit(f"path {path}: nothing placed")
+    return placed
+
+
+def mesh_path_s(opts, conf_path):
+    """Path s: b on the mesh, K2 in mesh mode (one launch, every operand
+    whole on the first device): a cold cycle's codes equal one device's on
+    the same cluster, 100,000 binds (K2's mesh mode is timed on b's
+    operands in ``phase_full_size`` and held to its plain version in
+    ``full_size_plain``)."""
+    import gc as _gc
+
+    cache = full_size_cluster("config3", opts)
+    mesh_set("1")
+    single, _, _ = engine_codes(cache, FLAGSHIP_CONF, "mega")
+    _gc.collect()
+    spec = str(MESH_SHARDS)
+    mesh_set(spec)
+    with open(conf_path, "w") as f:
+        f.write(FLAGSHIP_CONF)
+    with ReadbackSpy() as spy:
+        rec, launches = run_cycle(cache, conf_path)
+    topo = check_mesh_engine(spy.engine, "s", spec)
+    codes_equal("s", spec, spy.codes[:spy.engine.flat_count], single)
+    binds, gangs = check_binds(cache, opts.nodes, opts.pods, opts.tasks_per_job)
+    digest = binds_digest(cache.binder.binds)
+    emit({"phase": "main_path", "config": "config3_mesh", "path": "s", "mesh": topo,
+          "binds": binds, "gangs_bound": gangs, "binds_digest": digest, **rec})
+    return {"launches": launches, "binds": binds, "digest": digest, "mesh": topo}
+
+
+def mesh_path_t(opts, conf_path):
+    """Path t: c on the mesh, K1 on every shard: the loop on 2x2 (held to
+    K1's plain version at every ``MESH_CHECK_EVERY``-th step, each shard)
+    and a cold cycle on 4, both equal to one device's codes (K1 on a
+    shard's block is timed in ``phase_step_kernel_cases``)."""
+    cache = template_cluster(opts.nodes, opts.template_jobs, opts.template_tasks)
+    mesh_set("1")
+    single, _, _ = engine_codes(cache, FLAGSHIP_CONF, "step")
+    out = {}
+    mesh_set("2x2")
+    codes, stats, eng = engine_codes(cache, FLAGSHIP_CONF, "step", MESH_CHECK_EVERY)
+    check_mesh_engine(eng, "t", "2x2")
+    codes_equal("t", "2x2", codes, single)
+    out["check"] = {"spec": "2x2", "steps": stats["steps"], "checked_steps": stats["checked"],
+                    "shards": stats["shards"]}
+    del eng
+    spec = str(MESH_SHARDS)
+    mesh_set(spec)
+    with open(conf_path, "w") as f:
+        f.write(FLAGSHIP_CONF)
+    with ReadbackSpy() as spy:
+        rec, launches = run_cycle(cache, conf_path, engine="step", shards=MESH_SHARDS)
+    out["mesh"] = check_mesh_engine(spy.engine, "t", spec)
+    codes_equal("t", spec, spy.codes[:spy.engine.flat_count], single)
+    binds, gangs = check_binds(cache, opts.nodes, opts.template_jobs * opts.template_tasks,
+                               opts.template_tasks,
+                               request_fn=job_template_request(opts.template_jobs))
+    emit({"phase": "main_path", "config": "config3_templates_mesh", "path": "t",
+          "binds": binds, "gangs_bound": gangs, **rec})
+    out.update(launches=launches, binds=binds, steps=rec["steps"])
+    return out
+
+
+def k1_shard_record(eng):
+    """K1 on one shard's block: the first step of a loop engine's operands
+    cut to the first of ``MESH_SHARDS`` node blocks (``compare_step``)."""
+    ops, kw = loop_step_operands(eng)
+    n = ops[0].shape[1]
+    n_local = n // MESH_SHARDS
+    shard = tuple(o[:, :n_local].contiguous() if o.shape[1] == n else o for o in ops)
+    return compare_step("config3_templates_shard0_first_step", shard, kw)
+
+
+def xla_shard_operands():
+    """Operands at path i's shape (1,024 nodes, cpu and memory) for the XLA
+    arm's shard mode: ``xla_step_operands`` with requests a sixteenth, so
+    that a step places a batch."""
+    import numpy as np
+
+    ops = xla_step_operands(0, 1024, 2)
+    ops["resreq"][:, :2] = ops["init_resreq"][:, :2] = np.floor(ops["resreq"][:, :2] / 16)
+    return ops
+
+
+def xla_shard_record(case, ops, flags, repeats=64, plain_repeats=10):
+    """The XLA arm's shard mode on ``xla_step_operands``-style arrays over
+    ``MESH_SHARDS`` copies of the card: the first step of every shard held
+    to its plain version (candidate and node block, bitwise), then the
+    device time a launch (profiler, ``repeats`` steps of every shard), the
+    plain version's time a shard launch (events), and the bound of one
+    shard's step (its block's bytes and its candidate)."""
+    import torch
+
+    from scheduler_tpu_torch.ops import xla_step as xs
+
+    hi0 = 128
+    arm = xla_shard_arm_on(ops, flags, mesh_of(MESH_SHARDS), check_every=1)
+    try:
+        first = arm.step(0, 0, hi0)
+        arm.check_every = 0
+        ms, _ = device_ms_per_call(lambda: arm.step(0, 0, hi0), repeats,
+                                   match="xla_shard_kernel")
+        sh = arm.shards[0]
+        start, stop = events()
+        start.record()
+        for _ in range(plain_repeats):
+            arm._plain(sh, sh.node_state.clone(), 0, 0, hi0, None)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop) / plain_repeats
+    finally:
+        arm.close()
+    nbytes = (xla_step_bytes(arm.n_local, arm.r_dim, flags["use_static"],
+                             flags["enforce_pod_count"]) + 4 * xs.SHARD_CAND.WORDS)
+    rec = {"phase": "kernel_vs_plain", "kernel": "xla_step_shard", "case": case,
+           "n": arm.n, "n_local": arm.n_local, "shards": len(arm.shards),
+           "result": list(first), "checked": arm.checked, "max_abs_err": 0.0,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "bound_by": "bytes", "bytes": nbytes, "plan": arm.plan.describe()}
+    emit(rec)
+    return rec
+
+
+def mesh_path_u(opts, conf_path):
+    """Path u: i's and k's loops (the XLA arm, k's with releasing capacity)
+    on the mesh, the arm's shard mode: each loop held to the plain version
+    at every ``MESH_CHECK_EVERY``-th step (candidates and node blocks,
+    bitwise), then a cold cycle whose codes equal one device's."""
+    import gc as _gc
+
+    from scheduler_tpu_torch.harness import make_reclaim_aftermath_cluster
+
+    out = {"launches": {}, "checks": {}}
+    spec = str(MESH_SHARDS)
+    for path, build, conf_text in (
+            ("templates_default_tiers", lambda: template_cluster(*TIERS_TEMPLATES),
+             DEFAULT_TIERS_CONF),
+            ("reclaim_aftermath_templates", lambda: make_reclaim_aftermath_cluster(
+                RECLAIM_TEMPLATES_SCALE, thin_requests=RECLAIM_THIN_REQUESTS).cache,
+             RECLAIM_CONF)):
+        cache = build()
+        mesh_set("1")
+        single, _, _ = engine_codes(cache, conf_text, "xla")
+        mesh_set(spec)
+        codes, stats, eng = engine_codes(cache, conf_text, "xla", MESH_CHECK_EVERY)
+        check_mesh_engine(eng, "u", spec)
+        codes_equal(f"u:{path}", spec, codes, single)
+        out["checks"][path] = {"steps": stats["steps"], "checked_steps": stats["checked"]}
+        del eng
+        with open(conf_path, "w") as f:
+            f.write(conf_text)
+        with ReadbackSpy() as spy:
+            rec, launches = run_cycle(cache, conf_path, engine="xla", shards=MESH_SHARDS)
+        check_mesh_engine(spy.engine, "u", spec)
+        codes_equal(f"u:{path}", spec, spy.codes[:spy.engine.flat_count], single)
+        emit({"phase": "main_path", "config": f"{path}_mesh", "path": "u",
+              "pipelined": int((single <= -3).sum()), **rec})
+        if path == "reclaim_aftermath_templates" and not (single <= -3).any():
+            raise SystemExit("path u: k's loop pipelined nothing")
+        out["launches"][path] = launches
+        del cache, spy
+        _gc.collect()
+    return out
+
+
+class LpBlocksCapture:
+    """Within the ``with`` block, keeps a copy of every
+    ``lp_iterate_blocks`` call's operands (``calls``: logits blocks, cap
+    blocks, req_aug, iters, tol)."""
+
+    def __enter__(self):
+        from scheduler_tpu_torch.ops import lp_place
+
+        self.mod, self.orig = lp_place, lp_place.lp_iterate_blocks
+        self.calls = []
+
+        def capture(logits_b, cap_b, req_aug, *, iters, tol, plain=False, orig=self.orig):
+            self.calls.append(([x.clone() for x in logits_b], [c.clone() for c in cap_b],
+                               req_aug.clone(), iters, tol))
+            return orig(logits_b, cap_b, req_aug, iters=iters, tol=tol, plain=plain)
+
+        lp_place.lp_iterate_blocks = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lp_iterate_blocks = self.orig
+
+
+def split_lp_call(call, blocks):
+    """An ``LpCapture`` call's operands as ``lp_iterate_blocks`` takes them:
+    the logits' and capacities' node axis cut into ``blocks`` equal
+    blocks (the blocks a node mesh of that size builds from them)."""
+    logits, cap, req_aug, iters, tol = call
+    nl = logits.shape[1] // blocks
+    return ([logits[:, k * nl:(k + 1) * nl].contiguous() for k in range(blocks)],
+            [cap[k * nl:(k + 1) * nl].contiguous() for k in range(blocks)], req_aug, iters, tol)
+
+
+def lp_blocks_record(path, call, repeats=3, timed=True):
+    """``lp_relax`` over node blocks on a path's own operands: the kernel
+    twice (bitwise equal), against its plain version over the same blocks
+    and against the one-device kernel on the blocks laid side by side, the
+    marginals held by ``lp_marginal_errors`` (PR 16's tolerance), pref and
+    the evidence row equal.  With ``timed``: events, a solve and a launch,
+    beside the plain version's solve and ``torch.matmul``'s load product."""
+    import torch
+
+    from scheduler_tpu_torch.ops import lp_place
+
+    logits_b, cap_b, req_aug, iters, tol = call
+    d = len(logits_b)
+    got = lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=tol)
+    again = lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=tol)
+    start, stop = events()
+    start.record()
+    ref = lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=tol,
+                                     plain=True)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    one = lp_place.lp_iterate(torch.cat(logits_b, dim=1).contiguous(),
+                              torch.cat(cap_b, dim=0).contiguous(), req_aug, iters=iters,
+                              tol=tol)
+    errs = lp_marginal_errors(torch.cat(got[0], dim=1), torch.cat(ref[0], dim=1))
+    errs_one = lp_marginal_errors(torch.cat(got[0], dim=1), one[0])
+    bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(got[0] + [got[1], got[2]], again[0] + [again[1], again[2]]))
+    equal = torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    errs_one.update(pref_equal=bool(torch.equal(got[1], one[1])),
+                    evidence_equal=bool(torch.equal(got[2], one[2])))
+    if not (bitwise and equal and errs["over_tol"] <= 1.0 and errs_one["over_tol"] <= 1.0):
+        raise SystemExit(f"path {path}: lp_relax over {d} blocks: bitwise {bitwise}, pref and "
+                         f"evidence equal {equal}, against plain {errs}, against one device "
+                         f"{errs_one}")
+    x = torch.cat(got[0], dim=1)
+    rows, n = x.shape
+    rec = {"case": f"{path}_main_path_operands", "blocks": d, "rows": rows, "n": n,
+           "cols": cap_b[0].shape[1], "iters": iters, **errs, "vs_one_device": errs_one,
+           "rtol": LP_KERNEL_RTOL, "atol": LP_KERNEL_ATOL, "pref_equal": True,
+           "bitwise_rerun": True, "evidence": got[2].tolist()}
+    if not timed:
+        emit({"phase": "kernel_vs_plain", "kernel": "lp_relax_blocks", **rec})
+        return rec
+    start.record()
+    for _ in range(repeats):
+        lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=tol)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / repeats
+    torch.matmul(x.T, req_aug)
+    start.record()
+    for _ in range(20):
+        torch.matmul(x.T, req_aug)
+    stop.record()
+    torch.cuda.synchronize()
+    rec.update(ms=ms, launch_ms=ms / lp_place.kernel_launches_blocks(iters, d),
+               plain_ms=plain_ms, library_ms=start.elapsed_time(stop) / 20,
+               library="torch.matmul(x.T, req_aug), one iteration's load product",
+               **lp_bound_ms(rows, n, cap_b[0].shape[1], iters))
+    emit({"phase": "kernel_vs_plain", "kernel": "lp_relax_blocks", **rec})
+    return rec
+
+
+def mesh_path_v(opts, conf_path):
+    """Path v: r' on the mesh, the LP relaxation over node blocks and its
+    repair on the XLA arm's shard mode: a cold cycle's codes equal one
+    device's, and the block solve held to its plain version and to the
+    one-device kernel (timed on r''s operands in ``phase_lp_paths``)."""
+    from scheduler_tpu_torch.harness import make_kubemark_density_cluster
+
+    os.environ["SCHEDULER_TORCH_ALLOCATOR"] = "lp"
+    os.environ["SCHEDULER_TORCH_SIG_COMPRESS"] = "off"
+    try:
+        cache = make_kubemark_density_cluster(opts.config2_nodes, opts.config2_pods).cache
+        mesh_set("1")
+        single, _, _ = engine_codes(cache, CONFIG2_CONF, "lp")
+        spec = str(MESH_SHARDS)
+        mesh_set(spec)
+        with open(conf_path, "w") as f:
+            f.write(CONFIG2_CONF)
+        with LpBlocksCapture() as cap, ReadbackSpy() as spy:
+            rec, launches = run_cycle(cache, conf_path, engine="lp", shards=MESH_SHARDS)
+        check_mesh_engine(spy.engine, "v", spec)
+        placed = codes_equal("v", spec, spy.codes[:spy.engine.flat_count], single)
+        binds, most = check_config2_binds(cache)
+        emit({"phase": "main_path", "config": "config2_lp_mesh", "path": "v", "binds": binds,
+              "lp": rec["cohort"].get("lp"), **rec})
+        if len(cap.calls) != 1:
+            raise SystemExit(f"path v: {len(cap.calls)} block solves")
+        check = lp_blocks_record("config2_lp_mesh", cap.calls[0], timed=False)
+    finally:
+        os.environ.pop("SCHEDULER_TORCH_ALLOCATOR", None)
+        os.environ.pop("SCHEDULER_TORCH_SIG_COMPRESS", None)
+    return {"launches": launches, "binds": binds, "placed": placed, "check": check}
+
+
+def mesh_flavors(conf_dir):
+    """p's eighth under the device backfill flavor and the saturated storm
+    (``saturated_storm_run``) under the device eviction flavor, each on one
+    device and on the mesh: the same binds, evictions and statuses, the
+    picks and fills through the mesh."""
+    from scheduler_tpu_torch.harness.backfill_wave import (
+        BACKFILL_CONF,
+        BackfillWaveConfig,
+        seed_wave_cache,
+    )
+
+    out = {}
+    keys = ("evictions", "statuses", "binds")
+    runs = {}
+    for spec in ("1", str(MESH_SHARDS)):
+        mesh_set(spec)
+        runs[spec] = saturated_storm_run(None, "device")
+    if not all(runs["1"][k] == runs[str(MESH_SHARDS)][k] for k in keys):
+        raise SystemExit("the storm on the mesh differs from one device's")
+    picks = {kind: stats.get("device_picks") for kind, stats in
+             runs[str(MESH_SHARDS)]["evict"].items()}
+    if not runs["1"]["evictions"] or not sum(v or 0 for v in picks.values()):
+        raise SystemExit(f"the storm on the mesh: {len(runs['1']['evictions'])} evictions, "
+                         f"picks {picks}")
+    out["storm"] = {"evictions": len(runs["1"]["evictions"]), "device_picks": picks,
+                    "launches": runs[str(MESH_SHARDS)]["launches"]}
+    bf_conf = os.path.join(conf_dir, "mesh_backfill_conf.yaml")
+    with open(bf_conf, "w") as f:
+        f.write(BACKFILL_CONF)
+    waves = {}
+    for spec in ("1", str(MESH_SHARDS)):
+        mesh_set(spec)
+        cache = seed_wave_cache(BackfillWaveConfig(**BACKFILL_EIGHTH))
+        rec, launches, outcome, wrong = backfill_cycle(cache, bf_conf, None, "device")
+        if wrong:
+            raise SystemExit(f"p's eighth on mesh {spec}: {'; '.join(wrong[:5])}")
+        waves[spec] = (rec, launches, outcome)
+    if waves["1"][2] != waves[str(MESH_SHARDS)][2]:
+        raise SystemExit("p's eighth on the mesh differs from one device's")
+    bf = waves[str(MESH_SHARDS)][0]["backfill"] or {}
+    if not bf.get("engaged") or not bf.get("device_binds"):
+        raise SystemExit(f"p's eighth on the mesh: the device fill did not engage: {bf}")
+    out["backfill_eighth"] = {"binds": waves["1"][0]["binds"],
+                              "device_binds": bf.get("device_binds"),
+                              "launches": waves[str(MESH_SHARDS)][1]}
+    emit({"phase": "mesh_flavors", **out})
+    return out
+
+
+def phase_mesh_paths(opts, out_dir):
+    """The ``mesh_paths`` child: paths s, t, u and v and the device flavors
+    on the mesh, after one config-1 cycle that warms the card up."""
+    conf_path = os.path.join(out_dir, "mesh_paths_conf.yaml")
+    with open(conf_path, "w") as f:
+        f.write(CONFIG1_CONF)
+    run_cycle(config1_cluster(), conf_path)
+    gc.collect()
+    out = {}
+    for name, run in (("s", mesh_path_s), ("t", mesh_path_t), ("u", mesh_path_u),
+                      ("v", mesh_path_v)):
+        t0 = time.perf_counter()
+        out[name] = run(opts, conf_path)
+        out[name]["wall_s"] = time.perf_counter() - t0
+        emit({"phase": "mesh_path_wall", "path": name, "wall_s": out[name]["wall_s"]})
+        gc.collect()
+    t0 = time.perf_counter()
+    out["flavors"] = mesh_flavors(out_dir)
+    out["flavors"]["wall_s"] = time.perf_counter() - t0
+    mesh_set("1")
+    return out
+
+
+def mesh_entries(mesh, plain_rec, k2, k1, xs, lp):
+    """The kernels line's entries of the mesh arms: launches from paths s-v
+    (``mesh``: the ``mesh_paths`` child's result), times from the timed
+    phases (``k2``: K2's mesh mode on b's operands; ``k1``: K1 on a shard's
+    block of c's first step; ``xs``: the XLA shard mode at i's shape;
+    ``lp``: the block solve on r''s operands), and ``plain_rec``:
+    ``full_size_plain``'s record of b's operands, whose plain run also held
+    K2's mesh mode."""
+    s, t, u, v = mesh["s"], mesh["t"], mesh["u"], mesh["v"]
+    return [
+        {"name": "mega_allocate", "mode": "mesh", "path": "config3_mesh", "route": "cuda",
+         "source": "scheduler_tpu_torch/csrc/mega_allocate.cu",
+         "replaces": "scheduler_tpu/ops/megakernel.py:994-1015",
+         "launches": s["launches"]["mega_allocate"], "shards": MESH_SHARDS,
+         "max_abs_err": plain_rec["mesh"]["max_abs_err"], "ms": k2["ms"],
+         "device_ms": k2["device_ms"], "event_ms": k2["event_ms"], "steps": k2["stats"][0],
+         "us_per_step": k2["us_per_step"], "plan": k2["plan"],
+         "plain_ms": plain_rec["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": None},
+        {"name": "placement_step", "mode": "per_shard", "path": "config3_templates_mesh",
+         "route": "cuda", "source": "scheduler_tpu_torch/csrc/placement_step.cu",
+         "replaces": "scheduler_tpu/ops/fused.py:355-450",
+         "launches": t["launches"]["placement_step"], "shards": MESH_SHARDS,
+         "launches_by_path": {"config3_templates_mesh_4": t["launches"]["placement_step"]},
+         "checked_loop_steps_2x2": t["check"]["checked_steps"],
+         "max_abs_err": k1["max_abs_err"], "n": k1["n"], "ms": k1["ms"],
+         "event_ms": k1["event_ms"], "round_trip_ms": k1["round_trip_ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None},
+        {"name": "xla_step", "mode": "shard", "path": "templates_default_tiers_mesh",
+         "route": "cuda", "source": "scheduler_tpu_torch/csrc/xla_step.cu",
+         "replaces": "scheduler_tpu/ops/fused.py:683-700",
+         "launches": sum(c["xla_step_shards"] for c in u["launches"].values()),
+         "launches_by_path": {p: c["xla_step_shards"] for p, c in u["launches"].items()},
+         "checked_loop_steps": {p: c["checked_steps"] for p, c in u["checks"].items()},
+         "shards": MESH_SHARDS, "max_abs_err": xs["max_abs_err"], "n": xs["n"],
+         "n_local": xs["n_local"],
+         "ms": xs["ms"], "plain_ms": xs["plain_ms"], "bound_ms": xs["bound_ms"],
+         "bound_by": xs["bound_by"], "plan": xs["plan"], "library_ms": None},
+        {"name": "lp_relax", "mode": "node_blocks", "path": "config2_lp_mesh", "route": "cuda",
+         "source": "scheduler_tpu_torch/csrc/lp_relax.cu",
+         "replaces": "scheduler_tpu/ops/lp_place.py:359-513",
+         "launches": v["launches"]["lp_relax_blocks"], "blocks": lp["blocks"],
+         "max_abs_err": max(lp["max_abs_err"], v["check"]["max_abs_err"]),
+         "over_tol": max(lp["over_tol"], v["check"]["over_tol"]),
+         "vs_one_device": lp["vs_one_device"], "rtol": LP_KERNEL_RTOL, "atol": LP_KERNEL_ATOL,
+         "rows": lp["rows"], "n": lp["n"], "cols": lp["cols"], "iters": lp["iters"],
+         "ms": lp["ms"], "launch_ms": lp["launch_ms"], "plain_ms": lp["plain_ms"],
+         "bound_ms": lp["bound_ms"], "bound_by": lp["bound_by"],
+         "library_ms": lp["library_ms"]},
+    ]
+
+
 def child_argv(child, path, opts):
     """The command line of this script's child process ``child`` (see
     ``--child``), writing its result to ``path``."""
@@ -5076,7 +5668,10 @@ def phase_lp_paths(opts, out_dir):
                   "lp": cohort2["lp"], "lp_ms": cohort2.get("lp_ms"), **rec2})
             out["r'"] = {"launches": launches2, "binds": binds2, "lp": cohort2["lp"],
                          "phases_s": rec2["phases_s"], "cycle_s": rec2["cycle_s"],
-                         "kernel": lp_kernel_record("config2_lp", cap2.calls[0])}
+                         "kernel": lp_kernel_record("config2_lp", cap2.calls[0]),
+                         # v's relaxation: the same logits over four node blocks.
+                         "blocks": lp_blocks_record("config2_lp_blocks",
+                                                    split_lp_call(cap2.calls[0], MESH_SHARDS))}
             shape, iters, tol = cap2.calls[0][0].shape, cap2.calls[0][3], cap2.calls[0][4]
             cols = cap2.calls[0][1].shape[1]
         del cache, cap2
@@ -5119,6 +5714,28 @@ def child_main(child, path, opts) -> int:
 
     if child == "full_size_plain":
         out = phase_full_size_plain(path, opts)
+        with open(path, "w") as f:
+            json.dump(out, f)
+        return 0
+    if child == "loop_parity":
+        # c's and j's loops on second clusters built the same way, with K1
+        # and with its plain version on the card (after the timed phases).
+        import torch
+
+        out = {}
+        for name, kw, conf_text, case in (
+                ("c", {}, FLAGSHIP_CONF, "config3_templates"),
+                ("j", dict(queues=MQ_QUEUES, queue_weights=MQ_WEIGHTS), MULTIQ_CONF,
+                 "templates_multi_queue")):
+            cache = template_cluster(opts.nodes, opts.template_jobs, opts.template_tasks, **kw)
+            _, out[name] = phase_loop_parity(cache, torch.device("cuda"), 200, conf_text, case)
+            del cache
+            gc.collect()
+        with open(path, "w") as f:
+            json.dump(out, f)
+        return 0
+    if child == "mesh_paths":
+        out = phase_mesh_paths(opts, os.path.dirname(path))
         with open(path, "w") as f:
             json.dump(out, f)
         return 0
@@ -5272,7 +5889,7 @@ def child_main(child, path, opts) -> int:
         # (a cluster built as the main path's): codes and stats bitwise,
         # and the plain version's time.  The cluster and the engine are
         # host work (and the operands' upload), built at once beside the
-        # timed phases; the 50,001 steps run once the script says the last
+        # timed phases; the 25,001 steps run once the script says the last
         # of those has ended.
         import torch
 
@@ -5363,14 +5980,6 @@ def child_main(child, path, opts) -> int:
         out["xla"] = xla_step_record(child, cap)
     elif child == "templates_multi_queue":
         out["launches"] = phase_main_path_mq_templates(cache, conf_path, opts)
-        del cache
-        gc.collect()
-        import torch
-
-        second = template_cluster(opts.nodes, opts.template_jobs, opts.template_tasks,
-                                  queues=MQ_QUEUES, queue_weights=MQ_WEIGHTS)
-        _, out["parity"] = phase_loop_parity(second, torch.device("cuda"), 200, MULTIQ_CONF,
-                                             child)
     else:
         out["launches"], out["binds"] = phase_main_path_default_tiers(cache, conf_path, nodes,
                                                                       pods)
@@ -5579,9 +6188,13 @@ def phase_full_size_plain(path, opts):
     wait_for_go(path)
     out = {}
     for case, eng in engines:
+        # b's operands also hold K2's mesh mode (path s) to the same plain run.
+        mesh = mesh_of(MESH_SHARDS) if case == "main_path_operands" else None
         rec = compare(case, eng._mega_args, eng._mega_kw, eng.st.nodes.count,
-                      len(eng.queue_uids))
+                      len(eng.queue_uids), mesh=mesh)
         out[case] = {k: rec[k] for k in ("mode", "stats", "equal", "max_abs_err", "plain_ms")}
+        if mesh is not None:
+            out[case]["mesh"] = rec["mesh"]
     return out
 
 
@@ -5824,7 +6437,8 @@ def main() -> int:
                                             "production_conf", "config2_default_tiers_device",
                                             "config4_reclaim", "config4_reclaim_twin",
                                             "preempt_storm", "backfill_wave", "daemon_wire",
-                                            "lp_paths", "full_size_plain"),
+                                            "lp_paths", "full_size_plain", "mesh_paths",
+                                            "loop_parity"),
                         help="run only this child process of the script (child_main) and "
                              "write its result to --out")
     parser.add_argument("--out", metavar="PATH")
@@ -5972,15 +6586,20 @@ def main() -> int:
     ladder_plain = BackgroundChild(out_dir, "mq_ladder_plain", opts)
     # K2's plain version on twins of the full-size operands below, likewise.
     full_plain = BackgroundChild(out_dir, "full_size_plain", opts)
-    default_twin = synthetic = wave = daemon = None
+    default_twin = synthetic = wave = daemon = mesh_child = parity_child = None
 
     try:
         # The same operands again, from second clusters built the same way (K2
         # first: its profiler traces come before the other kernels' many).
         static_full, eng2 = phase_full_size(config2_cluster(), CONFIG2_CONF, device,
                                             "config2_main_path_operands")
-        cursor_full, _ = phase_full_size(flagship_cluster(), FLAGSHIP_CONF, device,
-                                         "main_path_operands")
+        cursor_full, eng_b = phase_full_size(flagship_cluster(), FLAGSHIP_CONF, device,
+                                             "main_path_operands")
+        # K2's mesh mode (path s) on the same operands, timed.
+        mesh_k2 = compare("mesh_main_path_operands", eng_b._mega_args,
+                          dict(eng_b._mega_kw, mesh=mesh_of(MESH_SHARDS)), eng_b.st.nodes.count,
+                          len(eng_b.queue_uids), timed=True, plain=False)
+        del eng_b
         gc.collect()
         mq_full, _ = phase_full_size(mq_flagship_cluster(), MULTIQ_CONF, device,
                                      "multi_queue_main_path_operands")
@@ -5997,9 +6616,13 @@ def main() -> int:
         gc.collect()
         qfair_err = phase_qfair_cases(device)
         pred_main, pred_wide, pred_err = phase_predicate_cases(eng2.st, device)
-        eng3, parity = phase_loop_parity(templates_cluster(), device, check_every=200)
+        # c's operands (its loop parity runs after the go, ``loop_parity``).
+        _, eng3 = engine_for(templates_cluster(), FLAGSHIP_CONF, device, engine="step")
         step_recs = phase_step_kernel_cases(eng3, eng2, device)
+        k1_shard = k1_shard_record(eng3)
         xla_cases = phase_xla_step_cases(device)
+        xla_shard = xla_shard_record("xla_step_operands_1024_r2", xla_shard_operands(),
+                                     XLA_STEP_FLAGS)
         del eng2, eng3
         gc.collect()
         # After the last timed phase: K2's plain version on the ladder
@@ -6007,6 +6630,10 @@ def main() -> int:
         # phases.
         ladder_plain.go()
         full_plain.go()
+        # The mesh paths s-v and c's and j's loop parity, beside the untimed
+        # phases that follow.
+        mesh_child = BackgroundChild(out_dir, "mesh_paths", opts)
+        parity_child = BackgroundChild(out_dir, "loop_parity", opts)
         synthetic = BackgroundChild(out_dir, "kernel_cases_synthetic", opts)
         # Path o' (in o's twin, on the card), path p (the backfill wave) and
         # paths q and q' (the daemon over the wire), host-bound: beside the
@@ -6039,10 +6666,16 @@ def main() -> int:
         ladder_plain_rec = ladder_plain.result()
         emit({"phase": "mq_ladder_plain", "wall_s": time.perf_counter() - ladder_plain.t0,
               "after_go_s": time.perf_counter() - ladder_plain.t_go})
+        plain_recs = full_plain.result()
         merge_plain([static_full, cursor_full, mq_full, config5_full, tiers_full, reclaim_full],
-                    full_plain.result())
+                    plain_recs)
+        parities = parity_child.result()
+        mesh = mesh_child.result()
+        if mesh["s"]["digest"] != flagship_digest or mesh["s"]["binds"] != flagship_binds:
+            raise SystemExit("path s: the mesh cycle's binds differ from path b's")
     finally:
-        for twin in twins + [ladder_plain, full_plain, default_twin, synthetic, wave, daemon]:
+        for twin in twins + [ladder_plain, full_plain, default_twin, synthetic, wave, daemon,
+                             mesh_child, parity_child]:
             if twin is not None:
                 twin.stop()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -6112,7 +6745,7 @@ def main() -> int:
          "backfill_wave": {k: wave_rec["k3"][k] for k in ("S", "N", "L", "K") + PREDICATE_TIMES}},
         step_entry({"config3_templates": templates_launches["placement_step"],
                     "templates_multi_queue": mq_tpl["launches"]["placement_step"]},
-                   step_recs[0], step_recs, [parity, mq_tpl["parity"]]),
+                   step_recs[0], step_recs, [parities["c"], parities["j"]]),
         place_scan_entry({"production_conf": production["launches"]["place_scan"],
                           "config2_default_tiers_device": tiers_device["launches"]["place_scan"]},
                          production["scan"], tiers_device["scan"]),
@@ -6122,6 +6755,8 @@ def main() -> int:
                    "reclaim_aftermath_templates": reclaim_tpl["xla"]},
                   xla_cases, [tiers_tpl["check"], reclaim_tpl["check"]]),
         lp_entry(lp_paths),
+        *mesh_entries(mesh, plain_recs["main_path_operands"], mesh_k2, k1_shard, xla_shard,
+                      lp_paths["r'"]["blocks"]),
     ]}, stamp=False)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,6 +19,7 @@ add_pod/add_node/... directly.
 from __future__ import annotations
 
 import json
+import os
 import logging
 import signal
 import sys
@@ -170,10 +171,11 @@ def run(opt: ServerOption, stop: Optional[threading.Event] = None,
     from scheduler_tpu_torch.scheduler import Scheduler
 
     register_options(opt)
-    if opt.mesh not in (None, "", "1"):
-        raise NotImplementedError(
-            f"--mesh {opt.mesh}: this package runs on one device (mesh 1)"
-        )
+    if opt.mesh:
+        # The fused engine reads the mesh through SCHEDULER_TORCH_MESH
+        # (ops/mesh.py); set unconditionally so --mesh 1 also overrides an
+        # inherited environment value.
+        os.environ["SCHEDULER_TORCH_MESH"] = opt.mesh
     device = resolve_device(opt.device)
 
     connector = None

@@ -270,3 +270,135 @@ extern "C" int lp_relax_launch(const float* logits, const float* cap, const floa
   }
   return 0;
 }
+
+// ---------------------------------------------------------------------------
+// Node blocks: the iteration over a node mesh (ops/mesh.py), the
+// counterpart of _lp_iterate_1d/_2d and their signature-class twins in
+// scheduler_tpu/ops/lp_place.py:359-513 with
+// scheduler_tpu/ops/sharded.py::merge_row_logsumexp.  Each block k holds
+// n node columns (global offset k * n); an iteration:
+//   1. lp_row_block, a block at a time: a row's block max m_k, its lowest
+//      argmax (as a global index), s_k = sum exp(z - m_k), and the block's
+//      previous max |update|, into the block's [4, rows] LP_PACK;
+//   2. lp_merge, one thread a row over the D packs in block order:
+//      m = max m_k (the first block holding it gives pref), s = sum_k s_k *
+//      exp(m_k - m) in block order, mass = (m > NEG / 2), and each block's
+//      coef_k = (exp(m_k - m) * mass) / s; the max of the blocks' updates
+//      feeds the converged_at rule;
+//   3. lp_col, lp_node and lp_max a block at a time, as on one device, with
+//      the block's m_k and coef_k: x = exp(z - m_k) * coef_k.
+// All blocks lie on one device here: the caller gathers them there.
+
+#define LP_PACK_ROWS 4
+
+__global__ void lp_init_blocks(float* gupd, int d, int* lp_raw) {
+  for (int k = 0; k < d; ++k) gupd[k] = INFINITY;
+  lp_raw[0] = 0;
+  lp_raw[1] = -1;
+}
+
+__global__ void __launch_bounds__(LP_ROW_THREADS)
+lp_row_block(const float* __restrict__ logits, const float* __restrict__ log_v, int n,
+             int offset, int rows, const float* __restrict__ gupd, float* __restrict__ pack) {
+  __shared__ float sv[LP_MAX_THREADS / 32];
+  __shared__ int si[LP_MAX_THREADS / 32];
+  const int t = blockIdx.x;
+  const float* row = logits + (size_t)t * n;
+  float best = -INFINITY;
+  int bi = n;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float z = __fadd_rn(row[j], log_v[j]);
+    if (z > best) {
+      best = z;
+      bi = j;
+    }
+  }
+  block_argmax(best, bi, sv, si);
+  const float m = best;
+  float s = 0.0f;
+  for (int j = threadIdx.x; j < n; j += blockDim.x)
+    s = __fadd_rn(s, expf(__fsub_rn(__fadd_rn(row[j], log_v[j]), m)));
+  s = block_sum(s, sv);
+  if (threadIdx.x == 0) {
+    pack[0 * rows + t] = m;
+    pack[1 * rows + t] = s;
+    pack[2 * rows + t] = (float)(bi + offset);
+    pack[3 * rows + t] = gupd[0];
+  }
+}
+
+__global__ void __launch_bounds__(LP_MAX_THREADS)
+lp_merge(const float* __restrict__ pack, int d, int rows, int it, int iters, float tol,
+         float* __restrict__ coef, int* __restrict__ pref, int* lp_raw) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int last = it == iters - 1;
+  if (t == 0) {
+    float upd = pack[3 * rows];
+    for (int k = 1; k < d; ++k) upd = fmaxf(upd, pack[(size_t)k * LP_PACK_ROWS * rows + 3 * rows]);
+    if (it > 0 && upd < tol && lp_raw[1] < 0) lp_raw[1] = it - 1;
+    if (last) lp_raw[0] = iters;
+  }
+  if (t >= rows) return;
+  float m = pack[t];
+  int star = 0;
+  for (int k = 1; k < d; ++k) {
+    const float mk = pack[(size_t)k * LP_PACK_ROWS * rows + t];
+    if (mk > m) {
+      m = mk;
+      star = k;
+    }
+  }
+  float s = 0.0f;
+  for (int k = 0; k < d; ++k) {
+    const float* pk = pack + (size_t)k * LP_PACK_ROWS * rows;
+    s = __fadd_rn(s, __fmul_rn(pk[rows + t], expf(__fsub_rn(pk[t], m))));
+  }
+  const float mass = m > LP_MASS_FLOOR ? 1.0f : 0.0f;
+  for (int k = 0; k < d; ++k) {
+    const float mk = pack[(size_t)k * LP_PACK_ROWS * rows + t];
+    coef[(size_t)k * rows + t] = __fdiv_rn(__fmul_rn(expf(__fsub_rn(mk, m)), mass), s);
+  }
+  if (last) pref[t] = (int)pack[(size_t)star * LP_PACK_ROWS * rows + 2 * rows + t];
+}
+
+extern "C" int lp_relax_blocks_launch(int d, const float* const* logits, const float* const* cap,
+                                      const float* req, int rows, int n, int r, int iters,
+                                      float tol, int chunk_rows, int chunks,
+                                      float* const* log_v, float* const* partial,
+                                      float* const* blockmax, float* gupd, float* pack,
+                                      float* coef, float* const* x, int* pref, int* lp_raw,
+                                      cudaStream_t stream) {
+  if (d < 1 || rows < 1 || n < 1 || r < 1 || r > LP_MAX_COLS || iters < 1 || chunk_rows < 1 ||
+      chunks != (rows + chunk_rows - 1) / chunk_rows)
+    return (int)cudaErrorInvalidValue;
+  const int node_blocks = (n + LP_NODE_THREADS - 1) / LP_NODE_THREADS;
+  const dim3 col_grid((n + LP_COL_THREADS - 1) / LP_COL_THREADS, chunks);
+  const int merge_blocks = (rows + LP_MAX_THREADS - 1) / LP_MAX_THREADS;
+  cudaError_t err;
+  for (int k = 0; k < d; ++k) {
+    err = cudaMemsetAsync(log_v[k], 0, sizeof(float) * (size_t)n, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  lp_init_blocks<<<1, 1, 0, stream>>>(gupd, d, lp_raw);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  for (int it = 0; it < iters; ++it) {
+    const int last = it == iters - 1;
+    for (int k = 0; k < d; ++k)
+      lp_row_block<<<rows, LP_ROW_THREADS, 0, stream>>>(
+          logits[k], log_v[k], n, k * n, rows, gupd + k, pack + (size_t)k * LP_PACK_ROWS * rows);
+    lp_merge<<<merge_blocks, LP_MAX_THREADS, 0, stream>>>(pack, d, rows, it, iters, tol, coef,
+                                                          pref, lp_raw);
+    for (int k = 0; k < d; ++k) {
+      lp_col<<<col_grid, LP_COL_THREADS, 0, stream>>>(
+          logits[k], log_v[k], pack + (size_t)k * LP_PACK_ROWS * rows, coef + (size_t)k * rows,
+          req, rows, n, r, chunk_rows, last, partial[k], x[k]);
+      if (!last) {
+        lp_node<<<node_blocks, LP_NODE_THREADS, 0, stream>>>(partial[k], cap[k], n, r, chunks,
+                                                             log_v[k], blockmax[k]);
+        lp_max<<<1, LP_MAX_THREADS, 0, stream>>>(blockmax[k], node_blocks, gupd + k);
+      }
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}

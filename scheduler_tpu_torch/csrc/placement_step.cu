@@ -426,6 +426,32 @@ extern "C" int placement_step_loop_step(StepLoop* L, int t_idx, int push_col, vo
 
 // `count` launches for task row t_idx queued back to back, no push and no
 // wait (for timing the kernel apart from the round trip).
+// A loop step's launch, bracketed by the loop's events, without its wait:
+// a step over a node mesh launches every shard's loop, then waits on each
+// (placement_step_loop_wait), so the shards' launches queue back to back.
+extern "C" int placement_step_loop_launch(StepLoop* L, int t_idx, int push_col, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaGetLastError();
+  StepParams p;
+  step_params(L, t_idx, push_col, &p);
+  cudaEventRecord(L->ev0, s);
+  int rc = launch(p, s);
+  if (rc != 0) return rc;
+  cudaEventRecord(L->ev1, s);
+  return (int)cudaGetLastError();
+}
+
+// Wait for the loop's last launch; its four results are in L->out_host.
+extern "C" int placement_step_loop_wait(StepLoop* L, void* stream) {
+  int rc = (int)cudaStreamSynchronize((cudaStream_t)stream);
+  if (rc != 0) return rc;
+  float ms = 0.0f;
+  cudaEventElapsedTime(&ms, L->ev0, L->ev1);
+  L->k1_ms += ms;
+  L->steps += 1;
+  return (int)cudaGetLastError();
+}
+
 extern "C" int placement_step_loop_queue(StepLoop* L, int t_idx, int count, void* stream) {
   cudaGetLastError();
   StepParams p;

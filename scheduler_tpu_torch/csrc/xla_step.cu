@@ -414,3 +414,269 @@ extern "C" int xla_step_loop_step(XlaLoop* L, int t_idx, int s_idx, int hi0, voi
   L->steps += 1;
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// Shard mode: the step over one block of a node mesh (ops/mesh.py), the
+// counterpart of the JAX loop's XLA arm under GSPMD over a sharded node
+// ledger (scheduler_tpu/ops/fused.py:683-700).  One launch a shard a step;
+// each writes a candidate and the host merges the D candidates with
+// compares only (ops/xla_step.py::XlaShardStep), so the merged result and
+// the node state are bitwise those of xla_step_kernel over the whole axis.
+//
+// A launch first adds the row the host pushes (the previous step's winner,
+// when this shard owns it: the same delta expressions as xla_step_kernel's
+// row add), then scans its block as xla_step_kernel does and writes, at its
+// local winner: the global index, the masked score, the idle and releasing
+// fits, the block's runner-up (score, global index; XS_BIG_I32 where the
+// block has one node), the pod room plim - int(task count), and, where the
+// batch grid applies (batch_runs, hi0 > 1 and the winner fits idle), the
+// 128 candidates' fits as a bit mask and their grid scores s_j.  The host
+// picks the winner, the runner-up of the union of the blocks' top-2, the
+// cap hi, and the count m from the winning block's grid; its row add rides
+// the next step's launch of the owning shard.
+
+#define XS_CAND_WORDS 144
+
+// Candidate words (ops/xla_step.py SHARD_CAND).
+#define XC_BEST 0
+#define XC_SCORE 1
+#define XC_FIT_IDLE 2
+#define XC_FIT_REL 3
+#define XC_SECOND 4
+#define XC_SECOND_IDX 5
+#define XC_ROOM 6
+#define XC_GRID 7
+#define XC_FITS 8      // 4 words: bit j - 1 of the mask is candidate j's fit
+#define XC_S 12        // 128 floats: candidate j's grid score at word 12 + j - 1
+
+// Mirrors XlaShardParams in scheduler_tpu_torch/ops/xla_step.py.
+struct XlaShardParams {
+  XlaStepParams p;        // the block: ns, alloc, plim, gate, static rows at its rows
+  const float* push_req;  // request row of the pushed task
+  int push_row;           // local row the previous step placed on (-1: none)
+  int push_m;
+  int push_alloc;
+  int push_pipe;
+  int scan;               // 0: only the push
+  int offset;             // global index of the block's row 0
+};
+
+// Mirrors XlaShardLoop in scheduler_tpu_torch/ops/xla_step.py.
+struct XlaShardLoop {
+  XlaShardParams q;       // static rows at row 0, initq / req at task row 0
+  int* out_host;          // mapped pinned int32[XS_CAND_WORDS]
+  cudaEvent_t ev0;
+  cudaEvent_t ev1;
+  double xla_ms;
+  long long steps;
+  long long s_stride;     // elements between two static rows (the block's node count)
+  int t_rows;
+  int s_rows;
+  int threads;
+};
+
+__global__ void __launch_bounds__(XS_MAX_THREADS, 1)
+    xla_shard_kernel(const __grid_constant__ XlaShardParams q) {
+  __shared__ Top2 warp_top[XS_MAX_THREADS / 32];
+  __shared__ float s_best_vals[5];       // allocatable cpu, memory; static score; idle cpu, memory
+  __shared__ int s_ints[2];              // best, alloc (the grid applies)
+
+  const XlaStepParams& p = q.p;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = blockDim.x;
+  const int r = p.r, W = 2 * r + 1, n = p.n;
+
+  // The pushed row, as xla_step_kernel's row add.
+  if (q.push_row >= 0) {
+    float* prow = p.ns + (size_t)q.push_row * W;
+    const bool al = q.push_alloc != 0, pi = q.push_pipe != 0;
+    for (int k = tid; k < W; k += T) {
+      float delta;
+      if (k < r) {
+        delta = __fmul_rn(-q.push_req[k], al ? (float)q.push_m : 0.0f);
+      } else if (k < 2 * r) {
+        delta = __fmul_rn(-q.push_req[k - r], pi ? 1.0f : 0.0f);
+      } else {
+        delta = (al || pi) ? (float)(al ? q.push_m : 1) : 0.0f;
+      }
+      prow[k] = __fadd_rn(prow[k], delta);
+    }
+    __syncthreads();
+  }
+  if (!q.scan) return;
+
+  const float qc = p.req[p.cpu_idx], qm = p.req[p.mem_idx];
+  Top2 t;
+  top2_empty(t);
+  for (int j = tid; j < n; j += T) {
+    const float* row = p.ns + (size_t)j * W;
+    bool fit_idle = true, fit_rel = true;
+    for (int d = 0; d < r; ++d) {
+      const float iq = p.initq[d], mn = p.mins[d];
+      fit_idle &= eps_fit(iq, row[d], mn);
+      if (p.has_releasing) fit_rel &= eps_fit(iq, row[r + d], mn);
+    }
+    bool feasible = (p.has_releasing ? (fit_idle | fit_rel) : fit_idle) && p.gate[j] != 0;
+    if (p.use_static) feasible = feasible && p.smask[j] != 0;
+    if (p.enforce_pod_count) feasible = feasible && row[2 * r] < __int2float_rn(p.plim[j]);
+    const float* a = p.alloc + (size_t)j * r;
+    float score =
+        dyn_score(p, a[p.cpu_idx], a[p.mem_idx], row[p.cpu_idx], row[p.mem_idx], qc, qm);
+    if (p.use_static) score = __fadd_rn(score, p.sscore[j]);
+    top2_push(t, feasible ? score : -INFINITY, j);
+  }
+  warp_top2(t);
+  if (lane == 0) warp_top[warp] = t;
+  __syncthreads();
+  int* out = p.out;
+  if (warp == 0) {
+    if (lane < T / 32) {
+      t = warp_top[lane];
+    } else {
+      top2_empty(t);
+    }
+    warp_top2(t);
+    if (lane == 0) {
+      const int best = t.i1;
+      s_ints[0] = best;
+      out[XC_BEST] = best + q.offset;
+      out[XC_SCORE] = __float_as_int(t.v1);
+      out[XC_SECOND] = __float_as_int(t.v2);
+      out[XC_SECOND_IDX] = t.i2 < XS_BIG_I32 ? t.i2 + q.offset : XS_BIG_I32;
+      const float* row = p.ns + (size_t)best * W;
+      s_best_vals[0] = p.alloc[(size_t)best * r + p.cpu_idx];
+      s_best_vals[1] = p.alloc[(size_t)best * r + p.mem_idx];
+      s_best_vals[2] = p.use_static ? p.sscore[best] : 0.0f;
+      s_best_vals[3] = row[p.cpu_idx];
+      s_best_vals[4] = row[p.mem_idx];
+      out[XC_ROOM] = p.plim[best] - (int)row[2 * r];
+    }
+    __syncwarp();
+    const float* row = p.ns + (size_t)s_ints[0] * W;
+    bool fi = true, fr = true;
+    for (int d = lane; d < r; d += 32) {
+      fi &= eps_fit(p.initq[d], row[d], p.mins[d]);
+      fr &= eps_fit(p.initq[d], row[r + d], p.mins[d]);
+    }
+    fi = __all_sync(0xffffffffu, fi);
+    fr = __all_sync(0xffffffffu, fr);
+    if (lane == 0) {
+      out[XC_FIT_IDLE] = fi;
+      out[XC_FIT_REL] = fr;
+      const bool any = t.v1 > -INFINITY;
+      const bool al = p.has_releasing ? (any && fi) : any;
+      const int grid = p.batch_runs && p.hi0 > 1 && al;
+      s_ints[1] = grid;
+      out[XC_GRID] = grid;
+    }
+  }
+  __syncthreads();
+  if (s_ints[1] && tid < XS_GRID) {
+    // The candidate grid on the block's winner: thread tid is j = tid + 1.
+    const float* brow = p.ns + (size_t)s_ints[0] * W;
+    const float jf = (float)tid;
+    bool fits = true;
+    for (int d = 0; d < r; ++d) {
+      const float avail = __fsub_rn(brow[d], __fmul_rn(jf, p.req[d]));
+      fits &= eps_fit(p.initq[d], avail, p.mins[d]);
+    }
+    float s = 0.0f;
+    if (p.score_bound) {
+      const float ac = __fsub_rn(s_best_vals[3], __fmul_rn(jf, qc));
+      const float am = __fsub_rn(s_best_vals[4], __fmul_rn(jf, qm));
+      s = dyn_score(p, s_best_vals[0], s_best_vals[1], ac, am, qc, qm);
+      if (p.use_static) s = __fadd_rn(s, s_best_vals[2]);
+    }
+    out[XC_S + tid] = __float_as_int(s);
+    const unsigned ballot = __ballot_sync(0xffffffffu, fits);
+    if (lane == 0) out[XC_FITS + warp] = (int)ballot;
+  }
+  __syncthreads();
+  if (tid == 0) __threadfence_system();
+}
+
+static void shard_params(const XlaShardLoop* L, int t_idx, int s_idx, int hi0, int push_row,
+                         int push_t, int push_m, int push_alloc, int push_pipe, int scan,
+                         XlaShardParams* q) {
+  *q = L->q;
+  XlaStepParams& p = q->p;
+  q->push_req = L->q.p.req + (size_t)push_t * p.r;
+  p.initq += (size_t)t_idx * p.r;
+  p.req += (size_t)t_idx * p.r;
+  p.hi0 = hi0;
+  if (p.use_static) {
+    p.smask += (size_t)s_idx * L->s_stride;
+    p.sscore += (size_t)s_idx * L->s_stride;
+  }
+  q->push_row = push_row;
+  q->push_m = push_m;
+  q->push_alloc = push_alloc;
+  q->push_pipe = push_pipe;
+  q->scan = scan;
+}
+
+extern "C" int xla_shard_loop_size() { return (int)sizeof(XlaShardLoop); }
+
+extern "C" int xla_shard_loop_begin(XlaShardLoop* L) {
+  const XlaStepParams& p = L->q.p;
+  L->xla_ms = 0.0;
+  L->steps = 0;
+  L->ev0 = L->ev1 = nullptr;
+  L->out_host = nullptr;
+  cudaGetLastError();
+  if (p.r < 2 || p.n < 1 || L->t_rows < 1 || (p.use_static && L->s_rows < 1) ||
+      L->threads < XS_MIN_THREADS || L->threads > XS_MAX_THREADS || L->threads % 32 != 0 ||
+      L->q.offset < 0)
+    return (int)cudaErrorInvalidValue;
+  int rc = (int)cudaHostAlloc((void**)&L->out_host, XS_CAND_WORDS * sizeof(int),
+                              cudaHostAllocMapped);
+  if (rc == 0) rc = (int)cudaHostGetDevicePointer((void**)&L->q.p.out, L->out_host, 0);
+  if (rc == 0) rc = (int)cudaEventCreate(&L->ev0);
+  if (rc == 0) rc = (int)cudaEventCreate(&L->ev1);
+  if (rc == 0) {
+    for (int i = 0; i < XS_CAND_WORDS; ++i) L->out_host[i] = 0;
+  }
+  return rc;
+}
+
+extern "C" int xla_shard_loop_end(XlaShardLoop* L) {
+  if (L->ev0) cudaEventDestroy(L->ev0);
+  if (L->ev1) cudaEventDestroy(L->ev1);
+  if (L->out_host) cudaFreeHost(L->out_host);
+  L->ev0 = L->ev1 = nullptr;
+  L->out_host = nullptr;
+  return (int)cudaGetLastError();
+}
+
+// One shard's launch, bracketed by its events, without a wait: a step
+// launches every shard, then waits on each (xla_shard_loop_wait).
+extern "C" int xla_shard_loop_launch(XlaShardLoop* L, int t_idx, int s_idx, int hi0,
+                                     int push_row, int push_t, int push_m, int push_alloc,
+                                     int push_pipe, int scan, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaGetLastError();
+  const XlaStepParams& p = L->q.p;
+  if (t_idx < 0 || t_idx >= L->t_rows || (p.use_static && (s_idx < 0 || s_idx >= L->s_rows)) ||
+      push_row >= p.n || (push_row >= 0 && (push_t < 0 || push_t >= L->t_rows)))
+    return (int)cudaErrorInvalidValue;
+  XlaShardParams q;
+  shard_params(L, t_idx, s_idx, hi0, push_row, push_row >= 0 ? push_t : 0, push_m, push_alloc,
+               push_pipe, scan, &q);
+  cudaEventRecord(L->ev0, s);
+  xla_shard_kernel<<<1, L->threads, 0, s>>>(q);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  cudaEventRecord(L->ev1, s);
+  return (int)cudaGetLastError();
+}
+
+// Wait for the shard's last launch; its candidate is in L->out_host.
+extern "C" int xla_shard_loop_wait(XlaShardLoop* L, void* stream) {
+  int rc = (int)cudaStreamSynchronize((cudaStream_t)stream);
+  if (rc != 0) return rc;
+  float ms = 0.0f;
+  cudaEventElapsedTime(&ms, L->ev0, L->ev1);
+  L->xla_ms += ms;
+  L->steps += 1;
+  return (int)cudaGetLastError();
+}

@@ -63,12 +63,14 @@ def fused_operands_from_numpy(
     engine's loop operands (``args``, in ``JAX_FUSED_ARG_NAMES`` order) and
     static arguments (``kw``): the ``HOST_OPERANDS`` as numpy arrays, the
     rest as tensors on ``device``.  Signature-class compressed static
-    tensors travel as they are, read through ``sig_of_task``.  The mesh is
-    not carried: a mesh raises ``NotImplementedError``."""
+    tensors travel as they are, read through ``sig_of_task``.  A JAX mesh
+    in ``kw`` becomes the port's mesh of the same shape over ``device``
+    repeated (``ops/mesh.py``), and the operands are staged on it by
+    ``mesh.shard_fused_args``."""
+    from scheduler_tpu_torch.ops.mesh import NodeMesh, shard_fused_args
+
     if len(args) != len(JAX_FUSED_ARG_NAMES):
         raise TypeError(f"expected the {len(JAX_FUSED_ARG_NAMES)} JAX loop operands")
-    if kw.get("mesh") is not None:
-        raise NotImplementedError("fused_allocate arm not ported: mesh")
     named = dict(zip(JAX_FUSED_ARG_NAMES, args))
     dev = torch.device(device)
     operands = tuple(np.array(named[name], copy=True, order="C") if name in HOST_OPERANDS
@@ -77,4 +79,11 @@ def fused_operands_from_numpy(
     port_kw["weights"] = tuple(float(w) for w in port_kw["weights"])
     port_kw["comparators"] = tuple(port_kw["comparators"])
     port_kw["queue_comparators"] = tuple(port_kw["queue_comparators"])
+    port_kw["mesh"] = None
+    jax_mesh = kw.get("mesh")
+    if jax_mesh is not None:
+        shape = {str(k): int(v) for k, v in jax_mesh.shape.items()}
+        mesh = NodeMesh([dev] * int(jax_mesh.size), shape)
+        port_kw["mesh"] = mesh
+        operands = shard_fused_args(mesh, operands)
     return operands, port_kw

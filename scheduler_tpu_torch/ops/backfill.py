@@ -26,8 +26,10 @@ this module re-expresses the sweep as class-level batched math:
   run no other class binds and room only falls.  Runs break at class
   changes AND at dynamic-predicate tasks, so interleavings replay in exact
   host order.  The fill is a vectorized numpy pass, as in the JAX
-  package's single-device branch (below a device round trip); its mesh
-  fill (``sharded_backfill_fill``) waits for the port's mesh.
+  package's single-device branch (below a device round trip); on a node
+  mesh (``ops/mesh.py``) it is ``sharded_backfill_fill``, the JAX mesh
+  fill: a scan over runs with each shard's masked-capacity prefix on its
+  device and the shards' totals merged on the host, bitwise the host fill.
 
 The plan replays **transactionally** through ``ssn.allocate``: a bind
 failure falls that one task back to the exact host sweep (the failed
@@ -431,9 +433,16 @@ class BackfillEngine:
         self, cls_ids: np.ndarray, counts: np.ndarray, room: np.ndarray
     ) -> Tuple[np.ndarray, np.ndarray]:
         """The run list's water-fill: the host reference ``_solve_runs``
-        (the JAX package's single-device branch; its mesh fill,
-        ``sharded_backfill_fill``, waits for the port's mesh)."""
-        return _solve_runs(self._class_mask[cls_ids], room, counts)
+        (the JAX package's single-device branch), or on a node mesh its
+        mesh fill (``device_fill``)."""
+        from scheduler_tpu_torch.ops.mesh import get_mesh
+
+        rows = self._class_mask[cls_ids]
+        mesh = get_mesh()
+        if mesh is not None:
+            takes, placed = device_fill(rows, room, counts, mesh)
+            return takes.astype(np.int64), placed.astype(np.int64)
+        return _solve_runs(rows, room, counts)
 
     def _fill_runs(self, runs: list) -> None:
         """Solve + replay one segment's run list; a bind failure falls that
@@ -613,3 +622,73 @@ def note_evidence(stats: dict) -> None:
     cur = dict(phases.get_note("backfill") or {})
     cur.update(stats)
     phases.note("backfill", cur)
+
+
+# -- the fill over a node mesh ------------------------------------------------
+
+
+def sharded_backfill_fill(rows, room, counts, *, mesh):
+    """The water-fill as a scan over runs with the node axis over ``mesh``
+    (``scheduler_tpu/ops/backfill.py:627-664``): ``rows`` [R, N] class
+    masks (node-trailing), ``room`` [N] (node-major), ``counts`` [R], each
+    whole or ``ops/mesh.py`` Sharded -> ``(takes`` [R, N] as Sharded
+    blocks, ``placed`` [R] on the host).  Each run step takes each shard's
+    masked-capacity cumsum on its device, reads the shards' totals (the one
+    merge a step), offsets each shard by the totals of the shards before it
+    (replica-major order) and clips: bitwise the host fill."""
+    import torch
+
+    from scheduler_tpu_torch.ops.mesh import Sharded, family_on
+
+    def blocks(a, axis, fam):
+        return a.shards if isinstance(a, Sharded) else Sharded.split(
+            mesh, a, axis, family_on(mesh, fam)).shards
+
+    rows_b = blocks(rows, 1, "node_trailing")
+    room_b = [b.clone() for b in blocks(room, 0, "node_major")]
+    counts_l = [int(c) for c in torch.as_tensor(counts).tolist()]
+    takes_b = [torch.zeros(rb.shape, dtype=torch.int64, device=rb.device) for rb in rows_b]
+    placed = np.zeros(len(counts_l), dtype=np.int64)
+    for r, cnt in enumerate(counts_l):
+        caps, cums = [], []
+        for rb, room_k in zip(rows_b, room_b):
+            cap = torch.where(rb[r], room_k, torch.zeros((), dtype=room_k.dtype,
+                                                         device=room_k.device))
+            caps.append(cap)
+            cums.append(torch.cumsum(cap, 0))
+        totals = [int(c[-1]) if c.numel() else 0 for c in cums]
+        before = 0
+        for k, (cap, cum) in enumerate(zip(caps, cums)):
+            prior = before + cum - cap
+            take = torch.clamp(cnt - prior, min=0)
+            take = torch.minimum(take, cap)
+            takes_b[k][r] = take
+            room_b[k] -= take
+            before += totals[k]
+        placed[r] = min(cnt, sum(totals))
+    return Sharded(mesh, takes_b, 1, family_on(mesh, "node_trailing")), placed
+
+
+def device_fill(rows: np.ndarray, room: np.ndarray, counts: np.ndarray,
+                mesh) -> Tuple[np.ndarray, np.ndarray]:
+    """Host wrapper (``scheduler_tpu/ops/backfill.py:694-740``): pad the
+    node axis to the mesh's shard count (pad nodes mask-false with zero
+    room), the run axis to a power of two (pad runs all-false with zero
+    count), clip room and counts to int32, run the fill and strip the
+    padding."""
+    import torch
+
+    shards = mesh.size
+    r_n, n = rows.shape
+    padded_n = -(-max(n, 1) // shards) * shards
+    padded_r = max(8, 1 << max(0, (r_n - 1).bit_length()))
+    rows_p = np.zeros((padded_r, padded_n), dtype=bool)
+    rows_p[:r_n, :n] = rows
+    room_p = np.zeros(padded_n, dtype=np.int64)
+    room_p[:n] = np.minimum(room, np.iinfo(np.int32).max)
+    counts_p = np.zeros(padded_r, dtype=np.int64)
+    counts_p[:r_n] = np.minimum(counts, np.iinfo(np.int32).max)
+    takes, placed = sharded_backfill_fill(torch.from_numpy(rows_p), torch.from_numpy(room_p),
+                                          torch.from_numpy(counts_p), mesh=mesh)
+    takes = takes.full("cpu").numpy()[:r_n, :n]
+    return takes.astype(np.int64), placed[:r_n].astype(np.int64)

@@ -27,8 +27,9 @@ The scope token is stored on the owning cache instance, so engines never
 alias across caches and a recycled ``id()`` never revives a dead entry.  An
 entry is popped while a session uses it and re-inserted when that session
 closes (``release_session``), so two concurrent sessions never share one
-engine.  This mirrors ``scheduler_tpu/ops/engine_cache.py`` without the
-mesh (no topology in the key) and with this package's own flags.
+engine.  This mirrors ``scheduler_tpu/ops/engine_cache.py`` with this package's
+own flags; the node mesh's resolved topology (``mesh.topology_key``) is in
+the key, so a resident never serves another topology.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ _ENV_KEYS = (
     # are bind-identical, and a flip mid-process must not hide a violation
     # of that behind a warm engine.
     "SCHEDULER_TORCH_WIRE",
+    "SCHEDULER_TORCH_MESH",
 )
 
 # Resident engines (each holds a whole host layout and its device tensors;
@@ -107,7 +109,11 @@ def shape_key(ssn) -> Optional[tuple]:
     except Exception:
         return None
     from scheduler_tpu_torch.ops.fused import _session_device
+    from scheduler_tpu_torch.ops.mesh import topology_key
 
+    # The mesh TOPOLOGY, not only the spec string (``auto`` resolves to
+    # whatever devices the list holds): a resident's blocks are placed for
+    # one topology.
     return (
         scope,
         len(ssn.nodes),
@@ -116,6 +122,7 @@ def shape_key(ssn) -> Optional[tuple]:
         plugin_sig,
         str(_session_device(ssn)),
         tuple((k, os.environ.get(k)) for k in _ENV_KEYS),
+        topology_key(),
     )
 
 

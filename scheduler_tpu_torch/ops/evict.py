@@ -31,8 +31,10 @@ by ``ops/victims.py``, in the default ``host`` flavor.  This module holds:
 As in the JAX package, the mask, plan and pick math is float64 numpy on
 the host: at victim-sweep sizes one vectorized pass is far below a device
 round trip, and what makes the hunt fast is one reduction a hunt instead
-of a Python dispatch a node and candidate.  The JAX mesh pick
-(``sharded_victim_pick``) waits for the port's mesh.
+of a Python dispatch a node and candidate.  On a node mesh
+(``ops/mesh.py``) the pick is ``sharded_victim_pick``, the JAX mesh pick:
+each shard's block reduced on its device to an ``EVICT_PICK`` tuple, the
+tuples merged on the host (the same winner either way).
 
 Exactness gate: the engine engages only when it can model the session
 exactly — enabled victim fns within {conformance, gang, drf} (preempt) /
@@ -50,6 +52,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from scheduler_tpu_torch.api.types import TaskStatus
+from scheduler_tpu_torch.ops.layout import EVICT_PICK
 from scheduler_tpu_torch.utils import metrics
 
 logger = logging.getLogger("scheduler_tpu_torch.evict")
@@ -690,16 +693,25 @@ class EvictEngine:
         sufficient_rows: Dict[int, bool],
     ) -> int:
         """The earliest sweep-order position holding a SUFFICIENT plan: the
-        numpy argmin of the JAX package's single-device branch (its mesh
-        branch, ``sharded_victim_pick``, waits for the port's mesh, so
-        ``device_picks`` stays 0).  The walk still visits earlier victim-
+        numpy argmin of the JAX package's single-device branch, or on a
+        node mesh its mesh branch (``device_pick``; ``device_picks``
+        counts it).  The walk still visits earlier victim-
         bearing-but-insufficient nodes (the evict-all-and-continue host
         behavior) and re-checks the live node gate."""
+        from scheduler_tpu_torch.ops.mesh import get_mesh
+
         pos = np.full(max(n_ordered, 1), np.inf, dtype=np.float64)
         for row, ok in sufficient_rows.items():
             i = row_pos.get(row, -1)
             if ok and i >= start:
                 pos[i] = float(i)
+        mesh = get_mesh()
+        if mesh is not None:
+            winner = device_pick(pos, mesh)
+            self.counters["device_picks"] += 1
+            if not np.isfinite(winner[EVICT_PICK.POS]):
+                return -1
+            return int(winner[EVICT_PICK.POS])
         best = int(np.argmin(pos))
         return best if np.isfinite(pos[best]) else -1
 
@@ -954,3 +966,45 @@ def note_evidence(kind: str, stats: dict) -> None:
     cur = dict(phases.get_note("evict") or {})
     cur[kind] = stats
     phases.note("evict", cur)
+
+
+# -- the pick over a node mesh ------------------------------------------------
+
+
+def sharded_victim_pick(pos, *, mesh):
+    """Earliest sweep-order position holding a sufficient plan, as an
+    ``EVICT_PICK`` tuple (``scheduler_tpu/ops/evict.py:990-1017``): ``pos``
+    the per-node position vector (+inf where a node carries no plan), whole
+    or ``ops/mesh.py`` Sharded node-major.  Each shard reduces its block on
+    its device (the lowest position, its global row); the host takes the
+    first tuple of the lowest position (positions are unique, so the
+    reduction is exact).  Returns float32 [2] on the host."""
+    import torch
+
+    from scheduler_tpu_torch.ops.mesh import Sharded, family_on
+
+    blocks = pos.shards if isinstance(pos, Sharded) else Sharded.split(
+        mesh, pos, 0, family_on(mesh, "node_major")).shards
+    picks = []
+    for k, block in enumerate(blocks):
+        local = int(torch.argmin(block))
+        picks.append((float(block[local]), float(local + k * block.shape[0])))
+    best = 0
+    for k in range(1, len(picks)):
+        if picks[k][EVICT_PICK.POS] < picks[best][EVICT_PICK.POS]:
+            best = k
+    return np.asarray(picks[best], dtype=np.float32)
+
+
+def device_pick(pos: np.ndarray, mesh) -> np.ndarray:
+    """Host wrapper (``scheduler_tpu/ops/evict.py:1050-1071``): pad the
+    position vector to the mesh's shard count, place it node-major as
+    float32 and run the pick."""
+    import torch
+
+    shards = mesh.size
+    n = pos.shape[0]
+    padded_n = -(-max(n, 1) // shards) * shards
+    padded = np.full(padded_n, np.inf, dtype=np.float32)
+    padded[:n] = pos
+    return sharded_victim_pick(torch.from_numpy(padded), mesh=mesh)

@@ -49,7 +49,15 @@ relaxation (``csrc/lp_relax.cu`` on the card) over the whole rows x nodes
 tensor, on signature classes where tasks repeat (``ops/sig_compress.py``),
 then the repair, the loop above on its XLA step arm with the marginals as
 the static score, the open-state feasibility as the static mask and zero
-dynamic weights.  The mesh has no switch in this package.
+dynamic weights.
+
+The node mesh (``SCHEDULER_TORCH_MESH`` / ``--mesh``, ``ops/mesh.py``)
+splits the node axis over a device list, driven by one controller: the
+mega kernel runs once in mesh mode with every operand whole on the mesh's
+first device; the loop runs K1 on every shard (``_K1MeshArm``) or the XLA
+arm's shard mode (``ops/xla_step.py::XlaShardStep``), the winner merged on
+the host; the LP relaxation runs over node blocks.  Every arm gives the
+one-device codes.
 
 The result is ONE int32[T] array encoding the whole action:
   >= 0: allocated on that node   |   -1: never reached (left pending)
@@ -287,8 +295,113 @@ class _K1Arm:
         self.push = best
         return best, True, True, False, m
 
+    @property
+    def k1_ms(self):
+        return self.loop.k1_ms
+
+    @property
+    def checked(self) -> int:
+        return self.loop.checked
+
     def close(self) -> None:
         self.loop.close()
+
+
+class _K1MeshArm:
+    """The loop's selection as K1 on every block of a node mesh: the JAX
+    loop's per-shard arm (``scheduler_tpu/ops/fused.py:355-450``), one
+    ``StepLoop`` a shard over its ``n / D`` node columns.  Each step
+    launches K1 on every shard (on CUDA the D launches queue back to back
+    before the first wait); the host merges the D ``(score, best +
+    offset, cap, pods)`` candidates by the two-level rule
+    (``sharded.two_level_winner_with_capacity``: the largest score, the
+    lowest shard on ties, so the lowest global index), sizes the batch from
+    the winner's capacity and pod room, adds the winner's column to the
+    owning shard's float32 mirror only and pushes it to that shard's kernel
+    with the next step.  The job's queue id needs no lane: the host picked
+    the job."""
+
+    def __init__(self, mesh, idle, task_count, allocatable, pods_limit, node_gate, mins,
+                 init_resreq, resreq, static_mask, static_score, sig_of_task, req_h, *,
+                 plain, check_every, r_dim, weights, use_static, enforce_pod_count,
+                 batch_runs, cpu_idx, mem_idx):
+        self.mesh = mesh
+        d = mesh.size
+        n = allocatable.shape[0]
+        self.n, self.n_local = n, n // d
+        self.loops, self.mirrors = [], []
+        self.k1_row = None
+        for k, dev in enumerate(mesh.devices):
+            lo, hi = k * self.n_local, (k + 1) * self.n_local
+            staged = stage_step_operands(
+                np.asarray(idle)[lo:hi], np.asarray(task_count)[lo:hi],
+                allocatable.shards[k], pods_limit.shards[k], node_gate.shards[k],
+                mins.to(dev), init_resreq.to(dev), resreq.to(dev),
+                static_mask.shards[k] if use_static else static_mask.to(dev),
+                static_score.shards[k] if use_static else static_score.to(dev),
+                sig_of_task, use_static=use_static)
+            (ns_host, alloc_t, smask, sscore, gate, plim, task_initq, task_req, mins_c, r8,
+             self.k1_row) = staged
+            loop = _sk.StepLoop(
+                ns_host, alloc_t, smask, sscore, gate, plim, task_initq, task_req, mins_c,
+                device=dev, plain=plain, check_every=check_every, r_dim=r_dim, r8=r8,
+                weights=weights, use_static=use_static, enforce_pod_count=enforce_pod_count,
+                cpu_idx=cpu_idx, mem_idx=mem_idx, with_capacity=batch_runs)
+            self.loops.append(loop)
+            self.mirrors.append(loop.ns_host)
+        self.r8 = r8
+        self.neg_req8 = -np.concatenate(
+            [req_h, np.zeros((req_h.shape[0], r8 - r_dim), np.float32)], axis=1)
+        self.batch_runs, self.enforce_pod_count = batch_runs, enforce_pod_count
+        self.push = None  # (shard, local column)
+
+    def step(self, t_idx: int, s_idx: int, hi0: int):
+        from scheduler_tpu_torch.ops.sharded import two_level_winner_with_capacity
+
+        del s_idx  # the kernel's row carries the static row (k1_row)
+        row = t_idx if self.k1_row is None else int(self.k1_row[t_idx])
+        pushes = [self.push[1] if self.push is not None and self.push[0] == k else -1
+                  for k in range(len(self.loops))]
+        if self.loops[0].cuda:
+            # Every shard's launch queued, then one wait a shard.
+            for loop, push in zip(self.loops, pushes):
+                loop.launch(row, push)
+            results = [loop.finish() for loop in self.loops]
+        else:
+            results = [loop.step(row, push) for loop, push in zip(self.loops, pushes)]
+        cands = [(score, min(lbest, self.n_local - 1) + k * self.n_local, cap, pods)
+                 for k, (lbest, score, cap, pods) in enumerate(results)]
+        self.push = None
+        score, best, cap, pods = two_level_winner_with_capacity(cands)
+        best = min(best, self.n - 1)
+        if score == float("-inf"):
+            return best, False, False, False, 1
+        if self.batch_runs:
+            if self.enforce_pod_count:
+                hi0 = min(hi0, pods)
+            m = max(min(cap, max(hi0, 1)), 1)
+        else:
+            m = 1
+        m_f = np.float32(m)
+        k, col = divmod(best, self.n_local)
+        ns = self.mirrors[k]
+        ns[:self.r8, col] += self.neg_req8[t_idx] * m_f
+        ns[self.r8, col] += m_f
+        self.push = (k, col)
+        return best, True, True, False, m
+
+    @property
+    def k1_ms(self):
+        times = [loop.k1_ms for loop in self.loops]
+        return None if any(t is None for t in times) else float(sum(times))
+
+    @property
+    def checked(self) -> int:
+        return sum(loop.checked for loop in self.loops)
+
+    def close(self) -> None:
+        for loop in self.loops:
+            loop.close()
 
 
 def _share_overused(deserved, allocated, mins, r_dim):
@@ -348,11 +461,17 @@ def fused_allocate(
     qfair_ladder: bool = False,
     plain_step: bool = False,
     check_every: int = 0,
+    mesh=None,
 ):
     """The JAX engine's ``fused_allocate`` while loop
-    (``scheduler_tpu/ops/fused.py:175-1030``) on one device, driven from the
-    host, with the JAX loop's operands and static arguments (but ``window``
-    and ``mesh``).  Returns ``(codes, stats)``: int32 [T] codes on the
+    (``scheduler_tpu/ops/fused.py:175-1030``), driven from the host, with
+    the JAX loop's operands and static arguments (but ``window``).  With
+    ``mesh`` (an ``ops/mesh.py`` NodeMesh) and the node operands staged on
+    it by ``mesh.shard_fused_args`` (``Sharded`` blocks), the arm of a step
+    runs over the shards: K1 on every block (``_K1MeshArm``) or the XLA
+    arm's shard mode (``ops/xla_step.py::XlaShardStep``), each merged on
+    the host to the one-device codes; where the node bucket does not divide
+    the mesh the operands stay whole and, as in the JAX loop, K1 is off.  Returns ``(codes, stats)``: int32 [T] codes on the
     host, bit for bit the JAX loop's, and ``{"arm": "step_kernel" or
     "xla", "steps", "chain_selects": job selections through the comparator
     chain, "k1_ms" / "xla_ms": the arm's summed event time (CUDA only),
@@ -385,11 +504,17 @@ def fused_allocate(
     if set(queue_comparators) - {"proportion"}:
         raise ValueError(f"unknown queue comparators {queue_comparators}")
     from scheduler_tpu_torch.api.vocab import CPU as _CPU_IDX, MEMORY as _MEM_IDX
-    from scheduler_tpu_torch.ops.xla_step import XlaStep
+    from scheduler_tpu_torch.ops.mesh import Sharded
+    from scheduler_tpu_torch.ops.xla_step import XlaShardStep, XlaStep
 
-    dev = allocatable.device
+    sharded = isinstance(allocatable, Sharded)
+    if sharded and mesh is None:
+        raise ValueError("fused_allocate: sharded operands need their mesh")
+    dev = mesh.first if sharded else allocatable.device
     n, r_dim = allocatable.shape
     t_cap = resreq.shape[0]
+    if mesh is not None and n % mesh.size != 0:
+        step_kernel = False  # the node bucket must divide over the mesh
     track_queue_alloc = bool(queue_comparators) or overused_gate
     use_queue_delta = queue_delta and track_queue_alloc
     use_ladder = qfair_ladder and use_queue_delta
@@ -580,7 +705,23 @@ def fused_allocate(
             share, over = _share_overused(q_des[q], q_alloc[q], mins_h, r_dim)
             q_share[q], q_over[q] = share, over
 
-    if step_kernel:
+    if sharded:
+        if step_kernel:
+            arm = _K1MeshArm(mesh, idle, task_count, allocatable, pods_limit, node_gate, mins,
+                             init_resreq, resreq, static_mask, static_score,
+                             sig_of_task if static_row else np.arange(t_cap), req_h,
+                             plain=plain_step, check_every=check_every, r_dim=r_dim,
+                             weights=tuple(float(w) for w in weights), use_static=use_static,
+                             enforce_pod_count=enforce_pod_count, batch_runs=batch_runs,
+                             cpu_idx=_CPU_IDX, mem_idx=_MEM_IDX)
+        else:
+            arm = XlaShardStep(mesh, idle, releasing, task_count, allocatable, pods_limit,
+                               node_gate, mins, init_resreq, resreq, static_mask, static_score,
+                               weights=weights, use_static=use_static,
+                               enforce_pod_count=enforce_pod_count, has_releasing=has_releasing,
+                               batch_runs=batch_runs, score_bound=score_bound, plain=plain_step,
+                               check_every=check_every)
+    elif step_kernel:
         staged = stage_step_operands(idle, task_count, allocatable, pods_limit, node_gate,
                                      mins, init_resreq, resreq, static_mask, static_score,
                                      sig_of_task if static_row else np.arange(t_cap),
@@ -697,11 +838,12 @@ def fused_allocate(
     finally:
         arm.close()
     stats = {"arm": "step_kernel" if step_kernel else "xla", "steps": steps,
-             "k1_ms": arm.loop.k1_ms if step_kernel else None,
+             "shards": mesh.size if sharded else 1,
+             "k1_ms": arm.k1_ms if step_kernel else None,
              "xla_ms": None if step_kernel else arm.xla_ms,
              "xla_host_ms": None if step_kernel else arm.host_ms, **counts}
     if check_every:
-        stats["checked"] = arm.loop.checked if step_kernel else arm.checked
+        stats["checked"] = arm.checked
     return torch.from_numpy(out[:t_cap].copy()), stats
 
 
@@ -1069,6 +1211,19 @@ class FusedAllocator:
                                      bucket(len(queue_names)), r, scale)
         self._host_queue_fair = (queue_deserved, queue_alloc)
 
+        # --- the node mesh (scheduler_tpu/ops/fused.py:1619-1624) -----------
+        # ``SCHEDULER_TORCH_MESH`` / ``--mesh``: the node axis over a device
+        # list (ops/mesh.py; None: one device).  Its devices must be of the
+        # session's kind; the first holds every replicated operand.
+        from scheduler_tpu_torch.ops.mesh import get_mesh
+
+        mesh = get_mesh()
+        if mesh is not None and mesh.first.type != self.device.type:
+            raise ValueError(f"the node mesh lies on {mesh.first.type} devices but the session "
+                             f"runs on {self.device}")
+        self._mesh = mesh
+        self._lp_mesh = None
+
         # --- the LP flavor's admission (scheduler_tpu/ops/fused.py:1626-1662) -
         # Releasing sessions and working sets past the limit keep greedy
         # (logged once a build).  Where it engages, neither single-step
@@ -1078,7 +1233,10 @@ class FusedAllocator:
             from scheduler_tpu_torch.ops import lp_place
 
             self.use_lp, self.lp_reason = lp_place.lp_supported(
-                self.flat_count, self.has_releasing, self._sig_bucket, nb)
+                self.flat_count, self.has_releasing, self._sig_bucket, nb, mesh)
+            # The relaxation runs over node blocks only where the staged
+            # operands split (a bucket that does not divide stays whole).
+            self._lp_mesh = mesh if mesh is not None and nb % mesh.size == 0 else None
             if self.use_lp:
                 self._stage_lp_static(static_mask_dev, static_score_dev)
             else:
@@ -1101,11 +1259,13 @@ class FusedAllocator:
         # whole masked-score vector or the node state outgrows the kernel's
         # budget.
         r8 = -(-r // 8) * 8
+        nb_local = nb // mesh.size if mesh is not None and nb % mesh.size == 0 else nb
         self.step_kernel = bool(
             not self.use_lp
+            and (mesh is None or nb % mesh.size == 0)
             and not self.has_releasing
             and not score_bound
-            and (2 * r8 + 12) * nb * 4 <= 8 * 1024 * 1024
+            and (2 * r8 + 12) * nb_local * 4 <= 8 * 1024 * 1024
         )
         mins_f32 = np.asarray(policy.scaled_mins(r), dtype=np.float32)
         # The loop's operands, staged lazily (``args``): a session that runs
@@ -1386,7 +1546,9 @@ class FusedAllocator:
         misc = np.zeros((1, 8), dtype=np.int32)
         misc[0, 0] = len(self.jobs)  # n_real: every kept job has pending rows
 
-        dev = self.device
+        # Mesh mode runs the kernel replicated (scheduler_tpu/ops/fused.py:
+        # 2048-2060): every operand whole on the mesh's first device.
+        dev = self._mesh.first if self._mesh is not None else self.device
 
         def to_dev(a: np.ndarray) -> torch.Tensor:
             return _to_device(a, device=dev)
@@ -1501,7 +1663,7 @@ class FusedAllocator:
             qfair_ladder=mega_ladder,
             cohort=cohort_eff,
             t_cap=tb,
-            mesh=None,
+            mesh=self._mesh,
         )
         self.use_mega = True
 
@@ -1590,11 +1752,17 @@ class FusedAllocator:
 
     def _delta_compatible(self, ssn) -> bool:
         """Cheap structural re-checks guarding the delta path
-        (``scheduler_tpu/ops/fused.py:2220-2324`` but the mesh and tenant
-        regimes, which this package does not carry, and the eviction and
+        (``scheduler_tpu/ops/fused.py:2220-2324`` but the tenant regime,
+        which this package does not carry, and the eviction and
         backfill flavors, which never change this engine's program).  The cache key and the layout token pin all
-        of them in the cached flow; these re-checks cover direct callers."""
+        of them in the cached flow; these re-checks cover direct callers.  A
+        mesh engine refreshes too, on the same mesh only (the topology is in
+        the cache key)."""
+        from scheduler_tpu_torch.ops.mesh import get_mesh
+
         if _session_device(ssn) != self.device:
+            return False
+        if get_mesh() is not self._mesh:
             return False
         if self.weights != score_weights(ssn):
             return False
@@ -2017,6 +2185,10 @@ class FusedAllocator:
                 f32(qf_share),
                 np.ascontiguousarray(qf_over, dtype=bool),
             )
+            if self._mesh is not None:
+                from scheduler_tpu_torch.ops.mesh import shard_fused_args
+
+                self._args = shard_fused_args(self._mesh, self._args)
         return self._args
 
     def _allocate_kw(self) -> dict:
@@ -2037,6 +2209,7 @@ class FusedAllocator:
             queue_delta=self.queue_delta,
             sig_compress=self._sig_compress,
             qfair_ladder=self.qfair_ladder,
+            mesh=self._mesh,
         )
 
     def dispatch(self) -> None:
@@ -2046,6 +2219,8 @@ class FusedAllocator:
         when a run is in flight or nothing is pending."""
         if self._dev is not None or self.flat_count == 0:
             return
+        from scheduler_tpu_torch.utils import shardcheck
+
         if self.device.type == "cuda":
             # Device time on the device clock, read at readback.
             self._events = (torch.cuda.Event(enable_timing=True),
@@ -2054,11 +2229,17 @@ class FusedAllocator:
         if self.use_lp:
             self._dispatch_lp()
         elif self.use_mega:
+            # Whole-loop kernel operands run replicated on a mesh by design:
+            # every position checks as replicated.
+            shardcheck.check_dispatch(self._mesh, self._mega_args, families=())
             # The session's queue count bounds the queue indices: the launch
             # need not read them back from the device.
             self._dev, self._dev_stats = _mk.mega_allocate(
                 *self._mega_args, n_queues=len(self.queue_uids), **self._mega_kw)
         else:
+            # SCHEDULER_TORCH_SHARDCHECK=1: each operand's placement against
+            # its registry family (utils/shardcheck.py).
+            shardcheck.check_dispatch(self._mesh, self.args)
             self._dev, self._dev_stats = fused_allocate(*self.args, **self._allocate_kw())
         if self._events is not None:
             self._events[1].record()
@@ -2069,7 +2250,7 @@ class FusedAllocator:
 
         return dict(iters=lp_place.lp_iters(), tau=lp_place.lp_tau(), tol=lp_place.lp_tol(),
                     weights=self.weights, enforce_pod_count=self.enforce_pod_count,
-                    use_static=self.use_static)
+                    use_static=self.use_static, mesh=self._lp_mesh)
 
     def _lp_class_dev(self):
         """The [S]-class LP operands on the engine's device (request rows,
@@ -2086,7 +2267,7 @@ class FusedAllocator:
         static rows and the request rows of the tasks, or of the classes
         with their counts."""
         args = self.args
-        dev = self.device
+        dev = self._mesh.first if self._mesh is not None else self.device
         idle = torch.as_tensor(args[0], device=dev)
         task_count = torch.as_tensor(args[2], device=dev)
         smask, sscore = self._lp_static if self._lp_static is not None else (None, None)
@@ -2149,6 +2330,7 @@ class FusedAllocator:
             queue_delta=self.queue_delta,
             sig_compress=self.sig_compress,
             qfair_ladder=self.qfair_ladder,
+            mesh=self._mesh,
         )
         t2 = _time.perf_counter()
         self.lp_phase = {"lp_iterate": t1 - t0, "lp_repair": t2 - t1}
@@ -2167,6 +2349,11 @@ class FusedAllocator:
             self.dispatch()
         dev, self._dev = self._dev, None
         stats, self._dev_stats = self._dev_stats, None
+        from scheduler_tpu_torch.utils import shardcheck
+
+        # Codes and evidence are per-task values: whole, never sharded.
+        shardcheck.check_result(self._mesh, dev)
+        shardcheck.check_result(self._mesh, stats, where="readback.stats")
         self._encoded = dev.cpu().numpy().astype(np.int32, copy=False)
         self._stats_raw = stats if isinstance(stats, dict) else stats.cpu().numpy()
         if self._events is not None:
@@ -2260,6 +2447,16 @@ class FusedAllocator:
             out["loop_ms"] = self.loop_ms
         if self.lp_ms is not None:
             out["lp_ms"] = self.lp_ms
+        if self._mesh is not None:
+            from scheduler_tpu_torch.ops.mesh import mesh_topology
+
+            # The topology, whether the node operands split (a bucket that
+            # does not divide the mesh stays whole) and the loop's shards.
+            mesh = mesh_topology(self._mesh)
+            mesh["sharded"] = self.n_bucket % self._mesh.size == 0
+            if isinstance(raw, dict):
+                mesh["loop_shards"] = raw.get("shards", 1)
+            out["mesh"] = mesh
         return out
 
     def _lp_block(self, enc) -> dict:

@@ -119,3 +119,103 @@ class SIG_CLASS:
     STATIC_SIG = 1  # per-task static-signature id (0 when no static rows)
     QUEUE = 2       # queue index of the task's job
     PRIORITY = 3    # PriorityClass value of the task's job
+
+
+class WINNER:
+    """The two-level winner tuple (``ops/sharded.py``): one candidate row a
+    node shard, read back by the host and merged there.  Lanes 2..3 are the
+    per-site extra lanes: capacity and pod room on the cohort path, the fit
+    bits on the plain scan path."""
+
+    SCORE = 0
+    INDEX = 1
+    CAP = 2        # cohort capacity count (two_level_winner_with_capacity)
+    PODS = 3       # pod-count room of the winning node
+    QUEUE = 4      # selected job's queue id (two_level_winner_with_queue)
+    FIT_IDLE = 2   # alias of CAP: plain-scan extra lane 0 (idle-fit bit)
+    FIT_REL = 3    # alias of PODS: plain-scan extra lane 1 (releasing-fit bit)
+
+
+class LP_PACK:
+    """The LP iteration's row-stat pack (f32 [4, T] a node block,
+    ``ops/lp_place.py`` -> ``sharded.merge_row_logsumexp``): the one tensor
+    merged across blocks an iteration, the LP twin of ``WINNER``."""
+
+    MAX = 0      # the block's row max (streaming logsumexp)
+    SUM = 1      # the block's sum of exponentials at its row max
+    ARGMAX = 2   # the block's best node, as a GLOBAL index (f32-exact)
+    UPD = 3      # the block's previous projection-update max, along the row
+
+
+class EVICT_PICK:
+    """The eviction pick's candidate tuple (``ops/evict.py``
+    ``sharded_victim_pick``): one row a node shard, the winner the earliest
+    sweep-order position."""
+
+    POS = 0    # sweep-order position of the shard's best node (+inf: none)
+    NODE = 1   # that node's GLOBAL row index, as f32 (exact below 2^24)
+
+
+# -- the sharding registry (ops/mesh.py, utils/shardcheck.py) -----------------
+#
+# The node mesh (``ops/mesh.py``) splits the fused engine's node axis into
+# blocks, one a shard, in replica-major order on the 2-D spec.  A buffer of a
+# node family is a ``mesh.Sharded`` (shard k's block on the mesh's device k);
+# a replicated buffer lies whole on the mesh's first device (one controller
+# runs every shard, so "replicated" means "once, where the merge runs").
+
+# The mesh axes (``sharded.NODE_AXIS`` / ``sharded.REPLICA_AXIS``).
+SHARD_AXES = {"NODE_AXIS": "nodes", "REPLICA_AXIS": "replica"}
+
+# Buffer families -> the axis split of each dimension (None: whole; a tuple
+# splits that dimension over the combined axes, replica-major).
+SHARDING = {
+    "node_major": ("nodes",),
+    "node_trailing": (None, "nodes"),
+    "node_major_2d": (("replica", "nodes"),),
+    "node_trailing_2d": (None, ("replica", "nodes")),
+    "replicated": (),
+}
+
+# 1-D family -> its 2-D twin, applied by the staging and the check alike.
+SHARD_FAMILY_2D = {
+    "node_major": "node_major_2d",
+    "node_trailing": "node_trailing_2d",
+    "replicated": "replicated",
+}
+
+# The sites that merge across shards and what each reads back an iteration
+# or a step: exactly one gather of the shards' candidate tuples (a host read
+# of D small rows; the LP pack's merge runs on the first device), never a
+# node ledger.  The whole-loop kernel, the water-fill and the selector mask
+# read nothing across shards.
+COLLECTIVE_BUDGET = {
+    "ops/fused.py::_K1MeshArm.step": {"gather": 1},
+    "ops/xla_step.py::XlaShardStep.step": {"gather": 1},
+    "ops/sharded.py::sharded_place_scan": {"gather": 1},
+    "ops/sharded.py::sharded_selector_mask": {"gather": 0},
+    "ops/lp_place.py::lp_iterate_blocks": {"gather": 1},
+    "ops/evict.py::sharded_victim_pick": {"gather": 1},
+    "ops/backfill.py::sharded_backfill_fill": {"gather": 1},
+    "ops/megakernel.py::mega_allocate": {"gather": 0},
+    "ops/qfair.py::qfair_solve": {"gather": 0},
+}
+
+# ``fused_allocate``'s positional operand families (``ops/fused.py``
+# FUSED_OPERAND_NAMES): the one row the staging (``mesh.shard_fused_args``)
+# and the check (``utils/shardcheck.py``) both read.  Positions past it are
+# replicated.  The node_trailing entries degrade to replicated for [*, 1]
+# dummies (no static rows): a unit axis cannot split.
+FUSED_ARG_FAMILIES = (
+    "node_major",      # idle [N, R]
+    "node_major",      # releasing [N, R]
+    "node_major",      # task_count [N]
+    "node_major",      # allocatable [N, R]
+    "node_major",      # pods_limit [N]
+    "node_major",      # node_gate [N]
+    "replicated",      # mins [R]
+    "replicated",      # init_resreq [T, R]
+    "replicated",      # resreq [T, R]
+    "node_trailing",   # static_mask [S, N]
+    "node_trailing",   # static_score [S, N]
+)

@@ -32,8 +32,15 @@ by each class's task count.
 
 The knobs twin the JAX package's: ``SCHEDULER_TORCH_ALLOCATOR`` (``greedy``
 or ``lp``), ``SCHEDULER_TORCH_LP_ITERS``, ``_LP_TAU``, ``_LP_TOL`` and
-``_LP_LIMIT``, each in ``ops/engine_cache._ENV_KEYS``.  The JAX package's
-``shard_map`` twins wait for the mesh.
+``_LP_LIMIT``, each in ``ops/engine_cache._ENV_KEYS``.
+
+On a node mesh (``ops/mesh.py``; the JAX package's ``shard_map`` twins
+``_lp_iterate_1d/_2d/_sig_1d/_sig_2d``) the node axis splits into blocks:
+each block's rows build their logits and capacities, and an iteration
+merges the blocks' ``[4, rows]`` row-stat packs (``layout.LP_PACK``) with
+``sharded.merge_row_logsumexp``: ``lp_iterate_blocks``, on CUDA one C call
+of ``csrc/lp_relax.cu``'s block entry (a row pass a block, one merge, the
+column and projection passes a block), else ``lp_iterate_blocks_reference``.
 """
 
 from __future__ import annotations
@@ -54,6 +61,9 @@ NEG = -1e9
 
 # Solves launched on the card (one C call a solve; the CPU path never counts).
 launches = 0
+
+# Node-block solves launched on the card (one C call a solve).
+block_launches = 0
 
 # The kernel's limits and launch shape (csrc/lp_relax.cu).
 MAX_COLS = 16          # capacity columns (r_dim, plus one for the pod count)
@@ -101,24 +111,26 @@ def lp_limit_bytes() -> int:
     return env_int("SCHEDULER_TORCH_LP_LIMIT", 256 * 1024 * 1024, minimum=1)
 
 
-def lp_working_set_bytes(row_bucket: int, n_bucket: int) -> int:
-    """The gate's working-set model on one device: about four row-by-node
-    f32 temporaries (logits, exponentials, marginals, feasibility), 16
-    bytes a cell."""
-    return 16 * row_bucket * max(n_bucket, 1)
+def lp_working_set_bytes(row_bucket: int, n_bucket: int, shards: int = 1) -> int:
+    """The gate's working-set model a shard: about four row-by-node f32
+    temporaries (logits, exponentials, marginals, feasibility), 16 bytes a
+    (row, node of the block) cell."""
+    return 16 * row_bucket * max(n_bucket // max(shards, 1), 1)
 
 
 def lp_supported(flat_count: int, has_releasing: bool, row_bucket: int,
-                 n_bucket: int) -> Tuple[bool, Optional[str]]:
+                 n_bucket: int, mesh=None) -> Tuple[bool, Optional[str]]:
     """Admission gate of the LP flavor: ``(ok, reason when not)``, the JAX
     gate's decisions and reasons, the flag named the port's.  Releasing capacity has no
-    fractional analogue; the working set (``row_bucket``: the class bucket
-    under signature classes, else the task bucket) must fit the limit."""
+    fractional analogue; the working set a shard (``row_bucket``: the class
+    bucket under signature classes, else the task bucket; the node bucket
+    over the mesh's shards) must fit the limit."""
     if flat_count == 0:
         return False, "no pending tasks"
     if has_releasing:
         return False, "releasing capacity (pipelined placements) not modeled"
-    per_shard = lp_working_set_bytes(row_bucket, n_bucket)
+    shards = mesh.size if mesh is not None else 1
+    per_shard = lp_working_set_bytes(row_bucket, n_bucket, shards)
     limit = lp_limit_bytes()
     if per_shard > limit:
         return False, (
@@ -301,14 +313,23 @@ def _launch(logits, cap, req_aug, *, iters, tol):
 
 def lp_relax(idle, allocatable, task_count, pods_limit, node_gate, static_mask, static_score,
              mins, init_resreq, resreq, class_count=None, *, iters: int, tau: float,
-             tol: float, weights, enforce_pod_count: bool, use_static: bool):
-    """Solve the relaxed assignment on one device (the single-device branch
-    of ``scheduler_tpu/ops/lp_place.py::lp_relax``).  Returns
-    ``(marginals f32 [rows, N], feasibility bool [rows, N], pref i32 [rows],
-    lp_raw i32 [2])``: the rows slot into the repair's static positions.
-    ``class_count`` f32 [rows]: the rows are signature classes and each
-    row's load in the projection is weighted by its task count (a marginal
-    row stays a per-task distribution)."""
+             tol: float, weights, enforce_pod_count: bool, use_static: bool, mesh=None):
+    """Solve the relaxed assignment (``scheduler_tpu/ops/lp_place.py::
+    lp_relax``).  Returns ``(marginals f32 [rows, N], feasibility bool
+    [rows, N], pref i32 [rows], lp_raw i32 [2])``: the rows slot into the
+    repair's static positions.  ``class_count`` f32 [rows]: the rows are
+    signature classes and each row's load in the projection is weighted by
+    its task count (a marginal row stays a per-task distribution).  With
+    ``mesh`` the node operands (whole, or ``ops/mesh.py`` Sharded) split
+    into the mesh's blocks, the marginals and the feasibility come back as
+    node-trailing ``Sharded`` blocks and ``pref`` / ``lp_raw`` whole on the
+    mesh's first device."""
+    if mesh is not None:
+        return _lp_relax_blocks(idle, allocatable, task_count, pods_limit, node_gate,
+                                static_mask, static_score, mins, init_resreq, resreq,
+                                class_count, iters=iters, tau=tau, tol=tol, weights=weights,
+                                enforce_pod_count=enforce_pod_count, use_static=use_static,
+                                mesh=mesh)
     logits, feas = logits_and_feasibility(
         idle, allocatable, task_count, pods_limit, node_gate, static_mask, static_score,
         mins, init_resreq, resreq, weights=weights, tau=tau,
@@ -319,6 +340,186 @@ def lp_relax(idle, allocatable, task_count, pods_limit, node_gate, static_mask, 
     x, pref, lp_raw = lp_iterate(logits, cap.contiguous(), req_aug.contiguous(), iters=iters,
                                  tol=tol)
     return x, feas, pref, lp_raw
+
+
+# -- node blocks -------------------------------------------------------------------
+
+def lp_iterate_blocks_reference(logits_b, cap_b, req_aug, *, iters: int, tol: float):
+    """The fixed-point loop over node blocks in PyTorch operations (the JAX
+    ``_iterate_block`` with ``merge_row_logsumexp``): ``logits_b`` /
+    ``cap_b`` one tensor a block (block k's first global node is k * n),
+    ``req_aug`` the rows' capacity columns.  Returns ``(x blocks, pref i32
+    [rows], lp_raw i32 [2])``, ``pref`` and ``lp_raw`` on the first block's
+    device."""
+    from scheduler_tpu_torch.ops.sharded import merge_row_logsumexp
+
+    d = len(logits_b)
+    first = logits_b[0].device
+    n = logits_b[0].shape[1]
+    rows = logits_b[0].shape[0]
+    f32 = torch.float32
+    log_v = [torch.zeros(n, dtype=f32, device=lb.device) for lb in logits_b]
+    req_b = [req_aug.to(lb.device) for lb in logits_b]
+    gupd = [torch.tensor(float("inf"), dtype=f32, device=lb.device) for lb in logits_b]
+    conv = -1
+    x_b = pref = None
+    for i in range(iters):
+        packs, e_b, m_b = [], [], []
+        for k in range(d):
+            z = logits_b[k] + log_v[k][None, :]
+            m_l = z.max(dim=1).values
+            e = torch.exp(z - m_l[:, None])
+            s_l = e.sum(dim=1)
+            am = (torch.argmax(z, dim=1) + k * n).to(f32)
+            packs.append(torch.stack([m_l, s_l, am, gupd[k].expand(rows)]).to(first))
+            e_b.append(e)
+            m_b.append(m_l)
+        m, s, pref_f, upd_max = merge_row_logsumexp(torch.stack(packs))
+        pref = pref_f
+        mass = (m > np.float32(NEG * 0.5)).to(f32)
+        if i > 0 and float(upd_max) < np.float32(tol) and conv < 0:
+            conv = i - 1
+        x_b = []
+        for k in range(d):
+            dev = logits_b[k].device
+            coef = torch.exp(m_b[k] - m.to(dev)) * mass.to(dev) / s.to(dev)
+            x_b.append(e_b[k] * coef[:, None])
+        if i == iters - 1:
+            break
+        for k in range(d):
+            load = x_b[k].T @ req_b[k]
+            ratio = torch.where(load > np.float32(1e-9),
+                                cap_b[k] / torch.clamp(load, min=np.float32(1e-9)),
+                                torch.tensor(float("inf"), device=load.device)).min(dim=1).values
+            scale = torch.clamp(torch.clamp(ratio, max=1.0), np.float32(1e-6), 1.0)
+            upd = torch.log(scale)
+            log_v[k] = log_v[k] + upd
+            gupd[k] = upd.abs().max()
+    lp_raw = torch.zeros(2, dtype=torch.int32, device=first)
+    lp_raw[LP_STATS.ITERATIONS] = iters
+    lp_raw[LP_STATS.CONVERGED_AT] = conv
+    return x_b, pref.to(torch.int32), lp_raw
+
+
+def kernel_launches_blocks(iters: int, d: int) -> int:
+    """Kernel launches of one node-block solve: the init; a row pass a
+    block, the merge, and a column pass, projection and update max a block
+    an iteration; the last iteration's row passes, merge and column passes."""
+    return 1 + (4 * d + 1) * (iters - 1) + (2 * d + 1)
+
+
+_block_entry_fn = None
+
+
+def _block_entry():
+    global _block_entry_fn
+    if _block_entry_fn is None:
+        fn = cuda_build.load().lp_relax_blocks_launch
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10)
+        fn.restype = ctypes.c_int
+        _block_entry_fn = fn
+    return _block_entry_fn
+
+
+def lp_iterate_blocks(logits_b, cap_b, req_aug, *, iters: int, tol: float,
+                      plain: bool = False):
+    """The fixed-point loop over node blocks: ``(x blocks, pref i32 [rows],
+    lp_raw i32 [2])``.  CPU blocks, or ``plain``, run
+    ``lp_iterate_blocks_reference``; CUDA blocks launch ``csrc/lp_relax.cu``'s
+    block entry (one C call, ``block_launches`` + 1) or raise.  The entry
+    runs every block on the first block's device: blocks elsewhere are
+    copied there and their marginals copied back."""
+    if plain or logits_b[0].device.type == "cpu":
+        return lp_iterate_blocks_reference(logits_b, cap_b, req_aug, iters=iters, tol=tol)
+    global block_launches
+    d = len(logits_b)
+    dev = logits_b[0].device
+    rows, n = logits_b[0].shape
+    r = cap_b[0].shape[1]
+    f32 = torch.float32
+    if r < 1 or r > MAX_COLS:
+        raise ValueError(f"lp_relax: {r} capacity columns (1 to {MAX_COLS})")
+    if iters < 1:
+        raise ValueError("lp_relax: iters must be at least 1")
+    logits_b = [lb.to(dev).contiguous() for lb in logits_b]
+    cap_b = [cb.to(dev).contiguous() for cb in cap_b]
+    req_aug = req_aug.to(dev).contiguous()
+    for k in range(d):
+        for name, t, shape in (("logits", logits_b[k], (rows, n)), ("cap", cap_b[k], (n, r))):
+            if t.dtype != f32 or tuple(t.shape) != shape:
+                raise ValueError(f"lp_relax: block {k}'s {name} must be float32 {shape}")
+    if req_aug.dtype != f32 or tuple(req_aug.shape) != (rows, r):
+        raise ValueError(f"lp_relax: req_aug must be float32 {(rows, r)}")
+    chunks = -(-rows // CHUNK_ROWS)
+    x_b = [torch.empty((rows, n), dtype=f32, device=dev) for _ in range(d)]
+    log_v = [torch.empty(n, dtype=f32, device=dev) for _ in range(d)]
+    partial = [torch.empty((chunks, n, r), dtype=f32, device=dev) for _ in range(d)]
+    blockmax = [torch.empty(-(-n // NODE_THREADS), dtype=f32, device=dev) for _ in range(d)]
+    gupd = torch.empty(d, dtype=f32, device=dev)
+    pack = torch.empty((d, 4, rows), dtype=f32, device=dev)
+    coef = torch.empty((d, rows), dtype=f32, device=dev)
+    pref = torch.empty(rows, dtype=torch.int32, device=dev)
+    lp_raw = torch.empty(2, dtype=torch.int32, device=dev)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * d)(*[t.data_ptr() for t in ts])
+
+    keep = [ptrs(logits_b), ptrs(cap_b), ptrs(log_v), ptrs(partial), ptrs(blockmax), ptrs(x_b)]
+    rc = _block_entry()(d, ctypes.addressof(keep[0]), ctypes.addressof(keep[1]),
+                        req_aug.data_ptr(), rows, n, r, int(iters), float(tol), CHUNK_ROWS,
+                        chunks, ctypes.addressof(keep[2]), ctypes.addressof(keep[3]),
+                        ctypes.addressof(keep[4]), gupd.data_ptr(), pack.data_ptr(),
+                        coef.data_ptr(), ctypes.addressof(keep[5]), pref.data_ptr(),
+                        lp_raw.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lp_relax (node blocks) launch failed: CUDA error {rc}")
+    block_launches += 1
+    return x_b, pref, lp_raw
+
+
+def _lp_relax_blocks(idle, allocatable, task_count, pods_limit, node_gate, static_mask,
+                     static_score, mins, init_resreq, resreq, class_count, *, iters, tau, tol,
+                     weights, enforce_pod_count, use_static, mesh):
+    """``lp_relax`` over the mesh's node blocks (the JAX ``shard_fn``): each
+    block's logits, feasibility and capacities from its own rows, then
+    ``lp_iterate_blocks``."""
+    from scheduler_tpu_torch.ops.mesh import Sharded, family_on
+
+    def blocks(a, axis):
+        if isinstance(a, Sharded):
+            return a.shards
+        return Sharded.split(mesh, a, axis, "").shards
+
+    idle_b, alloc_b, tc_b = blocks(idle, 0), blocks(allocatable, 0), blocks(task_count, 0)
+    plim_b, gate_b = blocks(pods_limit, 0), blocks(node_gate, 0)
+    if use_static:
+        smask_b, sscore_b = blocks(static_mask, 1), blocks(static_score, 1)
+    logits_b, feas_b, cap_b = [], [], []
+    req_aug = None
+    for k, dev in enumerate(mesh.devices):
+        n_local = idle_b[k].shape[0]
+        sm = smask_b[k] if use_static else torch.ones((1, n_local), dtype=torch.bool,
+                                                      device=dev)
+        ss = sscore_b[k] if use_static else torch.zeros((1, n_local), dtype=torch.float32,
+                                                        device=dev)
+        logits, feas = logits_and_feasibility(
+            idle_b[k], alloc_b[k], tc_b[k], plim_b[k], gate_b[k], sm, ss, mins.to(dev),
+            init_resreq.to(dev), resreq.to(dev), weights=weights, tau=tau,
+            enforce_pod_count=enforce_pod_count, use_static=use_static)
+        cap, req_k = capacity(idle_b[k], tc_b[k], plim_b[k], resreq.to(dev), enforce_pod_count)
+        if class_count is not None:
+            req_k = req_k * class_count.to(dev)[:, None]
+        if req_aug is None:
+            req_aug = req_k.contiguous()
+        logits_b.append(logits)
+        feas_b.append(feas)
+        cap_b.append(cap.contiguous())
+    x_b, pref, lp_raw = lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=tol)
+    fam = family_on(mesh, "node_trailing")
+    x_b = [x.to(dev) for x, dev in zip(x_b, mesh.devices)]
+    return (Sharded(mesh, x_b, 1, fam), Sharded(mesh, feas_b, 1, fam), pref.to(mesh.first),
+            lp_raw.to(mesh.first))
 
 
 # -- host-side evidence ------------------------------------------------------------

@@ -29,7 +29,9 @@ CAPACITY (``has_releasing``):
   multi-queue mode its queue's allocated (proportion's allocate handler
   fires on pipeline too).  Cohort chunks are off (``cohort = 1``).
 
-The mesh raises.  The kernel source is
+MESH MODE (``mesh``, an ``ops/mesh.py`` NodeMesh) is the JAX kernel's
+replicated mode: one launch with every operand whole on the mesh's first
+device, the same plan and the same machine code.  The kernel source is
 ``csrc/mega_allocate.cu``; it is built with the port's other kernels at
 first use (``ops/cuda_build.py``) and bound through a plain C entry point
 with ``ctypes``.
@@ -153,13 +155,23 @@ def mega_supported(
 
 
 def _check_mode(multi_queue, qfair_ladder, mesh, queue_delta=True,
-                queue_proportion=False, overused_gate=False) -> None:
+                queue_proportion=False, overused_gate=False, operands=()) -> None:
     """Cursor mode and multi-queue mode in its three queue chains (each with
-    or without static rows and releasing capacity) are ported; the mesh
-    raises.  The qfair ladder refines the delta chain: it needs multi-queue
-    mode with ``queue_delta`` and a queue chain to maintain."""
+    or without static rows and releasing capacity) are ported, and each of
+    them in mesh mode: the JAX kernel runs replicated on a mesh, every in-
+    and out-spec ``P()`` (``scheduler_tpu/ops/megakernel.py:994-1015``), so
+    one controller launches it once with every operand whole on the mesh's
+    first device (``operands``, where given, must lie there).  The qfair
+    ladder refines the delta chain: it needs multi-queue mode with
+    ``queue_delta`` and a queue chain to maintain."""
     if mesh is not None:
-        raise NotImplementedError("mega_allocate mode not ported: mesh")
+        first = getattr(mesh, "first", None)
+        if first is None:
+            raise TypeError(f"mega_allocate: mesh must be an ops.mesh.NodeMesh, got {mesh!r}")
+        for i, a in enumerate(operands):
+            if a.device != first:
+                raise ValueError(f"mega_allocate: in mesh mode operand {OPERAND_NAMES[i]} must "
+                                 f"lie whole on the mesh's first device {first}, not {a.device}")
     if qfair_ladder and not (multi_queue and queue_delta
                              and (queue_proportion or overused_gate)):
         raise ValueError("mega_allocate: the qfair ladder needs multi-queue mode with the "
@@ -313,7 +325,8 @@ def job_operand_lanes(n_queues: int) -> int:
 
 
 def mega_plan(nb: int, r_dim: int, j_pad: int, s_pad: int, static_rows: int,
-              use_static: bool, n_queues: int = 0, has_releasing: bool = False) -> MegaPlan:
+              use_static: bool, n_queues: int = 0, has_releasing: bool = False,
+              mesh=None) -> MegaPlan:
     """The kernel's launch plan for a shape (``n_queues`` > 0: multi-queue
     mode; the qfair ladder's two rung tables, up to 2 x 1,024 x 128 floats,
     stay in global memory; ``has_releasing``: the node slice holds the
@@ -324,7 +337,10 @@ def mega_plan(nb: int, r_dim: int, j_pad: int, s_pad: int, static_rows: int,
     Then each region goes
     into shared memory if it still fits, in this order: job ledger, request
     table (2 x r_dim rows), job operands (``job_operand_lanes`` words a
-    lane), static rows (mask and score of the CTA's slice)."""
+    lane), static rows (mask and score of the CTA's slice).  ``mesh``: the
+    plan of mesh mode, which is this plan (one launch on the mesh's first
+    device over the whole node ledger)."""
+    del mesh
     budget = SMEM_LIMIT - _STATIC_SMEM
     queue = queue_ledger_bytes(n_queues, r_dim)
 
@@ -425,7 +441,7 @@ def mega_allocate(*operands: torch.Tensor, n_queues: Optional[int] = None, **kw)
     kw.pop("interpret", None)
     _check_mode(kw.get("multi_queue"), kw.get("qfair_ladder", False),
                 kw.get("mesh"), kw.get("queue_delta", True), kw.get("queue_proportion", False),
-                kw.get("overused_gate", False))
+                kw.get("overused_gate", False), operands)
     n_queues = _queues_for(kw, n_queues)
     if kw.get("qfair_ladder"):
         ops = dict(zip(OPERAND_NAMES, operands))
@@ -452,7 +468,6 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
             queue_delta=True, qfair_ladder=False, cohort=1, t_cap=0,
             mesh=None, n_queues=0):
     global launches
-    del mesh
     nb = ns0.shape[1]
     s_pad = sig_req.shape[1]
     t_rows = task_sig.shape[0]
@@ -502,7 +517,7 @@ def _launch(ns0, alloc_t, rel0, gate, plim, sig_req, task_sig, run_len,
     cohort = max(1, int(cohort))
 
     plan = mega_plan(nb, r_dim, j_pad, s_pad, static_rows, use_static, n_queues,
-                     bool(has_releasing))
+                     bool(has_releasing), mesh=mesh)
     launch = _entry()
     dev = ns0.device
     out = torch.empty((t_rows + 1) * 128, dtype=i32, device=dev)

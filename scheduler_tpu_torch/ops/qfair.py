@@ -98,14 +98,20 @@ def qfair_plan(q_n: int, r_n: int) -> Tuple[int, bool, int]:
     return threads, on_chip, pool + (tile if on_chip else 0)
 
 
-def qfair_solve(weights, request, total, req_hs, total_hs, mins, *, iters: int):
+def qfair_solve(weights, request, total, req_hs, total_hs, mins, *, iters: int, mesh=None):
     """One fleet's water-fill: ``(deserved f64 [Q, R], met bool [Q],
     qf_raw i32 [2])``.  ``weights`` f64 [Q] in the host's queue order,
     ``request`` f64 [Q, R], ``total`` f64 [R] (the pool), ``req_hs`` bool [Q]
     (each request's scalar-map presence), ``total_hs`` (the pool's), ``mins``
     f64 [R] (the vocabulary's epsilons); ``iters`` rounds.  CPU tensors run
     ``qfair_solve_reference``; CUDA tensors launch the kernel, which raises
-    if the launch fails."""
+    if the launch fails.  On a node mesh (``mesh``) the solve runs once, on
+    the mesh's first device, where its operands must lie: the JAX package's
+    replicated twins (``scheduler_tpu/ops/qfair.py:199-215``) compute the
+    same fleet on every device and read nothing across them."""
+    if mesh is not None and request.device != mesh.first:
+        raise ValueError(f"qfair_solve: on a mesh the operands lie on its first device "
+                         f"{mesh.first}, not {request.device}")
     if request.device.type == "cpu":
         return qfair_solve_reference(weights, request, total, req_hs, total_hs, mins,
                                      iters=iters)
@@ -221,14 +227,16 @@ def solve_deserved(
     total_has_scalars: bool,      # the pool's scalar-map presence
     mins: np.ndarray,             # f64 [R]    the vocabulary's epsilons
     device=None,
+    mesh=None,
 ) -> dict:
-    """Run the water-fill on ``device`` (None: the card) and decode the
-    evidence: ``{"deserved", "met", "iterations", "converged_at",
-    "converged"}``.  ``converged`` False means the round budget ran out:
-    the caller (proportion) falls back to the host loop and records why."""
+    """Run the water-fill on ``device`` (None: the card; with a node
+    ``mesh``, its first device) and decode the evidence: ``{"deserved",
+    "met", "iterations", "converged_at", "converged"}``.  ``converged``
+    False means the round budget ran out: the caller (proportion) falls
+    back to the host loop and records why."""
     from scheduler_tpu_torch.ops.device import resolve_device
 
-    dev = resolve_device(device)
+    dev = mesh.first if mesh is not None else resolve_device(device)
     q_n = int(weights.shape[0])
     iters = qfair_iters() or q_n + 4
 
@@ -238,7 +246,7 @@ def solve_deserved(
     deserved, met, qf_raw = qfair_solve(
         f64(weights), f64(request), f64(total),
         torch.from_numpy(np.asarray(req_has_scalars, dtype=bool)).to(dev),
-        bool(total_has_scalars), f64(mins), iters=iters)
+        bool(total_has_scalars), f64(mins), iters=iters, mesh=mesh)
     stats = qfair_stats_dict(qf_raw.cpu().numpy())
     return {
         "deserved": deserved.cpu().numpy(),

@@ -179,6 +179,7 @@ def _library():
         lib = cuda_build.load()
         for name in ("placement_step_loop_begin", "placement_step_loop_end",
                      "placement_step_loop_step", "placement_step_loop_queue",
+                     "placement_step_loop_launch", "placement_step_loop_wait",
                      "placement_step_max_r8"):
             getattr(lib, name).restype = ctypes.c_int
         lib.placement_step_loop_begin.argtypes = [ctypes.c_void_p]
@@ -187,6 +188,9 @@ def _library():
                                                  ctypes.c_void_p]
         lib.placement_step_loop_queue.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                                   ctypes.c_void_p]
+        lib.placement_step_loop_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p]
+        lib.placement_step_loop_wait.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.placement_step_max_r8.argtypes = []
         if lib.placement_step_max_r8() != MAX_R8:
             raise RuntimeError("placement_step: the library's MAX_R8 differs from the wrapper's")
@@ -357,6 +361,31 @@ class StepLoop:
             col = torch.from_numpy(np.ascontiguousarray(self.ns_host[: self.r8 + 1, push_col]))
             self.ns[: self.r8 + 1, push_col] = col.to(self.device)
         return self._plain(t_idx)
+
+    def launch(self, t_idx: int, push_col: int) -> None:
+        """``step``'s launch without its wait (CUDA only): one launch queued
+        on the stream; ``finish`` waits for it and returns its result.  A
+        step over a node mesh launches every shard's loop before it waits
+        on any."""
+        global launches
+        self.steps += 1
+        rc = self._lib.placement_step_loop_launch(self._addr, t_idx, push_col, self._stream)
+        if rc != 0:
+            raise RuntimeError(f"placement_step launch failed: CUDA error {rc}")
+        launches += 1
+        self._pending = t_idx
+
+    def finish(self):
+        """Wait for the launch ``launch`` queued and return its four results
+        (held to the plain version as ``step`` holds them)."""
+        rc = self._lib.placement_step_loop_wait(self._addr, self._stream)
+        if rc != 0:
+            raise RuntimeError(f"placement_step: CUDA error {rc}")
+        res_i = self.res_i
+        result = res_i[0], self.res_f[1], res_i[2], res_i[3]
+        if self.check_every and (self.steps - 1) % self.check_every == 0:
+            self._check(self._pending, result)
+        return result
 
     def queue(self, t_idx: int, count: int) -> None:
         """``count`` launches for task row ``t_idx`` queued back to back on

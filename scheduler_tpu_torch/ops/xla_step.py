@@ -40,6 +40,11 @@ ledger, the codes) is the host's (``ops/fused.py``).
   ``plain``, each step is ``xla_step_reference``.
 * ``xla_step_reference`` — the plain PyTorch version: the JAX arm's
   operations in its order, each one PyTorch operation, and one readback.
+* ``XlaShardStep`` — the arm over a node mesh (``ops/mesh.py``): one
+  launch of ``xla_shard_kernel`` a shard a step, each writing its block's
+  candidate (winner, fits, pod room, runner-up, batch grid), merged on the
+  host by ``merge_shard_candidates`` to the one-device result; plain
+  version ``xla_shard_reference``.
 * ``step_plan`` — the kernel's launch plan: one CTA of up to 1,024
   threads, a node a thread where the node count fits and strided over the
   nodes past that, so any node count (past the placement-step kernel's
@@ -54,6 +59,7 @@ import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from scheduler_tpu_torch.ops import cuda_build
@@ -474,3 +480,474 @@ class XlaStep:
             self._addr = None
             if rc != 0:
                 raise RuntimeError(f"xla_step: CUDA error {rc}")
+
+
+# -- shard mode: the arm over a node mesh ----------------------------------------
+#
+# The JAX loop's XLA arm runs under GSPMD over the sharded node ledger
+# (scheduler_tpu/ops/fused.py:683-700): one program, the argmax and the
+# top-2 bound reduced across shards.  Here each shard's block is one launch
+# of ``xla_shard_kernel`` a step (``csrc/xla_step.cu``), writing a
+# candidate; the host merges the D candidates with compares only
+# (``merge_shard_candidates``), so the result is bitwise the one-device
+# step's, and the winner's row add rides the owning shard's next launch.
+
+# Launches of the shard-mode kernel (the CPU path and the plain version never count).
+shard_launches = 0
+
+
+class SHARD_CAND:
+    """Words of a shard's candidate (``csrc/xla_step.cu`` XC_*), int32 with
+    the float32 ones as their bits."""
+
+    BEST = 0         # the block's winner, as a global index
+    SCORE = 1        # its masked score (f32)
+    FIT_IDLE = 2
+    FIT_REL = 3
+    SECOND = 4       # the block's runner-up score (f32)
+    SECOND_IDX = 5   # its global index (BIG_I32 where the block has one node)
+    ROOM = 6         # pod room at the winner: pods limit - int(task count)
+    GRID = 7         # 1 where the batch grid was computed
+    FITS = 8         # span 4: bit j - 1 is candidate j's epsilon fit
+    S = 12           # span 128: candidate j's grid score (f32; 0 without the bound)
+    WORDS = 144
+
+
+BIG_I32 = 2**31 - 1
+
+
+class ShardCandidate(NamedTuple):
+    best: int
+    score: float
+    fit_idle: bool
+    fit_rel: bool
+    second: float
+    second_idx: int
+    room: int
+    grid: bool
+    fits: int                    # bit j - 1: candidate j fits (0 without the grid)
+    s: Optional[np.ndarray]      # float32 [128] grid scores (None without the grid)
+
+
+def same_candidate(a: ShardCandidate, b: ShardCandidate) -> bool:
+    """Two candidates equal, the float32 fields and grid scores bitwise."""
+    f32 = np.float32
+    return (a.best == b.best and a.fit_idle == b.fit_idle and a.fit_rel == b.fit_rel
+            and a.second_idx == b.second_idx and a.room == b.room and a.grid == b.grid
+            and f32(a.score).tobytes() == f32(b.score).tobytes()
+            and f32(a.second).tobytes() == f32(b.second).tobytes()
+            and a.fits == b.fits and (a.s is None) == (b.s is None)
+            and (a.s is None or a.s.tobytes() == b.s.tobytes()))
+
+
+def _better(v: float, i: int, bv: float, bi: int) -> bool:
+    return v > bv or (v == bv and i < bi)
+
+
+def merge_shard_candidates(cands, hi0: int, *, has_releasing: bool, batch_runs: bool,
+                           score_bound: bool, enforce_pod_count: bool):
+    """The D shards' candidates -> the step's ``(best, feasible,
+    alloc_here, pipe_here, m)``, as ``xla_step_kernel`` computes them over
+    the whole axis: the winner the largest score at the lowest global index
+    (the first shard on ties), the runner-up the best of the other shards'
+    winners and the winning shard's runner-up (its index 0 where it is
+    -inf), the cap from the winner's pod room, the count from the winning
+    shard's grid against that runner-up.  Compares only."""
+    w = 0
+    for k in range(1, len(cands)):
+        if _better(cands[k].score, cands[k].best, cands[w].score, cands[w].best):
+            w = k
+    c = cands[w]
+    feasible = c.score > float("-inf")
+    alloc_here = feasible and (c.fit_idle or not has_releasing)
+    pipe_here = has_releasing and feasible and not c.fit_idle and c.fit_rel
+    m = 1
+    if batch_runs and hi0 > 1 and alloc_here:
+        hi = hi0
+        if enforce_pod_count:
+            hi = max(min(c.room, hi0), 1)
+        first_cut = MAX_BATCH
+        if score_bound:
+            sv, si = c.second, c.second_idx
+            for k, o in enumerate(cands):
+                if k != w and _better(o.score, o.best, sv, si):
+                    sv, si = o.score, o.best
+            if not sv > float("-inf"):
+                si = 0
+            sv = np.float32(sv)
+            ok = (c.s > sv) | ((c.s == sv) & (c.best < si))
+            if not ok.all():
+                first_cut = int(np.argmin(ok))
+        # The largest j <= min(hi, first_cut) whose candidate fits (1 where none).
+        m = max((c.fits & ((1 << min(hi, first_cut)) - 1)).bit_length(), 1)
+    return c.best, feasible, alloc_here, pipe_here, m
+
+
+def xla_shard_reference(node_state, allocatable, pods_limit, node_gate, mins, init_resreq,
+                        resreq, static_mask, static_score, t_idx: int, s_idx: int, hi0: int,
+                        *, offset: int, push=None, scan: bool = True, weights, use_static,
+                        enforce_pod_count, has_releasing, batch_runs, score_bound,
+                        consts: Optional[PlainConsts] = None):
+    """The shard-mode kernel's function in plain PyTorch on one block:
+    ``push`` ``(row, task row, m, alloc, pipe)`` or None is the row add the
+    launch applies first (in place on ``node_state``); then, with ``scan``,
+    the block's ``ShardCandidate`` (``offset``: the block's first global
+    index)."""
+    c = consts if consts is not None else plain_consts(allocatable, pods_limit)
+    weights = tuple(float(w) for w in weights)
+    r_dim = allocatable.shape[1]
+    n = allocatable.shape[0]
+    ns = node_state
+    if push is not None:
+        row, pt, pm, pa, pp = push
+        req_p = resreq[pt]
+        delta = torch.cat([
+            -req_p * (np.float32(pm) if pa else np.float32(0.0)),
+            -req_p * (np.float32(1.0) if pp else np.float32(0.0)),
+            torch.tensor([float(pm if pa else 1) if (pa or pp) else 0.0],
+                         dtype=torch.float32, device=ns.device),
+        ])
+        ns.index_add_(0, torch.tensor([row], device=ns.device), delta[None, :])
+    if not scan:
+        return None
+    init_req, req = init_resreq[t_idx], resreq[t_idx]
+    idle = ns[:, :r_dim]
+    avail2 = ns[:, : 2 * r_dim].reshape(-1, 2, r_dim)
+    ok2 = _fit(init_req, avail2, mins)
+    fit_idle, fit_rel = ok2[:, 0], ok2[:, 1]
+    feasible = ((fit_idle | fit_rel) if has_releasing else fit_idle) & node_gate
+    if use_static:
+        feasible = feasible & static_mask[s_idx]
+    if enforce_pod_count:
+        feasible = feasible & (ns[:, 2 * r_dim] < c.pods_limit_f)
+    score = dynamic_score(req, idle, allocatable, *weights, safe_alloc=c.safe_alloc)
+    if use_static:
+        score = score + static_score[s_idx]
+    masked = torch.where(feasible, score, c.neg_inf)
+    best = int(torch.argmax(masked))
+    others = torch.where(c.lanes == best, c.neg_inf, masked)
+    second = float(others.max()) if n > 1 else float("-inf")
+    if second > float("-inf"):
+        second_idx = int(torch.argmax(others)) + offset
+    elif n > 1:
+        second_idx = (0 if best != 0 else 1) + offset
+    else:
+        second_idx = BIG_I32
+    v1 = float(masked[best])
+    fi, fr = bool(fit_idle[best]), bool(fit_rel[best])
+    room = int(pods_limit[best]) - int(ns[best, 2 * r_dim].to(torch.int32))
+    al = v1 > float("-inf") and (fi or not has_releasing)
+    grid = bool(batch_runs and hi0 > 1 and al)
+    fits, s = 0, None
+    if grid:
+        idle_b = idle[best]
+        avail = idle_b[None, :] - c.js_f[:, None] * req[None, :]
+        bits = _fit(init_req, avail, mins).cpu().numpy()
+        fits = int.from_bytes(np.packbits(bits, bitorder="little").tobytes(), "little")
+        if score_bound:
+            alloc_b = allocatable[best][None, :].expand(MAX_BATCH, r_dim)
+            safe_b = c.safe_alloc[best][None, :].expand(MAX_BATCH, r_dim)
+            s_js = dynamic_score(req, avail, alloc_b, *weights, safe_alloc=safe_b)
+            if use_static:
+                s_js = s_js + static_score[s_idx, best]
+            s = s_js.cpu().numpy().astype(np.float32)
+        else:
+            s = np.zeros(MAX_BATCH, np.float32)
+    return ShardCandidate(best + offset, v1, fi, fr, second, second_idx, room, grid, fits, s)
+
+
+class XlaShardParams(ctypes.Structure):
+    """Mirror of ``struct XlaShardParams`` in ``csrc/xla_step.cu``."""
+
+    _fields_ = [("p", XlaStepParams), ("push_req", ctypes.c_void_p)] + [
+        (name, ctypes.c_int)
+        for name in ("push_row", "push_m", "push_alloc", "push_pipe", "scan", "offset")
+    ]
+
+
+class XlaShardLoop(ctypes.Structure):
+    """Mirror of ``struct XlaShardLoop`` in ``csrc/xla_step.cu``."""
+
+    _fields_ = [
+        ("q", XlaShardParams),
+        ("out_host", ctypes.c_void_p),
+        ("ev0", ctypes.c_void_p),
+        ("ev1", ctypes.c_void_p),
+        ("xla_ms", ctypes.c_double),
+        ("steps", ctypes.c_longlong),
+        ("s_stride", ctypes.c_longlong),
+        ("t_rows", ctypes.c_int),
+        ("s_rows", ctypes.c_int),
+        ("threads", ctypes.c_int),
+    ]
+
+
+_shard_lib = None
+
+
+def _shard_library():
+    global _shard_lib
+    if _shard_lib is None:
+        lib = cuda_build.load()
+        for name in ("xla_shard_loop_begin", "xla_shard_loop_end", "xla_shard_loop_launch",
+                     "xla_shard_loop_wait", "xla_shard_loop_size"):
+            getattr(lib, name).restype = ctypes.c_int
+        lib.xla_shard_loop_begin.argtypes = [ctypes.c_void_p]
+        lib.xla_shard_loop_end.argtypes = [ctypes.c_void_p]
+        lib.xla_shard_loop_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 9 + [
+            ctypes.c_void_p]
+        lib.xla_shard_loop_wait.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.xla_shard_loop_size.argtypes = []
+        if lib.xla_shard_loop_size() != ctypes.sizeof(XlaShardLoop):
+            raise RuntimeError("xla_step: the library's XlaShardLoop differs from the wrapper's")
+        _shard_lib = lib
+    return _shard_lib
+
+
+def _decode(words) -> ShardCandidate:
+    """A candidate from its int32 words (a numpy int32 array it may keep)."""
+    f = words.view(np.float32)
+    grid = bool(words[SHARD_CAND.GRID])
+    fits, s = 0, None
+    if grid:
+        fits = int.from_bytes(words[SHARD_CAND.FITS:SHARD_CAND.FITS + 4].tobytes(), "little")
+        s = f[SHARD_CAND.S:SHARD_CAND.S + MAX_BATCH]
+    return ShardCandidate(int(words[SHARD_CAND.BEST]), float(f[SHARD_CAND.SCORE]),
+                          bool(words[SHARD_CAND.FIT_IDLE]), bool(words[SHARD_CAND.FIT_REL]),
+                          float(f[SHARD_CAND.SECOND]), int(words[SHARD_CAND.SECOND_IDX]),
+                          int(words[SHARD_CAND.ROOM]), grid, fits, s)
+
+
+class _Shard:
+    """One block's operands, node state and (on CUDA) bound kernel loop."""
+
+    def __init__(self, k, dev, node_state, allocatable, pods_limit, node_gate, mins,
+                 init_resreq, resreq, static_mask, static_score, offset):
+        self.k, self.device, self.offset = k, dev, offset
+        self.node_state = node_state
+        self.allocatable, self.pods_limit, self.node_gate = allocatable, pods_limit, node_gate
+        self.mins, self.init_resreq, self.resreq = mins, init_resreq, resreq
+        self.static_mask, self.static_score = static_mask, static_score
+        self.consts = plain_consts(allocatable, pods_limit)
+        self.addr = None
+
+
+class XlaShardStep:
+    """The XLA arm over a node mesh: ``XlaStep``'s ``step(t_idx, s_idx,
+    hi0)`` with the node axis split into ``mesh.size`` blocks.
+
+    ``allocatable``, ``pods_limit``, ``node_gate`` and (with ``use_static``)
+    ``static_mask`` / ``static_score`` come as ``ops/mesh.py`` Sharded
+    blocks; ``idle``, ``releasing``, ``task_count`` are the host's whole
+    arrays, staged block by block on the shards' devices; ``mins`` and the
+    request rows are copied to each shard's device.  A step launches every
+    shard (``shard_launches`` + 1 each), waits, merges the candidates
+    (``merge_shard_candidates``) and keeps the winner's row add for the
+    owning shard's next launch (``flush`` applies a pending one).  On CPU
+    blocks, or with ``plain``, each launch is ``xla_shard_reference``.
+    ``check_every`` holds each shard's kernel to its plain version, on a
+    clone of the block's node state, at the first step and every
+    ``check_every``-th (candidate and node state, bitwise)."""
+
+    def __init__(self, mesh, idle, releasing, task_count, allocatable, pods_limit, node_gate,
+                 mins, init_resreq, resreq, static_mask, static_score, *, weights, use_static,
+                 enforce_pod_count, has_releasing, batch_runs, score_bound, plain=False,
+                 check_every=0, plan: Optional[StepPlan] = None):
+        f32 = torch.float32
+        self.mesh = mesh
+        d = mesh.size
+        n, r_dim = allocatable.shape
+        n_local = n // d
+        self.n, self.r_dim, self.n_local = n, r_dim, n_local
+        self.flags = dict(weights=tuple(float(w) for w in weights), use_static=use_static,
+                          enforce_pod_count=enforce_pod_count, has_releasing=has_releasing,
+                          batch_runs=batch_runs, score_bound=score_bound)
+        whole_state = torch.cat([
+            torch.as_tensor(idle, dtype=f32).reshape(n, r_dim),
+            torch.as_tensor(releasing, dtype=f32).reshape(n, r_dim),
+            torch.as_tensor(task_count).to(f32).reshape(n, 1),
+        ], dim=1)
+        by_dev = {}
+
+        def on(dev, t):
+            key = (str(dev), id(t))
+            if key not in by_dev:
+                by_dev[key] = t.to(dev).contiguous()
+            return by_dev[key]
+
+        self.shards = []
+        for k, dev in enumerate(mesh.devices):
+            lo = k * n_local
+            self.shards.append(_Shard(
+                k, dev, whole_state[lo:lo + n_local].to(dev).contiguous(),
+                allocatable.shards[k], pods_limit.shards[k], node_gate.shards[k],
+                on(dev, mins), on(dev, init_resreq), on(dev, resreq),
+                static_mask.shards[k] if use_static else static_mask,
+                static_score.shards[k] if use_static else static_score, lo))
+        self.cuda = mesh.first.type == "cuda"
+        self.kernel = self.cuda and not plain
+        self.check_every = check_every if self.kernel else 0
+        self.checked = 0
+        self.xla_ms = 0.0 if self.cuda else None
+        self.host_ms = 0.0 if self.cuda else None
+        self.steps = 0
+        self.push = None  # (shard, local row, task row, m, alloc, pipe)
+        self.plan = None
+        if self.kernel:
+            self.plan = plan or step_plan(n_local)
+            self._bind()
+
+    def _bind(self) -> None:
+        self._lib = _shard_library()
+        f32 = torch.float32
+        use_static = self.flags["use_static"]
+        for sh in self.shards:
+            nl, r_dim = self.n_local, self.r_dim
+            t_rows = sh.resreq.shape[0]
+            for name, t, dtype, shape in (
+                ("allocatable", sh.allocatable, f32, (nl, r_dim)),
+                ("pods_limit", sh.pods_limit, torch.int32, (nl,)),
+                ("node_gate", sh.node_gate, torch.bool, (nl,)),
+                ("mins", sh.mins, f32, (r_dim,)),
+                ("init_resreq", sh.init_resreq, f32, (t_rows, r_dim)),
+                ("resreq", sh.resreq, f32, (t_rows, r_dim)),
+            ):
+                if t.device != sh.device or t.dtype != dtype or tuple(t.shape) != shape \
+                        or not t.is_contiguous():
+                    raise ValueError(f"xla_step shard {sh.k}: {name} must be a contiguous "
+                                     f"{dtype} tensor of shape {shape} on {sh.device}")
+            if use_static and (sh.static_mask.shape[1] != nl or sh.static_score.shape[1] != nl
+                               or not sh.static_mask.is_contiguous()
+                               or not sh.static_score.is_contiguous()):
+                raise ValueError(f"xla_step shard {sh.k}: static rows must be [S, {nl}] blocks")
+            args = XlaShardLoop()
+            p = args.q.p
+            p.ns, p.alloc, p.plim, p.gate = (sh.node_state.data_ptr(), sh.allocatable.data_ptr(),
+                                             sh.pods_limit.data_ptr(), sh.node_gate.data_ptr())
+            p.smask, p.sscore = sh.static_mask.data_ptr(), sh.static_score.data_ptr()
+            p.initq, p.req, p.mins = (sh.init_resreq.data_ptr(), sh.resreq.data_ptr(),
+                                      sh.mins.data_ptr())
+            p.n, p.r = nl, r_dim
+            p.cpu_idx, p.mem_idx = 0, 1  # api/vocab.py CPU, MEMORY
+            for key in ("use_static", "enforce_pod_count", "has_releasing", "batch_runs",
+                        "score_bound"):
+                setattr(p, key, int(bool(self.flags[key])))
+            p.w_lr, p.w_bal, p.w_bp = self.flags["weights"]
+            args.q.offset = sh.offset
+            args.s_stride = nl
+            args.t_rows = t_rows
+            args.s_rows = sh.static_mask.shape[0] if use_static else 0
+            args.threads = self.plan.threads
+            sh.args = args
+            sh.addr = ctypes.addressof(args)
+            sh.stream = torch.cuda.current_stream(sh.device).cuda_stream
+            rc = self._lib.xla_shard_loop_begin(sh.addr)
+            if rc != 0:
+                self._lib.xla_shard_loop_end(sh.addr)
+                sh.addr = None
+                self.close()
+                raise RuntimeError(f"xla_step shard {sh.k}: plan, mapped result or event "
+                                   f"setup failed: CUDA error {rc} ({self.plan})")
+            sh.words = np.frombuffer(
+                (ctypes.c_int32 * SHARD_CAND.WORDS).from_address(args.out_host), dtype=np.int32)
+
+    def _plain(self, sh, node_state, t_idx, s_idx, hi0, push, scan=True):
+        return xla_shard_reference(node_state, sh.allocatable, sh.pods_limit, sh.node_gate,
+                                   sh.mins, sh.init_resreq, sh.resreq, sh.static_mask,
+                                   sh.static_score, t_idx, s_idx, hi0, offset=sh.offset,
+                                   push=push, scan=scan, consts=sh.consts, **self.flags)
+
+    def _push_for(self, sh):
+        if self.push is None or self.push[0] != sh.k:
+            return None
+        return self.push[1:]
+
+    def _launch(self, sh, t_idx, s_idx, hi0, push, scan) -> None:
+        global shard_launches
+        row, pt, pm, pa, pp = push if push is not None else (-1, 0, 0, 0, 0)
+        rc = self._lib.xla_shard_loop_launch(
+            sh.addr, t_idx, s_idx if self.flags["use_static"] else 0, hi0, row, pt, pm,
+            int(pa), int(pp), int(scan), sh.stream)
+        if rc != 0:
+            raise RuntimeError(f"xla_step shard {sh.k} launch failed: CUDA error {rc} "
+                               f"({self.plan})")
+        shard_launches += 1
+
+    def step(self, t_idx: int, s_idx: int, hi0: int):
+        self.steps += 1
+        t0 = time.perf_counter()
+        if not self.kernel:
+            cands = [self._plain(sh, sh.node_state, t_idx, s_idx, hi0, self._push_for(sh))
+                     for sh in self.shards]
+        else:
+            check = self.check_every and (self.steps - 1) % self.check_every == 0
+            twins = wants = None
+            if check:
+                twins = [sh.node_state.clone() for sh in self.shards]
+                wants = [self._plain(sh, tw, t_idx, s_idx, hi0, self._push_for(sh))
+                         for sh, tw in zip(self.shards, twins)]
+            for sh in self.shards:
+                self._launch(sh, t_idx, s_idx, hi0, self._push_for(sh), True)
+            cands = []
+            for sh in self.shards:
+                rc = self._lib.xla_shard_loop_wait(sh.addr, sh.stream)
+                if rc != 0:
+                    raise RuntimeError(f"xla_step shard {sh.k}: CUDA error {rc}")
+                cands.append(_decode(sh.words.copy()))
+            if check:
+                self.checked += 1
+                for sh, tw, want, got in zip(self.shards, twins, wants, cands):
+                    same = torch.equal(sh.node_state.view(torch.int32), tw.view(torch.int32))
+                    if not same_candidate(got, want) or not same:
+                        raise RuntimeError(
+                            f"xla_step shard {sh.k}: kernel {got[:8]} != plain {want[:8]} "
+                            f"(node state equal: {same}) at loop step {self.steps}, task row "
+                            f"{t_idx}")
+        best, feasible, alloc_here, pipe_here, m = merge_shard_candidates(
+            cands, hi0, has_releasing=self.flags["has_releasing"],
+            batch_runs=self.flags["batch_runs"], score_bound=self.flags["score_bound"],
+            enforce_pod_count=self.flags["enforce_pod_count"])
+        if alloc_here or pipe_here:
+            k, row = divmod(best, self.n_local)
+            self.push = (k, row, t_idx, m, alloc_here, pipe_here)
+        else:
+            self.push = None
+        if self.cuda:
+            self.host_ms += 1e3 * (time.perf_counter() - t0)
+        return best, feasible, alloc_here, pipe_here, m
+
+    def flush(self) -> None:
+        """Apply a pending row add (the last step's winner) to its shard."""
+        if self.push is None:
+            return
+        sh = self.shards[self.push[0]]
+        if self.kernel:
+            self._launch(sh, 0, 0, 1, self.push[1:], False)
+            rc = self._lib.xla_shard_loop_wait(sh.addr, sh.stream)
+            if rc != 0:
+                raise RuntimeError(f"xla_step shard {sh.k}: CUDA error {rc}")
+        else:
+            self._plain(sh, sh.node_state, 0, 0, 1, self.push[1:], scan=False)
+        self.push = None
+
+    def node_state(self) -> torch.Tensor:
+        """The whole node state, gathered on the first device (after
+        ``flush``)."""
+        return torch.cat([sh.node_state.to(self.mesh.first) for sh in self.shards])
+
+    def close(self) -> None:
+        """Release each shard's events and mapped candidate; sum the kernel's
+        time over the shards."""
+        err = 0
+        total = 0.0
+        for sh in self.shards:
+            if sh.addr is not None:
+                sh.words = None
+                rc = self._lib.xla_shard_loop_end(sh.addr)
+                total += float(sh.args.xla_ms)
+                sh.addr = None
+                err = err or rc
+        if self.kernel:
+            self.xla_ms = total
+        if err:
+            raise RuntimeError(f"xla_step shard: CUDA error {err}")

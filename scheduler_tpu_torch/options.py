@@ -9,7 +9,8 @@ client.
 
 The JAX package's flags (``scheduler_tpu/options.py``) with one more:
 ``--device`` (default: CUDA; ``cpu`` runs the plain PyTorch versions, for
-tests).  ``--mesh`` takes only ``1`` until the mesh is ported.
+tests).  ``--mesh`` takes the JAX package's specs (``1``, ``N``, ``auto``,
+``RxC``) over the process's CUDA devices (``ops/mesh.py``).
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ class ServerOption:
     # torch.profiler trace dir; traces of the first cycles when set (the
     # pprof analogue, main.go:24-25).
     profile_dir: Optional[str] = None
-    # Device mesh for the fused engine's node axis: only "1" (one device)
-    # until the mesh is ported.
+    # Device mesh for the fused engine's node axis: "1" one device (default),
+    # "N"/"auto" a 1-D mesh, "RxC" a 2-D (replica, nodes) mesh (ops/mesh.py).
     mesh: str = "1"
     # Outbound wire dialect for --api-server: "k8s" (real Kubernetes API
     # shapes — pods/binding POSTs, pod DELETEs, status PATCHes) or "legacy"
@@ -107,8 +108,9 @@ def add_flags(parser: argparse.ArgumentParser) -> None:
     )
     parser.add_argument(
         "--mesh", default="1",
-        help="node-axis device mesh for the fused engine: only 1 (one device) "
-             "until the mesh is ported",
+        help="node-axis device mesh for the fused engine: 1 (one device), "
+             "N or auto (1-D over the first power-of-two devices) or RxC "
+             "(2-D replica x nodes, powers of two)",
     )
     parser.add_argument(
         "--device", default=None,

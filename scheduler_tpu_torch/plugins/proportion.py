@@ -89,8 +89,13 @@ class ProportionPlugin(Plugin):
         if not attrs:
             return {"flavor": "device", "iterations": 0, "converged_at": 0,
                     "solve_ms": 0.0}
+        from scheduler_tpu_torch.ops.mesh import get_mesh
+
+        # On a node mesh the solve runs once on its first device
+        # (scheduler_tpu/plugins/proportion.py:77-87).
         t0 = _time.perf_counter()
-        solved = _qfair.solve_deserved(*self.solve_inputs(vocab), device=device)
+        solved = _qfair.solve_deserved(*self.solve_inputs(vocab), device=device,
+                                       mesh=get_mesh())
         wall = (_time.perf_counter() - t0) * 1000.0
         if not solved["converged"]:
             logger.warning(

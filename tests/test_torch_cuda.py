@@ -31,7 +31,14 @@ CPU).  The two batched engines, the eviction hunt
 (``SCHEDULER_TORCH_BACKFILL=device``) on small waves, on the card equal to
 their CPU runs and to the host flavors; K3 on a wave's class rows bitwise
 its plain version.  The daemon over the wire on a small config-2 cluster:
-K3 and K2 launched, binds equal to ``Scheduler.run_once``'s.
+K3 and K2 launched, binds equal to ``Scheduler.run_once``'s.  The node
+mesh on four copies of the card (``4`` and ``2x2``): K2's mesh mode against
+its plain version, K1 on every shard and the XLA arm's shard mode in the
+loop against the one-device loop, the shard mode on the planted cases
+(ties across shards, the runner-up on another shard) and random steps
+against the one-device kernel, ``lp_relax`` over node blocks against its
+plain version and the one-device kernel (PR 16's tolerance), and the LP
+engine on the mesh against one device.
 """
 
 import numpy as np
@@ -1321,3 +1328,230 @@ def test_lp_cycle_on_the_card_is_feasible(sig, monkeypatch, tmp_path):
         cpu[node] = cpu.get(node, 0.0) + 1500.0
     assert all(count == 4 for count in per_gang.values())
     assert all(used <= 4000.0 for used in cpu.values())
+
+
+# -- the node mesh on the one card (ops/mesh.py): four shards on [cuda:0] * 4 -----
+
+MESH_SHAPES = {"4": {"nodes": 4}, "2x2": {"replica": 2, "nodes": 2}}
+
+# The mesh loops hold their shards to the plain version every 25th step.
+MESH_CHECK_EVERY = 25
+
+
+def _mesh(spec):
+    from scheduler_tpu_torch.ops.mesh import NodeMesh
+
+    return NodeMesh([_card()] * 4, MESH_SHAPES[spec])
+
+
+@pytest.fixture
+def mesh_env(monkeypatch):
+    """``SCHEDULER_TORCH_MESH`` over four copies of the card; the device list
+    put back after."""
+    from scheduler_tpu_torch.ops import mesh as M
+
+    device = _card()
+
+    def use(spec):
+        monkeypatch.setenv("SCHEDULER_TORCH_MESH", spec)
+        M.set_mesh_devices([device] * 4)
+        return M.get_mesh()
+
+    yield use
+    M.set_mesh_devices(None)
+
+
+# One session of each instantiation K2's mesh mode launches: cursor, static
+# rows, multi-queue (cursor and static rows), releasing.
+MESH_MEGA_CASES = ("spill-cohort-4", "static-cohort-1", "mq-spill-3q-cohort-4",
+                   "mq-config2-default-tiers", "mq-reclaim-aftermath")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", sorted(MESH_SHAPES))
+@pytest.mark.parametrize("case", MESH_MEGA_CASES)
+def test_mega_mesh_mode_matches_plain_version(case, spec):
+    """K2's mesh mode: one launch with every operand whole on the mesh's
+    first device, codes and stats equal to the plain version's and to the
+    launch without a mesh."""
+    device = _card()
+    build, conf, overrides = CASES[case]
+    _, eng = smoke.engine_for(build(), conf, device)
+    kw = dict(eng._mega_kw, **overrides)
+    nq = len(eng.queue_uids)
+    before = mk.launches
+    got = mk.mega_allocate(*eng._mega_args, n_queues=nq, **dict(kw, mesh=_mesh(spec)))
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    want = mk.mega_allocate_reference(*eng._mega_args, **kw)
+    one = mk.mega_allocate(*eng._mega_args, n_queues=nq, **kw)
+    for g, w, o in zip(got, want, one):
+        assert torch.equal(g, w) and torch.equal(g, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", sorted(MESH_SHAPES))
+@pytest.mark.parametrize("case", ["templates-64x4200", "templates-mq-64x4200x2"])
+def test_k1_per_shard_loop_matches_one_device(case, spec, mesh_env):
+    """K1 on every shard of the mesh (one launch a shard a step, held to its
+    plain version every ``MESH_CHECK_EVERY``-th step), the winner merged on
+    the host: codes equal to the one-device loop's."""
+    build, conf, engine = LOOP_CASES[case]
+    device = _card()
+    mesh_env("1")
+    _, one = smoke.engine_for(build(), conf, device, engine=engine)
+    one.use_mega = False
+    want, _ = fused_mod.fused_allocate(*one.args, **one._allocate_kw())
+    mesh = mesh_env(spec)
+    _, eng = smoke.engine_for(build(), conf, device, engine=engine)
+    eng.use_mega = False
+    assert eng._mesh is mesh and eng.step_kernel
+    before = sk.launches
+    codes, stats = fused_mod.fused_allocate(*eng.args, **eng._allocate_kw(),
+                                            check_every=MESH_CHECK_EVERY)
+    assert stats["shards"] == 4
+    assert stats["checked"] == 4 * -(-stats["steps"] // MESH_CHECK_EVERY)
+    assert sk.launches == before + 4 * stats["steps"]
+    assert torch.equal(codes, want) and int((codes >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", sorted(MESH_SHAPES))
+@pytest.mark.parametrize("case", ["templates-default-tiers-64x4200x2",
+                                  "reclaim-aftermath-templates-0.1", "config2-64x600"])
+def test_xla_shard_loop_matches_one_device(case, spec, mesh_env):
+    """The XLA arm's shard mode in the loop (one launch a shard a step; every
+    ``MESH_CHECK_EVERY``-th step each shard's candidate and node block held
+    to the plain version): codes equal to the one-device loop's."""
+    build, conf, engine, overrides = XLA_CASES[case]
+    device = _card()
+    mesh_env("1")
+    _, one = smoke.engine_for(build(), conf, device, engine=engine)
+    one.use_mega = False
+    want, _ = fused_mod.fused_allocate(*one.args, **dict(one._allocate_kw(), **overrides))
+    mesh_env(spec)
+    _, eng = smoke.engine_for(build(), conf, device, engine=engine)
+    eng.use_mega = False
+    before = xla_step.shard_launches
+    codes, stats = fused_mod.fused_allocate(*eng.args, **dict(eng._allocate_kw(), **overrides),
+                                            check_every=MESH_CHECK_EVERY)
+    assert stats["arm"] == "xla" and stats["shards"] == 4
+    assert stats["checked"] == -(-stats["steps"] // MESH_CHECK_EVERY)
+    assert xla_step.shard_launches == before + 4 * stats["steps"]
+    assert torch.equal(codes, want)
+    if "reclaim" in case:
+        assert int((codes <= fused_mod._PIPE_BASE).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", sorted(MESH_SHAPES))
+@pytest.mark.parametrize("kind", sorted(smoke.XLA_STEP_PLANTS))
+def test_xla_shard_planted_case_matches_one_device(kind, spec):
+    """Each planted case over four shards of 750 nodes: ties across shards
+    (the lowest shard wins), the runner-up on another shard than the winner
+    (the score bound reads the union of the shards' top-2), pod room, an
+    infeasible task, a grid that is not a prefix.  Each shard's launch held
+    to its plain version; the merged result and, after the pending row add,
+    the node state equal the one-device kernel's."""
+    device = _card()
+    ops, flags, hi0, roles = smoke.xla_plant_case(kind)
+    one = smoke.xla_arm_on(ops, flags, device)
+    arm = smoke.xla_shard_arm_on(ops, flags, _mesh(spec), check_every=1)
+    before = xla_step.shard_launches
+    try:
+        want = one.step(0, 0, hi0)
+        got = arm.step(0, 0, hi0)
+        arm.flush()
+        state = arm.node_state()
+    finally:
+        one.close()
+        arm.close()
+    torch.cuda.synchronize()
+    # Four shards, then the winner's row add where something was placed.
+    assert xla_step.shard_launches == before + 4 + int(want[2] or want[3])
+    assert got == want and arm.checked == 1
+    assert torch.equal(state.view(torch.int32), one.node_state.view(torch.int32))
+    if "best" in roles:
+        assert got[0] == roles["best"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", sorted(MESH_SHAPES))
+@pytest.mark.parametrize("n", [4, 1024, 4096, 16_384])
+def test_xla_shard_steps_match_one_device(n, spec):
+    """Random operands, 24 steps of rotating task rows, static rows and
+    caps: each merged result equal to the one-device kernel's, each shard
+    held to its plain version, the node states equal at the end."""
+    device = _card()
+    ops = smoke.xla_step_operands(n % 89, n, 3)
+    ops["resreq"][:, :2] = ops["init_resreq"][:, :2] = np.floor(ops["resreq"][:, :2] / 16)
+    one = smoke.xla_arm_on(ops, smoke.XLA_STEP_FLAGS, device)
+    arm = smoke.xla_shard_arm_on(ops, smoke.XLA_STEP_FLAGS, _mesh(spec), check_every=1)
+    try:
+        for k in range(24):
+            args = (k % 4, k % 3, (1, 2, 128)[k % 3])
+            assert arm.step(*args) == one.step(*args), k
+        arm.flush()
+        assert torch.equal(arm.node_state().view(torch.int32),
+                           one.node_state.view(torch.int32))
+    finally:
+        one.close()
+        arm.close()
+    assert arm.checked == 24 and arm.xla_ms > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("case", sorted(smoke.LP_KERNEL_CASES))
+def test_lp_relax_blocks_match_plain_and_one_device(case, blocks):
+    """``lp_relax`` over node blocks (a row pass a block, one merge of the
+    blocks' packs, the column and projection passes a block): within the
+    limit of ``chip_smoke.lp_marginal_errors`` of its plain version over
+    the same blocks (pref and evidence equal) and of the one-device kernel;
+    a rerun bitwise; one launch counted."""
+    from scheduler_tpu_torch.ops import lp_place
+
+    seed, rows, n, r_dim, classes, pod_count, static, tight, iters = smoke.LP_KERNEL_CASES[case]
+    n = -(-n // blocks) * blocks
+    ops = smoke.lp_operands(seed, rows, n, r_dim, classes=classes, pod_count=pod_count,
+                            static=static, tight=tight)
+    logits, cap, req_aug = smoke.lp_iterate_operands(ops, _card())
+    nl = n // blocks
+    logits_b = [logits[:, k * nl:(k + 1) * nl].contiguous() for k in range(blocks)]
+    cap_b = [cap[k * nl:(k + 1) * nl].contiguous() for k in range(blocks)]
+    before = lp_place.block_launches
+    x, pref, raw = lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=1e-3)
+    again = lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=1e-3)
+    torch.cuda.synchronize()
+    assert lp_place.block_launches == before + 2
+    x_p, pref_p, raw_p = lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters,
+                                                    tol=1e-3, plain=True)
+    one, _, _ = lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=1e-3)
+    whole = torch.cat(x, dim=1)
+    assert smoke.lp_marginal_errors(whole, torch.cat(x_p, dim=1))["over_tol"] <= 1.0
+    assert smoke.lp_marginal_errors(whole, one)["over_tol"] <= 1.0
+    assert torch.equal(pref, pref_p) and torch.equal(raw, raw_p) and int(raw[0]) == iters
+    for a, b in zip(x + [pref, raw], again[0] + [again[1], again[2]]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", sorted(MESH_SHAPES))
+def test_lp_cycle_on_the_mesh_matches_one_device(spec, mesh_env, monkeypatch):
+    """The LP flavor's engine on the mesh (the relaxation over node blocks,
+    the repair on the XLA arm's shard mode): codes equal to one device's on
+    the tests' LP fixture."""
+    device = _card()
+    monkeypatch.setenv("SCHEDULER_TORCH_ALLOCATOR", "lp")
+
+    def build():
+        return smoke.spec_cluster(smoke.lp_spec(n_nodes=16, n_gangs=4, gang_size=5))
+
+    mesh_env("1")
+    _, one = smoke.engine_for(build(), smoke.FLAGSHIP_CONF, device, engine="lp")
+    want = one.readback().copy()
+    mesh_env(spec)
+    _, eng = smoke.engine_for(build(), smoke.FLAGSHIP_CONF, device, engine="lp")
+    assert eng._lp_mesh is not None
+    np.testing.assert_array_equal(eng.readback(), want)
+    assert int((want >= 0).sum()) > 0

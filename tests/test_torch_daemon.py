@@ -356,8 +356,12 @@ def test_daemon_raises_without_a_gpu(monkeypatch, tmp_path):
         cli.run(ServerOption(listen_address="127.0.0.1:0"))
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--listen-address", "127.0.0.1:0"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cli.run(ServerOption(listen_address="127.0.0.1:0", mesh="2", device="cpu"))
+    # --mesh takes a mesh spec (ops/mesh.py) and hands it to the engine's
+    # flag before the device resolves: still nothing starts without a GPU.
+    monkeypatch.setenv("SCHEDULER_TORCH_MESH", "1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run(ServerOption(listen_address="127.0.0.1:0", mesh="2"))
+    assert os.environ["SCHEDULER_TORCH_MESH"] == "2"
     assert threading.active_count() == before  # nothing was started
 
 

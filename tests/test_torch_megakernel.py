@@ -355,8 +355,18 @@ def test_wrapper_runs_plain_version_on_cpu_and_rejects_unported_modes(monkeypatc
     ref_codes, ref_stats = mk.mega_allocate_reference(*args, **rel_kw)
     assert torch.equal(codes, ref_codes) and torch.equal(stats, ref_stats)
     assert mk.launches == before
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # Mesh mode (ops/mesh.py): the same launch with every operand whole on
+    # the mesh's first device; anything but a NodeMesh, or operands
+    # elsewhere, raises.
+    from scheduler_tpu_torch.ops.mesh import NodeMesh
+
+    plain = mk.mega_allocate_reference(*args, **kw)
+    got = mk.mega_allocate(*args, **dict(kw, mesh=NodeMesh(["cpu"] * 4, {"nodes": 4})))
+    assert all(torch.equal(g, w) for g, w in zip(got, plain))
+    with pytest.raises(TypeError, match="NodeMesh"):
         mk.mega_allocate(*args, **dict(kw, mesh=object()))
+    with pytest.raises(ValueError, match="first device"):
+        mk.mega_allocate(*args, **dict(kw, mesh=NodeMesh(["meta"] * 2, {"nodes": 2})))
     # The qfair ladder refines multi-queue mode's delta chain: not cursor mode.
     with pytest.raises(ValueError, match="qfair ladder"):
         mk.mega_allocate(*args, **dict(kw, qfair_ladder=True))

@@ -485,7 +485,16 @@ def test_releasing_session_past_the_mega_gate_raises():
 
 
 def test_the_mesh_still_raises_in_releasing_mode():
+    """Releasing mode runs in mesh mode (one launch, operands whole on the
+    mesh's first device) with the codes of the launch without a mesh; a
+    mesh that is not a NodeMesh still raises."""
+    from scheduler_tpu_torch.ops.mesh import NodeMesh
+
     ops, kw = smoke.mega_operands(**SYNTHETIC_REL_CPU["static"])
     args, kw = mega_operands_from_numpy(ops, kw, "cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    want = mk.mega_allocate(*args, **kw)
+    got = mk.mega_allocate(*args, **dict(kw, mesh=NodeMesh(["cpu"] * 2, {"replica": 1,
+                                                                          "nodes": 2})))
+    assert all(np.array_equal(g.numpy(), w.numpy()) for g, w in zip(got, want))
+    with pytest.raises(TypeError, match="NodeMesh"):
         mk.mega_allocate(*args, **dict(kw, mesh=object()))
