@@ -328,7 +328,8 @@ Then the ``kernels`` line (with each kernel's launches on every path that
 runs it, l's to p's included; ``place_scan``'s entry below the TPU
 kernels' from paths n and n', with its launch plan; ``xla_step``'s from
 paths i and k and the planted cases; ``qfair_solve``'s with its chain
-floor; ``lp_relax``'s from paths r' and r, a solve and a kernel launch;
+floor; ``lp_relax``'s from paths r' and r, its plan, a solve of one
+kernel launch and an iteration;
 then the mesh arms' entries with their launches on paths s-v),
 the card's name and power
 limit as nvidia-smi prints them, and as the last line ``{"ok": true,
@@ -786,8 +787,9 @@ def lp_marginal_errors(x, ref) -> dict:
     return {"max_abs_err": float(d.max()), "over_tol": float((d / limit).max())}
 
 # Kernel cases: (seed, rows, n, r_dim, classes, pod_count, static, tight, iters),
-# across the launch shape (one chunk and several, a node block and many,
-# every capacity column count up to r_dim 8 plus the pod count).
+# across the launch plan (``lp_place.lp_plan``: whole rows a CTA and node
+# tiles, one row tile and many, every capacity column count up to r_dim 8
+# plus the pod count, r''s 16 classes over 16,384 nodes).
 LP_KERNEL_CASES = {
     "one_row": (27, 1, 5, 2, False, True, True, True, 200),
     "small": (1, 16, 64, 2, False, True, True, False, 200),
@@ -797,6 +799,7 @@ LP_KERNEL_CASES = {
     "dims9": (5, 64, 128, 8, False, True, True, True, 200),
     "one_iteration": (6, 300, 257, 2, False, True, True, True, 1),
     "two_iterations": (7, 300, 257, 4, True, True, True, True, 2),
+    "flagship_classes": (8, 16, 16_384, 2, True, False, False, True, 200),
 }
 
 
@@ -2363,6 +2366,14 @@ def device_ms_per_call(fn, repeats, match=None):
     ``key_averages()`` of the device events (kernels) whose name holds
     ``match`` (all of them when None), over ``repeats``.  None where the
     trace shows no device time.  Returns (ms, the calls' results)."""
+    ms, _, results = device_trace(fn, repeats, match)
+    return ms, results
+
+
+def device_trace(fn, repeats, match=None):
+    """``device_ms_per_call``'s trace, with the launches a call it counted
+    of the kernels whose name holds ``match``.  Returns (ms, launches a
+    call, the calls' results)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2383,7 +2394,7 @@ def device_ms_per_call(fn, repeats, match=None):
     # can miss one of a few long launches); a call of several kernels over
     # the calls.
     per = launches if match is not None and launches else repeats
-    return (1e-3 * total_us / per if total_us > 0 else None), results
+    return (1e-3 * total_us / per if total_us > 0 else None), launches / repeats, results
 
 
 def step_device_ms(loop, repeats):
@@ -4879,10 +4890,13 @@ def lp_entry(lp_paths):
     replaces the JAX package's XLA iteration): launches on paths r and r',
     its error against the plain version on each path's own operands and on
     the tight operands at r''s shape (the largest of the three, absolute
-    and over the limit, on top; each path's below), and r''s times (a solve, a kernel launch) beside its bound, the plain
-    version's and ``torch.matmul``'s for the load product; r's below."""
-    keys = ("rows", "n", "cols", "iters", "ms", "launch_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "iteration_bytes_ms", "max_abs_err", "over_tol")
+    and over the limit, on top; each path's below), and r''s plan and
+    times (a solve, an iteration, the profiler's device time and count of
+    kernel launches a solve) beside its bound, the plain version's and
+    ``torch.matmul``'s for the load product; r's below."""
+    keys = ("rows", "n", "cols", "iters", "plan", "kernel_launches", "ms", "iteration_ms",
+            "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "iteration_bytes_ms", "max_abs_err", "over_tol")
     main, flag = lp_paths["r'"]["kernel"], lp_paths["r"]["kernel"]
     tight = lp_paths["r'_tight"]["kernel"]
     return {"name": "lp_relax", "route": "cuda",
@@ -5199,13 +5213,17 @@ def lp_blocks_record(path, call, repeats=3, timed=True):
     and against the one-device kernel on the blocks laid side by side, the
     marginals held by ``lp_marginal_errors`` (PR 16's tolerance), pref and
     the evidence row equal.  With ``timed``: events, a solve and a launch,
-    beside the plain version's solve and ``torch.matmul``'s load product."""
+    beside the plain version's solve and ``torch.matmul``'s load product;
+    the plan, and the profiler's device time and its count of kernel
+    launches a solve (``kernel_launches``), which must be one."""
     import torch
 
     from scheduler_tpu_torch.ops import lp_place
 
     logits_b, cap_b, req_aug, iters, tol = call
     d = len(logits_b)
+    plan = lp_place.lp_plan(logits_b[0].shape[0], logits_b[0].shape[1], cap_b[0].shape[1], d,
+                            lp_place.device_sms(logits_b[0].device))
     got = lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=tol)
     again = lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=tol)
     start, stop = events()
@@ -5232,7 +5250,9 @@ def lp_blocks_record(path, call, repeats=3, timed=True):
     x = torch.cat(got[0], dim=1)
     rows, n = x.shape
     rec = {"case": f"{path}_main_path_operands", "blocks": d, "rows": rows, "n": n,
-           "cols": cap_b[0].shape[1], "iters": iters, **errs, "vs_one_device": errs_one,
+           "cols": cap_b[0].shape[1], "iters": iters, "plan": lp_plan_record(plan),
+           **errs,
+           "vs_one_device": errs_one,
            "rtol": LP_KERNEL_RTOL, "atol": LP_KERNEL_ATOL, "pref_equal": True,
            "bitwise_rerun": True, "evidence": got[2].tolist()}
     if not timed:
@@ -5244,14 +5264,17 @@ def lp_blocks_record(path, call, repeats=3, timed=True):
     stop.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(stop) / repeats
+    device_ms, rec["kernel_launches"], rec["launch_traces"] = lp_launches_a_solve(
+        lambda: lp_place.lp_iterate_blocks(logits_b, cap_b, req_aug, iters=iters, tol=tol),
+        f"path {path}: lp_relax over {d} blocks")
     torch.matmul(x.T, req_aug)
     start.record()
     for _ in range(20):
         torch.matmul(x.T, req_aug)
     stop.record()
     torch.cuda.synchronize()
-    rec.update(ms=ms, launch_ms=ms / lp_place.kernel_launches_blocks(iters, d),
-               plain_ms=plain_ms, library_ms=start.elapsed_time(stop) / 20,
+    rec.update(ms=ms, iteration_ms=ms / iters, device_ms=device_ms, plain_ms=plain_ms,
+               library_ms=start.elapsed_time(stop) / 20,
                library="torch.matmul(x.T, req_aug), one iteration's load product",
                **lp_bound_ms(rows, n, cap_b[0].shape[1], iters))
     emit({"phase": "kernel_vs_plain", "kernel": "lp_relax_blocks", **rec})
@@ -5410,7 +5433,9 @@ def mesh_entries(mesh, plain_rec, k2, k1, xs, lp):
          "over_tol": max(lp["over_tol"], v["check"]["over_tol"]),
          "vs_one_device": lp["vs_one_device"], "rtol": LP_KERNEL_RTOL, "atol": LP_KERNEL_ATOL,
          "rows": lp["rows"], "n": lp["n"], "cols": lp["cols"], "iters": lp["iters"],
-         "ms": lp["ms"], "launch_ms": lp["launch_ms"], "plain_ms": lp["plain_ms"],
+         "plan": lp["plan"], "kernel_launches": lp["kernel_launches"], "ms": lp["ms"],
+         "iteration_ms": lp["iteration_ms"], "device_ms": lp["device_ms"],
+         "plain_ms": lp["plain_ms"],
          "bound_ms": lp["bound_ms"], "bound_by": lp["bound_by"],
          "library_ms": lp["library_ms"]},
     ]
@@ -5526,19 +5551,44 @@ class LpCapture:
 def lp_bound_ms(rows, n, r, iters):
     """The least time of one solve: its bytes (the logits, capacity and
     request columns read once, the marginals and preferred nodes written
-    once) at the memory rate, against its float32 operations (a cell an
-    iteration: the row pass's add, subtract, exponential and sum; the column
-    pass's add, subtract, exponential, product and a multiply-add a
-    capacity column, but the last iteration's) at the float32 rate.  Also
-    the model of reading the logits twice an iteration
+    once) at the memory rate, against its float32 operations, each counted
+    once (a cell an iteration: the add of log_v, the max's compare, the
+    subtract, the exponential, the sum's add and the marginal's product;
+    a multiply and an add a capacity column but in the last iteration) at
+    the float32 rate.  Also the model of reading the logits from device
+    memory twice an iteration, as the earlier four-launch design did
     (``iteration_bytes_ms``)."""
     nbytes = 4 * (2 * rows * n + n * r + rows * r + rows) + 8
-    ops = rows * n * (4 * iters + (4 + 2 * r) * (iters - 1) + 4)
+    ops = rows * n * (6 * iters + 2 * r * (iters - 1))
     by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": nbytes, "operations": ops,
             "iteration_bytes_ms": 1e3 * iters * 8 * rows * n / HBM_BYTES_PER_S}
+
+
+def lp_launches_a_solve(solve, what):
+    """The profiler's device ms a solve and its count of ``lp_`` kernel
+    launches a solve, over three solves (``device_trace``), traced again
+    (three traces at most) while the count is under one: a trace can miss
+    a long launch but never adds one.  Exits unless the last trace counts
+    exactly one.  Returns (ms, launches a solve, every trace's count)."""
+    counts = []
+    for _ in range(3):
+        ms, per_solve, _ = device_trace(solve, 3, match="lp_")
+        counts.append(per_solve)
+        if per_solve >= 1:
+            break
+    if counts[-1] != 1:
+        raise SystemExit(f"{what}: the profiler counted {counts} kernel launches a solve (each "
+                         f"trace), not one")
+    return ms, counts[-1], counts
+
+
+def lp_plan_record(plan) -> dict:
+    """The parts of an ``lp_place.LpPlan`` a record shows."""
+    return {k: getattr(plan, k) for k in ("mode", "ctas", "tr", "tn", "node_tiles", "batch",
+                                          "l_rows", "e_rows", "smem_bytes")}
 
 
 def lp_kernel_record(path, call, repeats=5, binds=False, case="main_path_operands"):
@@ -5548,8 +5598,11 @@ def lp_kernel_record(path, call, repeats=5, binds=False, case="main_path_operand
     (pref and the evidence row equal), and all-zero marginals must fail
     that check.  With ``binds`` the projection must bind (``converged_at``
     not 0) and the first iteration's marginals, before any projection,
-    must fail it too.  Then timed by events, a solve (``ms``) and a kernel
-    launch (``launch_ms``), beside the plain version's solve and
+    must fail it too.  Then timed by events, a solve (``ms``, on the plan
+    ``plan``) and an iteration (``iteration_ms``), and by the profiler
+    (``device_ms``, a solve, and ``kernel_launches``, its count of kernel
+    launches a solve, which must be one), beside the plain version's
+    solve and
     ``torch.matmul``'s time for the load product ``x^T @ req_aug`` at the
     same shape (``library_ms``)."""
     import torch
@@ -5558,6 +5611,7 @@ def lp_kernel_record(path, call, repeats=5, binds=False, case="main_path_operand
 
     logits, cap, req_aug, iters, tol = call
     rows, n = logits.shape
+    plan = lp_place.lp_plan(rows, n, cap.shape[1], 1, lp_place.device_sms(logits.device))
     got = lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=tol)
     again = lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=tol)
     start, stop = events()
@@ -5587,6 +5641,9 @@ def lp_kernel_record(path, call, repeats=5, binds=False, case="main_path_operand
     stop.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(stop) / repeats
+    device_ms, per_solve, traces = lp_launches_a_solve(
+        lambda: lp_place.lp_iterate(logits, cap, req_aug, iters=iters, tol=tol),
+        f"path {path}: lp_relax")
     x = got[0]
     torch.matmul(x.T, req_aug)
     start.record()
@@ -5595,7 +5652,9 @@ def lp_kernel_record(path, call, repeats=5, binds=False, case="main_path_operand
     stop.record()
     torch.cuda.synchronize()
     rec = {"case": f"{path}_{case}", "rows": rows, "n": n, "cols": cap.shape[1],
-           "iters": iters, "ms": ms, "launch_ms": ms / lp_place.kernel_launches(iters),
+           "iters": iters, "plan": lp_plan_record(plan),
+           "kernel_launches": per_solve, "launch_traces": traces, "ms": ms,
+           "iteration_ms": ms / iters, "device_ms": device_ms,
            "plain_ms": plain_ms, "library_ms": start.elapsed_time(stop) / 20,
            "library": "torch.matmul(x.T, req_aug), one iteration's load product",
            **errs, "rtol": LP_KERNEL_RTOL, "atol": LP_KERNEL_ATOL,

@@ -23,8 +23,9 @@ mix.  Each iteration:
 4. ``log_v += log(clip(min(ratio, 1), 1e-6, 1))``; ``max |update|`` feeds
    the next iteration's ``converged_at`` test (the ``i - 1`` rule).
 
-On CUDA tensors the iteration is ONE call of the hand-written kernel
-``csrc/lp_relax.cu`` (``lp_iterate``; the JAX package leaves it to XLA);
+On CUDA tensors the iteration is ONE launch of the hand-written kernel
+``csrc/lp_relax.cu`` (``lp_iterate``; the JAX package leaves it to XLA), a
+persistent cooperative grid on the tiling ``lp_plan`` chooses;
 on CPU tensors, or with ``lp_iterate``'s ``plain``, it is
 ``lp_iterate_reference``, the PyTorch operations of the JAX body.  Under signature classes
 (``ops/sig_compress.py``) the rows are classes and ``req_aug`` is weighted
@@ -38,14 +39,16 @@ On a node mesh (``ops/mesh.py``; the JAX package's ``shard_map`` twins
 ``_lp_iterate_1d/_2d/_sig_1d/_sig_2d``) the node axis splits into blocks:
 each block's rows build their logits and capacities, and an iteration
 merges the blocks' ``[4, rows]`` row-stat packs (``layout.LP_PACK``) with
-``sharded.merge_row_logsumexp``: ``lp_iterate_blocks``, on CUDA one C call
-of ``csrc/lp_relax.cu``'s block entry (a row pass a block, one merge, the
-column and projection passes a block), else ``lp_iterate_blocks_reference``.
+``sharded.merge_row_logsumexp``: ``lp_iterate_blocks``, on CUDA the same
+kernel's launch over the D blocks (a node tile never crosses a block; the
+rows merge over their tiles in tile order), else
+``lp_iterate_blocks_reference``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -59,16 +62,19 @@ from scheduler_tpu_torch.ops.layout import LP_STATS
 # an all-infeasible row stays NaN-free, and its mass gate zeroes it.
 NEG = -1e9
 
-# Solves launched on the card (one C call a solve; the CPU path never counts).
+# Solves launched on the card (one kernel launch a solve; the CPU path never
+# counts).
 launches = 0
 
-# Node-block solves launched on the card (one C call a solve).
+# Node-block solves launched on the card (one kernel launch a solve).
 block_launches = 0
 
 # The kernel's limits and launch shape (csrc/lp_relax.cu).
 MAX_COLS = 16          # capacity columns (r_dim, plus one for the pod count)
-NODE_THREADS = 256     # nodes of a projection CTA (one max |update| a CTA)
-CHUNK_ROWS = 256       # rows a column pass thread sums, in ascending order
+MAX_BLOCKS = 16        # node blocks of one launch
+THREADS = 512          # threads a CTA (16 warps)
+WARPS = THREADS // 32
+SMEM_LIMIT = 232_448   # dynamic shared memory a CTA can have on an H100
 
 
 # -- knobs (all in engine_cache._ENV_KEYS) -----------------------------------------
@@ -241,37 +247,301 @@ def lp_iterate_reference(logits, cap, req_aug, *, iters: int, tol: float):
     return x, pref.to(torch.int32), lp_raw
 
 
-def kernel_launches(iters: int) -> int:
-    """Kernel launches of one solve: the init, four an iteration (row pass,
-    column pass, projection, update max) and two in the last."""
-    return 1 + 4 * (iters - 1) + 2
+# -- the kernel's launch plan ------------------------------------------------------
+
+@dataclass(frozen=True)
+class LpPlan:
+    """The launch plan of ``csrc/lp_relax.cu`` for a [rows, d * n] plane of
+    ``r`` capacity columns.
+
+    ``mode`` ``rows``: CTA c owns rows [c * tr, ...) over every block's
+    nodes (its rows' merge is local), ``batch`` rows at a time through
+    shared memory, a warp a row, and projects the c-th run of
+    ``ceil(d * n / ctas)`` global nodes.  ``tiles``: CTA c owns row tile c // NT and node tile t = c %
+    NT (NT = d * node_tiles; block t // node_tiles, nodes from (t %
+    node_tiles) * tn, at most tn of them); the rows merge their tiles'
+    statistics in tile order after a grid barrier, and every CTA of a node
+    tile projects that tile.  ``l_rows`` rows of a CTA's logits stay in
+    shared memory (the rest are read from L2 each iteration); in tiles mode
+    ``e_rows`` rows of the tile's exponentials are on chip and the rest in
+    a global scratch of ``spill`` floats a CTA.  The running loads (rows
+    mode), the projection's stage of partial loads (in the exponentials'
+    region, ``stage_nodes`` nodes at a time) and the request rows
+    (``off_req``, padded to the kernel's column count) are float64.
+    Offsets are in floats of dynamic shared memory."""
+    mode: str
+    rows: int
+    n: int
+    r: int
+    d: int
+    ctas: int
+    tr: int
+    row_tiles: int
+    tn: int
+    node_tiles: int
+    batch: int
+    l_rows: int
+    e_rows: int
+    stage_nodes: int
+    smem_bytes: int
+    off_lv: int
+    off_acc: int
+    off_e: int
+    off_stat: int
+    off_req: int
+    off_l: int
+    spill: int
+    sms: int
+
+    @property
+    def resident(self) -> bool:
+        """One CTA an SM: the grid fits the card at once."""
+        return self.ctas <= self.sms
 
 
-_entry_fn = None
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def _entry():
-    global _entry_fn
-    if _entry_fn is None:
-        fn = cuda_build.load().lp_relax_launch
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _entry_fn = fn
-    return _entry_fn
+def _a4(v: int) -> int:
+    return _ceil(v, 4) * 4
 
 
-def lp_iterate(logits, cap, req_aug, *, iters: int, tol: float, plain: bool = False):
+def _rm(r: int) -> int:
+    """The column count the kernel is built for that holds ``r``."""
+    return 2 if r <= 2 else 4 if r <= 4 else 8 if r <= 8 else 16
+
+
+def _plan_for(mode, rows, n, r, d, sms, tr, tn, batch=None, l_rows=None, e_rows=None):
+    """The plan of one tiling, or None where its fixed regions do not fit a
+    CTA's shared memory (a forced ``batch``, ``l_rows`` or ``e_rows`` that
+    does not fit raises)."""
+    rt = _ceil(rows, tr)
+    room = SMEM_LIMIT // 4
+    # The float64 regions (the running loads, the projection's stage of
+    # partial loads, the request rows, padded to the kernel's RM columns)
+    # take two floats an entry.  The stage holds every node the CTA projects
+    # where that fits, else one.
+    rm = _rm(r)
+    proj = _ceil(d * n, rt) if mode == "rows" else min(tn, n)
+    stage_one, stage_all = _a4(2 * rt * r), _a4(2 * rt * r * proj)
+    if mode == "rows":
+        w = d * n
+        tn, ntb, ctas = n, 1, rt
+        lv, acc = _a4(w), _a4(2 * r * w)
+
+        def rest(b, stage):
+            return lv + acc + max(_a4(b * w), stage) + _a4(4 * b * d) + _a4(2 * b * rm)
+
+        fits = [b for b in ([batch] if batch else range(min(tr, WARPS), 0, -1))
+                if rest(b, stage_one) <= room]
+        if not fits:
+            if batch:
+                raise ValueError(f"lp_plan: a batch of {batch} rows x {w} nodes does not fit")
+            return None
+        batch = fits[0]
+        stage = stage_all if rest(batch, stage_all) <= room else stage_one
+        e = max(_a4(batch * w), stage)
+        stat = _a4(4 * batch * d)
+        req = _a4(2 * batch * rm)
+        e_rows = 0
+    else:
+        ntb = _ceil(n, tn)
+        nt = d * ntb
+        w, ctas, batch = tn, rt * nt, tr
+        lv, acc = _a4(tn), 0
+        stat = _a4(2 * tr + WARPS * nt)
+        req = _a4(2 * tr * rm)
+        if lv + stat + req + stage_one > room:
+            return None
+        stage = stage_all if lv + stat + req + stage_all <= room else stage_one
+        e_rows = (min(tr, (room - lv - stat - req) // tn) if e_rows is None
+                  else min(e_rows, tr))
+        e = max(_a4(e_rows * tn), stage)
+        if lv + e + stat + req > room:
+            raise ValueError(f"lp_plan: {e_rows} rows of exponentials x {tn} nodes do not fit")
+    fixed = lv + acc + e + stat + req
+    if l_rows is None:
+        l_rows = min(tr, (room - fixed) // w)
+    if fixed + l_rows * w > room:
+        raise ValueError(f"lp_plan: {l_rows} logits rows x {w} nodes do not fit")
+    off_acc = lv
+    off_e = off_acc + acc
+    off_stat = off_e + e
+    off_req = off_stat + stat
+    off_l = off_req + req
+    return LpPlan(mode=mode, rows=rows, n=n, r=r, d=d, ctas=ctas, tr=tr, row_tiles=rt, tn=tn,
+                  node_tiles=ntb, batch=batch, l_rows=l_rows, e_rows=e_rows,
+                  stage_nodes=e // (2 * rt * r), smem_bytes=4 * (off_l + l_rows * w),
+                  off_lv=0,
+                  off_acc=off_acc, off_e=off_e, off_stat=off_stat, off_req=off_req, off_l=off_l,
+                  spill=(tr - e_rows) * tn if mode == "tiles" else 0, sms=sms)
+
+
+def lp_plan(rows: int, n: int, r: int, d: int = 1, sms: int = 132, *,
+            mode: Optional[str] = None, tr: Optional[int] = None, tn: Optional[int] = None,
+            batch: Optional[int] = None, l_rows: Optional[int] = None,
+            e_rows: Optional[int] = None) -> LpPlan:
+    """The kernel's plan for ``rows`` rows over ``d`` blocks of ``n`` nodes
+    and ``r`` capacity columns on a card of ``sms`` SMs.  By default: whole
+    rows, ``ceil(rows / sms)`` a CTA, wherever that plan fits; else, of the
+    tilings into tiles of a power of two from 32 nodes (or a block's whole
+    ``n``) with at most ``sms`` node tiles and as many row tiles as leave
+    at most ``sms`` CTAs, the one with the most CTAs, ties to the fewest
+    row tiles (each row tile repeats its node tile's projection).  The
+    rule is the one forced plans showed on the card (``scripts/lp_ab.py``):
+    whole rows ran faster than any tiling at every shape where both fit
+    (r', v, 66 to 4,224 rows over 1,024 nodes), and at r, where whole rows
+    do not fit, the tiling of the most CTAs and one row tile was within the
+    noise of the fastest.  Each argument after ``sms`` forces that part of
+    the plan (the tests use them); a forced plan may ask for more CTAs than
+    can be resident (the launch then raises)."""
+    if rows < 1 or n < 1 or d < 1 or not 1 <= r <= MAX_COLS:
+        raise ValueError(f"lp_plan: [{rows} x {d} x {n}] with {r} columns")
+    if mode not in (None, "rows", "tiles"):
+        raise ValueError(f"lp_plan: mode {mode!r} (rows or tiles)")
+    force = dict(batch=batch, l_rows=l_rows, e_rows=e_rows)
+    plans = []
+    if mode in (None, "rows") and tn is None:
+        p = _plan_for("rows", rows, n, r, d, sms, tr or _ceil(rows, sms),
+                      None, batch=batch, l_rows=l_rows)
+        if p is not None:
+            plans.append(p)
+    if mode in (None, "tiles"):
+        widths = [tn] if tn else sorted({min(1 << k, n) for k in range(5, 31) if (1 << k) < 2 * n})
+        for width in widths:
+            nt = d * _ceil(n, width)
+            if tr is None and nt > sms:
+                continue
+            t = tr or _ceil(rows, max(1, min(rows, sms // nt)))
+            p = _plan_for("tiles", rows, n, r, d, sms, t, width, **force)
+            if p is not None:
+                plans.append(p)
+    if not plans:
+        raise ValueError(f"lp_plan: no {mode or 'rows or tiles'} plan for [{rows} x {d} x {n}]")
+    return min(plans, key=lambda p: (not p.resident, p.mode != "rows", -p.ctas, p.row_tiles))
+
+
+# -- the kernel's launch ---------------------------------------------------------------
+
+PHASES = ("tile_stats", "tile_merge", "load_partials", "projection", "grid_barriers",
+          "log_v_reload")
+ERR_PLAN, ERR_NOT_RESIDENT = 10001, 10002
+
+
+class _LpArgs(ctypes.Structure):
+    """Mirror of ``struct LpArgs`` in ``csrc/lp_relax.cu``."""
+
+    _fields_ = ([(name, ctypes.c_void_p * MAX_BLOCKS) for name in ("logits", "cap", "x")]
+                + [(name, ctypes.c_void_p) for name in (
+                    "req", "log_v", "partial", "stat_m", "stat_s", "stat_a", "spill", "state",
+                    "pref", "lp_raw", "clocks")]
+                + [(name, ctypes.c_int) for name in ("rows", "n", "r", "d", "iters")]
+                + [("tol", ctypes.c_float)]
+                + [(name, ctypes.c_int) for name in (
+                    "mode", "ctas", "tr", "row_tiles", "tn", "node_tiles", "batch", "l_rows",
+                    "e_rows", "stage_nodes", "smem_bytes", "off_lv", "off_acc", "off_e",
+                    "off_stat", "off_req", "off_l")])
+
+
+_sms_of: dict = {}
+
+
+def device_sms(dev) -> int:
+    """The SM count of CUDA device ``dev``."""
+    idx = torch.device(dev).index or 0
+    if idx not in _sms_of:
+        _sms_of[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms_of[idx]
+
+
+def _entry(lib, blocks: bool):
+    fn = lib.lp_relax_blocks_launch if blocks else lib.lp_relax_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _solve(logits_b, cap_b, req_aug, *, iters, tol, plan=None, blocks=False, lib=None,
+           clocks=None):
+    """One launch of the kernel on CUDA blocks that share one device:
+    ``(x blocks, pref, lp_raw)``.  ``lib``: another build of the kernel
+    (``cuda_build.load_variant``); ``clocks``: its phase clocks' int64
+    output (an ``LP_PHASE_CLOCKS`` build)."""
+    d = len(logits_b)
+    dev = logits_b[0].device
+    rows, n = logits_b[0].shape
+    r = cap_b[0].shape[1]
+    if plan is None:
+        plan = lp_plan(rows, n, r, d, device_sms(dev))
+    if (plan.rows, plan.n, plan.r, plan.d) != (rows, n, r, d):
+        raise ValueError(f"lp_relax: a plan for [{plan.rows} x {plan.d} x {plan.n}] x "
+                         f"{plan.r} on [{rows} x {d} x {n}] x {r}")
+    f32 = torch.float32
+    wtot = d * n
+    x_b = [torch.empty((rows, n), dtype=f32, device=dev) for _ in range(d)]
+    pref = torch.empty(rows, dtype=torch.int32, device=dev)
+    lp_raw = torch.empty(2, dtype=torch.int32, device=dev)
+    partial = torch.empty((plan.row_tiles, r, wtot), dtype=torch.float64, device=dev)
+    state = torch.empty(2 + iters, dtype=torch.int32, device=dev)
+    keep = [partial, state]
+    args = _LpArgs()
+    for k in range(d):
+        args.logits[k] = logits_b[k].data_ptr()
+        args.cap[k] = cap_b[k].data_ptr()
+        args.x[k] = x_b[k].data_ptr()
+    args.req = req_aug.data_ptr()
+    args.partial = partial.data_ptr()
+    args.state = state.data_ptr()
+    args.pref = pref.data_ptr()
+    args.lp_raw = lp_raw.data_ptr()
+    args.clocks = clocks.data_ptr() if clocks is not None else None
+    if plan.mode == "rows":
+        log_v = torch.empty(wtot, dtype=f32, device=dev)
+        keep.append(log_v)
+        args.log_v = log_v.data_ptr()
+    else:
+        nt = d * plan.node_tiles
+        stats = torch.empty((2, rows, nt), dtype=f32, device=dev)
+        stat_a = torch.empty((rows, nt), dtype=torch.int32, device=dev)
+        keep += [stats, stat_a]
+        args.stat_m, args.stat_s = stats[0].data_ptr(), stats[1].data_ptr()
+        args.stat_a = stat_a.data_ptr()
+        if plan.spill:
+            spill = torch.empty(plan.ctas * plan.spill, dtype=f32, device=dev)
+            keep.append(spill)
+            args.spill = spill.data_ptr()
+    args.rows, args.n, args.r, args.d, args.iters = rows, n, r, d, int(iters)
+    args.tol = float(tol)
+    args.mode = 0 if plan.mode == "rows" else 1
+    for name in ("ctas", "tr", "row_tiles", "tn", "node_tiles", "batch", "l_rows", "e_rows",
+                 "stage_nodes", "smem_bytes", "off_lv", "off_acc", "off_e", "off_stat", "off_req",
+                 "off_l"):
+        setattr(args, name, getattr(plan, name))
+    fn = _entry(lib if lib is not None else cuda_build.load(), blocks)
+    rc = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if rc == ERR_NOT_RESIDENT:
+        raise RuntimeError(f"lp_relax launch refused: the plan's {plan.ctas} CTAs cannot all be "
+                           f"resident on the card")
+    if rc == ERR_PLAN:
+        raise RuntimeError(f"lp_relax launch refused: the kernel does not take the plan {plan}")
+    if rc != 0:
+        raise RuntimeError(f"lp_relax launch failed: CUDA error {rc}")
+    return x_b, pref, lp_raw
+
+
+def lp_iterate(logits, cap, req_aug, *, iters: int, tol: float, plain: bool = False,
+               plan: Optional[LpPlan] = None):
     """The fixed-point loop: ``(x f32 [rows, N], pref i32 [rows], lp_raw i32
     [2])``.  CPU tensors, or ``plain``, run ``lp_iterate_reference``; CUDA
-    tensors launch ``csrc/lp_relax.cu`` (one C call, ``launches`` + 1) or
-    raise."""
+    tensors launch ``csrc/lp_relax.cu`` once (``launches`` + 1) on ``plan``
+    (default ``lp_plan``'s) or raise."""
     if plain or logits.device.type == "cpu":
         return lp_iterate_reference(logits, cap, req_aug, iters=iters, tol=tol)
-    return _launch(logits, cap, req_aug, iters=iters, tol=tol)
+    return _launch(logits, cap, req_aug, iters=iters, tol=tol, plan=plan)
 
 
-def _launch(logits, cap, req_aug, *, iters, tol):
+def _launch(logits, cap, req_aug, *, iters, tol, plan=None):
     global launches
     rows, n = logits.shape
     r = cap.shape[1]
@@ -288,27 +558,9 @@ def _launch(logits, cap, req_aug, *, iters, tol):
             raise ValueError(f"lp_relax: {name} must be a CUDA float32 tensor of shape {shape}")
         if not t.is_contiguous():
             raise ValueError(f"lp_relax: {name} must be contiguous")
-    # The column pass sums CHUNK_ROWS rows a thread into one partial load a
-    # chunk; the projection's CTAs write one max |update| each.
-    chunks = -(-rows // CHUNK_ROWS)
-    x = torch.empty((rows, n), dtype=f32, device=dev)
-    pref = torch.empty(rows, dtype=torch.int32, device=dev)
-    lp_raw = torch.empty(2, dtype=torch.int32, device=dev)
-    log_v = torch.empty(n, dtype=f32, device=dev)
-    mrow = torch.empty(rows, dtype=f32, device=dev)
-    coef = torch.empty(rows, dtype=f32, device=dev)
-    partial = torch.empty((chunks, n, r), dtype=f32, device=dev)
-    blockmax = torch.empty(-(-n // NODE_THREADS), dtype=f32, device=dev)
-    gupd = torch.empty(1, dtype=f32, device=dev)
-    rc = _entry()(logits.data_ptr(), cap.data_ptr(), req_aug.data_ptr(), rows, n, r, int(iters),
-                  float(tol), CHUNK_ROWS, chunks,
-                  log_v.data_ptr(), mrow.data_ptr(), coef.data_ptr(), partial.data_ptr(),
-                  blockmax.data_ptr(), gupd.data_ptr(), x.data_ptr(), pref.data_ptr(),
-                  lp_raw.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lp_relax launch failed: CUDA error {rc}")
+    x_b, pref, lp_raw = _solve([logits], [cap], req_aug, iters=iters, tol=tol, plan=plan)
     launches += 1
-    return x, pref, lp_raw
+    return x_b[0], pref, lp_raw
 
 
 def lp_relax(idle, allocatable, task_count, pods_limit, node_gate, static_mask, static_score,
@@ -401,35 +653,15 @@ def lp_iterate_blocks_reference(logits_b, cap_b, req_aug, *, iters: int, tol: fl
     return x_b, pref.to(torch.int32), lp_raw
 
 
-def kernel_launches_blocks(iters: int, d: int) -> int:
-    """Kernel launches of one node-block solve: the init; a row pass a
-    block, the merge, and a column pass, projection and update max a block
-    an iteration; the last iteration's row passes, merge and column passes."""
-    return 1 + (4 * d + 1) * (iters - 1) + (2 * d + 1)
-
-
-_block_entry_fn = None
-
-
-def _block_entry():
-    global _block_entry_fn
-    if _block_entry_fn is None:
-        fn = cuda_build.load().lp_relax_blocks_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10)
-        fn.restype = ctypes.c_int
-        _block_entry_fn = fn
-    return _block_entry_fn
-
-
 def lp_iterate_blocks(logits_b, cap_b, req_aug, *, iters: int, tol: float,
-                      plain: bool = False):
+                      plain: bool = False, plan: Optional[LpPlan] = None):
     """The fixed-point loop over node blocks: ``(x blocks, pref i32 [rows],
     lp_raw i32 [2])``.  CPU blocks, or ``plain``, run
-    ``lp_iterate_blocks_reference``; CUDA blocks launch ``csrc/lp_relax.cu``'s
-    block entry (one C call, ``block_launches`` + 1) or raise.  The entry
-    runs every block on the first block's device: blocks elsewhere are
-    copied there and their marginals copied back."""
+    ``lp_iterate_blocks_reference``; CUDA blocks launch ``csrc/lp_relax.cu``
+    once over all of them (``block_launches`` + 1) on ``plan`` (default
+    ``lp_plan``'s) or raise.  The launch runs every block on the first
+    block's device: blocks elsewhere are copied there and their marginals
+    copied back by the caller."""
     if plain or logits_b[0].device.type == "cpu":
         return lp_iterate_blocks_reference(logits_b, cap_b, req_aug, iters=iters, tol=tol)
     global block_launches
@@ -440,6 +672,8 @@ def lp_iterate_blocks(logits_b, cap_b, req_aug, *, iters: int, tol: float,
     f32 = torch.float32
     if r < 1 or r > MAX_COLS:
         raise ValueError(f"lp_relax: {r} capacity columns (1 to {MAX_COLS})")
+    if not 1 <= d <= MAX_BLOCKS:
+        raise ValueError(f"lp_relax: {d} node blocks (1 to {MAX_BLOCKS})")
     if iters < 1:
         raise ValueError("lp_relax: iters must be at least 1")
     logits_b = [lb.to(dev).contiguous() for lb in logits_b]
@@ -451,31 +685,9 @@ def lp_iterate_blocks(logits_b, cap_b, req_aug, *, iters: int, tol: float,
                 raise ValueError(f"lp_relax: block {k}'s {name} must be float32 {shape}")
     if req_aug.dtype != f32 or tuple(req_aug.shape) != (rows, r):
         raise ValueError(f"lp_relax: req_aug must be float32 {(rows, r)}")
-    chunks = -(-rows // CHUNK_ROWS)
-    x_b = [torch.empty((rows, n), dtype=f32, device=dev) for _ in range(d)]
-    log_v = [torch.empty(n, dtype=f32, device=dev) for _ in range(d)]
-    partial = [torch.empty((chunks, n, r), dtype=f32, device=dev) for _ in range(d)]
-    blockmax = [torch.empty(-(-n // NODE_THREADS), dtype=f32, device=dev) for _ in range(d)]
-    gupd = torch.empty(d, dtype=f32, device=dev)
-    pack = torch.empty((d, 4, rows), dtype=f32, device=dev)
-    coef = torch.empty((d, rows), dtype=f32, device=dev)
-    pref = torch.empty(rows, dtype=torch.int32, device=dev)
-    lp_raw = torch.empty(2, dtype=torch.int32, device=dev)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * d)(*[t.data_ptr() for t in ts])
-
-    keep = [ptrs(logits_b), ptrs(cap_b), ptrs(log_v), ptrs(partial), ptrs(blockmax), ptrs(x_b)]
-    rc = _block_entry()(d, ctypes.addressof(keep[0]), ctypes.addressof(keep[1]),
-                        req_aug.data_ptr(), rows, n, r, int(iters), float(tol), CHUNK_ROWS,
-                        chunks, ctypes.addressof(keep[2]), ctypes.addressof(keep[3]),
-                        ctypes.addressof(keep[4]), gupd.data_ptr(), pack.data_ptr(),
-                        coef.data_ptr(), ctypes.addressof(keep[5]), pref.data_ptr(),
-                        lp_raw.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lp_relax (node blocks) launch failed: CUDA error {rc}")
+    out = _solve(logits_b, cap_b, req_aug, iters=iters, tol=tol, plan=plan, blocks=True)
     block_launches += 1
-    return x_b, pref, lp_raw
+    return out
 
 
 def _lp_relax_blocks(idle, allocatable, task_count, pods_limit, node_gate, static_mask,
